@@ -3,17 +3,35 @@
     python3 chip_smoke.py            # from the repository root, on a CUDA machine
 
 Phases, each of which exits non-zero when it fails:
-  1. device  — require CUDA; print the card's name and power limit.
-  2. build   — compile every kernel in ethereum_consensus_tpu_torch/csrc.
-  3. kernel  — the SHA-256 kernel against its plain PyTorch version on the
-               card, bit-exact, for N in {1, 1000, 1024, 1025, 2^22}, a sample
-               against hashlib; CUDA-event times at N = 2^17 .. 2^22.
-  4. htr     — the device merkleizer on 2^20 random chunks against the host
-               merkleizer.
-  5. slice   — a mainnet-preset phase0 BeaconState of 2^20 validators,
-               serialized and read back twice; process_slots to slot 3 with
-               the CUDA hasher installed and without it must give identical
-               bytes and roots, and the kernel must have been launched.
+  1. device   — require CUDA; print the card's name and power limit.
+  2. build    — compile every kernel in ethereum_consensus_tpu_torch/csrc
+                (one nvcc per source, all at once) and the two native host
+                libraries (SHA-256, BLS12-381) beside them.
+  3. sha256   — the SHA-256 kernel against its plain PyTorch version on the
+                card, bit-exact, for N in {1, 1000, 1024, 1025, 2^22}, a
+                sample against hashlib; CUDA-event times at N = 2^17 .. 2^22.
+  4. registry — a mainnet-preset phase0 BeaconState of 2^20 validators; the
+                keys of slot 0's 64 committees and of the slot-2 proposer are
+                made real (SecretKey(i + 1)); serialized once.
+  5. shuffle  — the committee-shuffle kernel against its plain version, 90
+                rounds, count in {1, 255, 256, 257, 2^15, 2^20}, bit-exact, a
+                sample against the spec's compute_shuffled_index.
+  6. g1       — the G1 set-sum kernel against its plain version, limb for
+                limb: the edge sets (infinity lane, doubling, P + -P, only
+                infinity, empty, ragged), one set of 2^15 keys, and the
+                block's 66 sets of 32,770 keys; some sums against the native
+                aggregation.
+  7. htr      — the device merkleizer on 2^20 random chunks against the host
+                merkleizer.
+  8. slice    — process_slots to slot 3 with the CUDA hasher installed and
+                without it must give identical bytes and roots, and the
+                SHA-256 kernel must have been launched.
+  9. block    — a signed slot-2 block with 64 attestations applied with
+                Executor.apply_block on the host path and after
+                ops.install(device="cuda"): identical post-state bytes and
+                roots, each kernel launched; the block with attestation 17's
+                signature replaced by attestation 18's raises the same error
+                on both paths.
 Then one JSON line per kernel (``{"kernels": [...]}``) and, last, the
 ``{"ok": true, "device": ...}`` line.
 
@@ -22,6 +40,9 @@ Imports only the port, torch, numpy and the standard library.
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
+import gc
 import hashlib
 import json
 import statistics
@@ -46,12 +67,29 @@ BOOST_CLOCK_HZ = 1.98e9
 # pad block's schedule is constant).
 SHA256_OPS_PER_MESSAGE = 2 * (64 * 14 + 8) + 48 * 10
 SHA256_BYTES_PER_MESSAGE = 64 + 32
+# Integer operations of one index in one shuffle round: the 64-bit flip and
+# its conditional subtraction, the max, the byte address, the bit test and
+# the select.
+SHUFFLE_OPS_PER_INDEX_ROUND = 12
+# 32x32->64-bit multiply-adds (one IMAD.WIDE each) of one Fp operation on
+# 12 limbs: a multiplication takes 144 for the product and 144 for the
+# Montgomery reduction, a squaring 78 for the product (each cross term
+# once, then doubled) and 144 for the reduction. Adding an affine key to a
+# Jacobian sum is a mixed addition (madd-2007-bl): 7 multiplications and 4
+# squarings.
+FP_MUL_MADS = 288
+FP_SQR_MADS = 78 + 144
+G1_MIXED_ADD_MADS = 7 * FP_MUL_MADS + 4 * FP_SQR_MADS
 
 KERNEL_CHECK_NS = (1, 1000, 1024, 1025, 1 << 22)
 KERNEL_TIME_LOG2 = range(17, 23)  # the routed levels of the 2^20 cold walk
+SHUFFLE_CHECK_COUNTS = (1, 255, 256, 257, 1 << 15, 1 << 20)
+SHUFFLE_ROUNDS = 90
 HTR_LOG2_LEAVES = 20
 VALIDATORS = 1 << 20
 SLOTS = 3
+BLOCK_SLOT = 2
+TAMPERED_ATTESTATION = 17
 
 
 def _random_words(n: int, gen: torch.Generator) -> torch.Tensor:
@@ -76,12 +114,36 @@ def _cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def sha256_bound_ms(n: int) -> tuple[float, str]:
-    """Least time the card could take for n messages, and what sets it."""
+def _int_ops_ms(ops: float) -> float:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    ops_ms = 1e3 * n * SHA256_OPS_PER_MESSAGE / (sms * INT32_LANES_PER_SM * BOOST_CLOCK_HZ)
-    bytes_ms = 1e3 * n * SHA256_BYTES_PER_MESSAGE / MEM_BYTES_PER_S
+    return 1e3 * ops / (sms * INT32_LANES_PER_SM * BOOST_CLOCK_HZ)
+
+
+def _bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """Least time the card could take, and what sets it."""
+    ops_ms, bytes_ms = _int_ops_ms(ops), 1e3 * nbytes / MEM_BYTES_PER_S
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def sha256_bound_ms(n: int) -> tuple[float, str]:
+    return _bound(n * SHA256_OPS_PER_MESSAGE, n * SHA256_BYTES_PER_MESSAGE)
+
+
+def shuffle_bound_ms(count: int, rounds: int) -> tuple[float, str]:
+    row_bytes = 32 * ((count + 255) // 256)
+    return _bound(count * rounds * SHUFFLE_OPS_PER_INDEX_ROUND,
+                  rounds * (row_bytes + 8) + 8 * count)
+
+
+def g1_bound_ms(live_per_set: list, keys: int) -> tuple[float, str]:
+    """The work this data needs: one mixed addition per live key beyond the
+    first of each set (an addition with infinity costs nothing). Changes of
+    representation (into and out of Montgomery form) are the kernel's
+    choice, not the function's, and are not counted. Bytes: every key read
+    once, the offsets, one Jacobian sum written per set."""
+    n_sets = len(live_per_set)
+    additions = sum(max(live - 1, 0) for live in live_per_set)
+    return _bound(additions * G1_MIXED_ADD_MADS, 96 * keys + 8 * (n_sets + 1) + 144 * n_sets)
 
 
 def phase_device() -> dict:
@@ -100,19 +162,23 @@ def phase_device() -> dict:
 
 def phase_build() -> dict:
     from ethereum_consensus_tpu_torch import _kernels, native
+    from ethereum_consensus_tpu_torch.native import bls as native_bls
 
-    seconds = _kernels.build_all()
-    print(f"build: {seconds:.3f} s")
-    log = _kernels.build_log("sha256")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
-    # the host rung, built here so that no timed host path pays for g++
+    # the host libraries build with g++ beside the nvcc builds, so that no
+    # timed host path pays for a compiler
     t0 = time.perf_counter()
-    if not native.available():
-        sys.exit("chip_smoke: the host SHA-256 backend needs g++")
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+        host = [pool.submit(native.available), pool.submit(native_bls.available)]
+        seconds = _kernels.build_all()
+        host_ok = [f.result() for f in host]
     native_s = time.perf_counter() - t0
-    print(f"native host build: {native_s:.3f} s")
+    print(f"build: nvcc {seconds:.3f} s; with the native host libraries {native_s:.3f} s")
+    for name in _kernels._LIBRARIES:
+        for line in _kernels.build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+    if not all(host_ok):
+        sys.exit("chip_smoke: the native host libraries need g++")
     return {"build_s": seconds, "native_build_s": native_s}
 
 
@@ -129,7 +195,7 @@ def _hashlib_sample_ok(words: torch.Tensor, digests: torch.Tensor, gen) -> bool:
     )
 
 
-def phase_kernel() -> dict:
+def phase_sha256() -> dict:
     from ethereum_consensus_tpu_torch.ops import sha256
 
     gen = torch.Generator(device="cuda").manual_seed(20261016)
@@ -141,7 +207,7 @@ def phase_kernel() -> dict:
         plain = sha256.sha256_64b_plain(words)
         err = int((got.to(torch.int64) - plain.to(torch.int64)).abs().max().item())
         sample_ok = _hashlib_sample_ok(words, got, gen)
-        print(f"kernel N={n}: max_abs_err vs plain {err}, hashlib sample ok {sample_ok}")
+        print(f"sha256 N={n}: max_abs_err vs plain {err}, hashlib sample ok {sample_ok}")
         if err != 0 or not sample_ok:
             sys.exit(f"chip_smoke: SHA-256 kernel disagrees at N={n}")
         checks.append({"n": n, "max_abs_err": err})
@@ -153,40 +219,16 @@ def phase_kernel() -> dict:
         bound, bound_by = sha256_bound_ms(n)
         timings.append({"log2_n": log2, "n": n, "ms": ms, "bound_ms": bound,
                         "bound_by": bound_by})
-        print(f"kernel N=2^{log2}: {ms:.4f} ms (bound {bound:.4f} ms by {bound_by})")
+        print(f"sha256 N=2^{log2}: {ms:.4f} ms (bound {bound:.4f} ms by {bound_by})")
     n = 1 << 22
     words = _random_words(n, gen)
     plain_ms = _cuda_ms(lambda: sha256.sha256_64b_plain(words), reps=3, warmup=1)
-    print(f"plain N=2^22: {plain_ms:.3f} ms")
-    return {"checks": checks, "timings": timings, "plain_ms_2p22": plain_ms,
+    print(f"sha256 plain N=2^22: {plain_ms:.3f} ms")
+    at_2p22 = timings[-1]
+    return {"checks": checks, "timings": timings, "ms": at_2p22["ms"],
+            "plain_ms": plain_ms, "bound_ms": at_2p22["bound_ms"],
+            "bound_by": at_2p22["bound_by"],
             "max_abs_err": max(c["max_abs_err"] for c in checks)}
-
-
-def phase_htr(log2_leaves: int) -> dict:
-    from ethereum_consensus_tpu_torch import ops
-    from ethereum_consensus_tpu_torch.ops import sha256
-    from ethereum_consensus_tpu_torch.ssz.merkle import merkleize_chunks
-
-    ops.uninstall()
-    n = 1 << log2_leaves
-    chunks = np.random.default_rng(42).bytes(32 * n)
-    sha256.launch_count = 0
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        device_root = ops.merkleize_chunks_device(chunks, device="cuda")
-        times.append(time.perf_counter() - t0)
-    launches = sha256.launch_count // 3
-    t0 = time.perf_counter()
-    host_root = merkleize_chunks(chunks)
-    host_s = time.perf_counter() - t0
-    print(f"htr 2^{log2_leaves} leaves: device {statistics.median(times):.4f} s "
-          f"(first {times[0]:.4f} s, {launches} launches), host {host_s:.4f} s, "
-          f"roots equal {device_root == host_root}")
-    if device_root != host_root or launches == 0:
-        sys.exit("chip_smoke: device merkle root disagrees with the host root")
-    return {"leaves": n, "device_s": statistics.median(times), "device_first_s": times[0],
-            "host_s": host_s, "launches": launches}
 
 
 def _synthetic_pubkey(index: int) -> bytes:
@@ -236,22 +278,209 @@ def build_registry_state(validators: int):
     return state, ctx
 
 
-def phase_slice(validators: int, slots: int) -> dict:
+def phase_registry(validators: int) -> dict:
+    """The state both the slice and the block phase start from: slot 0's
+    committees and the slot-BLOCK_SLOT proposer hold real keys
+    SecretKey(i + 1), every other validator a synthetic key (the pattern of
+    tests/chain_utils.py:1166-1229). Committees and proposer depend on the
+    seed and balances only, so they are planned before the keys change."""
+    from ethereum_consensus_tpu_torch import ops
+    from ethereum_consensus_tpu_torch.crypto import bls
+    from ethereum_consensus_tpu_torch.domains import DomainType
+    from ethereum_consensus_tpu_torch.models.phase0 import helpers as h
+
+    t0 = time.perf_counter()
+    state, ctx = build_registry_state(validators)
+    build_s = time.perf_counter() - t0
+    ops.uninstall()
+    t0 = time.perf_counter()
+    per_slot = h.get_committee_count_per_slot(state, 0, ctx)
+    committees = [h.get_beacon_committee(state, 0, index, ctx) for index in range(per_slot)]
+    proposer_seed = hashlib.sha256(
+        h.get_seed(state, 0, DomainType.BEACON_PROPOSER, ctx)
+        + BLOCK_SLOT.to_bytes(8, "little")
+    ).digest()
+    proposer = h.compute_proposer_index(
+        state, h.get_active_validator_indices(state, 0), proposer_seed, ctx
+    )
+    attester_seed = h.get_seed(state, 0, DomainType.BEACON_ATTESTER, ctx)
+    ops.uninstall()  # drop the host shuffle from the cache
+    plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in {proposer, *(i for c in committees for i in c)}:
+        state.validators[i].public_key = bls.SecretKey(i + 1).public_key().to_bytes()
+    keys_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data = type(state).serialize(state)
+    serialize_s = time.perf_counter() - t0
+    print(f"registry: {validators} validators, {len(data)} state bytes; build {build_s:.1f} s, "
+          f"committees {plan_s:.1f} s ({per_slot} of {len(committees[0])}), "
+          f"{sum(map(len, committees)) + 1} real keys {keys_s:.1f} s, "
+          f"serialize {serialize_s:.1f} s; proposer {proposer}")
+    return {"data": data, "ctx": ctx, "committees": committees, "proposer": proposer,
+            "attester_seed": attester_seed, "state_bytes": len(data), "build_s": build_s,
+            "committees_s": plan_s, "keys_s": keys_s, "serialize_s": serialize_s}
+
+
+def phase_shuffle(seed: bytes) -> dict:
+    from ethereum_consensus_tpu_torch.config import Context
+    from ethereum_consensus_tpu_torch.models.phase0 import helpers as h
+    from ethereum_consensus_tpu_torch.ops import shuffle
+
+    ctx = Context.for_mainnet()
+    assert ctx.SHUFFLE_ROUND_COUNT == SHUFFLE_ROUNDS
+    rng = np.random.default_rng(90)
+    checks, timings = [], []
+    for count in SHUFFLE_CHECK_COUNTS:
+        pivots, sources = (
+            torch.from_numpy(t).cuda() for t in shuffle.shuffle_sources(count, seed, SHUFFLE_ROUNDS)
+        )
+        got = shuffle.shuffle(pivots, sources, count)
+        torch.cuda.synchronize()
+        plain = shuffle.shuffle_plain(pivots, sources, count)
+        err = int((got - plain).abs().max().item())
+        sample = sorted({0, count - 1, *rng.integers(0, count, 24).tolist()})
+        got_host = got.cpu().numpy()
+        spec_ok = all(
+            got_host[i] == h.compute_shuffled_index(i, count, seed, ctx) for i in sample
+        )
+        line = f"shuffle count={count}: max_abs_err vs plain {err}, spec sample ok {spec_ok}"
+        if count >= 1 << 15:
+            # the launch alone: the wrapper's pivot check waits for the card
+            ms = _cuda_ms(lambda: shuffle._launch(pivots, sources, count), reps=20)
+            bound, bound_by = shuffle_bound_ms(count, SHUFFLE_ROUNDS)
+            timings.append({"count": count, "ms": ms, "bound_ms": bound, "bound_by": bound_by})
+            line += f"; {ms:.4f} ms (bound {bound:.4f} ms by {bound_by})"
+        print(line)
+        if err != 0 or not spec_ok:
+            sys.exit(f"chip_smoke: shuffle kernel disagrees at count={count}")
+        checks.append({"count": count, "max_abs_err": err})
+    # the last count checked is the main path's, 2^20
+    plain_ms = _cuda_ms(lambda: shuffle.shuffle_plain(pivots, sources, count), reps=3, warmup=1)
+    print(f"shuffle plain count={count}: {plain_ms:.3f} ms")
+    at_main = timings[-1]
+    return {"checks": checks, "timings": timings, "ms": at_main["ms"], "plain_ms": plain_ms,
+            "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
+            "max_abs_err": max(c["max_abs_err"] for c in checks)}
+
+
+def _neg_raw(raw: bytes) -> bytes:
+    from ethereum_consensus_tpu_torch.ops.g1 import P_INT
+
+    y = int.from_bytes(raw[48:], "big")
+    return raw[:48] + ((P_INT - y) % P_INT).to_bytes(48, "big")
+
+
+def _raw_keys(indices: list) -> list:
+    from ethereum_consensus_tpu_torch.crypto import bls
+    from ethereum_consensus_tpu_torch.native import bls as native_bls
+
+    out = native_bls.g1_decompress_batch(
+        [bls.SecretKey(i + 1).public_key().to_bytes() for i in indices], check_subgroup=False
+    )
+    if any(rc != 0 for rc, _raw, _inf in out):
+        sys.exit("chip_smoke: a real key did not decompress")
+    return [raw for _rc, raw, _inf in out]
+
+
+def phase_g1(committees: list, proposer: int) -> dict:
+    """The block's sets in the order its signature batch has them: the
+    proposer twice (block signature, randao reveal), then the 64
+    committees."""
+    from ethereum_consensus_tpu_torch.native import bls as native_bls
+    from ethereum_consensus_tpu_torch.ops import g1
+
+    raws = _raw_keys([i for c in committees for i in c] + [proposer])
+    attesters, proposer_raw = raws[:-1], raws[-1]
+    block_sets, at = [], 0
+    for c in committees:
+        block_sets.append(attesters[at : at + len(c)])
+        at += len(c)
+    block_sets = [[proposer_raw], [proposer_raw], *block_sets]
+    k, inf = attesters, b"\x00" * 96
+    edge_sets = [k[:1], k[1:4], k[4:12], [k[12], inf, k[13]], [k[14], k[14]],
+                 [k[15], k[16], k[15]], [k[17], _neg_raw(k[17])], [inf, inf, inf], [],
+                 k[:200], k[:129]]
+    shapes = [("edge", edge_sets), ("one set of 2^15", [attesters[: 1 << 15]]),
+              ("block", block_sets)]
+    checks = {}
+    for name, sets in shapes:
+        points, offsets = g1.sets_to_csr(sets)
+        points_d, offsets_d = points.cuda(), offsets.cuda()
+        got = g1.g1_sum_sets(points_d, offsets_d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = g1.g1_sum_sets_plain(points_d, offsets_d)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        err = int((got.to(torch.int64) - plain.to(torch.int64)).abs().max().item())
+        affine = g1.jacobian_to_affine(got)
+        native_ok = True
+        # the first sets of each shape hold distinct real keys only
+        for (raw, is_inf), s in list(zip(affine, sets))[:3]:
+            rc, agg = native_bls.aggregate_public_keys([native_bls.g1_compress_raw(r) for r in s])
+            native_ok &= rc == 0 and not is_inf and native_bls.g1_compress_raw(raw) == agg
+        sizes = [len(s) for s in sets]
+        live = [sum(1 for r in s if any(r)) for s in sets]
+        # the launch alone: the wrapper's offsets check waits for the card
+        ms = _cuda_ms(lambda: g1._launch(points_d, offsets_d, len(sets)), reps=10)
+        bound, bound_by = g1_bound_ms(live, sum(sizes))
+        print(f"g1 {name}: {len(sets)} sets, {sum(sizes)} keys: max_abs_err vs plain {err}, "
+              f"native sample ok {native_ok}; {ms:.4f} ms (bound {bound:.4f} ms by "
+              f"{bound_by}); plain {plain_s:.3f} s")
+        if err != 0 or not native_ok:
+            sys.exit(f"chip_smoke: G1 set-sum kernel disagrees on the {name} sets")
+        checks[name] = {"sets": len(sets), "keys": sum(sizes), "max_abs_err": err, "ms": ms,
+                        "bound_ms": bound, "bound_by": bound_by, "plain_once_s": plain_s}
+    plain_ms = _cuda_ms(lambda: g1.g1_sum_sets_plain(points_d, offsets_d), reps=3, warmup=1)
+    print(f"g1 plain, block shape: {plain_ms:.3f} ms")
+    main = checks["block"]
+    return {"checks": checks, "ms": main["ms"], "plain_ms": plain_ms,
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "max_abs_err": max(c["max_abs_err"] for c in checks.values())}
+
+
+def phase_htr(log2_leaves: int) -> dict:
+    from ethereum_consensus_tpu_torch import ops
+    from ethereum_consensus_tpu_torch.ops import sha256
+    from ethereum_consensus_tpu_torch.ssz.merkle import merkleize_chunks
+
+    ops.uninstall()
+    n = 1 << log2_leaves
+    chunks = np.random.default_rng(42).bytes(32 * n)
+    sha256.launch_count = 0
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        device_root = ops.merkleize_chunks_device(chunks, device="cuda")
+        times.append(time.perf_counter() - t0)
+    launches = sha256.launch_count // 3
+    t0 = time.perf_counter()
+    host_root = merkleize_chunks(chunks)
+    host_s = time.perf_counter() - t0
+    print(f"htr 2^{log2_leaves} leaves: device {statistics.median(times):.4f} s "
+          f"(first {times[0]:.4f} s, {launches} launches), host {host_s:.4f} s, "
+          f"roots equal {device_root == host_root}")
+    if device_root != host_root or launches == 0:
+        sys.exit("chip_smoke: device merkle root disagrees with the host root")
+    return {"leaves": n, "device_s": statistics.median(times), "device_first_s": times[0],
+            "host_s": host_s, "launches": launches}
+
+
+def phase_slice(data: bytes, ctx, slots: int) -> dict:
     from ethereum_consensus_tpu_torch import convert, ops
     from ethereum_consensus_tpu_torch.models.phase0 import slot_processing
     from ethereum_consensus_tpu_torch.ops import sha256
     from ethereum_consensus_tpu_torch.ssz import hash as ssz_hash
 
     t0 = time.perf_counter()
-    state, ctx = build_registry_state(validators)
-    state_type = type(state)
-    data = state_type.serialize(state)
-    del state
     device_state = convert.state_from_ssz(data, ctx.preset)
     host_state = convert.state_from_ssz(data, ctx.preset)
     timed_state = convert.state_from_ssz(data, ctx.preset)
+    state_type = type(device_state)
     setup_s = time.perf_counter() - t0
-    print(f"slice: {validators} validators, {len(data)} state bytes, set-up {setup_s:.1f} s")
+    print(f"slice: {len(device_state.validators)} validators, three reads of "
+          f"{len(data)} bytes {setup_s:.1f} s")
 
     # the main path: slots with the CUDA hasher, launches counted from 0
     ops.install(device="cuda")
@@ -298,7 +527,7 @@ def phase_slice(validators: int, slots: int) -> dict:
     t0 = time.perf_counter()
     state_type.hash_tree_root(timed_state)
     warm_s = time.perf_counter() - t0
-    timed_state.validators[validators // 2].effective_balance = 31 * 10**9
+    timed_state.validators[len(timed_state.validators) // 2].effective_balance = 31 * 10**9
     t0 = time.perf_counter()
     state_type.hash_tree_root(timed_state)
     edit_s = time.perf_counter() - t0
@@ -311,7 +540,7 @@ def phase_slice(validators: int, slots: int) -> dict:
     # the host path's first slot stored the same state's root at state_roots[0]
     if cold_root != host_state.state_roots[0]:
         sys.exit("chip_smoke: the cold device root disagrees with the host root")
-    return {"validators": validators, "state_bytes": len(data), "setup_s": setup_s,
+    return {"validators": len(device_state.validators), "setup_s": setup_s,
             "slots": slots, "device_slots_s": device_slots_s, "host_slots_s": host_slots_s,
             "launches": launches, "cold_root_s": cold_s, "cold_root_launches": cold_launches,
             "cold_root_digests": cold_digests, "cold_root_routed": cold_routed,
@@ -319,29 +548,262 @@ def phase_slice(validators: int, slots: int) -> dict:
             "one_validator_edit_s": edit_s}
 
 
+def make_block(data: bytes, ctx, committees: list, proposer: int):
+    """A signed block at BLOCK_SLOT carrying one aggregate attestation per
+    slot-0 committee (full participation). A committee's aggregate
+    signature is one signature under the secret key sum(i + 1) mod r: the
+    same point, so the same bytes, as aggregating its members'
+    signatures. The state root comes from a host run on a scratch copy,
+    which also verifies every signature inline. Returns the block and a copy
+    whose attestation TAMPERED_ATTESTATION carries the next one's signature."""
+    from ethereum_consensus_tpu_torch import convert
+    from ethereum_consensus_tpu_torch.crypto import bls
+    from ethereum_consensus_tpu_torch.crypto.fields import R
+    from ethereum_consensus_tpu_torch.domains import DomainType
+    from ethereum_consensus_tpu_torch.models.phase0 import block_processing, build
+    from ethereum_consensus_tpu_torch.models.phase0 import helpers as h
+    from ethereum_consensus_tpu_torch.models.phase0 import slot_processing
+    from ethereum_consensus_tpu_torch.models.phase0.containers import BeaconBlockHeader
+    from ethereum_consensus_tpu_torch.signing import compute_signing_root
+    from ethereum_consensus_tpu_torch.ssz import uint64
+
+    ns = build(ctx.preset)
+    scratch = convert.state_from_ssz(data, ctx.preset)
+    slot_processing.process_slots(scratch, BLOCK_SLOT, ctx)
+    if h.get_beacon_proposer_index(scratch, ctx) != proposer:
+        sys.exit("chip_smoke: the planned proposer is not the state's proposer")
+    root_at_0 = h.get_block_root_at_slot(scratch, 0)
+    attester_domain = h.get_domain(scratch, DomainType.BEACON_ATTESTER, 0, ctx)
+    attestations = []
+    for index, committee in enumerate(committees):
+        att_data = ns.AttestationData(
+            slot=0, index=index, beacon_block_root=root_at_0,
+            source=scratch.current_justified_checkpoint.copy(),
+            target=ns.Checkpoint(epoch=0, root=root_at_0),
+        )
+        root = compute_signing_root(ns.AttestationData, att_data, attester_domain)
+        summed = bls.SecretKey(sum(i + 1 for i in committee) % R)
+        attestations.append(ns.Attestation(
+            aggregation_bits=[True] * len(committee), data=att_data,
+            signature=summed.sign(root).to_bytes(),
+        ))
+    proposer_key = bls.SecretKey(proposer + 1)
+    randao_root = compute_signing_root(
+        uint64, 0, h.get_domain(scratch, DomainType.RANDAO, 0, ctx)
+    )
+    block = ns.BeaconBlock(
+        slot=BLOCK_SLOT, proposer_index=proposer,
+        parent_root=BeaconBlockHeader.hash_tree_root(scratch.latest_block_header),
+        body=ns.BeaconBlockBody(
+            randao_reveal=proposer_key.sign(randao_root).to_bytes(),
+            eth1_data=scratch.eth1_data.copy(), attestations=attestations,
+        ),
+    )
+    block_processing.process_block(scratch, block, ctx)
+    block.state_root = type(scratch).hash_tree_root(scratch)
+    proposer_domain = h.get_domain(scratch, DomainType.BEACON_PROPOSER, None, ctx)
+
+    def signed(message):
+        root = compute_signing_root(ns.BeaconBlock, message, proposer_domain)
+        return ns.SignedBeaconBlock(message=message,
+                                    signature=proposer_key.sign(root).to_bytes())
+
+    tampered = block.copy()
+    atts = tampered.body.attestations
+    atts[TAMPERED_ATTESTATION].signature = atts[TAMPERED_ATTESTATION + 1].signature
+    return signed(block), signed(tampered)
+
+
+@contextlib.contextmanager
+def _patched(module, name, wrap):
+    original = getattr(module, name)
+    setattr(module, name, wrap(original))
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
+def _host_timer(bucket: dict, key: str):
+    def wrap(fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                bucket[key] = bucket.get(key, 0.0) + time.perf_counter() - t0
+        return timed
+    return wrap
+
+
+def _event_timer(events: list, name: str):
+    """CUDA events around each launch of a kernel wrapper."""
+    def wrap(fn):
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            events.append((name, start, end))
+            return out
+        return timed
+    return wrap
+
+
+def _apply(state, signed_block, ctx, kernel_events: list | None = None) -> tuple[float, dict]:
+    """Cold Executor.apply_block; returns (seconds, host breakdown)."""
+    from ethereum_consensus_tpu_torch.crypto import bls
+    from ethereum_consensus_tpu_torch.executor import Executor
+    from ethereum_consensus_tpu_torch.models.phase0 import helpers as h
+    from ethereum_consensus_tpu_torch.models.phase0 import state_transition
+    from ethereum_consensus_tpu_torch.ops import g1, sha256, shuffle
+
+    parts: dict = {}
+    with contextlib.ExitStack() as stack:
+        for module, name, key in (
+            (state_transition, "process_slots", "process_slots"),
+            (state_transition, "process_block", "process_block"),
+            (h, "_compute_shuffled_pair", "shuffle"),
+            (bls, "verify_signature_sets", "signature_batch"),
+        ):
+            stack.enter_context(_patched(module, name, _host_timer(parts, key)))
+        if kernel_events is not None:
+            for module, name, key in ((sha256, "sha256_64b_cuda", "sha256_64b"),
+                                      (shuffle, "_launch", "shuffle"),
+                                      (g1, "_launch", "g1_sum_sets")):
+                stack.enter_context(_patched(module, name, _event_timer(kernel_events, key)))
+        executor = Executor(state, ctx)
+        # The heap holds several 2^20-validator states; a full collection
+        # that lands inside one path's apply costs seconds. Freezing what
+        # exists keeps the collector to the apply's own objects on both paths.
+        gc.collect()
+        gc.freeze()
+        try:
+            t0 = time.perf_counter()
+            executor.apply_block(signed_block)
+            if kernel_events is not None:
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            gc.unfreeze()
+    return seconds, parts
+
+
+def _rejection(state, signed_block, ctx) -> str:
+    from ethereum_consensus_tpu_torch.executor import Executor
+
+    try:
+        Executor(state, ctx).apply_block(signed_block)
+    except Exception as exc:  # noqa: BLE001 — the error is the result
+        return f"{type(exc).__name__}: {exc}"
+    return "accepted"
+
+
+def phase_block(registry: dict) -> dict:
+    """The slice's main path: one signed block through Executor.apply_block,
+    cold, on the host path and with the kernels installed."""
+    from ethereum_consensus_tpu_torch import convert, ops
+    from ethereum_consensus_tpu_torch.ops import g1, sha256, shuffle
+
+    data, ctx = registry["data"], registry["ctx"]
+    t0 = time.perf_counter()
+    good, tampered = make_block(data, ctx, registry["committees"], registry["proposer"])
+    make_s = time.perf_counter() - t0
+    n_keys = sum(len(a.aggregation_bits) for a in good.message.body.attestations) + 2
+    t0 = time.perf_counter()
+    host_state = convert.state_from_ssz(data, ctx.preset)
+    device_state = convert.state_from_ssz(data, ctx.preset)
+    host_reject_state, device_reject_state = host_state.copy(), device_state.copy()
+    read_s = time.perf_counter() - t0
+    print(f"block: slot {BLOCK_SLOT}, {len(good.message.body.attestations)} attestations, "
+          f"{n_keys} keys in the signature batch; made in {make_s:.1f} s; "
+          f"pre-states read in {read_s:.1f} s")
+
+    ops.uninstall()
+    host_s, host_parts = _apply(host_state, good, ctx)
+
+    ops.uninstall()  # clears the shuffle cache: the device run shuffles anew
+    ops.install(device="cuda")
+    events: list = []
+    sha256.launch_count = shuffle.launch_count = g1.launch_count = 0
+    device_s, device_parts = _apply(device_state, good, ctx, events)
+    launches = {"sha256_64b": sha256.launch_count, "shuffle": shuffle.launch_count,
+                "g1_sum_sets": g1.launch_count}
+    ops.uninstall()
+    kernel_ms: dict = {}
+    for name, start, end in events:
+        kernel_ms[name] = kernel_ms.get(name, 0.0) + start.elapsed_time(end)
+
+    state_type = type(host_state)
+    same_bytes = state_type.serialize(host_state) == state_type.serialize(device_state)
+    root = state_type.hash_tree_root(device_state)
+    same_root = root == state_type.hash_tree_root(host_state)
+    print(f"block: cold apply host {host_s:.3f} s {_rounded(host_parts)}")
+    print(f"block: cold apply device {device_s:.3f} s {_rounded(device_parts)}; "
+          f"launches {launches}; kernel ms inside {_rounded(kernel_ms, 4)}")
+    print(f"block: bytes equal {same_bytes}, roots equal {same_root}, "
+          f"post-state root {root.hex()}")
+    if not (same_bytes and same_root):
+        sys.exit("chip_smoke: the block's post-state differs between host and device")
+    if not all(launches.values()):
+        sys.exit(f"chip_smoke: a kernel of the block path was never launched: {launches}")
+
+    host_error = _rejection(host_reject_state, tampered, ctx)
+    ops.install(device="cuda")
+    device_error = _rejection(device_reject_state, tampered, ctx)
+    ops.uninstall()
+    print(f"block: attestation {TAMPERED_ATTESTATION} with the signature of "
+          f"{TAMPERED_ATTESTATION + 1}: "
+          f"host {host_error!r}, device {device_error!r}")
+    if host_error != device_error or not host_error.startswith("InvalidAttestation"):
+        sys.exit("chip_smoke: the tampered block was not rejected alike on both paths")
+    return {"attestations": len(good.message.body.attestations), "keys": n_keys,
+            "make_s": make_s, "read_s": read_s, "host_apply_s": host_s,
+            "host_parts_s": host_parts, "device_apply_s": device_s,
+            "device_parts_s": device_parts, "launches": launches,
+            "kernel_ms_inside": kernel_ms, "rejection": device_error}
+
+
+def _rounded(d: dict, places: int = 3) -> dict:
+    return {k: round(v, places) for k, v in d.items()}
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)
     report = {"device": phase_device()}
     report["build"] = phase_build()
-    report["kernel"] = phase_kernel()
+    report["sha256"] = phase_sha256()
+    registry = phase_registry(VALIDATORS)
+    report["shuffle"] = phase_shuffle(registry["attester_seed"])
+    report["g1"] = phase_g1(registry["committees"], registry["proposer"])
     report["htr"] = phase_htr(HTR_LOG2_LEAVES)
-    report["slice"] = phase_slice(VALIDATORS, SLOTS)
+    report["slice"] = phase_slice(registry["data"], registry["ctx"], SLOTS)
+    report["block"] = phase_block(registry)
 
-    kernel = report["kernel"]
-    at_2p22 = next(t for t in kernel["timings"] if t["log2_n"] == 22)
+    launches = report["block"]["launches"]
+    sources = {
+        "sha256_64b": ("sha256", "ethereum_consensus_tpu_torch/csrc/sha256.cu",
+                       "ethereum_consensus_tpu/ops/sha256.py:197"),
+        "shuffle": ("shuffle", "ethereum_consensus_tpu_torch/csrc/shuffle.cu",
+                    "ethereum_consensus_tpu/ops/shuffle.py:57"),
+        "g1_sum_sets": ("g1", "ethereum_consensus_tpu_torch/csrc/g1_sum.cu",
+                        "ethereum_consensus_tpu/ops/pairing.py:594"),
+    }
     kernels = {"kernels": [{
-        "name": "sha256_64b",
+        "name": name,
         "route": "cuda",
-        "source": "ethereum_consensus_tpu_torch/csrc/sha256.cu",
-        "replaces": "ethereum_consensus_tpu/ops/sha256.py:197",
-        "launches": report["slice"]["launches"],
-        "max_abs_err": kernel["max_abs_err"],
-        "ms": at_2p22["ms"],
-        "plain_ms": kernel["plain_ms_2p22"],
-        "bound_ms": at_2p22["bound_ms"],
-        "bound_by": at_2p22["bound_by"],
+        "source": source,
+        "replaces": replaces,
+        "launches": launches[name],
+        "matched_plain": report[phase]["max_abs_err"] == 0,
+        "max_abs_err": report[phase]["max_abs_err"],
+        "ms": report[phase]["ms"],
+        "plain_ms": report[phase]["plain_ms"],
+        "bound_ms": report[phase]["bound_ms"],
+        "bound_by": report[phase]["bound_by"],
         "library_ms": None,
-    }]}
+    } for name, (phase, source, replaces) in sources.items()]}
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": report["device"]["kind"],

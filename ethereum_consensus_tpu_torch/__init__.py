@@ -7,13 +7,17 @@ paths are CUDA C++ kernels written for Hopper (``sm_90a``), built from
 ``csrc/`` on first use and bound with ctypes.
 
 Layout (each module sits at the same relative path as its reference):
-  ssz/       SSZ type algebra, codec, merkleization
-  config/    presets, network configs, Context
-  models/    phase0 containers and slot processing
-  native/    host C++ SHA-256 merkle backend
-  ops/       CUDA SHA-256 kernel wrapper and device merkle reduction
-  csrc/      CUDA sources
-  convert.py state and word-tensor carry-across helpers
+  ssz/        SSZ type algebra, codec, merkleization
+  config/     presets, network configs, Context
+  crypto/     BLS12-381 signatures (pure-Python oracle + native backend)
+  models/     phase0 containers, helpers, slot and block processing,
+              the state transition
+  native/     host C++ SHA-256 merkle and BLS12-381 backends
+  ops/        CUDA kernel wrappers: SHA-256 and the device merkle
+              reduction, the committee shuffle, G1 pubkey-set sums
+  csrc/       CUDA sources
+  executor.py block application (phase0)
+  convert.py  state and word-tensor carry-across helpers
 """
 
 __version__ = "0.1.0"

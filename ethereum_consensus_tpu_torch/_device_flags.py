@@ -1,0 +1,32 @@
+"""Runtime switches for device acceleration of spec-path functions.
+
+Deliberately free of any torch import: the host layers (models/, crypto/)
+consult these flags on every call and only import the ops package when a
+flag is on, so a host-only process never pays for torch. The flags are set
+by ``ops.install()`` (and unset by ``ops.uninstall()``).
+
+Thresholds are minimum element counts: device shuffles and aggregations win
+only above a size where the launch and the host<->device packing amortize;
+below the threshold the spec functions keep their host path.
+"""
+
+from __future__ import annotations
+
+SHUFFLE_MIN_N: int | None = None
+BLS_AGG_MIN_N: int | None = None
+
+# The device that the routed kernels run on ("cuda", or "cpu" for their
+# plain versions); set by ops.install().
+DEVICE: str = "cuda"
+
+
+def shuffle_enabled(n: int) -> bool:
+    """Route committee shuffling to the device whole-list kernel for an
+    ``n``-element index list?"""
+    return SHUFFLE_MIN_N is not None and n >= SHUFFLE_MIN_N
+
+
+def bls_agg_enabled(n: int) -> bool:
+    """Route G1 pubkey aggregation to the device kernel for an ``n``-point
+    batch? (Below the threshold the native C++ adds win.)"""
+    return BLS_AGG_MIN_N is not None and n >= BLS_AGG_MIN_N

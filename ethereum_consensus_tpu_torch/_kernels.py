@@ -41,6 +41,26 @@ _LIBRARIES = {
             ),
         },
     ),
+    "shuffle": (
+        ("shuffle.cu", "shuffle_core.h"),
+        {
+            "shuffle_launch": (
+                [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                 ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p],
+                ctypes.c_int,
+            ),
+        },
+    ),
+    "g1_sum": (
+        ("g1_sum.cu", "fp381_core.h"),
+        {
+            "g1_sum_sets_launch": (
+                [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_int64, ctypes.c_void_p],
+                ctypes.c_int,
+            ),
+        },
+    ),
 }
 
 _LOADED: dict = {}

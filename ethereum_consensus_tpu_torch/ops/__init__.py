@@ -1,31 +1,57 @@
-"""Device kernels (CUDA C++ for Hopper): SHA-256 merkleization.
+"""Device kernels (CUDA C++ for Hopper): SHA-256 merkleization, the
+committee shuffle, G1 pubkey-set aggregation.
 
 Importing this package imports torch but builds nothing; the pure-host
-layers (ssz/, models/) never import it — device acceleration is installed
-explicitly via ``install()``.
+layers (ssz/, models/, crypto/) never import it at module level — device
+acceleration is installed explicitly via ``install()``.
 """
 
+from .. import _device_flags
 from ..ssz.hash import register_device_hasher
 from .merkle import merkleize_chunks_device
 from .sha256 import install_device_hasher, sha256_64b, sha256_64b_plain
 
+DEFAULT_SHUFFLE_MIN_N = 1 << 15
+DEFAULT_BLS_AGG_MIN_N = 1 << 12
 
-def install(device="cuda") -> None:
-    """Route SHA-256 hash levels above ssz.hash.DEVICE_MIN_NODES
-    (merkleization) through the kernel on ``device``.
 
-    Spec semantics are unchanged — the kernel is bit-identical to hashlib;
-    the threshold only decides where the work runs. With ``device="cuda"``
-    and no card this raises."""
+def install(
+    device="cuda",
+    shuffle_min_n: int = DEFAULT_SHUFFLE_MIN_N,
+    bls_agg_min_n: int = DEFAULT_BLS_AGG_MIN_N,
+) -> None:
+    """Route the spec path's device work to the kernels on ``device``:
+
+    * SHA-256 hash levels of at least ssz.hash.DEVICE_MIN_NODES parent
+      nodes (merkleization);
+    * whole-list committee shuffling of at least ``shuffle_min_n`` indices;
+    * G1 pubkey aggregation (fast_aggregate_verify, batched signature
+      sets) of at least ``bls_agg_min_n`` keys in all.
+
+    Spec semantics are unchanged — every kernel is bit-identical to its
+    host function; the thresholds only decide where the work runs. With
+    ``device="cuda"`` and no card this raises; ``device="cpu"`` routes to
+    the kernels' plain versions (the tests' configuration)."""
     install_device_hasher(device=device)
+    _device_flags.DEVICE = str(device)
+    _device_flags.SHUFFLE_MIN_N = shuffle_min_n
+    _device_flags.BLS_AGG_MIN_N = bls_agg_min_n
 
 
 def uninstall() -> None:
-    """Send every hash level back to the host backends."""
+    """Send every hash level, shuffle and aggregation back to the host."""
     register_device_hasher(None)
+    _device_flags.SHUFFLE_MIN_N = None
+    _device_flags.BLS_AGG_MIN_N = None
+    _device_flags.DEVICE = "cuda"
+    from ..models.phase0 import helpers as _phase0_helpers
+
+    _phase0_helpers._SHUFFLE_CACHE.clear()
 
 
 __all__ = [
+    "DEFAULT_BLS_AGG_MIN_N",
+    "DEFAULT_SHUFFLE_MIN_N",
     "install",
     "install_device_hasher",
     "merkleize_chunks_device",

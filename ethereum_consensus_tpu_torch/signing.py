@@ -1,17 +1,20 @@
-"""Signing-root computation.
+"""Signing-root computation and domain-signed operations.
 
 Reference parity: ethereum-consensus/src/signing.rs:7-30 (SigningData,
-compute_signing_root). The BLS-backed ``sign_with_domain`` and
-``verify_signed_data`` come with the port's BLS stack.
+compute_signing_root, sign_with_domain, verify_signed_data).
 """
 
 from __future__ import annotations
 
+from .crypto import bls
+from .error import InvalidSignatureError
 from .ssz import ByteVector, Container
 
 __all__ = [
     "SigningData",
     "compute_signing_root",
+    "sign_with_domain",
+    "verify_signed_data",
 ]
 
 
@@ -31,3 +34,20 @@ def compute_signing_root(ssz_type, value, domain: bytes) -> bytes:
     return SigningData.hash_tree_root(
         SigningData(object_root=object_root, domain=domain)
     )
+
+
+def sign_with_domain(ssz_type, value, secret_key: bls.SecretKey, domain: bytes) -> bytes:
+    root = compute_signing_root(ssz_type, value, domain)
+    return secret_key.sign(root).to_bytes()
+
+
+def verify_signed_data(
+    ssz_type, value, signature: bytes, public_key: bytes, domain: bytes
+) -> None:
+    """Raises InvalidSignatureError unless ``signature`` over the signing
+    root verifies (signing.rs verify_signed_data)."""
+    root = compute_signing_root(ssz_type, value, domain)
+    pk = bls.PublicKey.from_bytes(public_key)
+    sig = bls.Signature.from_bytes(signature)
+    if not bls.verify_signature(pk, root, sig):
+        raise InvalidSignatureError("signed data does not verify")

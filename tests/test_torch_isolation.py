@@ -12,6 +12,7 @@ import torch
 
 from ethereum_consensus_tpu_torch import ops
 from ethereum_consensus_tpu_torch.ssz import hash as port_hash
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "ethereum_consensus_tpu_torch"

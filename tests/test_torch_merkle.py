@@ -13,6 +13,7 @@ from ethereum_consensus_tpu.ops import merkle as ref_merkle
 from ethereum_consensus_tpu_torch.ops import merkle as port_merkle
 from ethereum_consensus_tpu_torch.ops import sha256 as port_sha
 from ethereum_consensus_tpu_torch.ssz.merkle import merkleize_chunks
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 # the reference test's grid (tests/test_ops_sha256.py), empty input included
 GRID = [

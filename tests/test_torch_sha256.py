@@ -20,6 +20,7 @@ import torch
 
 from ethereum_consensus_tpu.ops import sha256 as ref_sha
 from ethereum_consensus_tpu_torch.ops import sha256 as port_sha
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 CSRC = Path(port_sha.__file__).resolve().parents[1] / "csrc"
 EDGE_PATTERNS = [b"\x00" * 64, b"\xff" * 64, bytes(range(64))]

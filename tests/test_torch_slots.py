@@ -16,6 +16,7 @@ from ethereum_consensus_tpu_torch import convert, ops
 from ethereum_consensus_tpu_torch.config import Context
 from ethereum_consensus_tpu_torch.models.phase0 import slot_processing
 from ethereum_consensus_tpu_torch.ssz import hash as port_hash
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 @pytest.fixture(scope="module")

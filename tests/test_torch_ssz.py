@@ -18,6 +18,7 @@ from ethereum_consensus_tpu_torch.config import MINIMAL
 from ethereum_consensus_tpu_torch.models.phase0 import containers as port_containers
 from ethereum_consensus_tpu_torch.ssz import hash as port_hash
 from ethereum_consensus_tpu_torch.ssz.merkle import merkleize_chunks
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 _rng = np.random.default_rng(1234)
 
