@@ -32,8 +32,22 @@ Phases, each of which exits non-zero when it fails:
                 roots, each kernel launched; the block with attestation 17's
                 signature replaced by attestation 18's raises the same error
                 on both paths.
-Then one JSON line per kernel (``{"kernels": [...]}``) and, last, the
-``{"ok": true, "device": ...}`` line.
+ 10. sweeps   — the effective-balance hysteresis kernel against its plain
+                version, bit-exact, for n in {1, 255, 256, 257, 2^17, 2^20}
+                (threshold crossings both ways, thresholds +-1, words at and
+                above 2^63), a sample against Python integers; CUDA-event
+                time at 2^20.
+ 11. epoch    — the registry state taken to slot 64, a few thousand
+                validators scrambled (hysteresis crossings, ejections,
+                slashings at the halfway point, entrants), advanced to slot
+                95 with full pending attestations for epochs 1 and 2, then
+                the boundary into epoch 3 crossed on the host path (the
+                columnar engine) and after ops.install(device="cuda") (the
+                literal stages, hysteresis on the card): identical bytes and
+                roots, the sweeps kernel launched once, SHA-256 at least
+                once, some effective balances changed.
+Then the run's wall time, one JSON line per kernel (``{"kernels": [...]}``)
+and, last, the ``{"ok": true, "device": ...}`` line.
 
 Imports only the port, torch, numpy and the standard library.
 """
@@ -45,6 +59,8 @@ import contextlib
 import gc
 import hashlib
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -53,12 +69,18 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM data-sheet rates: device memory bandwidth, and INT32 issue at 64
-# lanes per SM per clock at the 1,980 MHz boost clock (a quarter of the
-# 67 TFLOP/s FP32 rate: 128 FP32 lanes per SM, two operations per FMA).
+# H100 SXM rates: device memory bandwidth from the data sheet, and integer
+# dispatch at 128 lanes per SM per clock at the 1,980 MHz boost clock: four
+# schedulers each dispatch one 32-lane warp instruction a clock, the most
+# any mix of instructions can reach (the INT32 pipe alone has 64 lanes;
+# integer multiply-adds go to the FMA pipe beside it).
 MEM_BYTES_PER_S = 3.35e12
-INT32_LANES_PER_SM = 64
+DISPATCH_LANES_PER_SM = 128
 BOOST_CLOCK_HZ = 1.98e9
+# Kernel timing (_cuda_ms): twice the H100's 50 MB L2, and a spin of about
+# 0.5 ms, longer than the host takes to enqueue one timed call.
+L2_FLUSH_BYTES = 100 << 20
+SPIN_CYCLES = 1_000_000
 
 # 32-bit integer operations of one 64-byte message: two compressions of 64
 # rounds at 14 operations each (one funnel shift per rotate, one LOP3 per
@@ -80,16 +102,29 @@ SHUFFLE_OPS_PER_INDEX_ROUND = 12
 FP_MUL_MADS = 288
 FP_SQR_MADS = 78 + 144
 G1_MIXED_ADD_MADS = 7 * FP_MUL_MADS + 4 * FP_SQR_MADS
+# 32-bit integer operations of one validator's hysteresis update: two
+# 64-bit adds and unsigned compares (2 + 2 each) and their OR, the 64-bit
+# remainder by a divisor fixed for the whole sweep as a Barrett reduction
+# with a precomputed reciprocal (a 64x64 -> high 64 product in 4
+# multiply-adds and 4 adds, the product back in 3, a 64-bit subtraction
+# and one conditional correction of 4), the subtraction, the 64-bit min
+# (compare and select, 4) and the final select (2). Bytes: two words read,
+# one written.
+SWEEPS_OPS_PER_VALIDATOR = 9 + 8 + 3 + 2 + 4 + 2 + 4 + 2
+SWEEPS_BYTES_PER_VALIDATOR = 24
 
 KERNEL_CHECK_NS = (1, 1000, 1024, 1025, 1 << 22)
 KERNEL_TIME_LOG2 = range(17, 23)  # the routed levels of the 2^20 cold walk
 SHUFFLE_CHECK_COUNTS = (1, 255, 256, 257, 1 << 15, 1 << 20)
 SHUFFLE_ROUNDS = 90
+SWEEPS_CHECK_NS = (1, 255, 256, 257, 1 << 17, 1 << 20)
 HTR_LOG2_LEAVES = 20
 VALIDATORS = 1 << 20
 SLOTS = 3
 BLOCK_SLOT = 2
 TAMPERED_ATTESTATION = 17
+EPOCH_SCRAMBLE_SLOT = 64
+EPOCH_PRE_SLOT = 95  # the last slot of epoch 2; the boundary into epoch 3 follows
 
 
 def _random_words(n: int, gen: torch.Generator) -> torch.Tensor:
@@ -98,14 +133,22 @@ def _random_words(n: int, gen: torch.Generator) -> torch.Tensor:
 
 
 def _cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn`` on the card, from CUDA events."""
+    """Median milliseconds of one call of ``fn`` on the card, from CUDA
+    events. Each call is enqueued behind a spin kernel, so the host's time
+    to launch it opens no gap between the start event and the kernel (a
+    kernel of a few microseconds would otherwise time the host), and behind
+    a write of twice the L2 cache, so it reads its inputs from device
+    memory."""
     for _ in range(warmup):
         fn()
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        flush.zero_()
         start.record()
         fn()
         end.record()
@@ -116,7 +159,7 @@ def _cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def _int_ops_ms(ops: float) -> float:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return 1e3 * ops / (sms * INT32_LANES_PER_SM * BOOST_CLOCK_HZ)
+    return 1e3 * ops / (sms * DISPATCH_LANES_PER_SM * BOOST_CLOCK_HZ)
 
 
 def _bound(ops: float, nbytes: float) -> tuple[float, str]:
@@ -133,6 +176,10 @@ def shuffle_bound_ms(count: int, rounds: int) -> tuple[float, str]:
     row_bytes = 32 * ((count + 255) // 256)
     return _bound(count * rounds * SHUFFLE_OPS_PER_INDEX_ROUND,
                   rounds * (row_bytes + 8) + 8 * count)
+
+
+def sweeps_bound_ms(n: int) -> tuple[float, str]:
+    return _bound(n * SWEEPS_OPS_PER_VALIDATOR, n * SWEEPS_BYTES_PER_VALIDATOR)
 
 
 def g1_bound_ms(live_per_set: list, keys: int) -> tuple[float, str]:
@@ -765,12 +812,332 @@ def phase_block(registry: dict) -> dict:
             "kernel_ms_inside": kernel_ms, "rejection": device_error}
 
 
+def _hysteresis_columns(n: int, gen: torch.Generator, scalars: tuple) -> tuple:
+    """(balances, effective) int64 words on the card: realistic balances
+    around multiples of the increment, each threshold +-1, and words at and
+    above 2^63 (whose sums with a threshold wrap past 2^64)."""
+    increment, _cap, down, up = scalars
+    def ints(low, high):
+        return torch.randint(low, high, (n,), dtype=torch.int64, device="cuda", generator=gen)
+    eff = ints(0, 33) * increment
+    near = ints(-1, 2)
+    high = ints(-(2**63), 0)  # the words of 2^63 .. 2^64 - 1
+    cases = [
+        eff + ints(-increment, 2 * increment),  # realistic
+        eff - down + near,                      # downward threshold +-1
+        eff + up + near,                        # upward threshold +-1
+        high,                                   # balances >= 2^63
+        -1 - ints(0, up + 2),                   # near 2^64: bal + down wraps
+    ]
+    kind = ints(0, len(cases))
+    bal = torch.zeros_like(eff)
+    for k, case in enumerate(cases):
+        bal = torch.where(kind == k, case, bal)
+    # a few effective balances near 2^64 too: eff + up wraps
+    eff = torch.where(ints(0, 16) == 0, -1 - ints(0, up + 2), eff)
+    return bal.contiguous(), eff.contiguous()
+
+
+def _hysteresis_int(balance: int, effective: int, scalars: tuple) -> int:
+    """The spec's update of one validator in Python integers, u64 wraps
+    included."""
+    increment, cap, down, up = scalars
+    top = 1 << 64
+    if (balance + down) % top < effective or (effective + up) % top < balance:
+        return min(balance - balance % increment, cap)
+    return effective
+
+
+def phase_sweeps() -> dict:
+    from ethereum_consensus_tpu_torch.config import Context
+    from ethereum_consensus_tpu_torch.ops import sweeps
+
+    ctx = Context.for_mainnet()
+    scalars = sweeps.hysteresis_scalars(ctx)
+    gen = torch.Generator(device="cuda").manual_seed(20261017)
+    rng = np.random.default_rng(5)
+    checks = []
+    for n in SWEEPS_CHECK_NS:
+        bal, eff = _hysteresis_columns(n, gen, scalars)
+        got = sweeps.effective_balance_updates(bal, eff, ctx)
+        torch.cuda.synchronize()
+        plain = sweeps.effective_balance_updates_plain(bal, eff, ctx)
+        wrong = (got != plain).nonzero().flatten()
+        u64 = (1 << 64) - 1
+        err = max((abs((int(got[i]) & u64) - (int(plain[i]) & u64)) for i in wrong.tolist()),
+                  default=0)
+        sample = sorted({0, n - 1, *rng.integers(0, n, 64).tolist()})
+        bal_h, eff_h, got_h = (t[sample].cpu().tolist() for t in (bal, eff, got))
+        oracle_ok = all(
+            _hysteresis_int(b & u64, e & u64, scalars) == g & u64
+            for b, e, g in zip(bal_h, eff_h, got_h)
+        )
+        changed = int((got != eff).sum())
+        print(f"sweeps n={n}: max_abs_err vs plain {err}, Python sample ok {oracle_ok}, "
+              f"{changed} effective balances changed")
+        if err != 0 or not oracle_ok:
+            sys.exit(f"chip_smoke: the hysteresis kernel disagrees at n={n}")
+        checks.append({"n": n, "max_abs_err": err, "changed": changed})
+    # the last n checked is the main path's, 2^20
+    ms = _cuda_ms(lambda: sweeps._launch(bal, eff, scalars), reps=50, warmup=5)
+    bound, bound_by = sweeps_bound_ms(n)
+    plain_ms = _cuda_ms(lambda: sweeps.effective_balance_updates_plain(bal, eff, ctx),
+                        reps=5, warmup=1)
+    print(f"sweeps n=2^20: {ms:.4f} ms (bound {bound:.4f} ms by {bound_by}); "
+          f"plain {plain_ms:.3f} ms; library: none; SASS instructions "
+          f"{_sass_instructions('sweeps')}")
+    return {"checks": checks, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "max_abs_err": max(c["max_abs_err"] for c in checks)}
+
+
+def _sass_instructions(name: str) -> "int | None":
+    """Instructions in the SASS of a built kernel library (static count,
+    every path of the division routine included), or None without
+    cuobjdump."""
+    from ethereum_consensus_tpu_torch import _kernels
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", _kernels._paths(name)[0]], check=True,
+                          capture_output=True, text=True).stdout
+    return sum(1 for line in sass.splitlines() if line.strip().startswith("/*")
+               and "*/" in line and line.strip()[2:6].strip("0123456789abcdef") == "")
+
+
+def inject_full_epoch_pendings(state, ctx, epoch: int) -> int:
+    """Full-participation pending attestations for every (slot, committee)
+    of ``epoch`` that the state's slot has included, unsigned (epoch
+    processing never verifies them), as tests/chain_utils.py:1257 builds
+    them. Returns the count."""
+    from ethereum_consensus_tpu_torch.models.phase0 import build
+    from ethereum_consensus_tpu_torch.models.phase0 import helpers as h
+
+    ns = build(ctx.preset)
+    spe = int(ctx.SLOTS_PER_EPOCH)
+    start = epoch * spe
+    per_slot = h.get_committee_count_per_slot(state, epoch, ctx)
+    if epoch == h.get_current_epoch(state, ctx):
+        source, pendings = (state.current_justified_checkpoint.copy(),
+                            state.current_epoch_attestations)
+    else:
+        source, pendings = (state.previous_justified_checkpoint.copy(),
+                            state.previous_epoch_attestations)
+    target_root = h.get_block_root_at_slot(state, start)
+    n = 0
+    for slot in range(start, start + spe):
+        if slot + int(ctx.MIN_ATTESTATION_INCLUSION_DELAY) > state.slot:
+            continue
+        block_root = h.get_block_root_at_slot(state, slot)
+        for index in range(per_slot):
+            committee = h.get_beacon_committee(state, slot, index, ctx)
+            pendings.append(ns.PendingAttestation(
+                aggregation_bits=[True] * len(committee),
+                data=ns.AttestationData(
+                    slot=slot, index=index, beacon_block_root=block_root, source=source,
+                    target=ns.Checkpoint(epoch=epoch, root=target_root),
+                ),
+                inclusion_delay=int(ctx.MIN_ATTESTATION_INCLUSION_DELAY),
+                proposer_index=committee[0],
+            ))
+            n += 1
+    return n
+
+
+def scramble_registry(state, ctx, seed: int) -> dict:
+    """Registry churn for the boundary into epoch 3, leaving every active
+    set up to epoch 2 as it was: effective balances that cross the
+    hysteresis thresholds both ways, ejection candidates, slashed
+    validators at the penalty halfway point, future exits, and appended
+    entrants (queue entries and finalized-eligible activations)."""
+    from ethereum_consensus_tpu_torch.models.phase0 import build
+    from ethereum_consensus_tpu_torch.primitives import FAR_FUTURE_EPOCH
+
+    ns = build(ctx.preset)
+    rng = np.random.default_rng(seed)
+    n = len(state.validators)
+    inc = int(ctx.EFFECTIVE_BALANCE_INCREMENT)
+    down, up = inc // 4, 5 * inc // 4
+    picks = rng.choice(n, 3232, replace=False).tolist()
+    # ejections stay few: the literal route's initiate_validator_exit walks
+    # the whole registry once per ejection, as the reference's does; 32 is
+    # twice the exit churn of a 2^20 registry
+    downs, ups, ejects, slashed, exits = (picks[:1536], picks[1536:3072], picks[3072:3104],
+                                          picks[3104:3168], picks[3168:3232])
+    for i in downs:  # balance falls through the downward threshold
+        state.balances[i] = int(state.validators[i].effective_balance) - down - inc // 10
+    for i in ups:  # lower effective balance, balance above the upward one
+        state.validators[i].effective_balance = 20 * inc
+        state.balances[i] = 20 * inc + up + inc // 10
+    for i in ejects:
+        state.validators[i].effective_balance = int(ctx.ejection_balance)
+    half = int(ctx.EPOCHS_PER_SLASHINGS_VECTOR) // 2
+    for i in slashed:
+        state.validators[i].slashed = True
+        state.validators[i].withdrawable_epoch = 2 + half
+    state.slashings[2] = 64 * int(ctx.MAX_EFFECTIVE_BALANCE)
+    for i in exits:
+        state.validators[i].exit_epoch = 10
+        state.validators[i].withdrawable_epoch = 10 + int(ctx.min_validator_withdrawability_delay)
+    for k in range(256):
+        state.validators.append(ns.Validator(
+            public_key=_synthetic_pubkey(n + k),
+            withdrawal_credentials=b"\x00" * 32,
+            effective_balance=int(ctx.MAX_EFFECTIVE_BALANCE),
+            activation_eligibility_epoch=FAR_FUTURE_EPOCH if k % 2 else 0,
+            activation_epoch=FAR_FUTURE_EPOCH,
+            exit_epoch=FAR_FUTURE_EPOCH,
+            withdrawable_epoch=FAR_FUTURE_EPOCH,
+        ))
+        state.balances.append(int(ctx.MAX_EFFECTIVE_BALANCE))
+    for key in ("_active_idx_cache", "_proposer_cache", "_total_active_balance_cache",
+                "_pending_masks_memo"):
+        state.__dict__.pop(key, None)
+    return {"downward": len(downs), "upward": len(ups), "ejections": len(ejects),
+            "slashed": len(slashed), "exits": len(exits), "entrants": 256}
+
+
+def _effective_balances(state) -> np.ndarray:
+    return np.fromiter((v.effective_balance for v in state.validators), np.uint64,
+                       len(state.validators))
+
+
+def _cross(state, ctx, timers: list, events: "list | None") -> tuple[float, dict]:
+    """process_slots over the boundary with host timers on ``timers``
+    ((module, name, key) triples) and CUDA events on each kernel launch."""
+    from ethereum_consensus_tpu_torch.models import transition
+    from ethereum_consensus_tpu_torch.models.phase0 import slot_processing
+    from ethereum_consensus_tpu_torch.ops import sha256, shuffle, sweeps
+
+    parts: dict = {}
+    with contextlib.ExitStack() as stack:
+        for module, name, key in [(transition, "process_slot_generic", "slot_root"), *timers]:
+            stack.enter_context(_patched(module, name, _host_timer(parts, key)))
+        if events is not None:
+            for module, name, key in ((sha256, "sha256_64b_cuda", "sha256_64b"),
+                                      (shuffle, "_launch", "shuffle"),
+                                      (sweeps, "_launch", "effective_balance")):
+                stack.enter_context(_patched(module, name, _event_timer(events, key)))
+        gc.collect()
+        gc.freeze()
+        try:
+            t0 = time.perf_counter()
+            slot_processing.process_slots(state, EPOCH_PRE_SLOT + 1, ctx)
+            if events is not None:
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            gc.unfreeze()
+    return seconds, parts
+
+
+def phase_epoch(registry: dict) -> dict:
+    """The slice's main path: the boundary into epoch 3 of a 2^20-validator
+    phase0 state with full pending attestations, on the host path (the
+    columnar engine) and with the kernels installed (the literal stages,
+    hysteresis on the card)."""
+    from ethereum_consensus_tpu_torch import convert, ops
+    from ethereum_consensus_tpu_torch.models import committees, epoch_vector
+    from ethereum_consensus_tpu_torch.models.phase0 import epoch_processing as pep
+    from ethereum_consensus_tpu_torch.models.phase0 import slot_processing
+    from ethereum_consensus_tpu_torch.ops import g1, sha256, shuffle, sweeps
+    from ethereum_consensus_tpu_torch.telemetry import metrics
+
+    data, ctx = registry["data"], registry["ctx"]
+    gc.collect()
+    ops.uninstall()
+    t0 = time.perf_counter()
+    state = convert.state_from_ssz(data, ctx.preset)
+    slot_processing.process_slots(state, EPOCH_SCRAMBLE_SLOT, ctx)
+    to_64_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scrambled = scramble_registry(state, ctx, seed=3)
+    slot_processing.process_slots(state, EPOCH_PRE_SLOT, ctx)
+    to_95_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pendings = {epoch: inject_full_epoch_pendings(state, ctx, epoch) for epoch in (1, 2)}
+    pre = type(state).serialize(state)
+    inject_s = time.perf_counter() - t0
+    eff_before = _effective_balances(state)
+    n = len(state.validators)
+    del state
+    gc.collect()
+    t0 = time.perf_counter()
+    host_state = convert.state_from_ssz(pre, ctx.preset)
+    device_state = convert.state_from_ssz(pre, ctx.preset)
+    read_s = time.perf_counter() - t0
+    print(f"epoch: {n} validators; slots 0..{EPOCH_SCRAMBLE_SLOT} {to_64_s:.1f} s; scramble "
+          f"{scrambled} and slots to {EPOCH_PRE_SLOT} {to_95_s:.1f} s; pendings {pendings} "
+          f"and serialize ({len(pre)} bytes) {inject_s:.1f} s; two reads {read_s:.1f} s")
+
+    engaged = metrics.counter("epoch_vector.epochs")
+    declined = metrics.counter("epoch_vector.fallback.device_sweeps")
+    host_stages = [(epoch_vector, name, name.strip("_")) for name in (
+        "_justification_phase0", "_rewards_phase0", "_registry_updates", "_slashings",
+        "_effective_balance_updates", "_commit")] + [(committees, "_build", "mask_build")]
+    ops.uninstall()
+    before = (engaged.value(), declined.value())
+    host_s, host_parts = _cross(host_state, ctx, host_stages, None)
+    host_engaged = engaged.value() - before[0]
+
+    device_stages = [(pep, name, name) for name in (
+        "process_justification_and_finalization", "process_rewards_and_penalties",
+        "process_registry_updates", "process_slashings",
+        "process_effective_balance_updates")] + [
+        (committees, "_build", "mask_build"), (sweeps, "pack_registry", "pack"),
+        (sweeps, "effective_balance_updates_device", "kernel_call")]
+    ops.uninstall()  # clears the shuffle cache: the device run shuffles anew
+    ops.install(device="cuda")
+    events: list = []
+    before = (engaged.value(), declined.value())
+    sha256.launch_count = shuffle.launch_count = g1.launch_count = sweeps.launch_count = 0
+    device_s, device_parts = _cross(device_state, ctx, device_stages, events)
+    launches = {"sha256_64b": sha256.launch_count, "shuffle": shuffle.launch_count,
+                "g1_sum_sets": g1.launch_count, "effective_balance": sweeps.launch_count}
+    ops.uninstall()
+    device_engaged = engaged.value() - before[0]
+    device_declined = declined.value() - before[1]
+    kernel_ms: dict = {}
+    for name, start, end in events:
+        kernel_ms[name] = kernel_ms.get(name, 0.0) + start.elapsed_time(end)
+    device_parts["write_back"] = (device_parts["process_effective_balance_updates"]
+                                  - device_parts["pack"] - device_parts["kernel_call"])
+    idle = 1.0 - sum(kernel_ms.values()) / (1e3 * device_s)
+
+    state_type = type(host_state)
+    same_bytes = state_type.serialize(host_state) == state_type.serialize(device_state)
+    root = state_type.hash_tree_root(device_state)
+    same_root = root == state_type.hash_tree_root(host_state)
+    changed = int((_effective_balances(device_state)[:n] != eff_before).sum())
+    print(f"epoch: host {host_s:.3f} s {_rounded(host_parts)}; columnar passes {host_engaged}")
+    print(f"epoch: device {device_s:.3f} s {_rounded(device_parts)}; columnar passes "
+          f"{device_engaged}, device_sweeps declines {device_declined}; launches {launches}; "
+          f"kernel ms inside {_rounded(kernel_ms, 4)}; idle share {idle:.6f}")
+    print(f"epoch: bytes equal {same_bytes}, roots equal {same_root}, {changed} effective "
+          f"balances changed, post-state root {root.hex()}")
+    if not (same_bytes and same_root):
+        sys.exit("chip_smoke: the epoch boundary differs between host and device")
+    if host_engaged != 1 or device_engaged != 0 or device_declined != 1:
+        sys.exit("chip_smoke: the columnar engine did not take the expected routes")
+    if launches["effective_balance"] != 1 or launches["sha256_64b"] == 0:
+        sys.exit(f"chip_smoke: a kernel of the epoch path was not launched: {launches}")
+    if changed == 0:
+        sys.exit("chip_smoke: no effective balance changed at the boundary")
+    return {"validators": n, "pendings": pendings, "scrambled": scrambled,
+            "state_bytes": len(pre), "to_64_s": to_64_s, "to_95_s": to_95_s,
+            "inject_s": inject_s, "read_s": read_s, "host_s": host_s,
+            "host_parts_s": host_parts, "device_s": device_s, "device_parts_s": device_parts,
+            "launches": launches, "kernel_ms_inside": kernel_ms, "idle_share": idle,
+            "effective_balances_changed": changed, "root": root.hex()}
+
+
 def _rounded(d: dict, places: int = 3) -> dict:
     return {k: round(v, places) for k, v in d.items()}
 
 
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)
+    started = time.perf_counter()
     report = {"device": phase_device()}
     report["build"] = phase_build()
     report["sha256"] = phase_sha256()
@@ -780,22 +1147,29 @@ def main() -> int:
     report["htr"] = phase_htr(HTR_LOG2_LEAVES)
     report["slice"] = phase_slice(registry["data"], registry["ctx"], SLOTS)
     report["block"] = phase_block(registry)
+    report["sweeps"] = phase_sweeps()
+    report["epoch"] = phase_epoch(registry)
 
-    launches = report["block"]["launches"]
+    # each kernel's launches on the path it was ported for, and every
+    # path's count beside them
+    paths = {"block": report["block"]["launches"], "epoch": report["epoch"]["launches"]}
     sources = {
-        "sha256_64b": ("sha256", "ethereum_consensus_tpu_torch/csrc/sha256.cu",
+        "sha256_64b": ("sha256", "block", "ethereum_consensus_tpu_torch/csrc/sha256.cu",
                        "ethereum_consensus_tpu/ops/sha256.py:197"),
-        "shuffle": ("shuffle", "ethereum_consensus_tpu_torch/csrc/shuffle.cu",
+        "shuffle": ("shuffle", "block", "ethereum_consensus_tpu_torch/csrc/shuffle.cu",
                     "ethereum_consensus_tpu/ops/shuffle.py:57"),
-        "g1_sum_sets": ("g1", "ethereum_consensus_tpu_torch/csrc/g1_sum.cu",
+        "g1_sum_sets": ("g1", "block", "ethereum_consensus_tpu_torch/csrc/g1_sum.cu",
                         "ethereum_consensus_tpu/ops/pairing.py:594"),
+        "effective_balance": ("sweeps", "epoch", "ethereum_consensus_tpu_torch/csrc/sweeps.cu",
+                              "ethereum_consensus_tpu/ops/sweeps.py:246"),
     }
     kernels = {"kernels": [{
         "name": name,
         "route": "cuda",
         "source": source,
         "replaces": replaces,
-        "launches": launches[name],
+        "launches": paths[path][name],
+        "launches_by_path": {p: counts.get(name, 0) for p, counts in paths.items()},
         "matched_plain": report[phase]["max_abs_err"] == 0,
         "max_abs_err": report[phase]["max_abs_err"],
         "ms": report[phase]["ms"],
@@ -803,7 +1177,8 @@ def main() -> int:
         "bound_ms": report[phase]["bound_ms"],
         "bound_by": report[phase]["bound_by"],
         "library_ms": None,
-    } for name, (phase, source, replaces) in sources.items()]}
+    } for name, (phase, path, source, replaces) in sources.items()]}
+    print(f"run: {time.perf_counter() - started:.1f} s")
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": report["device"]["kind"],

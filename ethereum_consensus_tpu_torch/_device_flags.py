@@ -5,19 +5,27 @@ consult these flags on every call and only import the ops package when a
 flag is on, so a host-only process never pays for torch. The flags are set
 by ``ops.install()`` (and unset by ``ops.uninstall()``).
 
-Thresholds are minimum element counts: device shuffles and aggregations win
-only above a size where the launch and the host<->device packing amortize;
-below the threshold the spec functions keep their host path.
+Thresholds are minimum element counts: device sweeps, shuffles and
+aggregations win only above a size where the launch and the host<->device
+packing amortize; below the threshold the spec functions keep their host
+path.
 """
 
 from __future__ import annotations
 
+SWEEPS_MIN_N: int | None = None
 SHUFFLE_MIN_N: int | None = None
 BLS_AGG_MIN_N: int | None = None
 
 # The device that the routed kernels run on ("cuda", or "cpu" for their
 # plain versions); set by ops.install().
 DEVICE: str = "cuda"
+
+
+def sweeps_enabled(n: int) -> bool:
+    """Route the registry sweeps (phase0: effective-balance hysteresis) to
+    the device for an ``n``-validator registry?"""
+    return SWEEPS_MIN_N is not None and n >= SWEEPS_MIN_N
 
 
 def shuffle_enabled(n: int) -> bool:

@@ -1,0 +1,26 @@
+"""Central reader for the package's ``ECT_*`` environment flags.
+
+Every environ read of a repo flag goes through this module, so the parse
+idiom ("off"/"0"/"false" disables) lives in one place. It imports nothing
+but the standard library: a flag check never drags torch in.
+
+The flags the port reads:
+  ECT_OPS_VECTOR=off       disables every columnar path (scalar oracle mode)
+  ECT_EPOCH_VECTOR=off     disables just the columnar-primary epoch engine
+  ECT_COMMITTEE_MASKS=off  disables just the phase0 committee-mask kernel
+
+Reference parity: ethereum_consensus_tpu/_env.py (the subset the ported
+modules read).
+"""
+
+from __future__ import annotations
+
+import os
+
+__all__ = ["flag_off"]
+
+
+def flag_off(key: str) -> bool:
+    """True when the flag explicitly disables its feature (off/0/false,
+    case-insensitive). Unset is NOT off: features default on."""
+    return os.environ.get(key, "").strip().lower() in ("off", "0", "false")

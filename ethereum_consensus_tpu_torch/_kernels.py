@@ -51,6 +51,17 @@ _LIBRARIES = {
             ),
         },
     ),
+    "sweeps": (
+        ("sweeps.cu", "sweeps_core.h"),
+        {
+            "effective_balance_launch": (
+                [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                 ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint64,
+                 ctypes.c_uint64, ctypes.c_void_p, ctypes.c_void_p],
+                ctypes.c_int,
+            ),
+        },
+    ),
     "g1_sum": (
         ("g1_sum.cu", "fp381_core.h"),
         {

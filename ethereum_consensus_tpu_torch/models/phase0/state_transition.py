@@ -2,10 +2,8 @@
 
 Reference parity: ethereum-consensus/src/phase0/state_transition.rs:15-106
 (state_transition_block_in_slot, state_transition, Validation toggle).
-
-phase0 epoch processing is not ported yet: a block whose slot lies past
-the next epoch boundary raises ``NotImplementedError`` from
-``process_slots`` before the state is touched.
+A block whose slot lies past an epoch boundary crosses it in
+``process_slots``.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """Device kernels (CUDA C++ for Hopper): SHA-256 merkleization, the
-committee shuffle, G1 pubkey-set aggregation.
+committee shuffle, G1 pubkey-set aggregation, the effective-balance
+hysteresis sweep.
 
 Importing this package imports torch but builds nothing; the pure-host
 layers (ssz/, models/, crypto/) never import it at module level — device
@@ -11,12 +12,16 @@ from ..ssz.hash import register_device_hasher
 from .merkle import merkleize_chunks_device
 from .sha256 import install_device_hasher, sha256_64b, sha256_64b_plain
 
+# The reference's thresholds. Its sweeps crossover (2^17) was measured on
+# a TPU; the crossover on this card has not been measured.
+DEFAULT_SWEEPS_MIN_N = 1 << 17
 DEFAULT_SHUFFLE_MIN_N = 1 << 15
 DEFAULT_BLS_AGG_MIN_N = 1 << 12
 
 
 def install(
     device="cuda",
+    sweeps_min_n: int = DEFAULT_SWEEPS_MIN_N,
     shuffle_min_n: int = DEFAULT_SHUFFLE_MIN_N,
     bls_agg_min_n: int = DEFAULT_BLS_AGG_MIN_N,
 ) -> None:
@@ -24,6 +29,8 @@ def install(
 
     * SHA-256 hash levels of at least ssz.hash.DEVICE_MIN_NODES parent
       nodes (merkleization);
+    * the epoch boundary's effective-balance hysteresis sweep of registries
+      of at least ``sweeps_min_n`` validators;
     * whole-list committee shuffling of at least ``shuffle_min_n`` indices;
     * G1 pubkey aggregation (fast_aggregate_verify, batched signature
       sets) of at least ``bls_agg_min_n`` keys in all.
@@ -34,13 +41,16 @@ def install(
     the kernels' plain versions (the tests' configuration)."""
     install_device_hasher(device=device)
     _device_flags.DEVICE = str(device)
+    _device_flags.SWEEPS_MIN_N = sweeps_min_n
     _device_flags.SHUFFLE_MIN_N = shuffle_min_n
     _device_flags.BLS_AGG_MIN_N = bls_agg_min_n
 
 
 def uninstall() -> None:
-    """Send every hash level, shuffle and aggregation back to the host."""
+    """Send every hash level, sweep, shuffle and aggregation back to the
+    host."""
     register_device_hasher(None)
+    _device_flags.SWEEPS_MIN_N = None
     _device_flags.SHUFFLE_MIN_N = None
     _device_flags.BLS_AGG_MIN_N = None
     _device_flags.DEVICE = "cuda"
@@ -52,6 +62,7 @@ def uninstall() -> None:
 __all__ = [
     "DEFAULT_BLS_AGG_MIN_N",
     "DEFAULT_SHUFFLE_MIN_N",
+    "DEFAULT_SWEEPS_MIN_N",
     "install",
     "install_device_hasher",
     "merkleize_chunks_device",

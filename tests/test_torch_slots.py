@@ -1,9 +1,10 @@
 """The slice end to end: phase0 process_slots in the port and the reference.
 
 The same minimal-preset state bytes go through both packages'
-``process_slots`` to slot 7, the last slot before the first epoch boundary.
-The port hashes with its device hasher routed on the CPU (threshold lowered
-so the route is taken); post-state bytes and roots must be identical.
+``process_slots`` to slot 7, the last slot before the first epoch boundary,
+and on across it to slot 8. The port hashes with its device hasher routed
+on the CPU (threshold lowered so the route is taken); post-state bytes and
+roots must be identical.
 """
 
 import pytest
@@ -59,13 +60,16 @@ def test_process_slots_matches_reference_with_port_hasher(monkeypatch, state_byt
 
 
 def test_crossing_the_epoch_boundary_raises(state_bytes):
+    """The boundary at slot 8 no longer raises: process_slots crosses it
+    through epoch processing and gives the reference's post-state."""
     ctx = Context.for_minimal()
     state = convert.state_from_ssz(state_bytes, ctx.preset)
     slot_processing.process_slots(state, 7, ctx)
-    at_seven = type(state).serialize(state)
-    with pytest.raises(NotImplementedError, match="epoch_processing"):
-        slot_processing.process_slots(state, 8, ctx)
-    assert type(state).serialize(state) == at_seven  # untouched
+    slot_processing.process_slots(state, 8, ctx)
+    ref_bytes, ref_root = _ref_post_state(state_bytes, 8)
+    assert state.slot == 8
+    assert type(state).serialize(state) == ref_bytes
+    assert type(state).hash_tree_root(state) == ref_root
 
 
 def test_process_slots_backwards_is_a_transition_error(state_bytes):
