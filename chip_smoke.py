@@ -46,6 +46,28 @@ Phases, each of which exits non-zero when it fails:
                 literal stages, hysteresis on the card): identical bytes and
                 roots, the sweeps kernel launched once, SHA-256 at least
                 once, some effective balances changed.
+ 12. altair_sweeps — the fused epoch kernel (B3) and the three altair sweep
+                kernels (flag deltas, inactivity updates and penalties)
+                against their plain versions, bit-exact, for n in {1, 255,
+                256, 257, 2^17, 2^20} (mixed flags, slashed and ineligible
+                lanes, scores near the thresholds, words at and above 2^63
+                whose products wrap), samples against Python integers;
+                CUDA-event times at 2^20.
+ 13. altair   — the registry to slot 32 under phase0 rules, the sync
+                committee's keys made real, upgrade_to_altair (altair at
+                epoch 1), slots to 95 under altair rules, a scramble of a
+                few thousand validators with seeded participation flags of
+                epochs 1 and 2 and inactivity scores, then a signed block at
+                slot 96 (64 aggregates over slot 95's committees and a full
+                sync aggregate) through Executor.apply_block on the host
+                path (the columnar engine), after ops.install(device="cuda")
+                (the engine with the fused epoch kernel) and on the literal
+                device route (ECT_EPOCH_VECTOR=off: the three altair sweep
+                kernels and hysteresis): identical bytes and roots, the
+                launches of each route checked, some balances, scores and
+                effective balances changed, and the block with its
+                sync-aggregate signature replaced rejected alike on the host
+                and device paths.
 Then the run's wall time, one JSON line per kernel (``{"kernels": [...]}``)
 and, last, the ``{"ok": true, "device": ...}`` line.
 
@@ -1090,10 +1112,9 @@ def phase_epoch(registry: dict) -> dict:
     ops.install(device="cuda")
     events: list = []
     before = (engaged.value(), declined.value())
-    sha256.launch_count = shuffle.launch_count = g1.launch_count = sweeps.launch_count = 0
+    _zero_launch_counts()
     device_s, device_parts = _cross(device_state, ctx, device_stages, events)
-    launches = {"sha256_64b": sha256.launch_count, "shuffle": shuffle.launch_count,
-                "g1_sum_sets": g1.launch_count, "effective_balance": sweeps.launch_count}
+    launches = _launch_counts()
     ops.uninstall()
     device_engaged = engaged.value() - before[0]
     device_declined = declined.value() - before[1]
@@ -1131,6 +1152,701 @@ def phase_epoch(registry: dict) -> dict:
             "effective_balances_changed": changed, "root": root.hex()}
 
 
+def _zero_launch_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from ethereum_consensus_tpu_torch.ops import epoch, g1, sha256, shuffle, sweeps
+
+    sha256.launch_count = shuffle.launch_count = g1.launch_count = epoch.launch_count = 0
+    for name in sweeps.launch_counts:
+        sweeps.launch_counts[name] = 0
+
+
+def _launch_counts() -> dict:
+    """Every kernel's launches since ``_zero_launch_counts``."""
+    from ethereum_consensus_tpu_torch.ops import epoch, g1, sha256, shuffle, sweeps
+
+    return {"sha256_64b": sha256.launch_count, "shuffle": shuffle.launch_count,
+            "g1_sum_sets": g1.launch_count, "fused_epoch": epoch.launch_count,
+            **sweeps.launch_counts}
+
+
+# --- the altair sweeps and the fused epoch kernel -------------------------
+
+# Mainnet scalars of the altair epoch pass (a 2^20-validator registry of
+# 32 ETH): base reward factor, weight denominator, inactivity bias and
+# recovery rate, the altair inactivity-penalty quotient, the flag weights.
+ALTAIR_INCREMENT = 10**9
+ALTAIR_TOTAL_ACTIVE = (1 << 20) * 32 * ALTAIR_INCREMENT
+ALTAIR_BIAS, ALTAIR_RECOVERY, ALTAIR_QUOTIENT = 4, 16, 3 * 2**24
+ALTAIR_WEIGHTS, ALTAIR_WD, ALTAIR_BRF = (14, 26, 14), 64, 64
+ALTAIR_CHECK_NS = SWEEPS_CHECK_NS
+# Integer operations, counted as SWEEPS_OPS_PER_VALIDATOR is: a 64-bit add,
+# subtraction, compare or select is 2, a 64 x 64 -> 64 product 3, and a
+# division by a value fixed for the whole sweep a Barrett reduction with a
+# precomputed reciprocal (the high product in 8, the product back in 3, the
+# subtraction 2, one conditional correction 4). Divisions are counted per
+# validator from the run's masks (only the lanes that need one); the rest
+# per validator:
+#   flag deltas: the base reward, the reward numerator and the penalty
+#     product (12), the flag and mask logic and two selects (6);
+#   inactivity updates: min, subtraction, addition, three selects, the
+#     recovery min and subtraction (12);
+#   inactivity penalties: the product and a select (5);
+#   fused: the masks (3), the inactivity update (8), the base reward (3),
+#     per flag the products (9), selects and the saturating application
+#     with its wrap test (16), then the penalty product and its application
+#     (9).
+DIV64_OPS = 8 + 3 + 2 + 4
+FLAG_DELTAS_OPS = 18
+INACTIVITY_UPDATES_OPS = 12
+INACTIVITY_PENALTIES_OPS = 5
+FUSED_OPS = 3 + 8 + 3 + 3 * (9 + 16) + 9
+# Bytes each function must move a validator: every input read once, every
+# output written once (words 8, flags 1).
+FLAG_DELTAS_BYTES = 8 + 1 + 1 + 16
+INACTIVITY_UPDATES_BYTES = 8 + 1 + 1 + 8
+INACTIVITY_PENALTIES_BYTES = 8 + 8 + 1 + 8
+FUSED_BYTES = 3 * 8 + 1 + 3 + 2 * 8
+
+
+def _altair_columns(n: int, gen: torch.Generator) -> dict:
+    """Seeded columns on the card: realistic effective balances with a
+    share of words at and above 2^63 (their reward products pass 2^64),
+    balances around them, low ones that a penalty saturates and some near
+    2^64 whose adds wrap, scores at 0, 1, the recovery rate and far above it
+    and near 2^64, mixed flags, slashed and ineligible lanes."""
+    def ints(low, high):
+        return torch.randint(low, high, (n,), dtype=torch.int64, device="cuda", generator=gen)
+
+    def pick(cases):
+        kind = ints(0, len(cases))
+        out = torch.zeros_like(kind)
+        for k, case in enumerate(cases):
+            out = torch.where(kind == k, case, out)
+        return out
+
+    inc = ALTAIR_INCREMENT
+    eff = ints(0, 33) * inc
+    eff = torch.where(ints(0, 8) == 0, ints(-(2**63), 2**63 - 1), eff)
+    balances = pick([eff + ints(-inc, 2 * inc), ints(0, 1 << 20), -1 - ints(0, 1 << 12),
+                     eff + ints(0, inc)])
+    scores = pick([ints(0, 3), ALTAIR_RECOVERY + ints(-2, 3), ints(0, 1 << 32),
+                   -1 - ints(0, 8), ints(0, 64)])
+    prev_part = ints(0, 8).to(torch.uint8)
+    slashed = ints(0, 20) == 0
+    active_prev = ints(0, 20) != 0
+    eligible = ints(0, 25) != 0
+    participating = active_prev & ~slashed & ((prev_part >> 1) & 1).bool()
+    return {"eff": eff, "balances": balances, "scores": scores, "prev_part": prev_part,
+            "slashed": slashed, "active_prev": active_prev, "eligible": eligible,
+            "participating": participating}
+
+
+def _fused_scalars(leaking: bool) -> tuple:
+    from ethereum_consensus_tpu_torch.ops import sweeps
+
+    brpi = ALTAIR_INCREMENT * ALTAIR_BRF // sweeps.isqrt_u64(ALTAIR_TOTAL_ACTIVE)
+    return (ALTAIR_INCREMENT, brpi, ALTAIR_TOTAL_ACTIVE // ALTAIR_INCREMENT,
+            ALTAIR_BIAS * ALTAIR_QUOTIENT, ALTAIR_BIAS, ALTAIR_RECOVERY, ALTAIR_WEIGHTS,
+            ALTAIR_WD, leaking, 2, 1)
+
+
+def _u64_lanes(t: torch.Tensor, idx: list) -> list:
+    return [v & ((1 << 64) - 1) for v in t[idx].cpu().tolist()]
+
+
+def _fused_lane_int(bal, eff, part, slashed, active, elig, score, sums, scalars) -> tuple:
+    """One validator through the fused epoch pass in Python integers, u64
+    wraps included (the reference's fused_epoch_kernel, one lane)."""
+    m = (1 << 64) - 1
+    inc, brpi, active_incr, denom, bias, rec, weights, wd, leaking, head, target = scalars
+    unslashed_all = active and not slashed
+    participating = unslashed_all and bool(part >> target & 1)
+    if elig:
+        score = score - min(1, score) if participating else (score + bias) & m
+        if not leaking:
+            score -= min(rec, score)
+    base = (eff // inc) * brpi & m
+    wrapped = 0
+    for f, w in enumerate(weights):
+        unslashed = unslashed_all and bool(part >> f & 1)
+        increments = max(inc, sums[f]) // inc
+        reward = (base * w * increments & m) // (active_incr * wd & m) if (
+            not leaking and elig and unslashed) else 0
+        penalty = (base * w & m) // wd if (f != head and elig and not unslashed) else 0
+        raised = (bal + reward) & m
+        wrapped += raised < bal
+        bal = raised - penalty if raised >= penalty else 0
+    penalty = (eff * score & m) // denom if (elig and not participating) else 0
+    bal = bal - penalty if bal >= penalty else 0
+    return score, bal, wrapped
+
+
+def _sweep_timing(name: str, launch, plain, n: int, divisions: int, ops_per: int,
+                  bytes_per: int) -> dict:
+    ms = _cuda_ms(launch, reps=50, warmup=5)
+    plain_ms = _cuda_ms(plain, reps=5, warmup=1)
+    bound, bound_by = _bound(n * ops_per + divisions * DIV64_OPS, n * bytes_per)
+    print(f"altair_sweeps {name} n=2^20: {ms:.4f} ms (bound {bound:.4f} ms by {bound_by}, "
+          f"{divisions} divisions); plain {plain_ms:.3f} ms; library: none")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "divisions": divisions}
+
+
+def phase_altair_sweeps() -> dict:
+    """B3 and the three B5-altair kernels against their plain versions on
+    the card, bit-exact, for n in ALTAIR_CHECK_NS; samples against Python
+    integers; CUDA-event times at 2^20."""
+    from ethereum_consensus_tpu_torch.ops import epoch, sweeps
+
+    m = (1 << 64) - 1
+    gen = torch.Generator(device="cuda").manual_seed(20261018)
+    rng = np.random.default_rng(6)
+    errs = {"fused_epoch": 0, "flag_deltas": 0, "inactivity_updates": 0,
+            "inactivity_penalties": 0}
+    denominator = ALTAIR_BIAS * ALTAIR_QUOTIENT
+
+    def err(got, want) -> int:
+        wrong = (got != want).nonzero().flatten().tolist()
+        return max((abs((int(got[i]) & m) - (int(want[i]) & m)) for i in wrong), default=0)
+
+    for n in ALTAIR_CHECK_NS:
+        c = _altair_columns(n, gen)
+        sample = sorted({0, n - 1, *rng.integers(0, n, 48).tolist()})
+        eff_h, part_h, elig_h = (_u64_lanes(c["eff"], sample), c["participating"][sample].tolist(),
+                                 c["eligible"][sample].tolist())
+        checks_ok, wraps = True, 0
+        for leaking in (False, True):
+            for flag in range(3):
+                args = (ALTAIR_TOTAL_ACTIVE, ALTAIR_WEIGHTS[flag], ALTAIR_INCREMENT, ALTAIR_BRF,
+                        ALTAIR_WD, leaking, flag == 2)
+                got = sweeps.flag_deltas(c["eff"], c["participating"], c["eligible"], *args)
+                torch.cuda.synchronize()
+                want = sweeps.flag_deltas_plain(c["eff"], c["participating"], c["eligible"], *args)
+                errs["flag_deltas"] = max(errs["flag_deltas"], err(got[0], want[0]),
+                                          err(got[1], want[1]))
+                # Python integers: the sum, the scalars, every sampled lane
+                total = sum(v & m for v in c["eff"][c["participating"]].cpu().tolist()) & m
+                brpi = ALTAIR_INCREMENT * ALTAIR_BRF // sweeps.isqrt_u64(ALTAIR_TOTAL_ACTIVE)
+                incr = total // ALTAIR_INCREMENT
+                divisor = ALTAIR_TOTAL_ACTIVE // ALTAIR_INCREMENT * ALTAIR_WD
+                w = ALTAIR_WEIGHTS[flag]
+                r_h, p_h = _u64_lanes(got[0], sample), _u64_lanes(got[1], sample)
+                for e, p, el, r, pe in zip(eff_h, part_h, elig_h, r_h, p_h):
+                    base = (e // ALTAIR_INCREMENT) * brpi & m
+                    want_r = (base * w * incr & m) // divisor if p and el and not leaking else 0
+                    want_p = (base * w & m) // ALTAIR_WD if flag != 2 and el and not p else 0
+                    checks_ok &= (r, pe) == (want_r, want_p)
+            got = sweeps.inactivity_updates(c["scores"], c["participating"], c["eligible"],
+                                            ALTAIR_BIAS, ALTAIR_RECOVERY, leaking)
+            torch.cuda.synchronize()
+            want = sweeps.inactivity_updates_plain(c["scores"], c["participating"], c["eligible"],
+                                                   ALTAIR_BIAS, ALTAIR_RECOVERY, leaking)
+            errs["inactivity_updates"] = max(errs["inactivity_updates"], err(got, want))
+            for s, p, el, g in zip(_u64_lanes(c["scores"], sample), part_h, elig_h,
+                                   _u64_lanes(got, sample)):
+                if el:
+                    s = s - min(1, s) if p else (s + ALTAIR_BIAS) & m
+                    if not leaking:
+                        s -= min(ALTAIR_RECOVERY, s)
+                checks_ok &= s == g
+            scalars = _fused_scalars(leaking)
+            columns = [c[k] for k in ("balances", "eff", "prev_part", "slashed", "active_prev",
+                                      "eligible", "scores")]
+            got = epoch.fused_epoch(*columns, *scalars)
+            torch.cuda.synchronize()
+            want = epoch.fused_epoch_plain(*columns, *scalars)
+            errs["fused_epoch"] = max(errs["fused_epoch"], err(got[0], want[0]),
+                                      err(got[1], want[1]), abs(got[2] - want[2]))
+            unslashed = c["active_prev"] & ~c["slashed"]
+            sums = [sum(v & m for v in c["eff"][unslashed & ((c["prev_part"] >> f) & 1).bool()]
+                        .cpu().tolist()) & m for f in range(3)]
+            lanes = zip(*(_u64_lanes(col, sample) if col.dtype == torch.int64
+                          else col[sample].tolist() for col in columns))
+            for lane, s_got, b_got in zip(lanes, _u64_lanes(got[0], sample),
+                                          _u64_lanes(got[1], sample)):
+                bal, e, part, sl, act, el, sc = lane
+                s_want, b_want, w = _fused_lane_int(bal, e, part, sl, act, el, sc, sums, scalars)
+                checks_ok &= (s_got, b_got) == (s_want, b_want)
+                wraps += w
+        not_target = c["eligible"] & ~c["participating"]
+        got = sweeps.inactivity_penalties(c["eff"], c["scores"], not_target, denominator)
+        torch.cuda.synchronize()
+        want = sweeps.inactivity_penalties_plain(c["eff"], c["scores"], not_target, denominator)
+        errs["inactivity_penalties"] = max(errs["inactivity_penalties"], err(got, want))
+        nt_h = not_target[sample].tolist()
+        for e, s, nt, g in zip(eff_h, _u64_lanes(c["scores"], sample), nt_h,
+                               _u64_lanes(got, sample)):
+            checks_ok &= g == ((e * s & m) // denominator if nt else 0)
+        print(f"altair_sweeps n={n}: max_abs_err vs plain {errs}, Python sample ok {checks_ok} "
+              f"({wraps} wrapped adds in the sampled fused lanes)")
+        if any(errs.values()) or not checks_ok:
+            sys.exit(f"chip_smoke: an altair sweep kernel disagrees at n={n}")
+
+    # the last n checked is the main path's, 2^20
+    n = ALTAIR_CHECK_NS[-1]
+    part, elig = c["participating"], c["eligible"]
+    flag_args = (ALTAIR_TOTAL_ACTIVE, ALTAIR_WEIGHTS[1], ALTAIR_INCREMENT, ALTAIR_BRF,
+                 ALTAIR_WD, 0, 0)
+    timings = {
+        "flag_deltas": _sweep_timing(
+            "flag_deltas", lambda: sweeps._launch_flag_deltas(c["eff"], part, elig, flag_args),
+            lambda: sweeps.flag_deltas_plain(c["eff"], part, elig, *flag_args[:5], False, False),
+            n, n + int((part & elig).sum()) + int((elig & ~part).sum()),
+            FLAG_DELTAS_OPS, FLAG_DELTAS_BYTES),
+        "inactivity_updates": _sweep_timing(
+            "inactivity_updates",
+            lambda: sweeps._launch_inactivity_updates(c["scores"], part, elig,
+                                                      (ALTAIR_BIAS, ALTAIR_RECOVERY, 0)),
+            lambda: sweeps.inactivity_updates_plain(c["scores"], part, elig, ALTAIR_BIAS,
+                                                    ALTAIR_RECOVERY, False),
+            n, 0, INACTIVITY_UPDATES_OPS, INACTIVITY_UPDATES_BYTES),
+        "inactivity_penalties": _sweep_timing(
+            "inactivity_penalties",
+            lambda: sweeps._launch_inactivity_penalties(c["eff"], c["scores"], not_target,
+                                                        denominator),
+            lambda: sweeps.inactivity_penalties_plain(c["eff"], c["scores"], not_target,
+                                                      denominator),
+            n, int(not_target.sum()), INACTIVITY_PENALTIES_OPS, INACTIVITY_PENALTIES_BYTES),
+    }
+    scalars = _fused_scalars(False)
+    columns = [c[k] for k in ("balances", "eff", "prev_part", "slashed", "active_prev",
+                              "eligible", "scores")]
+    unslashed = c["active_prev"] & ~c["slashed"]
+    fused_divisions = n + int((elig & ~c["participating"]).sum())
+    for f in range(3):
+        flag_set = unslashed & ((c["prev_part"] >> f) & 1).bool()
+        fused_divisions += int((elig & flag_set).sum())
+        if f != 2:
+            fused_divisions += int((elig & ~flag_set).sum())
+    words = epoch._scalars(*scalars)
+    timings["fused_epoch"] = _sweep_timing(
+        "fused_epoch", lambda: epoch._launch(tuple(columns), words),
+        lambda: epoch.fused_epoch_plain(*columns, *scalars),
+        n, fused_divisions, FUSED_OPS, FUSED_BYTES)
+    print(f"altair_sweeps: SASS instructions altair_sweeps {_sass_instructions('altair_sweeps')}, "
+          f"fused_epoch {_sass_instructions('fused_epoch')}")
+    return {name: {**t, "max_abs_err": errs[name]} for name, t in timings.items()}
+
+
+# --- the altair block across an altair epoch boundary ---------------------
+
+ALTAIR_FORK_EPOCH = 1  # as tests/chain_utils.py:719 sets it
+ALTAIR_PRE_SLOT = 95  # the last slot of epoch 2
+ALTAIR_BLOCK_SLOT = 96  # the first slot of epoch 3: the block crosses the boundary
+
+
+def _realize_keys(state, indices) -> int:
+    """Give ``indices`` their real keys SecretKey(i + 1); returns how many."""
+    from ethereum_consensus_tpu_torch.crypto import bls
+
+    indices = set(indices)
+    for i in indices:
+        state.validators[i].public_key = bls.SecretKey(i + 1).public_key().to_bytes()
+    state.__dict__.pop("_pubkey_index_cache", None)
+    return len(indices)
+
+
+def scramble_altair(state, ctx, seed: int) -> dict:
+    """Registry churn for the boundary into epoch 3 of an altair state at
+    slot 95, leaving every active set up to epoch 2 as it was: hysteresis
+    crossings both ways, ejections, slashed validators at the penalty
+    halfway point, future exits, low balances a penalty saturates, nonzero
+    inactivity scores, appended entrants, and the participation flags of
+    epochs 1 and 2 with a seeded share of missed target and head flags."""
+    from ethereum_consensus_tpu_torch.models.phase0 import build
+    from ethereum_consensus_tpu_torch.primitives import FAR_FUTURE_EPOCH
+
+    ns = build(ctx.preset)
+    rng = np.random.default_rng(seed)
+    n = len(state.validators)
+    inc = int(ctx.EFFECTIVE_BALANCE_INCREMENT)
+    down, up = inc // 4, 5 * inc // 4
+    picks = rng.choice(n, 3488, replace=False).tolist()
+    downs, ups, ejects, slashed, exits, lows = (
+        picks[:1536], picks[1536:3072], picks[3072:3104], picks[3104:3168],
+        picks[3168:3232], picks[3232:3488])
+    for i in downs:
+        state.balances[i] = int(state.balances[i]) - down - inc // 10
+    for i in ups:
+        state.validators[i].effective_balance = 20 * inc
+        state.balances[i] = 20 * inc + up + inc // 10
+    for i in ejects:
+        state.validators[i].effective_balance = int(ctx.ejection_balance)
+    half = int(ctx.EPOCHS_PER_SLASHINGS_VECTOR) // 2
+    for i in slashed:
+        state.validators[i].slashed = True
+        state.validators[i].withdrawable_epoch = 2 + half
+    state.slashings[2] = 64 * int(ctx.MAX_EFFECTIVE_BALANCE)
+    for i in exits:
+        state.validators[i].exit_epoch = 10
+        state.validators[i].withdrawable_epoch = 10 + int(ctx.min_validator_withdrawability_delay)
+    for i in lows:
+        state.balances[i] = int(rng.integers(0, 10**6))
+    scores = np.zeros(n, dtype=np.uint64)
+    scored = rng.random(n) < 0.125
+    scores[scored] = rng.integers(1, 5000, int(scored.sum()), dtype=np.uint64)
+    scores[rng.choice(n, 64, replace=False)] = 10**6
+    participation = []
+    for _epoch in (1, 2):
+        flags = np.full(n, 0b111, dtype=np.uint8)
+        r = rng.random(n)
+        flags[r < 0.10] = 0b001  # source only: target and head missed
+        flags[(r >= 0.10) & (r < 0.15)] = 0b011  # head missed
+        flags[(r >= 0.15) & (r < 0.18)] = 0
+        participation.append(flags)
+    state.previous_epoch_participation = participation[0].tolist()
+    state.current_epoch_participation = participation[1].tolist()
+    state.inactivity_scores = scores.tolist()
+    for k in range(256):
+        state.validators.append(ns.Validator(
+            public_key=_synthetic_pubkey(n + k),
+            withdrawal_credentials=b"\x00" * 32,
+            effective_balance=int(ctx.MAX_EFFECTIVE_BALANCE),
+            activation_eligibility_epoch=FAR_FUTURE_EPOCH if k % 2 else 0,
+            activation_epoch=FAR_FUTURE_EPOCH,
+            exit_epoch=FAR_FUTURE_EPOCH,
+            withdrawable_epoch=FAR_FUTURE_EPOCH,
+        ))
+        state.balances.append(int(ctx.MAX_EFFECTIVE_BALANCE))
+        state.previous_epoch_participation.append(0)
+        state.current_epoch_participation.append(0)
+        state.inactivity_scores.append(0)
+    for key in ("_active_idx_cache", "_proposer_cache", "_total_active_balance_cache",
+                "_pubkey_index_cache"):
+        state.__dict__.pop(key, None)
+    missed = [int(((p >> 1) & 1 == 0).sum()) for p in participation]
+    return {"downward": len(downs), "upward": len(ups), "ejections": len(ejects),
+            "slashed": len(slashed), "exits": len(exits), "low_balances": len(lows),
+            "scored": int((scores > 0).sum()), "target_missed": missed, "entrants": 256}
+
+
+def make_altair_block(state, ctx, committees: list):
+    """A signed block at ALTAIR_BLOCK_SLOT on ``state`` (at slot 95, the
+    committees' and the proposer's keys real) carrying one aggregate per
+    slot-95 committee and a full sync aggregate over slot 95's block root.
+    Each aggregate is one signature under the sum of its signers' secret
+    keys (duplicates in the sync committee counted), the same point as
+    aggregating their signatures. The state root comes from a host run on a
+    scratch copy, which verifies every signature inline. Returns the block
+    and a copy whose sync-aggregate signature is replaced by the block's
+    own signature, re-signed."""
+    from ethereum_consensus_tpu_torch.crypto import bls
+    from ethereum_consensus_tpu_torch.crypto.fields import R
+    from ethereum_consensus_tpu_torch.domains import DomainType
+    from ethereum_consensus_tpu_torch.models.altair import block_processing, build
+    from ethereum_consensus_tpu_torch.models.altair import helpers as h
+    from ethereum_consensus_tpu_torch.models.altair import slot_processing
+    from ethereum_consensus_tpu_torch.models.phase0.containers import BeaconBlockHeader
+    from ethereum_consensus_tpu_torch.primitives import Root
+    from ethereum_consensus_tpu_torch.signing import compute_signing_root
+    from ethereum_consensus_tpu_torch.ssz import uint64
+
+    ns = build(ctx.preset)
+    scratch = state.copy()
+    slot_processing.process_slots(scratch, ALTAIR_BLOCK_SLOT, ctx)
+    proposer = h.get_beacon_proposer_index(scratch, ctx)
+    epoch = ALTAIR_BLOCK_SLOT // int(ctx.SLOTS_PER_EPOCH)
+    att_slot = ALTAIR_BLOCK_SLOT - 1
+    head_root = h.get_block_root_at_slot(scratch, att_slot)
+    target = ns.Checkpoint(epoch=epoch - 1, root=h.get_block_root(scratch, epoch - 1, ctx))
+    attester_domain = h.get_domain(scratch, DomainType.BEACON_ATTESTER, epoch - 1, ctx)
+    attestations = []
+    for index, committee in enumerate(committees):
+        data = ns.AttestationData(slot=att_slot, index=index, beacon_block_root=head_root,
+                                  source=scratch.previous_justified_checkpoint.copy(),
+                                  target=target.copy())
+        root = compute_signing_root(ns.AttestationData, data, attester_domain)
+        attestations.append(ns.Attestation(
+            aggregation_bits=[True] * len(committee), data=data,
+            signature=bls.SecretKey(sum(i + 1 for i in committee) % R).sign(root).to_bytes(),
+        ))
+    by_key = {bytes(v.public_key): i for i, v in enumerate(scratch.validators)}
+    members = [by_key[bytes(pk)] for pk in scratch.current_sync_committee.public_keys]
+    sync_domain = h.get_domain(scratch, DomainType.SYNC_COMMITTEE,
+                               att_slot // int(ctx.SLOTS_PER_EPOCH), ctx)
+    sync_root = compute_signing_root(Root, head_root, sync_domain)
+    sync_aggregate = ns.SyncAggregate(
+        sync_committee_bits=[True] * len(members),
+        sync_committee_signature=bls.SecretKey(sum(i + 1 for i in members) % R)
+        .sign(sync_root).to_bytes(),
+    )
+    proposer_key = bls.SecretKey(proposer + 1)
+    randao_root = compute_signing_root(
+        uint64, epoch, h.get_domain(scratch, DomainType.RANDAO, epoch, ctx))
+    block = ns.BeaconBlock(
+        slot=ALTAIR_BLOCK_SLOT, proposer_index=proposer,
+        parent_root=BeaconBlockHeader.hash_tree_root(scratch.latest_block_header),
+        body=ns.BeaconBlockBody(
+            randao_reveal=proposer_key.sign(randao_root).to_bytes(),
+            eth1_data=scratch.eth1_data.copy(), attestations=attestations,
+            sync_aggregate=sync_aggregate,
+        ),
+    )
+    block_processing.process_block(scratch, block, ctx)
+    block.state_root = type(scratch).hash_tree_root(scratch)
+    proposer_domain = h.get_domain(scratch, DomainType.BEACON_PROPOSER, None, ctx)
+
+    def signed(message):
+        root = compute_signing_root(ns.BeaconBlock, message, proposer_domain)
+        return ns.SignedBeaconBlock(message=message,
+                                    signature=proposer_key.sign(root).to_bytes())
+
+    good = signed(block)
+    tampered = block.copy()
+    tampered.body.sync_aggregate.sync_committee_signature = bytes(good.signature)
+    return good, signed(tampered)
+
+
+def build_altair_pre_state(registry: dict) -> dict:
+    """The registry to slot 32 under phase0 rules, the sync committee's keys
+    made real and the upgrade to altair, slots to 95 under altair rules
+    (the 63 -> 64 boundary on the host route), the scramble, then the keys
+    of slot 95's committees and of the slot-96 proposer made real, and the
+    block. Returns the pre-state's bytes and the block."""
+    from ethereum_consensus_tpu_torch import convert, ops
+    from ethereum_consensus_tpu_torch.config import Context
+    from ethereum_consensus_tpu_torch.models.altair import helpers as ah
+    from ethereum_consensus_tpu_torch.models.altair import slot_processing as aslots
+    from ethereum_consensus_tpu_torch.models.altair import upgrade_to_altair
+    from ethereum_consensus_tpu_torch.models.phase0 import slot_processing as pslots
+
+    ops.uninstall()
+    gc.collect()
+    ctx = Context.for_mainnet()
+    ctx.altair_fork_epoch = ALTAIR_FORK_EPOCH
+    fork_slot = ALTAIR_FORK_EPOCH * int(ctx.SLOTS_PER_EPOCH)
+    t0 = time.perf_counter()
+    phase0_state = convert.state_from_ssz(registry["data"], ctx.preset)
+    pslots.process_slots(phase0_state, fork_slot, ctx)
+    to_fork_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sync_keys = _realize_keys(phase0_state, ah.get_next_sync_committee_indices(phase0_state, ctx))
+    state = upgrade_to_altair(phase0_state, ctx)
+    del phase0_state
+    gc.collect()
+    upgrade_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    aslots.process_slots(state, ALTAIR_PRE_SLOT, ctx)
+    to_pre_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scrambled = scramble_altair(state, ctx, seed=4)
+    epoch = ALTAIR_PRE_SLOT // int(ctx.SLOTS_PER_EPOCH)
+    per_slot = ah.get_committee_count_per_slot(state, epoch, ctx)
+    committees = [ah.get_beacon_committee(state, ALTAIR_PRE_SLOT, index, ctx)
+                  for index in range(per_slot)]
+    committee_keys = _realize_keys(state, [i for c in committees for i in c])
+    scramble_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the proposer of slot 96 depends on the post-boundary effective
+    # balances, not on keys: find it on a scratch crossing, then make its key
+    # real and build the block on a second one
+    scratch = state.copy()
+    aslots.process_slots(scratch, ALTAIR_BLOCK_SLOT, ctx)
+    proposer = ah.get_beacon_proposer_index(scratch, ctx)
+    del scratch
+    if state.validators[proposer].slashed:
+        sys.exit("chip_smoke: the scramble slashed the slot-96 proposer")
+    _realize_keys(state, [proposer])
+    good, tampered = make_altair_block(state, ctx, committees)
+    block_s = time.perf_counter() - t0
+    n = len(state.validators)
+    before = {
+        "balances": np.fromiter(state.balances, np.uint64, n),
+        "scores": np.fromiter(state.inactivity_scores, np.uint64, n),
+        "effective": _effective_balances(state),
+    }
+    t0 = time.perf_counter()
+    pre = type(state).serialize(state)
+    serialize_s = time.perf_counter() - t0
+    del state
+    gc.collect()
+    print(f"altair: {n} validators; slots 0..{fork_slot} {to_fork_s:.1f} s; {sync_keys} sync "
+          f"committee keys and the upgrade {upgrade_s:.1f} s; slots to {ALTAIR_PRE_SLOT} "
+          f"{to_pre_s:.1f} s; scramble {scrambled} and {committee_keys} committee keys "
+          f"{scramble_s:.1f} s; two scratch crossings and the block {block_s:.1f} s; "
+          f"serialize ({len(pre)} bytes) {serialize_s:.1f} s")
+    return {"pre": pre, "ctx": ctx, "good": good, "tampered": tampered, "n": n,
+            "before": before, "scrambled": scrambled, "proposer": proposer,
+            "setup_s": {"to_fork": to_fork_s, "upgrade": upgrade_s, "to_pre": to_pre_s,
+                        "scramble_and_keys": scramble_s, "block": block_s,
+                        "serialize": serialize_s}}
+
+
+def _apply_altair(state, signed_block, ctx, timers: list, events: "list | None"):
+    """Cold Executor.apply_block with host timers on ``timers`` ((module,
+    name, key) triples) and CUDA events on each kernel launch; returns
+    (seconds, parts, executor state)."""
+    from ethereum_consensus_tpu_torch.crypto import bls
+    from ethereum_consensus_tpu_torch.executor import Executor
+    from ethereum_consensus_tpu_torch.models import transition
+    from ethereum_consensus_tpu_torch.models.altair import state_transition
+    from ethereum_consensus_tpu_torch.ops import epoch, g1, sha256, shuffle, sweeps
+
+    parts: dict = {}
+    with contextlib.ExitStack() as stack:
+        for module, name, key in [(transition, "process_slot_generic", "slot_root"),
+                                  (state_transition, "process_block", "process_block"),
+                                  (bls, "verify_signature_sets", "signature_batch"), *timers]:
+            stack.enter_context(_patched(module, name, _host_timer(parts, key)))
+        if events is not None:
+            for module, name, key in (
+                    (sha256, "sha256_64b_cuda", "sha256_64b"), (shuffle, "_launch", "shuffle"),
+                    (g1, "_launch", "g1_sum_sets"), (sweeps, "_launch", "effective_balance"),
+                    (epoch, "_launch", "fused_epoch"),
+                    (sweeps, "_launch_flag_deltas", "flag_deltas"),
+                    (sweeps, "_launch_inactivity_updates", "inactivity_updates"),
+                    (sweeps, "_launch_inactivity_penalties", "inactivity_penalties")):
+                stack.enter_context(_patched(module, name, _event_timer(events, key)))
+        executor = Executor(state, ctx)
+        gc.collect()
+        gc.freeze()
+        try:
+            t0 = time.perf_counter()
+            executor.apply_block(signed_block)
+            if events is not None:
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            gc.unfreeze()
+    return seconds, parts, executor.state.data
+
+
+def phase_altair(registry: dict) -> dict:
+    """The slice's main path: one signed altair block at the first slot of
+    epoch 3 on a 2^20-validator mainnet altair state, through
+    Executor.apply_block on the host path (the columnar engine, staged host
+    kernels), after ops.install(device="cuda") (the engine with B3), and on
+    the literal device route (ECT_EPOCH_VECTOR=off: the literal stages with
+    the B5 kernels); identical bytes and roots on all three."""
+    from ethereum_consensus_tpu_torch import ops
+    from ethereum_consensus_tpu_torch.models import epoch_vector
+    from ethereum_consensus_tpu_torch.models.altair import build
+    from ethereum_consensus_tpu_torch.models.altair import epoch_processing as aep
+    from ethereum_consensus_tpu_torch.ops import epoch as ops_epoch
+    from ethereum_consensus_tpu_torch.ops import sweeps
+    from ethereum_consensus_tpu_torch.telemetry import metrics
+
+    setup = build_altair_pre_state(registry)
+    pre, ctx, good, tampered = setup["pre"], setup["ctx"], setup["good"], setup["tampered"]
+    state_type = build(ctx.preset).BeaconState
+    n_keys = sum(len(a.aggregation_bits) for a in good.message.body.attestations) + 2
+    n_keys += len(good.message.body.sync_aggregate.sync_committee_bits)
+    print(f"altair: block at slot {ALTAIR_BLOCK_SLOT}: {len(good.message.body.attestations)} "
+          f"attestations, a full sync aggregate; {n_keys} keys in the signature batch")
+
+    engaged = metrics.counter("epoch_vector.epochs")
+    disabled = metrics.counter("epoch_vector.fallback.disabled")
+
+    def fused_fallbacks() -> int:
+        return sum(metrics.counter(k).value() for k in metrics.registered()
+                   if k.startswith("epoch_vector.fused_fallback."))
+
+    engine_stages = [(epoch_vector, name, name.strip("_")) for name in (
+        "_sync", "_justification_altair", "_inactivity_and_rewards", "_registry_updates",
+        "_slashings", "_effective_balance_updates", "_commit")]
+    literal_stages = [(aep, name, name) for name in (
+        "process_justification_and_finalization", "process_inactivity_updates",
+        "process_rewards_and_penalties", "process_registry_updates", "process_slashings",
+        "process_effective_balance_updates")] + [
+        (sweeps, "pack_registry", "pack"),
+        (sweeps, "flag_deltas_device", "kernel_call"),
+        (sweeps, "inactivity_updates_device", "kernel_call"),
+        (sweeps, "inactivity_penalties_device", "kernel_call"),
+        (sweeps, "effective_balance_updates_device", "kernel_call")]
+    routes = {
+        "host": (False, False, engine_stages),
+        "device": (True, False, engine_stages + [(ops_epoch, "fused_epoch_device", "fused_call")]),
+        "literal": (True, True, literal_stages),
+    }
+    results, digest, root = {}, None, None
+    for name, (installed, literal, timers) in routes.items():
+        ops.uninstall()  # clears the shuffle cache: each route shuffles anew
+        gc.collect()
+        t0 = time.perf_counter()
+        state = state_type.deserialize(pre)
+        reject_state = state.copy()
+        read_s = time.perf_counter() - t0
+        if literal:
+            os.environ["ECT_EPOCH_VECTOR"] = "off"
+        try:
+            if installed:
+                ops.install(device="cuda")
+            events: list = [] if installed else None
+            counts = (engaged.value(), disabled.value(), fused_fallbacks())
+            _zero_launch_counts()
+            seconds, parts, post = _apply_altair(state, good, ctx, timers, events)
+            launches = _launch_counts()
+            moved = (engaged.value() - counts[0], disabled.value() - counts[1],
+                     fused_fallbacks() - counts[2])
+            error = _rejection(reject_state, tampered, ctx) if name != "literal" else None
+        finally:
+            os.environ.pop("ECT_EPOCH_VECTOR", None)
+            ops.uninstall()
+        data = state_type.serialize(post)
+        this_digest = hashlib.sha256(data).hexdigest()
+        this_root = state_type.hash_tree_root(post)
+        kernel_ms: dict = {}
+        for kname, start, end in events or ():
+            kernel_ms[kname] = kernel_ms.get(kname, 0.0) + start.elapsed_time(end)
+        if literal:
+            parts["write_back"] = (parts["process_inactivity_updates"]
+                                   + parts["process_rewards_and_penalties"]
+                                   + parts["process_effective_balance_updates"]
+                                   - parts["pack"] - parts["kernel_call"])
+        idle = 1.0 - sum(kernel_ms.values()) / (1e3 * seconds) if installed else None
+        n = setup["n"]
+        changed = {
+            "balances": int((np.fromiter(post.balances, np.uint64, n)
+                             != setup["before"]["balances"]).sum()),
+            "scores": int((np.fromiter(post.inactivity_scores, np.uint64, n)
+                           != setup["before"]["scores"]).sum()),
+            "effective": int((_effective_balances(post)[:n]
+                              != setup["before"]["effective"]).sum()),
+        }
+        print(f"altair {name}: read {read_s:.1f} s; apply {seconds:.3f} s {_rounded(parts)}; "
+              f"columnar passes {moved[0]}, engine disabled {moved[1]}, fused declines "
+              f"{moved[2]}; launches {launches}"
+              + (f"; kernel ms inside {_rounded(kernel_ms, 4)}; idle share {idle:.6f}"
+                 if installed else ""))
+        print(f"altair {name}: post-state sha256 {this_digest}, root {this_root.hex()}; "
+              f"changed {changed}" + (f"; tampered block: {error!r}" if error else ""))
+        results[name] = {"read_s": read_s, "apply_s": seconds, "parts_s": parts,
+                         "launches": launches, "kernel_ms_inside": kernel_ms, "idle_share": idle,
+                         "engine": moved, "changed": changed, "rejection": error}
+        if digest is None:
+            digest, root = this_digest, this_root
+        elif (this_digest, this_root) != (digest, root):
+            sys.exit(f"chip_smoke: the altair block's post-state on the {name} route differs")
+        if min(changed.values()) == 0:
+            sys.exit(f"chip_smoke: the altair boundary changed nothing on the {name} route")
+        del state, reject_state, post, data
+        gc.collect()
+
+    host, device, literal = results["host"], results["device"], results["literal"]
+    if host["engine"] != (1, 0, 0) or device["engine"] != (1, 0, 0):
+        sys.exit("chip_smoke: the columnar engine did not engage without declines on the "
+                 "host and device paths")
+    if literal["engine"][:2] != (0, 1):
+        sys.exit("chip_smoke: the literal route did not run the literal stages")
+    want_device = {"fused_epoch": 1, "g1_sum_sets": 1}
+    want_literal = {"flag_deltas": 3, "inactivity_updates": 1, "inactivity_penalties": 1,
+                    "effective_balance": 1}
+    if any(device["launches"][k] != v for k, v in want_device.items()) or \
+            device["launches"]["sha256_64b"] == 0 or any(device["launches"][k] for k in
+                                                         want_literal):
+        sys.exit(f"chip_smoke: the device path's launches are off: {device['launches']}")
+    if any(literal["launches"][k] != v for k, v in want_literal.items()) or \
+            literal["launches"]["fused_epoch"]:
+        sys.exit(f"chip_smoke: the literal route's launches are off: {literal['launches']}")
+    if host["rejection"] != device["rejection"] or \
+            not (host["rejection"] or "").startswith("InvalidSyncAggregate"):
+        sys.exit("chip_smoke: the tampered block was not rejected alike on both paths")
+    return {"validators": setup["n"], "state_bytes": len(pre), "setup_s": setup["setup_s"],
+            "scrambled": setup["scrambled"], "keys": n_keys, "routes": results,
+            "root": root.hex(), "sha256": digest}
+
+
 def _rounded(d: dict, places: int = 3) -> dict:
     return {k: round(v, places) for k, v in d.items()}
 
@@ -1149,10 +1865,17 @@ def main() -> int:
     report["block"] = phase_block(registry)
     report["sweeps"] = phase_sweeps()
     report["epoch"] = phase_epoch(registry)
+    report["altair_sweeps"] = phase_altair_sweeps()
+    report["altair"] = phase_altair(registry)
 
     # each kernel's launches on the path it was ported for, and every
     # path's count beside them
-    paths = {"block": report["block"]["launches"], "epoch": report["epoch"]["launches"]}
+    altair_routes = report["altair"]["routes"]
+    paths = {"block": report["block"]["launches"], "epoch": report["epoch"]["launches"],
+             "altair": altair_routes["device"]["launches"],
+             "altair_literal": altair_routes["literal"]["launches"]}
+    for name, timing in report["altair_sweeps"].items():
+        report[name] = timing
     sources = {
         "sha256_64b": ("sha256", "block", "ethereum_consensus_tpu_torch/csrc/sha256.cu",
                        "ethereum_consensus_tpu/ops/sha256.py:197"),
@@ -1162,6 +1885,17 @@ def main() -> int:
                         "ethereum_consensus_tpu/ops/pairing.py:594"),
         "effective_balance": ("sweeps", "epoch", "ethereum_consensus_tpu_torch/csrc/sweeps.cu",
                               "ethereum_consensus_tpu/ops/sweeps.py:246"),
+        "fused_epoch": ("fused_epoch", "altair", "ethereum_consensus_tpu_torch/csrc/fused_epoch.cu",
+                        "ethereum_consensus_tpu/models/epoch_vector.py:297"),
+        "flag_deltas": ("flag_deltas", "altair_literal",
+                        "ethereum_consensus_tpu_torch/csrc/altair_sweeps.cu",
+                        "ethereum_consensus_tpu/ops/sweeps.py:67"),
+        "inactivity_updates": ("inactivity_updates", "altair_literal",
+                               "ethereum_consensus_tpu_torch/csrc/altair_sweeps.cu",
+                               "ethereum_consensus_tpu/ops/sweeps.py:147"),
+        "inactivity_penalties": ("inactivity_penalties", "altair_literal",
+                                 "ethereum_consensus_tpu_torch/csrc/altair_sweeps.cu",
+                                 "ethereum_consensus_tpu/ops/sweeps.py:191"),
     }
     kernels = {"kernels": [{
         "name": name,

@@ -23,8 +23,9 @@ DEVICE: str = "cuda"
 
 
 def sweeps_enabled(n: int) -> bool:
-    """Route the registry sweeps (phase0: effective-balance hysteresis) to
-    the device for an ``n``-validator registry?"""
+    """Route the registry sweeps (effective-balance hysteresis; altair:
+    flag deltas, inactivity, the fused epoch kernel) to the device for an
+    ``n``-validator registry?"""
     return SWEEPS_MIN_N is not None and n >= SWEEPS_MIN_N
 
 

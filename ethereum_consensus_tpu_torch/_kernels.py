@@ -62,6 +62,39 @@ _LIBRARIES = {
             ),
         },
     ),
+    "altair_sweeps": (
+        ("altair_sweeps.cu", "altair_core.h"),
+        {
+            "flag_deltas_launch": (
+                [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                 ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint64,
+                 ctypes.c_uint64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+                ctypes.c_int,
+            ),
+            "inactivity_updates_launch": (
+                [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                 ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int, ctypes.c_void_p,
+                 ctypes.c_void_p],
+                ctypes.c_int,
+            ),
+            "inactivity_penalties_launch": (
+                [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                 ctypes.c_uint64, ctypes.c_void_p, ctypes.c_void_p],
+                ctypes.c_int,
+            ),
+        },
+    ),
+    "fused_epoch": (
+        ("fused_epoch.cu", "altair_core.h"),
+        {
+            "fused_epoch_launch": (
+                [ctypes.c_void_p] * 7 + [ctypes.c_int64] + [ctypes.c_uint64] * 10
+                + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4,
+                ctypes.c_int,
+            ),
+        },
+    ),
     "g1_sum": (
         ("g1_sum.cu", "fp381_core.h"),
         {

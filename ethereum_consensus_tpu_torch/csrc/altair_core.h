@@ -1,0 +1,169 @@
+// The per-validator arithmetic of the altair-family epoch sweeps, as
+// __host__ __device__ functions.
+//
+// The arithmetic of the Hopper kernels in altair_sweeps.cu (flag deltas,
+// inactivity updates, inactivity penalties) and fused_epoch.cu (the fused
+// epoch kernel). The header is plain C++ outside nvcc, so g++ builds the same
+// functions for the CPU tests that hold them against the reference package's
+// programs.
+//
+// All arithmetic is unsigned 64-bit and wraps as the reference's jnp.uint64
+// programs do: the literal route has no lane guard, so a product past 2^64
+// wraps silently there, and here.
+
+#pragma once
+
+#include <math.h>
+#include <stdint.h>
+
+#ifdef __CUDACC__
+#define ALTAIR_HD __host__ __device__ __forceinline__
+#else
+#define ALTAIR_HD inline
+#endif
+
+namespace altair_core {
+
+ALTAIR_HD uint64_t umin(uint64_t a, uint64_t b) { return a < b ? a : b; }
+
+ALTAIR_HD uint64_t umax(uint64_t a, uint64_t b) { return a > b ? a : b; }
+
+// The reference's _isqrt_u64 (ops/sweeps.py:45), step for step: a float64
+// seed (round to nearest, square root, truncate) plus one, six Newton steps
+// each after a floor of one, then the two clamps. Its last clamp squares
+// g + 1 in u64, which wraps for x near 2^64: at x = 2^64 - 1 it returns
+// 2^32, one more than the exact root, and so does this.
+ALTAIR_HD uint64_t isqrt_u64(uint64_t x) {
+  uint64_t g = static_cast<uint64_t>(sqrt(static_cast<double>(x))) + 1;
+  for (int i = 0; i < 6; ++i) {
+    g = umax(g, 1);
+    g = (g + x / g) >> 1;
+  }
+  if (g * g > x) g -= 1;
+  if ((g + 1) * (g + 1) <= x) g += 1;
+  return g;
+}
+
+// altair process_inactivity_updates for one validator (the reference's
+// _inactivity_updates, ops/sweeps.py:147, and the first stage of
+// fused_epoch_kernel).
+ALTAIR_HD uint64_t inactivity_update(uint64_t score, bool participating,
+                                     bool eligible, uint64_t bias,
+                                     uint64_t recovery_rate, bool leaking) {
+  if (!eligible) return score;
+  score = participating ? score - umin(1, score) : score + bias;
+  if (!leaking) score -= umin(recovery_rate, score);
+  return score;
+}
+
+// The scalars of one flag's deltas (ops/sweeps.py:79-94): the base reward
+// per increment from the total active balance, the flag's participating
+// increments, and the divisor of its rewards.
+struct FlagScalars {
+  uint64_t brpi;
+  uint64_t unslashed_increments;
+  uint64_t reward_divisor;
+};
+
+ALTAIR_HD FlagScalars flag_scalars(uint64_t total_active,
+                                   uint64_t participating_sum,
+                                   uint64_t increment,
+                                   uint64_t base_reward_factor,
+                                   uint64_t weight_denominator) {
+  FlagScalars s;
+  s.brpi = increment * base_reward_factor / isqrt_u64(total_active);
+  s.unslashed_increments = participating_sum / increment;
+  s.reward_divisor = (total_active / increment) * weight_denominator;
+  return s;
+}
+
+// One flag's (reward, penalty) for one validator (ops/sweeps.py:84-111):
+// the reward product is formed for every lane and wraps like the
+// reference's.
+ALTAIR_HD void flag_delta(uint64_t eff, bool participating, bool eligible,
+                          const FlagScalars& s, uint64_t weight,
+                          uint64_t increment, uint64_t weight_denominator,
+                          bool leaking, bool is_head, uint64_t* reward,
+                          uint64_t* penalty) {
+  const uint64_t base_reward = (eff / increment) * s.brpi;
+  const uint64_t numerator = base_reward * weight * s.unslashed_increments;
+  *reward = (participating && eligible && !leaking)
+                ? numerator / s.reward_divisor
+                : 0;
+  *penalty = (!is_head && eligible && !participating)
+                 ? base_reward * weight / weight_denominator
+                 : 0;
+}
+
+// The inactivity penalty of one validator (ops/sweeps.py:191).
+ALTAIR_HD uint64_t inactivity_penalty(uint64_t eff, uint64_t score,
+                                      bool not_target, uint64_t denominator) {
+  return not_target ? eff * score / denominator : 0;
+}
+
+// The constants and per-epoch scalars of the fused epoch kernel
+// (epoch_vector.py:297): three flags, weights, flag sums already reduced.
+struct FusedScalars {
+  uint64_t increment;
+  uint64_t brpi;
+  uint64_t divisor;  // active_increments * weight_denominator
+  uint64_t denominator;
+  uint64_t bias;
+  uint64_t recovery_rate;
+  uint64_t weights[3];
+  uint64_t unslashed_increments[3];  // max(increment, flag sum) / increment
+  uint64_t weight_denominator;
+  bool leaking;
+  int head_flag_index;
+  int target_flag_index;
+};
+
+// max(increment, flag_sum) / increment for each flag (epoch_vector.py:356).
+ALTAIR_HD void fused_flag_increments(FusedScalars* s, const uint64_t sums[3]) {
+  for (int f = 0; f < 3; ++f) {
+    s->unslashed_increments[f] = umax(s->increment, sums[f]) / s->increment;
+  }
+}
+
+// One validator through the fused epoch kernel, operation for operation the
+// reference's fused_epoch_kernel: the inactivity update, three flag pairs,
+// the inactivity penalty off the POST-update score, then the four pairs
+// applied in sequence with zero saturation between them. Returns the number
+// of pairs whose add wrapped (the reference's wrap census).
+ALTAIR_HD int fused_epoch_lane(const FusedScalars& s, uint64_t balance,
+                               uint64_t eff, uint8_t part, bool slashed,
+                               bool active_prev, bool eligible,
+                               uint64_t score, uint64_t* new_score,
+                               uint64_t* new_balance) {
+  const bool unslashed_active = active_prev && !slashed;
+  const bool participating =
+      unslashed_active && ((part >> s.target_flag_index) & 1);
+  const uint64_t score_out = inactivity_update(
+      score, participating, eligible, s.bias, s.recovery_rate, s.leaking);
+  const uint64_t base_reward = (eff / s.increment) * s.brpi;
+  int wrapped = 0;
+  uint64_t bal = balance;
+  for (int f = 0; f < 3; ++f) {
+    const bool unslashed = unslashed_active && ((part >> f) & 1);
+    const uint64_t w = s.weights[f];
+    const uint64_t reward =
+        (!s.leaking && eligible && unslashed)
+            ? base_reward * w * s.unslashed_increments[f] / s.divisor
+            : 0;
+    const uint64_t penalty =
+        (f != s.head_flag_index && eligible && !unslashed)
+            ? base_reward * w / s.weight_denominator
+            : 0;
+    const uint64_t raised = bal + reward;
+    wrapped += raised < bal;
+    bal = raised >= penalty ? raised - penalty : 0;
+  }
+  const uint64_t penalty =
+      (eligible && !participating) ? eff * score_out / s.denominator : 0;
+  bal = bal >= penalty ? bal - penalty : 0;  // the pair's reward is 0
+  *new_score = score_out;
+  *new_balance = bal;
+  return wrapped;
+}
+
+}  // namespace altair_core

@@ -1,6 +1,7 @@
-"""Per-fork spec modules. Only phase0 is ported so far: slot, block and
-epoch processing, with the columnar epoch engine (``epoch_vector``), its
-registry columns (``ops_vector``) and the committee masks
+"""Per-fork spec modules: phase0 and altair (slot, block and epoch
+processing, the phase0 → altair upgrade), with the columnar epoch engine
+(``epoch_vector``), its registry columns and the altair block-scoped
+attestation fast path (``ops_vector``) and the committee masks
 (``committees``)."""
 
-from . import phase0  # noqa: F401
+from . import altair, phase0  # noqa: F401

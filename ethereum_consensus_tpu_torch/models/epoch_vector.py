@@ -1,4 +1,5 @@
-"""Columnar-primary epoch transition engine (the phase0 family).
+"""Columnar-primary epoch transition engine (the phase0 and altair
+families).
 
 The ownership inversion this module implements: for the epoch hot path
 the ``RegistryColumns`` arrays are the AUTHORITATIVE store of validator
@@ -11,13 +12,25 @@ and writes the arrays; no stage walks ``state.validators`` elements, so
 the pass costs vector passes + a handful of per-hit writes instead of ~10
 Python sweeps over a million-validator registry.
 
-phase0's ``process_epoch`` calls ``process_epoch_columnar(state, context,
-"phase0")`` first and falls back to its literal stage list when the
+Each fork's ``process_epoch`` calls ``process_epoch_columnar(state,
+context, fork)`` first and falls back to its literal stage list when the
 engine declines — no numpy, the engine disabled (``ECT_OPS_VECTOR=off`` /
 ``ECT_EPOCH_VECTOR=off``), registry below ``EPOCH_VECTOR_MIN_VALIDATORS``,
-device sweeps installed (``device_sweeps``: the literal list then runs
-the hysteresis sweep on the card), or a value outside the u64 lane
-contract. The literal loops remain the oracle.
+phase0 with device sweeps installed (``device_sweeps``: the literal list
+then runs the hysteresis sweep on the card), or a value outside the u64
+lane contract. The literal loops remain the oracle.
+
+The altair family's numeric cores (``inactivity_scores_kernel``,
+``flag_deltas_kernel``, ``apply_delta_pairs_kernel``) are numpy host
+functions with every scalar wrapped to uint64; the u64-overflow guards
+live in the caller, which routes pathological states to exact Python-int
+paths before any kernel runs. With ``ops.install()`` routing the sweeps to
+the card, the altair-family inactivity and rewards stages collapse into
+ONE launch of the fused epoch kernel (``ops/epoch.py``, B3) — the packed
+columns upload once — with the staged host kernels taking over only on
+the spec-preserving declines ``u64_product`` and ``wrap_guard``, counted
+in ``epoch_vector.fused_fallback.{reason}``. A build or launch failure of
+the kernel raises.
 
 Soundness rules:
 
@@ -33,19 +46,20 @@ Soundness rules:
   the columns with exactly the value the scalar sweep would compute, so
   a mid-pass helper call never pays (or needs) a per-validator walk.
 
-justification and rewards are fed by the committee-mask kernel
+phase0's justification and rewards are fed by the committee-mask kernel
 (``models/committees.py``), with the spec-helper walks as fallback +
 oracle.
 
 Telemetry: ``epoch_vector.epochs`` counts engaged passes,
-``epoch_vector.fallback.{reason}`` every decline.
+``epoch_vector.fallback.{reason}`` every decline,
+``epoch_vector.fused.device`` every fused launch.
 
 Reference parity: ethereum_consensus_tpu/models/epoch_vector.py, the
-phase0 family. Left out until the slices that need them: the altair
-stages (justification, inactivity, rewards), the numeric xp kernels and
-the fused device epoch kernel (B3, with the altair slice), the mesh
-consult (B9), electra's pending deposits and consolidations, the
-sync-committee branch, and the trace spans and routing journal
+phase0 and altair rows. Left out until the slices that need them: the
+later forks' rows and stages (electra's pending deposits and
+consolidations, capella's historical summaries), the mesh branches (B9),
+``jitted_kernels`` / ``kernel_cache_census`` (the port calls
+``ops/epoch.py`` directly), and the trace spans and routing journal
 (telemetry slice).
 """
 
@@ -58,6 +72,9 @@ from . import ops_vector
 
 __all__ = [
     "process_epoch_columnar",
+    "inactivity_scores_kernel",
+    "flag_deltas_kernel",
+    "apply_delta_pairs_kernel",
     "EPOCH_VECTOR_MIN_VALIDATORS",
 ]
 
@@ -97,15 +114,88 @@ def _disabled() -> bool:
 
 
 # ---------------------------------------------------------------------------
+# numeric host kernels (numpy; scalars uint64)
+# ---------------------------------------------------------------------------
+
+
+def inactivity_scores_kernel(xp, scores, eligible, participating, bias,
+                             recovery_rate, leaking):
+    """altair ``process_inactivity_updates`` over columns — per eligible
+    validator: participating → score -= min(1, score); absent → score +=
+    bias; then (outside a leak) score -= min(recovery_rate, score)."""
+    one = xp.uint64(1)
+    hit = eligible & participating
+    miss = eligible & ~participating
+    new = xp.where(hit, scores - xp.minimum(one, scores), scores)
+    new = xp.where(miss, new + xp.uint64(bias), new)
+    if not leaking:
+        rec = xp.uint64(recovery_rate)
+        new = xp.where(eligible, new - xp.minimum(rec, new), new)
+    return new
+
+
+def flag_deltas_kernel(xp, base_reward, eligible, unslashed, weight,
+                       unslashed_increments, active_increments,
+                       weight_denominator, leaking, is_head_flag):
+    """One participation flag's (rewards, penalties) pair — the altair
+    flag-delta formula with the spec's two-step floor division; products
+    stay in u64 by the caller's lane guard."""
+    zero = xp.uint64(0)
+    if leaking:
+        rewards = xp.zeros_like(base_reward)  # no flag rewards in a leak
+    else:
+        attesting = eligible & unslashed
+        rewards = xp.where(
+            attesting,
+            (
+                base_reward
+                * xp.uint64(weight)
+                * xp.uint64(unslashed_increments)
+            )
+            // xp.uint64(active_increments * weight_denominator),
+            zero,
+        )
+    if is_head_flag:
+        penalties = xp.zeros_like(base_reward)
+    else:
+        absent = eligible & ~unslashed
+        penalties = xp.where(
+            absent,
+            base_reward * xp.uint64(weight) // xp.uint64(weight_denominator),
+            zero,
+        )
+    return rewards, penalties
+
+
+def apply_delta_pairs_kernel(xp, balances, pairs):
+    """Apply (rewards, penalties) pairs IN SEQUENCE, saturating at zero
+    between pairs — the spec's application order (summing first and
+    clamping once diverges for a low-balance validator whose early-pair
+    penalty saturates before a later-pair reward lands)."""
+    zero = xp.uint64(0)
+    for rewards, penalties in pairs:
+        raised = balances + rewards
+        balances = xp.where(raised >= penalties, raised - penalties, zero)
+    return balances
+
+
+# ---------------------------------------------------------------------------
 # the working set
 # ---------------------------------------------------------------------------
 
-# Per-fork knobs of the stages below. Only phase0 is ported; the other
-# forks' rows (and the knobs only they read) return with their slices.
+# Per-fork knobs of the stages below; the later forks' rows (and the knobs
+# only they read) return with their slices.
+# family: "phase0" (pending-attestation rewards) | "altair" (flag rewards)
+# quot: the fork's inactivity-penalty quotient attribute
 # slash_mult: the fork's proportional slashing multiplier attribute
 _FORK_CFG = {
-    "phase0": dict(slash_mult="PROPORTIONAL_SLASHING_MULTIPLIER"),
+    "phase0": dict(family="phase0", quot=None,
+                   slash_mult="PROPORTIONAL_SLASHING_MULTIPLIER"),
+    "altair": dict(family="altair", quot="INACTIVITY_PENALTY_QUOTIENT_ALTAIR",
+                   slash_mult="PROPORTIONAL_SLASHING_MULTIPLIER_ALTAIR"),
 }
+
+_TIMELY_TARGET_FLAG_INDEX = 1  # altair constants; checked at engine entry
 
 
 class _EpochColumns:
@@ -118,16 +208,19 @@ class _EpochColumns:
         "increment",
         # base views (never written)
         "b_eff", "b_elig", "b_act", "b_exit", "b_wdr",
-        "b_balances",
-        "slashed",
+        "b_balances", "b_inact",
+        "slashed", "prev_part", "cur_part",
         # working copies (authoritative during the pass)
         "eff", "elig", "act", "exit", "wdr",
-        "balances",
+        "balances", "inact",
         # lazy scalars
         "_total_active", "_active_cur_count",
         # masks at the pre-pass registry (activity is stable within the
         # epoch window — every spec write targets future epochs)
         "active_prev", "active_cur", "eligible",
+        # True when ops.install routed the sweeps device-ward: inactivity
+        # and rewards run as one launch of the fused epoch kernel
+        "fused",
     )
 
 
@@ -165,6 +258,25 @@ def _sync(state, context, fork):
     ec.b_wdr = vc["withdrawable_epoch"]
     ec.slashed = vc["slashed"]
     ec.b_balances = balances
+    if ec.cfg["family"] == "altair":
+        prev_part = cols.list_column(state, "previous_epoch_participation")
+        cur_part = cols.list_column(state, "current_epoch_participation")
+        inact = cols.list_column(state, "inactivity_scores")
+        if prev_part is None or cur_part is None or inact is None:
+            fallback("columns_unavailable")
+            return None
+        if (
+            prev_part.shape[0] != n
+            or cur_part.shape[0] != n
+            or inact.shape[0] != n
+        ):
+            fallback("length_mismatch")
+            return None
+        ec.prev_part = prev_part
+        ec.cur_part = cur_part
+        ec.b_inact = inact
+    else:
+        ec.prev_part = ec.cur_part = ec.b_inact = None
 
     # --- u64 lane guards: everything the pass adds/multiplies must stay
     # below 2^63 so no kernel op can wrap; a state outside the lane
@@ -184,6 +296,11 @@ def _sync(state, context, fork):
     if cur >= _LANE_MAX - (2 + int(context.MAX_SEED_LOOKAHEAD)):
         fallback("u64_guard")
         return None
+    if ec.b_inact is not None:
+        bias = int(context.inactivity_score_bias)
+        if int(ec.b_inact.max(initial=0)) >= _U64_MAX - bias:
+            fallback("u64_guard")
+            return None
     # masked eff sums must be exact in u64: cap n * max(eff) below 2^64
     eff_max = int(ec.b_eff.max(initial=0))
     if n and eff_max * n >= 1 << 64:
@@ -202,21 +319,44 @@ def _sync(state, context, fork):
         ec.slashed & (prev64 + np.uint64(1) < ec.b_wdr)
     )
 
+    if ec.cfg["family"] == "altair" and cur != GENESIS_EPOCH:
+        # rewards-kernel product guard, BEFORE any mutation: the largest
+        # product formed is base_reward * weight(<=64) * increments, so
+        # bound it with the whole-registry increment ceiling. Real
+        # states clear this by ~10 bits; a decline costs nothing.
+        from .phase0.helpers import integer_squareroot
+
+        total_active = max(
+            ec.increment, int(ec.b_eff[ec.active_cur].sum())
+        )
+        brpi = (
+            ec.increment
+            * int(context.BASE_REWARD_FACTOR)
+            // integer_squareroot(total_active)
+        )
+        max_base_reward = (eff_max // ec.increment) * brpi
+        incr_ceiling = max(1, n * (eff_max // ec.increment))
+        if max_base_reward * 64 * incr_ceiling >= 1 << 64:
+            fallback("u64_guard")
+            return None
+
     # the working set STARTS as the base views (read-only — an
     # accidental in-place write raises instead of corrupting the cache);
-    # stages that rebind (rewards, hysteresis) replace the reference with
-    # a fresh owned array, and in-place writers (registry hits,
-    # slashings) take an owned copy via _own on their FIRST actual
-    # write — a typical epoch therefore copies only the columns it
-    # really changes
+    # stages that rebind (rewards, inactivity, hysteresis) replace the
+    # reference with a fresh owned array, and in-place writers (registry
+    # hits, slashings) take an owned copy via _own on their FIRST actual
+    # write — a typical epoch therefore copies only the columns it really
+    # changes
     ec.eff = ec.b_eff
     ec.elig = ec.b_elig
     ec.act = ec.b_act
     ec.exit = ec.b_exit
     ec.wdr = ec.b_wdr
     ec.balances = ec.b_balances
+    ec.inact = ec.b_inact
     ec._total_active = None
     ec._active_cur_count = None
+    ec.fused = False
     return ec
 
 
@@ -281,8 +421,264 @@ def _seed_active_indices(ec, epoch: int, mask) -> tuple:
     return out
 
 
+def _flag_mask(ec, participation, flag_index: int):
+    np = ec.np
+    return (
+        (participation >> np.uint8(flag_index)) & np.uint8(1)
+    ).astype(bool)
+
+
 # ---------------------------------------------------------------------------
-# stages
+# stages (altair family)
+# ---------------------------------------------------------------------------
+
+
+def _justification_altair(ec) -> None:
+    if ec.cur <= GENESIS_EPOCH + 1:
+        return
+    from .phase0.epoch_processing import weigh_justification_and_finalization
+
+    unslashed = ~ec.slashed
+    prev_mask = (
+        ec.active_prev
+        & unslashed
+        & _flag_mask(ec, ec.prev_part, _TIMELY_TARGET_FLAG_INDEX)
+    )
+    cur_mask = (
+        ec.active_cur
+        & unslashed
+        & _flag_mask(ec, ec.cur_part, _TIMELY_TARGET_FLAG_INDEX)
+    )
+    total_active = _total_active(ec)
+    previous_target = max(ec.increment, int(ec.eff[prev_mask].sum()))
+    current_target = max(ec.increment, int(ec.eff[cur_mask].sum()))
+    weigh_justification_and_finalization(
+        ec.state, total_active, previous_target, current_target, ec.context
+    )
+
+
+def _inactivity_updates(ec, leaking: bool) -> None:
+    participating = (
+        ec.active_prev
+        & ~ec.slashed
+        & _flag_mask(ec, ec.prev_part, _TIMELY_TARGET_FLAG_INDEX)
+    )
+    context = ec.context
+    ec.inact = inactivity_scores_kernel(
+        ec.np,
+        ec.inact,
+        ec.eligible,
+        participating,
+        int(context.inactivity_score_bias),
+        int(context.inactivity_score_recovery_rate),
+        leaking,
+    )
+
+
+def _rewards_altair(ec, leaking: bool) -> None:
+    """Flag deltas ×3 + inactivity penalties, applied in sequence with
+    zero saturation — the literal helpers' exact integer semantics over
+    the working columns. Overflow on application (unreachable for real
+    balances) mirrors the literal fallback: it applies the SAME deltas
+    per index on the real state so ``checked_add`` raises its structured
+    error at the exact index — committing the stages so far first."""
+    np = ec.np
+    context = ec.context
+    from .altair.constants import (
+        PARTICIPATION_FLAG_WEIGHTS,
+        TIMELY_HEAD_FLAG_INDEX,
+        WEIGHT_DENOMINATOR,
+    )
+
+    increment = ec.increment
+    brpi, active_increments = _reward_scalars(ec)
+    base_reward = (ec.eff // np.uint64(increment)) * np.uint64(brpi)
+    unslashed_all = ~ec.slashed
+    pairs = []
+    target_unslashed = None
+    for flag_index, weight in enumerate(PARTICIPATION_FLAG_WEIGHTS):
+        unslashed = (
+            ec.active_prev
+            & unslashed_all
+            & _flag_mask(ec, ec.prev_part, flag_index)
+        )
+        if flag_index == _TIMELY_TARGET_FLAG_INDEX:
+            target_unslashed = unslashed
+        # get_total_balance floors at one increment
+        unslashed_increments = (
+            max(increment, int(ec.eff[unslashed].sum())) // increment
+        )
+        pairs.append(
+            flag_deltas_kernel(
+                np,
+                base_reward,
+                ec.eligible,
+                unslashed,
+                int(weight),
+                unslashed_increments,
+                active_increments,
+                int(WEIGHT_DENOMINATOR),
+                leaking,
+                flag_index == TIMELY_HEAD_FLAG_INDEX,
+            )
+        )
+
+    # inactivity penalties off the POST-UPDATE scores (spec order)
+    scores = ec.inact
+    missed = ec.eligible & ~target_unslashed
+    denominator = _penalty_denominator(ec)
+    penalties = np.zeros(ec.n, dtype=np.uint64)
+    if ec.n == 0 or int(ec.eff.max(initial=0)) * int(
+        scores.max(initial=0)
+    ) < 1 << 64:
+        penalties[missed] = (
+            ec.eff[missed] * scores[missed] // np.uint64(denominator)
+        )
+    else:
+        # pathological scores: exact per-index Python ints clamped to the
+        # u64 lane — a penalty at the clamp already saturates any real
+        # balance to zero, so the applied result is unchanged
+        for i in np.nonzero(missed)[0]:
+            penalties[i] = min(
+                int(ec.eff[i]) * int(scores[i]) // denominator, _U64_MAX
+            )
+    pairs.append((np.zeros(ec.n, dtype=np.uint64), penalties))
+
+    # apply the pairs in spec sequence (apply_delta_pairs_kernel's exact
+    # ops, unrolled here so the per-pair wrap check matches the literal
+    # vector path's overflow contract; the _sync guards make the wrap
+    # branch unreachable, but a guard regression must degrade to the
+    # structured error, never to silently wrapped balances)
+    balances = ec.balances
+    zero = np.uint64(0)
+    for rewards, penalties in pairs:
+        raised = balances + rewards
+        if bool((raised < balances).any()):
+            return _rewards_literal_apply(ec, pairs)
+        balances = np.where(raised >= penalties, raised - penalties, zero)
+    ec.balances = balances
+
+
+def _reward_scalars(ec) -> "tuple[int, int]":
+    """(base reward per increment, active increments) of the pass."""
+    from .phase0.helpers import integer_squareroot
+
+    total_active = _total_active(ec)
+    brpi = (
+        ec.increment
+        * int(ec.context.BASE_REWARD_FACTOR)
+        // integer_squareroot(total_active)
+    )
+    return brpi, total_active // ec.increment
+
+
+def _penalty_denominator(ec) -> int:
+    context = ec.context
+    return int(context.inactivity_score_bias) * int(
+        getattr(context, ec.cfg["quot"])
+    )
+
+
+def _rewards_literal_apply(ec, pairs) -> None:
+    """Terminal mirror of the literal overflow fallback: commit the
+    stages so far, then apply the SAME deltas through increase /
+    decrease_balance so ``checked_add`` raises the structured error at
+    the exact index (scalar parity). Unreachable under the _sync guards;
+    kept so the contract survives a guard regression."""
+    from .altair import helpers as hm
+
+    _commit(ec)
+    for rewards, penalties in pairs:
+        for index in range(ec.n):
+            hm.increase_balance(ec.state, index, int(rewards[index]))
+            hm.decrease_balance(ec.state, index, int(penalties[index]))
+    raise _PassComplete()
+
+
+def _fused_fallback(reason: str) -> None:
+    """A fused-route decline is NOT an engine fallback (the staged host
+    kernels run and the pass stays columnar) — a separate counter, so a
+    run can require zero ``epoch_vector.fallback.*`` while still seeing
+    every fused routing decision."""
+    metrics.counter(f"epoch_vector.fused_fallback.{reason}").inc()
+
+
+def _fused_route(ec, leaking: bool) -> bool:
+    """Run inactivity + rewards as ONE launch of the fused epoch kernel
+    (``ops/epoch.py``) when ``ops.install`` routed the sweeps
+    device-ward. Returns True with ``ec.inact``/``ec.balances`` rebound;
+    False = run the staged host kernels (bit-identical). The two declines
+    are spec-preserving choices of route, never a hidden failure: a build
+    or launch failure of the kernel raises."""
+    if not ec.fused:
+        return False
+    from .. import _device_flags
+    from ..ops import epoch as _epoch
+    from .altair.constants import (
+        PARTICIPATION_FLAG_WEIGHTS,
+        TIMELY_HEAD_FLAG_INDEX,
+        WEIGHT_DENOMINATOR,
+    )
+
+    context = ec.context
+    bias = int(context.inactivity_score_bias)
+    # the staged host path clamps pathological eff*score products through
+    # exact Python ints — a kernel cannot; post-update scores are bounded
+    # by pre-update max + bias, so this guard covers the fused product
+    if ec.n and int(ec.eff.max(initial=0)) * (
+        int(ec.inact.max(initial=0)) + bias
+    ) >= 1 << 64:
+        _fused_fallback("u64_product")
+        return False
+    brpi, active_increments = _reward_scalars(ec)
+    scores, balances, wrapped = _epoch.fused_epoch_device(
+        ec.balances, ec.eff, ec.prev_part, ec.slashed, ec.active_prev,
+        ec.eligible, ec.inact,
+        ec.increment,
+        brpi,
+        active_increments,
+        _penalty_denominator(ec),
+        bias,
+        int(context.inactivity_score_recovery_rate),
+        tuple(int(w) for w in PARTICIPATION_FLAG_WEIGHTS),
+        int(WEIGHT_DENOMINATOR),
+        leaking,
+        int(TIMELY_HEAD_FLAG_INDEX),
+        _TIMELY_TARGET_FLAG_INDEX,
+        device=_device_flags.DEVICE,
+    )
+    if wrapped:
+        # a wrap the guards should have made unreachable: the staged path
+        # re-runs and its literal mirror raises the structured error at
+        # the exact index
+        _fused_fallback("wrap_guard")
+        return False
+    ec.inact = scores
+    ec.balances = balances
+    metrics.counter("epoch_vector.fused.device").inc()
+    return True
+
+
+def _inactivity_and_rewards(ec) -> None:
+    """The altair-family inactivity + rewards stages: ONE fused launch on
+    the device route, the staged host kernels otherwise — and when the
+    fused route declines (every decline counted)."""
+    if ec.cur == GENESIS_EPOCH:
+        return
+    from .phase0.epoch_processing import get_finality_delay
+
+    leaking = (
+        get_finality_delay(ec.state, ec.context)
+        > ec.context.MIN_EPOCHS_TO_INACTIVITY_PENALTY
+    )
+    if _fused_route(ec, leaking):
+        return
+    _inactivity_updates(ec, leaking)
+    _rewards_altair(ec, leaking)
+
+
+# ---------------------------------------------------------------------------
+# stages (phase0 family, and shared)
 # ---------------------------------------------------------------------------
 
 
@@ -516,10 +912,11 @@ _VAL_FIELD_COLS = (
 
 
 def _commit(ec) -> None:
-    """Materialize: ONE adopted bulk_store for the balances with exact
-    changed indices, per-hit instrumented writes for the handful of
-    changed validator epoch fields. After this the SSZ state and the (now
-    clean, owned) column caches agree by construction."""
+    """Materialize: ONE adopted bulk_store per scalar list (balances,
+    inactivity scores) with exact changed indices, per-hit instrumented
+    writes for the handful of changed validator epoch fields. After this
+    the SSZ state and the (now clean, owned) column caches agree by
+    construction."""
     np = ec.np
     state = ec.state
     if ec.balances is not ec.b_balances:
@@ -527,6 +924,13 @@ def _commit(ec) -> None:
             state.balances,
             ec.balances,
             np.nonzero(ec.balances != ec.b_balances)[0],
+            _U64_MAX,
+        )
+    if ec.inact is not None and ec.inact is not ec.b_inact:
+        ops_vector.adopt_list_column(
+            state.inactivity_scores,
+            ec.inact,
+            np.nonzero(ec.inact != ec.b_inact)[0],
             _U64_MAX,
         )
     validators = state.validators
@@ -567,17 +971,31 @@ def process_epoch_columnar(state, context, fork: str) -> bool:
     if _disabled():
         fallback("disabled")
         return False
+    family = _FORK_CFG[fork]["family"]
+    fused = False
     if _device_flags.sweeps_enabled(n):
-        # ops.install routed the sweeps to the card: phase0 keeps the
-        # literal path's device hysteresis routing
-        fallback("device_sweeps")
-        return False
+        if family == "altair":
+            # ops.install routed the sweeps device-ward: the pass stays
+            # COLUMNAR and runs inactivity + rewards as the ONE fused
+            # kernel launch — the per-stage device sweeps the literal
+            # path would have launched collapse into a single upload
+            fused = True
+        else:
+            # phase0 keeps the literal path's device hysteresis routing
+            fallback("device_sweeps")
+            return False
     if _np() is None:
         fallback("no_numpy")
+        return False
+    from .altair.constants import TIMELY_TARGET_FLAG_INDEX
+
+    if TIMELY_TARGET_FLAG_INDEX != _TIMELY_TARGET_FLAG_INDEX:
+        fallback("constants")
         return False
     ec = _sync(state, context, fork)
     if ec is None:
         return False
+    ec.fused = fused
     from .phase0.epoch_processing import (
         process_eth1_data_reset,
         process_historical_roots_update,
@@ -586,8 +1004,12 @@ def process_epoch_columnar(state, context, fork: str) -> bool:
     )
 
     try:
-        _justification_phase0(ec)
-        _rewards_phase0(ec)
+        if family == "phase0":
+            _justification_phase0(ec)
+            _rewards_phase0(ec)
+        else:
+            _justification_altair(ec)
+            _inactivity_and_rewards(ec)
         _registry_updates(ec)
         _slashings(ec)
         process_eth1_data_reset(state, context)
@@ -599,11 +1021,29 @@ def process_epoch_columnar(state, context, fork: str) -> bool:
     process_slashings_reset(state, context)
     process_randao_mixes_reset(state, context)
     process_historical_roots_update(state, context)
-    from .committees import drop_masks_memo
+    if family == "phase0":
+        from .committees import drop_masks_memo
 
-    # pending lists swap: this epoch's mask bundles are done
-    drop_masks_memo(state)
-    state.previous_epoch_attestations = state.current_epoch_attestations
-    state.current_epoch_attestations = []
+        # pending lists swap: this epoch's mask bundles are done
+        drop_masks_memo(state)
+        state.previous_epoch_attestations = state.current_epoch_attestations
+        state.current_epoch_attestations = []
+    else:
+        state.previous_epoch_participation = state.current_epoch_participation
+        state.current_epoch_participation = [0] * n
+        ops_vector.install_zero_column(state.current_epoch_participation, n, 0xFF)
+        next_epoch = ec.cur + 1
+        if next_epoch % int(context.EPOCHS_PER_SYNC_COMMITTEE_PERIOD) == 0:
+            # the sampling sweep reads the committed registry; seed its
+            # active-index tuple from the committed columns so the rare
+            # boundary stays walk-free too
+            np = ec.np
+            mask = (ec.act <= np.uint64(next_epoch)) & (
+                np.uint64(next_epoch) < ec.exit
+            )
+            _seed_active_indices(ec, next_epoch, mask)
+            from .altair.epoch_processing import process_sync_committee_updates
+
+            process_sync_committee_updates(state, context)
     metrics.counter("epoch_vector.epochs").inc()
     return True

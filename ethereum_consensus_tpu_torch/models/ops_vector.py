@@ -1,5 +1,6 @@
-"""Columnar registry helpers — cached registry columns and their
-write-direction commits (the phase0 subset).
+"""Columnar registry helpers — cached registry columns, their
+write-direction commits, and the block-scoped attestation fast path of the
+altair family.
 
 * ``RegistryColumns`` — numpy column views over a state's registry
   (validator scalar fields + the scalar lists), built once warm and
@@ -10,25 +11,35 @@ write-direction commits (the phase0 subset).
   and the cache refreshes exactly those rows on next access. Anything
   untrackable resets the channel and the cache rebuilds — stale reads are
   structurally impossible, the cost model degrades, never the values.
+* ``process_attestations_batch`` — the block-scoped altair attestation
+  fast path: per attestation the full spec validation runs through the
+  SAME ``_prepare_attestation`` the scalar path uses, but the
+  participation-flag writes land in working numpy arrays and commit ONCE
+  per participation list via ``bulk_store`` with exact changed indices.
+  Bit-identical to the scalar loop (the fallback and the differential
+  oracle), including mid-block failure: an invalid attestation commits
+  the earlier attestations' flags before re-raising.
+
 * ``pack_registry_cached`` feeds the epoch sweeps from the cache instead
   of per-call ``np.fromiter`` walks; ``effective_balance_update_hits``
   vectorizes the hysteresis sweep; ``adopt_list_column`` is the columnar
-  epoch engine's commit (models/epoch_vector.py).
+  epoch engine's commit (models/epoch_vector.py) and
+  ``install_zero_column`` its participation rotation.
 
 Contract for every array this module hands out: READ-ONLY views
 (``writeable=False``); consumers copy before mutating.
 
 Reference parity: ethereum_consensus_tpu/models/ops_vector.py. Left out
-with the forks that need them: ``install_zero_column`` (altair
-participation rotation), the block-scoped attestation fast path
-(``register_attestation_preparer`` / ``process_attestations_batch``,
-altair), ``withdrawal_columns`` (capella), and the serving plane's
-``registry_snapshot`` / ``gather_rows``. The memory-observatory and trace
+with the forks that need them: ``withdrawal_columns`` (capella), the
+electra compounding cap of ``effective_balance_update_hits``, and the
+serving plane's ``registry_snapshot`` / ``gather_rows``. The memory-observatory and trace
 seams are cut (telemetry slice). Every decline counts in
 ``ops_vector.fallback.{reason}``.
 """
 
 from __future__ import annotations
+
+import threading
 
 from .. import _env
 from ..ssz.core import CachedRootList, bulk_store
@@ -40,8 +51,19 @@ __all__ = [
     "columns_for",
     "effective_balance_update_hits",
     "fallback",
+    "install_zero_column",
     "pack_registry_cached",
+    "process_attestations_batch",
+    "register_attestation_preparer",
+    "BATCH_MIN_VALIDATORS",
+    "BATCH_MIN_ATTESTATIONS",
 ]
+
+# Below this registry size the scalar loops win (column extraction and
+# working-array copies cost more than ~n dict/flag operations); the
+# differential tests lower it to 0 to force the engine on tiny states.
+BATCH_MIN_VALIDATORS = 1 << 10
+BATCH_MIN_ATTESTATIONS = 1
 
 _DISABLE_ENV = "ECT_OPS_VECTOR"  # =off disables every columnar path
 
@@ -390,6 +412,157 @@ def adopt_list_column(lst, arr, changed_indices, vmax) -> None:
         lst._col_owned = True
         lst._col_dirty = set()
         metrics.counter("ops_vector.columns.adopted").inc()
+
+
+def install_zero_column(lst, n: int, vmax: int = 0xFF) -> None:
+    """Column adoption for a FRESH all-zero list (the participation
+    rotation writes ``[0] * n``): the list already holds exactly zeros,
+    so no splice is needed — just install the matching zero column as
+    the owned, clean cache, and certify uniformity (every element is a
+    literal int 0) so the next hash walk skips the type scan."""
+    np = _np()
+    if np is None or lst.__class__ is not CachedRootList or len(lst) != n:
+        return
+    dtype = np.uint8 if vmax == 0xFF else np.uint64
+    lst._col_cache = ("list", np.zeros(n, dtype=dtype), vmax)
+    lst._col_owned = True
+    lst._col_dirty = set()
+    lst._uniform_kind = ("int",)
+    metrics.counter("ops_vector.columns.adopted").inc()
+
+
+# ---------------------------------------------------------------------------
+# block-scoped attestation fast path
+# ---------------------------------------------------------------------------
+
+# attestation_fn -> (prepare_fn, helpers_module); each fork's
+# block_processing registers its pair at import (models/altair/...py
+# bottom), so the engine recognizes exactly the functions whose
+# validation it can reuse and falls back on any custom hook.
+_ATTESTATION_PREPARERS: dict = {}
+_PREPARER_LOCK = threading.Lock()
+
+
+def register_attestation_preparer(attestation_fn, prepare_fn, helpers) -> None:
+    with _PREPARER_LOCK:
+        _ATTESTATION_PREPARERS[attestation_fn] = (prepare_fn, helpers)
+
+
+def process_attestations_batch(state, attestations, context,
+                               attestation_fn) -> bool:
+    """Apply every attestation of a block through the columnar fast path.
+
+    Returns True when fully applied (validation, participation flags,
+    proposer rewards — bit-identical to the scalar loop); False when the
+    caller must run the scalar fallback. On a validation error the
+    already-processed attestations' flags are committed before the error
+    propagates — the exact partial state the sequential loop leaves."""
+    n_atts = len(attestations)
+    if n_atts < BATCH_MIN_ATTESTATIONS:
+        # an EMPTY list is no work at all, not a decline of work
+        if n_atts:
+            fallback("below_threshold")
+        return False
+    if _disabled():
+        fallback("disabled")
+        return False
+    entry = _ATTESTATION_PREPARERS.get(attestation_fn)
+    if entry is None:
+        fallback("unregistered_attestation_fn")
+        return False
+    if len(state.validators) < BATCH_MIN_VALIDATORS:
+        fallback("below_threshold")
+        return False
+    np = _np()
+    if np is None:
+        fallback("no_numpy")
+        return False
+    cur_list = getattr(state, "current_epoch_participation", None)
+    prev_list = getattr(state, "previous_epoch_participation", None)
+    if cur_list is None or prev_list is None or cur_list is prev_list:
+        fallback("participation_shape")
+        return False
+    cols = columns_for(state)
+    if cols is None:
+        fallback("columns_unavailable")
+        return False
+    vc = cols.validator_columns(state)
+    cur_col = cols.list_column(state, "current_epoch_participation")
+    prev_col = cols.list_column(state, "previous_epoch_participation")
+    if vc is None or cur_col is None or prev_col is None:
+        fallback("columns_unavailable")
+        return False
+
+    prepare, hm = entry
+    from .altair.constants import (
+        PARTICIPATION_FLAG_WEIGHTS,
+        PROPOSER_WEIGHT,
+        WEIGHT_DENOMINATOR,
+    )
+
+    increment = int(context.EFFECTIVE_BALANCE_INCREMENT)
+    base_increments = vc["effective_balance"] // np.uint64(increment)
+    brpi = int(hm.get_base_reward_per_increment(state, context))
+    proposer_denominator = (
+        (WEIGHT_DENOMINATOR - PROPOSER_WEIGHT)
+        * WEIGHT_DENOMINATOR
+        // PROPOSER_WEIGHT
+    )
+    # working copies: reads and writes stay here until the single commit
+    cur = cur_col.copy()
+    prev = prev_col.copy()
+
+    def commit() -> None:
+        for arr, orig, lst in (
+            (cur, cur_col, cur_list),
+            (prev, prev_col, prev_list),
+        ):
+            changed = np.nonzero(arr != orig)[0]
+            if changed.size:
+                bulk_store(lst, arr.tolist(), changed)
+                metrics.counter("ops_vector.bulk_store.calls").inc()
+                metrics.counter("ops_vector.bulk_store.elements").inc(
+                    int(changed.size)
+                )
+
+    try:
+        for attestation in attestations:
+            attesting_indices, flag_indices, is_current = prepare(
+                state, attestation, context
+            )
+            k = len(attesting_indices)
+            idx = np.fromiter(attesting_indices, np.int64, k)
+            arr = cur if is_current else prev
+            vals = arr[idx]
+            numerator_increments = 0
+            mask = 0
+            for flag_index in flag_indices:
+                bit = np.uint8(1 << flag_index)
+                newly = (vals & bit) == 0
+                if newly.any():
+                    numerator_increments += PARTICIPATION_FLAG_WEIGHTS[
+                        flag_index
+                    ] * int(base_increments[idx[newly]].sum())
+                mask |= 1 << flag_index
+            if mask and k:
+                arr[idx] = vals | np.uint8(mask)
+            proposer_reward = (
+                numerator_increments * brpi
+            ) // proposer_denominator
+            hm.increase_balance(
+                state,
+                hm.get_beacon_proposer_index(state, context),
+                proposer_reward,
+            )
+    except BaseException:
+        # the sequential loop leaves attestations 0..k-1 applied when
+        # attestation k fails — commit that exact partial state
+        commit()
+        raise
+    commit()
+    metrics.counter("ops_vector.attestations.blocks").inc()
+    metrics.counter("ops_vector.attestations.count").inc(n_atts)
+    return True
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Device kernels (CUDA C++ for Hopper): SHA-256 merkleization, the
 committee shuffle, G1 pubkey-set aggregation, the effective-balance
-hysteresis sweep.
+hysteresis sweep, the altair sweeps (flag deltas, inactivity updates and
+penalties) and the fused altair epoch kernel.
 
 Importing this package imports torch but builds nothing; the pure-host
 layers (ssz/, models/, crypto/) never import it at module level — device
@@ -29,8 +30,12 @@ def install(
 
     * SHA-256 hash levels of at least ssz.hash.DEVICE_MIN_NODES parent
       nodes (merkleization);
-    * the epoch boundary's effective-balance hysteresis sweep of registries
-      of at least ``sweeps_min_n`` validators;
+    * the epoch boundary's registry sweeps of registries of at least
+      ``sweeps_min_n`` validators: for altair states the columnar engine
+      runs inactivity and rewards as one launch of the fused epoch kernel,
+      and the literal stages (engine off) run the flag-delta, inactivity
+      and hysteresis kernels; phase0 takes the literal stages with the
+      hysteresis kernel;
     * whole-list committee shuffling of at least ``shuffle_min_n`` indices;
     * G1 pubkey aggregation (fast_aggregate_verify, batched signature
       sets) of at least ``bls_agg_min_n`` keys in all.

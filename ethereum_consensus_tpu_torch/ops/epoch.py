@@ -1,0 +1,216 @@
+"""The fused altair-family epoch kernel and its plain version.
+
+Reference parity: ethereum_consensus_tpu/models/epoch_vector.py:297
+``fused_epoch_kernel`` (jitted at :188), the one device dispatch of the
+columnar engine's inactivity and rewards stages: the inactivity update,
+three participation-flag delta pairs off masked effective-balance sums,
+the inactivity penalty off the POST-update scores, and the four pairs
+applied in sequence with zero saturation between them, with a census of
+the adds that wrapped. Operation for operation the engine's staged host
+kernels (``models/epoch_vector.py``), so the outputs are identical u64.
+
+Words travel as int64 tensors holding the u64 bit patterns, flags as bool
+tensors and the participation flags as uint8. Two paths with identical
+output on the whole u64 range:
+  - ``fused_epoch_cuda``: the Hopper kernel in ``csrc/fused_epoch.cu``;
+  - ``fused_epoch_plain``: int64 tensor ops, with the unsigned helpers of
+    ``ops/sweeps.py``.
+``fused_epoch`` takes the plain version for CPU tensors only; for CUDA
+tensors it launches the kernel or raises. The reference's mesh-sharded
+twin (its ``psum`` argument) waits for the multi-chip slice.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _kernels
+from .sweeps import _MASK64, _as_int64, _check_columns, _check_cuda, _udiv, _ult, _umin, _usum
+
+__all__ = [
+    "fused_epoch",
+    "fused_epoch_cuda",
+    "fused_epoch_device",
+    "fused_epoch_plain",
+    "launch_count",
+]
+
+# Kernel launches since the count was last set to 0 (``_launch`` adds one
+# per launch, the reduction and the element pass together, and nowhere
+# else).
+launch_count = 0
+
+
+def _scalars(increment: int, brpi: int, active_increments: int, denominator: int,
+             bias: int, recovery_rate: int, weights, weight_denominator: int,
+             leaking: bool, head_flag_index: int, target_flag_index: int) -> tuple:
+    """The kernel's scalar arguments as u64 words, in the launcher's order;
+    raises on a zero divisor or a flag index outside 0..2, which the
+    launcher refuses too."""
+    if len(weights) != 3:
+        raise ValueError(f"the fused epoch kernel needs three weights, got {len(weights)}")
+    words = tuple(int(v) & _MASK64 for v in (
+        increment, brpi, active_increments, denominator, bias, recovery_rate,
+        *weights, weight_denominator,
+    ))
+    increment, _brpi, active_increments, denominator = words[:4]
+    weight_denominator = words[9]
+    divisor = (active_increments * weight_denominator) & _MASK64
+    if 0 in (increment, weight_denominator, divisor, denominator):
+        raise ValueError(
+            "the fused epoch kernel needs a nonzero increment, weight "
+            "denominator, reward divisor and penalty denominator"
+        )
+    if not (0 <= head_flag_index <= 2 and 0 <= target_flag_index <= 2):
+        raise ValueError("flag indices must lie in 0..2")
+    return words + (int(bool(leaking)), int(head_flag_index), int(target_flag_index))
+
+
+def _check_fused_columns(balances, eff, prev_part, slashed, active_prev, eligible,
+                         scores) -> None:
+    _check_columns((balances, eff, scores), (slashed, active_prev, eligible))
+    if (prev_part.dtype != torch.uint8 or prev_part.shape != eff.shape
+            or prev_part.device != eff.device):
+        raise TypeError("prev_part must be an (n,) uint8 column beside the others")
+
+
+def fused_epoch_plain(balances, eff, prev_part, slashed, active_prev, eligible, scores,
+                      increment: int, brpi: int, active_increments: int,
+                      denominator: int, bias: int, recovery_rate: int, weights,
+                      weight_denominator: int, leaking: bool, head_flag_index: int,
+                      target_flag_index: int):
+    """(new_scores, new_balances, wrapped) in plain PyTorch: two (n,) int64
+    word columns and the wrap census as an int."""
+    _check_fused_columns(balances, eff, prev_part, slashed, active_prev, eligible, scores)
+    words = _scalars(increment, brpi, active_increments, denominator, bias,
+                     recovery_rate, weights, weight_denominator, leaking,
+                     head_flag_index, target_flag_index)
+    increment, brpi, active_increments, denominator, bias, recovery = words[:6]
+    weights, weight_denominator = words[6:9], words[9]
+    divisor = (active_increments * weight_denominator) & _MASK64
+    zero = torch.zeros_like(eff)
+    unslashed_all = active_prev & ~slashed
+
+    def flag(index: int) -> torch.Tensor:
+        return unslashed_all & ((prev_part >> index) & 1).to(torch.bool)
+
+    participating = flag(target_flag_index)
+    # process_inactivity_updates (spec order: before the reward deltas)
+    new_scores = torch.where(eligible & participating, scores - _umin(scores, 1), scores)
+    new_scores = torch.where(eligible & ~participating, new_scores + _as_int64(bias), new_scores)
+    if not leaking:
+        new_scores = torch.where(eligible, new_scores - _umin(new_scores, recovery), new_scores)
+
+    base_reward = _udiv(eff, increment) * _as_int64(brpi)
+    pairs = []
+    for index, weight in enumerate(weights):
+        unslashed = flag(index)
+        # get_total_balance floors at one increment
+        flag_sum = _usum(torch.where(unslashed, eff, zero))
+        increments = max(increment, flag_sum) // increment
+        w = _as_int64(weight)
+        if leaking:
+            rewards = zero
+        else:
+            rewards = torch.where(
+                eligible & unslashed,
+                _udiv(base_reward * w * _as_int64(increments), divisor), zero,
+            )
+        if index == head_flag_index:
+            penalties = zero
+        else:
+            penalties = torch.where(
+                eligible & ~unslashed, _udiv(base_reward * w, weight_denominator), zero,
+            )
+        pairs.append((rewards, penalties))
+    # inactivity penalties off the POST-update scores (spec order)
+    missed = eligible & ~participating
+    pairs.append((zero, torch.where(missed, _udiv(eff * new_scores, denominator), zero)))
+
+    # apply in spec sequence with zero saturation BETWEEN pairs, counting
+    # the adds that wrapped
+    wrapped = 0
+    new_balances = balances
+    for rewards, penalties in pairs:
+        raised = new_balances + rewards
+        wrapped += int(_ult(raised, new_balances).sum())
+        new_balances = torch.where(~_ult(raised, penalties), raised - penalties, zero)
+    return new_scores, new_balances, wrapped
+
+
+def fused_epoch_cuda(balances, eff, prev_part, slashed, active_prev, eligible, scores,
+                     increment: int, brpi: int, active_increments: int,
+                     denominator: int, bias: int, recovery_rate: int, weights,
+                     weight_denominator: int, leaking: bool, head_flag_index: int,
+                     target_flag_index: int):
+    """(new_scores, new_balances, wrapped) on the card
+    (csrc/fused_epoch.cu); reading the census waits for the kernel."""
+    columns = (balances, eff, prev_part, slashed, active_prev, eligible, scores)
+    _check_fused_columns(balances, eff, prev_part, slashed, active_prev, eligible, scores)
+    _check_cuda("fused_epoch_cuda", columns)
+    words = _scalars(increment, brpi, active_increments, denominator, bias,
+                     recovery_rate, weights, weight_denominator, leaking,
+                     head_flag_index, target_flag_index)
+    new_scores, new_balances, scratch = _launch(columns, words)
+    return new_scores, new_balances, int(scratch[3])
+
+
+def _launch(columns: tuple, words: tuple):
+    """The launch alone, on inputs ``fused_epoch_cuda`` has checked; returns
+    (new_scores, new_balances, scratch), scratch holding the three flag sums
+    and the wrap census."""
+    global launch_count
+    lib = _kernels.load("fused_epoch")
+    balances = columns[0]
+    new_scores = torch.empty_like(balances)
+    new_balances = torch.empty_like(balances)
+    scratch = torch.empty(4, dtype=torch.int64, device=balances.device)
+    with torch.cuda.device(balances.device):
+        stream = torch.cuda.current_stream(balances.device).cuda_stream
+        rc = lib.fused_epoch_launch(
+            *(t.data_ptr() for t in columns), balances.shape[0], *words,
+            scratch.data_ptr(), new_scores.data_ptr(), new_balances.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"fused epoch kernel launch failed: CUDA error {rc}")
+    launch_count += 1
+    return new_scores, new_balances, scratch
+
+
+def fused_epoch(*args, **kwargs):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    balances = args[0] if args else kwargs["balances"]
+    fn = fused_epoch_plain if balances.device.type == "cpu" else fused_epoch_cuda
+    return fn(*args, **kwargs)
+
+
+def _to(column, dtype, device) -> torch.Tensor:
+    arr = np.array(column, dtype=dtype)  # a writable copy: the columns are read-only views
+    if dtype == np.uint64:
+        arr = arr.view(np.int64)
+    return torch.from_numpy(arr).to(device)
+
+
+def fused_epoch_device(balances, eff, prev_part, slashed, active_prev, eligible, scores,
+                       increment: int, brpi: int, active_increments: int,
+                       denominator: int, bias: int, recovery_rate: int, weights,
+                       weight_denominator: int, leaking: bool, head_flag_index: int,
+                       target_flag_index: int, device="cuda"):
+    """The columnar engine's entry: numpy columns (uint64, uint8 and bool)
+    in, one upload; (new_scores, new_balances) as uint64 arrays and the
+    wrap census as an int out. On ``device`` (the plain version on
+    "cpu")."""
+    tensors = (
+        _to(balances, np.uint64, device), _to(eff, np.uint64, device),
+        _to(prev_part, np.uint8, device), _to(slashed, bool, device),
+        _to(active_prev, bool, device), _to(eligible, bool, device),
+        _to(scores, np.uint64, device),
+    )
+    new_scores, new_balances, wrapped = fused_epoch(
+        *tensors, increment, brpi, active_increments, denominator, bias,
+        recovery_rate, weights, weight_denominator, leaking, head_flag_index,
+        target_flag_index,
+    )
+    return (new_scores.cpu().numpy().view(np.uint64),
+            new_balances.cpu().numpy().view(np.uint64), wrapped)

@@ -1,7 +1,7 @@
 """Fork-polymorphic chain types (the reference's generated src/types/ layer).
 
-The port carries phase0 only: ``FORK_SEQUENCE`` is ``(phase0,)``, and a
-container of a later fork raises ``UnknownForkError``.
+The port carries phase0 and altair: ``FORK_SEQUENCE`` is ``(phase0,
+altair)``, and a container of a later fork raises ``UnknownForkError``.
 
 Reference parity: ethereum-consensus/src/types/ (13,272 LoC generated by
 spec-gen's type_generator.rs): one wrapper per chain object spanning every
@@ -9,7 +9,8 @@ fork, with cross-fork field accessors (types/beacon_state.rs:331-420),
 ``version()``, and serde that tries forks newest→oldest
 (type_generator.rs:760). Nine polymorphic kinds (type_generator.rs Type:22-32);
 the port carries the two that block application needs, without the
-newest-to-oldest codec (one fork has nothing to try).
+newest-to-oldest codec (``wrap`` detects a container's fork from its
+class).
 
 Design: instead of 13k lines of generated match arms, one small wrapper
 class per kind holding ``(fork, data)`` — field access delegates to the
@@ -22,7 +23,7 @@ from __future__ import annotations
 
 from .error import UnknownForkError
 from .fork import Fork
-from .models import phase0
+from .models import altair, phase0
 
 __all__ = [
     "FORK_SEQUENCE",
@@ -32,9 +33,9 @@ __all__ = [
     "SignedBeaconBlock",
 ]
 
-FORK_SEQUENCE = (Fork.PHASE0,)
+FORK_SEQUENCE = (Fork.PHASE0, Fork.ALTAIR)
 
-FORK_MODULES = {Fork.PHASE0: phase0}
+FORK_MODULES = {Fork.PHASE0: phase0, Fork.ALTAIR: altair}
 
 
 def fork_module(fork: Fork):

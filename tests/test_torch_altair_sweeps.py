@@ -1,0 +1,514 @@
+"""The port's altair sweeps and fused epoch kernel against the reference.
+
+The plain versions of the three altair sweep kernels (flag deltas,
+inactivity updates, inactivity penalties) are held against the reference's
+device programs run on the CPU (``ethereum_consensus_tpu.ops.sweeps``), on
+seeded numpy columns whose products reach [2^63, 2^64) and wrap past 2^64;
+``isqrt_u64`` against the reference's ``_isqrt_u64`` on its edge cases; the
+fused epoch kernel's plain version against the reference's
+``fused_epoch_kernel`` under numpy and its jitted twin. Exact: the results
+are integers. The kernels' shared header ``csrc/altair_core.h`` is built
+here with g++ and held against the same reference outputs; the kernels
+themselves run only where a CUDA card is present.
+"""
+
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ethereum_consensus_tpu.config import Context as RefContext
+from ethereum_consensus_tpu.models import epoch_vector as ref_epoch_vector
+from ethereum_consensus_tpu.ops import sweeps as ref_sweeps
+from ethereum_consensus_tpu_torch.config import Context as PortContext
+from ethereum_consensus_tpu_torch.ops import epoch as port_epoch
+from ethereum_consensus_tpu_torch.ops import sweeps as port_sweeps
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
+
+CSRC = Path(port_sweeps.__file__).resolve().parents[1] / "csrc"
+SIZES = [0, 1, 255, 257, 4099]
+INC = 10**9
+TOP = 1 << 64
+WEIGHTS = (14, 26, 14)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _packed(n: int, seed: int, wide: bool) -> dict:
+    """``pack_registry``-shaped columns: mixed flags, slashed and
+    ineligible lanes, inactivity scores around zero and near 2^64, and
+    (``wide``) effective balances across the whole u64 range, so that the
+    flag-delta products pass 2^63 and wrap past 2^64."""
+    rng = np.random.default_rng(seed)
+    eff = rng.integers(0, 33, n, dtype=np.uint64) * np.uint64(INC)
+    if wide:
+        words = rng.integers(0, TOP, n, dtype=np.uint64, endpoint=False)
+        eff = np.where(rng.integers(0, 3, n) == 0, words, eff)
+    scores = rng.integers(0, 64, n, dtype=np.uint64)
+    near_top = np.uint64(TOP - 1) - rng.integers(0, 8, n, dtype=np.uint64)
+    scores = np.where(rng.integers(0, 16, n) == 0, near_top, scores)
+    return {
+        "effective_balance": eff,
+        "inactivity_scores": scores,
+        "previous_participation": rng.integers(0, 8, n, dtype=np.uint8),
+        "slashed": rng.random(n) < 0.1,
+        "active_previous": rng.random(n) < 0.9,
+        "eligible": rng.random(n) < 0.9,
+    }
+
+
+def _u64(values) -> np.ndarray:
+    return np.asarray(values, dtype=np.uint64)
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("leaking", [False, True])
+def test_flag_deltas_plain_matches_reference(n, leaking):
+    for flag_index in range(3):
+        packed = _packed(n, seed=n * 7 + flag_index, wide=True)
+        # a small total keeps the base reward per increment large: the
+        # reward products of the wide lanes pass 2^64
+        total = 64 * INC + 12345
+        want = ref_sweeps.flag_deltas_device(packed, flag_index, total, RefContext.for_mainnet(),
+                                             leaking)
+        got = port_sweeps.flag_deltas_device(packed, flag_index, total, PortContext.for_mainnet(),
+                                             leaking, device="cpu")
+        for g, w in zip(got, want):
+            assert g.dtype == np.uint64 and np.array_equal(g, _u64(w)), (n, flag_index, leaking)
+        if n >= 257 and not leaking and flag_index != 2:
+            assert got[0].any() and got[1].any()
+
+
+def test_flag_deltas_products_wrap_like_reference():
+    """The plain version on tensors, with products at and above 2^63 and
+    past 2^64, against the reference's XLA program."""
+    rng = np.random.default_rng(3)
+    n = 4099
+    eff = rng.integers(1 << 62, TOP, n, dtype=np.uint64, endpoint=False)
+    part = rng.random(n) < 0.5
+    elig = rng.random(n) < 0.9
+    total = INC
+    got = port_sweeps.flag_deltas_plain(
+        torch.from_numpy(eff.view(np.int64)), torch.from_numpy(part), torch.from_numpy(elig),
+        total, 26, INC, 64, 64, False, False,
+    )
+    want = ref_sweeps._flag_deltas(
+        jnp.asarray(eff), jnp.asarray(part), jnp.asarray(elig), jnp.uint64(total),
+        jnp.uint64(26), flag_index=1, increment=INC, base_reward_factor=64,
+        weight_denominator=64, is_leaking=False,
+    )
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy().view(np.uint64), _u64(w))
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("leaking", [False, True])
+def test_inactivity_updates_plain_matches_reference(n, leaking):
+    packed = _packed(n, seed=100 + n, wide=False)
+    want = ref_sweeps.inactivity_updates_device(packed, RefContext.for_mainnet(), leaking)
+    got = port_sweeps.inactivity_updates_device(packed, PortContext.for_mainnet(), leaking,
+                                                device="cpu")
+    assert got.dtype == np.uint64 and np.array_equal(got, _u64(want))
+    if n >= 257:
+        assert (got != packed["inactivity_scores"]).any()
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_inactivity_penalties_plain_matches_reference(n):
+    """Products below 2^64 (some at or above 2^63) through the kernel's
+    plain version, and, with one score past the guard, through the exact
+    host path both packages keep."""
+    ctx_ref, ctx_port = RefContext.for_mainnet(), PortContext.for_mainnet()
+    quotient = int(ctx_ref.INACTIVITY_PENALTY_QUOTIENT_ALTAIR)
+    packed = _packed(n, seed=200 + n, wide=False)
+    rng = np.random.default_rng(n)
+    packed["effective_balance"] = rng.integers(0, 1 << 32, n, dtype=np.uint64)
+    packed["inactivity_scores"] = rng.integers(0, 1 << 32, n, dtype=np.uint64)
+    if n:
+        packed["effective_balance"][0] = packed["inactivity_scores"][0] = np.uint64((1 << 32) - 1)
+    want = ref_sweeps.inactivity_penalties_device(packed, ctx_ref, quotient)
+    got = port_sweeps.inactivity_penalties_device(packed, ctx_port, quotient, device="cpu")
+    assert got.dtype == np.uint64 and np.array_equal(got, _u64(want))
+    if n:
+        packed["inactivity_scores"][-1] = np.uint64(1 << 40)  # max product past 2^64
+        want = ref_sweeps.inactivity_penalties_device(packed, ctx_ref, quotient)
+        got = port_sweeps.inactivity_penalties_device(packed, ctx_port, quotient, device="cpu")
+        assert np.array_equal(got, _u64(want))
+
+
+def test_inactivity_penalties_products_wrap_like_reference():
+    rng = np.random.default_rng(9)
+    n = 4099
+    eff = rng.integers(0, TOP, n, dtype=np.uint64, endpoint=False)
+    scores = rng.integers(0, TOP, n, dtype=np.uint64, endpoint=False)
+    not_target = rng.random(n) < 0.8
+    got = port_sweeps.inactivity_penalties_plain(
+        torch.from_numpy(eff.view(np.int64)), torch.from_numpy(scores.view(np.int64)),
+        torch.from_numpy(not_target), 4 * 50331648,
+    )
+    want = ref_sweeps._inactivity_penalties(
+        jnp.asarray(eff), jnp.asarray(scores), jnp.asarray(not_target), bias=4,
+        quotient=50331648,
+    )
+    assert np.array_equal(got.numpy().view(np.uint64), _u64(want))
+
+
+def _isqrt_cases() -> list:
+    cases = {0, 1, 2, 3, TOP - 1, TOP - 2, (1 << 63) - 1, 1 << 63}
+    for k in range(64):
+        cases.add(1 << k)
+        cases.add((1 << k) - 1)
+    for r in (2, 3, 1000, 31622, 10**6, (1 << 32) - 1, (1 << 31) + 7):
+        for d in (-1, 0, 1):
+            if 0 <= r * r + d < TOP:
+                cases.add(r * r + d)
+    for d in range(1, 40):
+        cases.add(TOP - d)
+        cases.add(((1 << 32) - 1) ** 2 + d)
+    return sorted(cases)
+
+
+def test_isqrt_matches_reference():
+    cases = _isqrt_cases()
+    want = _u64(ref_sweeps._isqrt_u64(jnp.asarray(_u64(cases))))
+    got = [port_sweeps.isqrt_u64(x) for x in cases]
+    assert got == [int(w) for w in want]
+
+
+def test_isqrt_follows_the_reference_near_two_to_the_64():
+    """The reference's last clamp squares g + 1 in u64, which wraps: at
+    x = 2^64 - 1 it returns 2^32, one above the exact root. The port keeps
+    that."""
+    assert port_sweeps.isqrt_u64(TOP - 1) == 1 << 32
+    assert int(ref_sweeps._isqrt_u64(jnp.uint64(TOP - 1))) == 1 << 32
+
+
+def _fused_inputs(n: int, seed: int, wrap: bool = False) -> dict:
+    """The reference's fused-kernel inputs (tests/test_epoch_vector.py:443),
+    with low balances (a penalty that saturates before a later reward) and,
+    for ``wrap``, balances near 2^64 whose adds wrap."""
+    rng = np.random.default_rng(seed)
+    balances = rng.integers(0, 1 << 45, n, dtype=np.uint64)
+    balances = np.where(rng.integers(0, 8, n) == 0, rng.integers(0, 1 << 22, n,
+                                                                 dtype=np.uint64), balances)
+    if wrap:
+        balances = np.where(rng.integers(0, 8, n) == 0,
+                            np.uint64(TOP - 1) - rng.integers(0, 1 << 10, n, dtype=np.uint64),
+                            balances)
+    return dict(
+        balances=balances,
+        eff=rng.integers(1 << 30, 1 << 35, n, dtype=np.uint64),
+        prev_part=rng.integers(0, 8, n, dtype=np.uint8),
+        slashed=rng.random(n) < 0.05,
+        active_prev=rng.random(n) < 0.95,
+        eligible=rng.random(n) < 0.96,
+        scores=rng.integers(0, 1 << 20, n, dtype=np.uint64),
+    )
+
+
+def _fused_scalars(k: dict) -> tuple:
+    increment, brpi = INC, 907
+    active_increments = max(1, int(k["eff"].sum()) // increment)
+    denominator = 4 * (3 * 10**7)
+    return increment, brpi, active_increments, denominator
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("leaking", [False, True])
+@pytest.mark.parametrize("wrap", [False, True])
+def test_fused_plain_matches_reference(n, leaking, wrap):
+    k = _fused_inputs(n, seed=13 + n, wrap=wrap)
+    increment, brpi, active_increments, denominator = _fused_scalars(k)
+    columns = [k[c] for c in ("balances", "eff", "prev_part", "slashed", "active_prev",
+                              "eligible", "scores")]
+    want_scores, want_balances, want_wrapped = ref_epoch_vector.fused_epoch_kernel(
+        np, *columns, np.uint64(increment), np.uint64(brpi), np.uint64(active_increments),
+        np.uint64(denominator), 4, 16, WEIGHTS, 64, leaking, 2, 1,
+    )
+    got_scores, got_balances, got_wrapped = port_epoch.fused_epoch_device(
+        *columns, increment, brpi, active_increments, denominator, 4, 16, WEIGHTS, 64,
+        leaking, 2, 1, device="cpu",
+    )
+    assert np.array_equal(got_scores, want_scores)
+    assert np.array_equal(got_balances, want_balances)
+    assert got_wrapped == int(want_wrapped)
+    if wrap and n >= 257 and not leaking:  # a leak pays no rewards, so nothing wraps
+        assert got_wrapped > 0
+    if n == 4099 and not wrap:
+        jitted = ref_epoch_vector.jitted_kernels()["fused_epoch"]
+        dev_scores, dev_balances, dev_wrapped = jitted(
+            *(jnp.asarray(c) for c in columns), jnp.uint64(increment), jnp.uint64(brpi),
+            jnp.uint64(active_increments), jnp.uint64(denominator), 4, 16, WEIGHTS, 64,
+            leaking, 2, 1,
+        )
+        assert np.array_equal(got_scores, np.asarray(dev_scores))
+        assert np.array_equal(got_balances, np.asarray(dev_balances))
+        assert got_wrapped == int(dev_wrapped) == 0
+
+
+@pytest.mark.parametrize("leaking", [False, True])
+def test_staged_host_kernels_compose_to_the_fused_kernel(leaking):
+    """The engine's staged numpy kernels (its host route), composed as the
+    reference's test composes them, equal the fused kernel's plain version
+    (its device route)."""
+    from ethereum_consensus_tpu_torch.models import epoch_vector as port_epoch_vector
+
+    k = _fused_inputs(4099, seed=17)
+    increment, brpi, active_increments, denominator = _fused_scalars(k)
+    n = k["balances"].shape[0]
+    target = ((k["prev_part"] >> np.uint8(1)) & np.uint8(1)).astype(bool)
+    participating = k["active_prev"] & ~k["slashed"] & target
+    scores = port_epoch_vector.inactivity_scores_kernel(
+        np, k["scores"], k["eligible"], participating, 4, 16, leaking)
+    base_reward = (k["eff"] // np.uint64(increment)) * np.uint64(brpi)
+    pairs = []
+    for flag_index, weight in enumerate(WEIGHTS):
+        bit = ((k["prev_part"] >> np.uint8(flag_index)) & np.uint8(1)).astype(bool)
+        unslashed = k["active_prev"] & ~k["slashed"] & bit
+        increments = max(increment, int(k["eff"][unslashed].sum())) // increment
+        pairs.append(port_epoch_vector.flag_deltas_kernel(
+            np, base_reward, k["eligible"], unslashed, weight, increments, active_increments,
+            64, leaking, flag_index == 2))
+    missed = k["eligible"] & ~participating
+    pairs.append((np.zeros(n, dtype=np.uint64),
+                  np.where(missed, k["eff"] * scores // np.uint64(denominator), np.uint64(0))))
+    balances = port_epoch_vector.apply_delta_pairs_kernel(np, k["balances"], pairs)
+    fused = port_epoch.fused_epoch_device(
+        *(k[c] for c in ("balances", "eff", "prev_part", "slashed", "active_prev", "eligible",
+                         "scores")),
+        increment, brpi, active_increments, denominator, 4, 16, WEIGHTS, 64, leaking, 2, 1,
+        device="cpu",
+    )
+    assert np.array_equal(fused[0], scores) and np.array_equal(fused[1], balances)
+
+
+def test_wrappers_refuse_bad_inputs():
+    words = torch.zeros(8, dtype=torch.int64)
+    flags = torch.zeros(8, dtype=torch.bool)
+    with pytest.raises(TypeError):
+        port_sweeps.inactivity_updates(words, flags.to(torch.int64), flags, 4, 16, False)
+    with pytest.raises(ValueError):
+        port_sweeps.inactivity_penalties(words, words[:5], flags, 4)
+    with pytest.raises(ValueError, match="denominator"):
+        port_sweeps.inactivity_penalties(words, words, flags, 0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        port_sweeps.flag_deltas_cuda(words, flags, flags, 32 * INC, 26, INC, 64, 64, False, False)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        port_sweeps.inactivity_updates_cuda(words, flags, flags, 4, 16, False)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        port_sweeps.inactivity_penalties_cuda(words, words, flags, 4)
+    part = torch.zeros(8, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        port_epoch.fused_epoch_cuda(words, words, part, flags, flags, flags, words,
+                                    INC, 907, 8, 4 * 3 * 10**7, 4, 16, WEIGHTS, 64, False, 2, 1)
+    with pytest.raises(ValueError, match="nonzero"):
+        port_epoch.fused_epoch(words, words, part, flags, flags, flags, words,
+                               INC, 907, 0, 4, 4, 16, WEIGHTS, 64, False, 2, 1)
+
+
+_HOST_SHIM = r"""
+#include "altair_core.h"
+// The kernels' per-validator arithmetic over whole columns, on the host.
+extern "C" uint64_t isqrt_host(uint64_t x) { return altair_core::isqrt_u64(x); }
+
+extern "C" void flag_deltas_host(const uint64_t* eff, const bool* part, const bool* elig,
+                                 int64_t n, uint64_t total_active, uint64_t weight,
+                                 uint64_t increment, uint64_t factor, uint64_t wd,
+                                 int leaking, int is_head, uint64_t* rewards,
+                                 uint64_t* penalties) {
+  uint64_t sum = 0;
+  for (int64_t i = 0; i < n; ++i) sum += part[i] ? eff[i] : 0;
+  const altair_core::FlagScalars s =
+      altair_core::flag_scalars(total_active, sum, increment, factor, wd);
+  for (int64_t i = 0; i < n; ++i) {
+    altair_core::flag_delta(eff[i], part[i], elig[i], s, weight, increment, wd,
+                            leaking != 0, is_head != 0, &rewards[i], &penalties[i]);
+  }
+}
+
+extern "C" void inactivity_updates_host(const uint64_t* scores, const bool* part,
+                                        const bool* elig, int64_t n, uint64_t bias,
+                                        uint64_t recovery, int leaking, uint64_t* out) {
+  for (int64_t i = 0; i < n; ++i) {
+    out[i] = altair_core::inactivity_update(scores[i], part[i], elig[i], bias, recovery,
+                                            leaking != 0);
+  }
+}
+
+extern "C" void inactivity_penalties_host(const uint64_t* eff, const uint64_t* scores,
+                                          const bool* not_target, int64_t n,
+                                          uint64_t denominator, uint64_t* out) {
+  for (int64_t i = 0; i < n; ++i) {
+    out[i] = altair_core::inactivity_penalty(eff[i], scores[i], not_target[i], denominator);
+  }
+}
+
+extern "C" uint64_t fused_host(const uint64_t* balances, const uint64_t* eff,
+                               const uint8_t* part, const bool* slashed, const bool* active,
+                               const bool* elig, const uint64_t* scores, int64_t n,
+                               uint64_t increment, uint64_t brpi, uint64_t active_increments,
+                               uint64_t denominator, int leaking, uint64_t* out_scores,
+                               uint64_t* out_balances) {
+  altair_core::FusedScalars s;
+  s.increment = increment;
+  s.brpi = brpi;
+  s.divisor = active_increments * 64;
+  s.denominator = denominator;
+  s.bias = 4;
+  s.recovery_rate = 16;
+  s.weights[0] = 14;
+  s.weights[1] = 26;
+  s.weights[2] = 14;
+  s.weight_denominator = 64;
+  s.leaking = leaking != 0;
+  s.head_flag_index = 2;
+  s.target_flag_index = 1;
+  uint64_t sums[3] = {0, 0, 0};
+  for (int64_t i = 0; i < n; ++i) {
+    if (!active[i] || slashed[i]) continue;
+    for (int f = 0; f < 3; ++f) sums[f] += ((part[i] >> f) & 1) ? eff[i] : 0;
+  }
+  altair_core::fused_flag_increments(&s, sums);
+  uint64_t wrapped = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    wrapped += altair_core::fused_epoch_lane(s, balances[i], eff[i], part[i], slashed[i],
+                                             active[i], elig[i], scores[i], &out_scores[i],
+                                             &out_balances[i]);
+  }
+  return wrapped;
+}
+"""
+
+_P, _I64, _U64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64
+
+
+@pytest.fixture(scope="module")
+def core(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    tmp = tmp_path_factory.mktemp("altair_core")
+    shim = tmp / "shim.cpp"
+    shim.write_text(_HOST_SHIM)
+    lib_path = tmp / "libaltair_core.so"
+    subprocess.run(
+        ["g++", "-O2", "-std=c++17", "-Wall", "-Werror", "-shared", "-fPIC",
+         f"-I{CSRC}", str(shim), "-o", str(lib_path)],
+        check=True,
+    )
+    lib = ctypes.CDLL(str(lib_path))
+    lib.isqrt_host.argtypes, lib.isqrt_host.restype = [_U64], _U64
+    lib.flag_deltas_host.argtypes = [_P, _P, _P, _I64] + [_U64] * 5 + [ctypes.c_int] * 2 + [_P, _P]
+    lib.flag_deltas_host.restype = None
+    lib.inactivity_updates_host.argtypes = [_P, _P, _P, _I64, _U64, _U64, ctypes.c_int, _P]
+    lib.inactivity_updates_host.restype = None
+    lib.inactivity_penalties_host.argtypes = [_P, _P, _P, _I64, _U64, _P]
+    lib.inactivity_penalties_host.restype = None
+    lib.fused_host.argtypes = [_P] * 7 + [_I64] + [_U64] * 4 + [ctypes.c_int, _P, _P]
+    lib.fused_host.restype = _U64
+    return lib
+
+
+def _ptr(arr: np.ndarray) -> int:
+    return arr.ctypes.data
+
+
+def test_header_isqrt_matches_reference(core):
+    cases = _isqrt_cases()
+    want = _u64(ref_sweeps._isqrt_u64(jnp.asarray(_u64(cases))))
+    assert [core.isqrt_host(x) for x in cases] == [int(w) for w in want]
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_header_sweeps_match_reference(core, n):
+    ctx = RefContext.for_mainnet()
+    for leaking in (False, True):
+        packed = _packed(n, seed=300 + n, wide=True)
+        eff = np.ascontiguousarray(packed["effective_balance"])
+        elig = np.ascontiguousarray(packed["eligible"])
+        for flag_index in range(3):
+            part = np.ascontiguousarray(port_sweeps._participating(packed, flag_index))
+            rewards, penalties = np.zeros(n, np.uint64), np.zeros(n, np.uint64)
+            total = 64 * INC + 12345
+            core.flag_deltas_host(_ptr(eff), _ptr(part), _ptr(elig), n, total,
+                                  WEIGHTS[flag_index], INC, 64, 64, int(leaking),
+                                  int(flag_index == 2), _ptr(rewards), _ptr(penalties))
+            want = ref_sweeps.flag_deltas_device(packed, flag_index, total, ctx, leaking)
+            assert np.array_equal(rewards, _u64(want[0])) and np.array_equal(penalties,
+                                                                             _u64(want[1]))
+        part = np.ascontiguousarray(port_sweeps._participating(packed, 1))
+        scores = np.ascontiguousarray(packed["inactivity_scores"])
+        out = np.zeros(n, np.uint64)
+        core.inactivity_updates_host(_ptr(scores), _ptr(part), _ptr(elig), n, 4, 16,
+                                     int(leaking), _ptr(out))
+        assert np.array_equal(out, _u64(ref_sweeps.inactivity_updates_device(packed, ctx,
+                                                                             leaking)))
+    rng = np.random.default_rng(n)
+    eff = rng.integers(0, TOP, n, dtype=np.uint64, endpoint=False)
+    scores = rng.integers(0, TOP, n, dtype=np.uint64, endpoint=False)
+    not_target = rng.random(n) < 0.8
+    out = np.zeros(n, np.uint64)
+    core.inactivity_penalties_host(_ptr(eff), _ptr(scores), _ptr(not_target), n,
+                                   4 * 50331648, _ptr(out))
+    want = ref_sweeps._inactivity_penalties(jnp.asarray(eff), jnp.asarray(scores),
+                                            jnp.asarray(not_target), bias=4, quotient=50331648)
+    assert np.array_equal(out, _u64(want))
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("wrap", [False, True])
+def test_header_fused_matches_reference(core, n, wrap):
+    for leaking in (False, True):
+        k = _fused_inputs(n, seed=500 + n, wrap=wrap)
+        increment, brpi, active_increments, denominator = _fused_scalars(k)
+        columns = [np.ascontiguousarray(k[c]) for c in ("balances", "eff", "prev_part",
+                                                         "slashed", "active_prev",
+                                                         "eligible", "scores")]
+        out_scores, out_balances = np.zeros(n, np.uint64), np.zeros(n, np.uint64)
+        wrapped = core.fused_host(*(_ptr(c) for c in columns), n, increment, brpi,
+                                  active_increments, denominator, int(leaking),
+                                  _ptr(out_scores), _ptr(out_balances))
+        want = ref_epoch_vector.fused_epoch_kernel(
+            np, *columns, np.uint64(increment), np.uint64(brpi),
+            np.uint64(active_increments), np.uint64(denominator), 4, 16, WEIGHTS, 64,
+            leaking, 2, 1,
+        )
+        assert np.array_equal(out_scores, want[0]) and np.array_equal(out_balances, want[1])
+        assert wrapped == int(want[2])
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 1 << 17])
+def test_kernels_match_plain_on_card(cuda, n):
+    packed = _packed(n, seed=n, wide=True)
+    eff = torch.from_numpy(packed["effective_balance"].view(np.int64))
+    scores = torch.from_numpy(packed["inactivity_scores"].view(np.int64))
+    part = torch.from_numpy(port_sweeps._participating(packed, 1))
+    elig = torch.from_numpy(packed["eligible"])
+    args = (64 * INC + 12345, 26, INC, 64, 64, False, False)
+    for got, want in zip(port_sweeps.flag_deltas(eff.to(cuda), part.to(cuda), elig.to(cuda),
+                                                 *args),
+                         port_sweeps.flag_deltas_plain(eff, part, elig, *args)):
+        assert torch.equal(got.cpu(), want)
+    got = port_sweeps.inactivity_updates(scores.to(cuda), part.to(cuda), elig.to(cuda), 4, 16,
+                                         False)
+    assert torch.equal(got.cpu(), port_sweeps.inactivity_updates_plain(scores, part, elig, 4,
+                                                                       16, False))
+    got = port_sweeps.inactivity_penalties(eff.to(cuda), scores.to(cuda), elig.to(cuda), 4 * 7)
+    assert torch.equal(got.cpu(), port_sweeps.inactivity_penalties_plain(eff, scores, elig, 4 * 7))
+    k = _fused_inputs(n, seed=n, wrap=True)
+    scalars = (*_fused_scalars(k), 4, 16, WEIGHTS, 64, False, 2, 1)
+    columns = [k[c] for c in ("balances", "eff", "prev_part", "slashed", "active_prev",
+                              "eligible", "scores")]
+    on_card = port_epoch.fused_epoch_device(*columns, *scalars, device="cuda")
+    plain = port_epoch.fused_epoch_device(*columns, *scalars, device="cpu")
+    assert all(np.array_equal(a, b) for a, b in zip(on_card[:2], plain[:2]))
+    assert on_card[2] == plain[2]
