@@ -68,6 +68,26 @@ Phases, each of which exits non-zero when it fails:
                 effective balances changed, and the block with its
                 sync-aggregate signature replaced rejected alike on the host
                 and device paths.
+ 14. pairing  — the four batched-pairing kernels (G1 blinder
+                multiplication with the affine conversion, G2 blinder
+                multiplication with the sum, the Miller loop, the Fq12
+                product) against their plain versions on the card,
+                bit-exact, for n in {1, 2, 3, 64, 528} on a seeded batch of
+                signed sets; the Miller values of every lane against the
+                native miller_loop_raw; the 528-set verdict against the native
+                batch verification, a tampered set rejected by both;
+                CUDA-event times at 528 lanes.
+ 15. window   — eight signed blocks at slots 2..9 on the registry state
+                (each with the 64 full aggregates of one slot of epoch 0;
+                those 262,144 attesters' keys made real) applied through
+                Executor.apply_block_with_validation under defer_flushes,
+                then their 528 sets verified by one verify_signature_sets
+                call on the host route and after ops.install(device="cuda")
+                (the device pairing from 512 sets on): every verdict true
+                on both, the same blame for a copy with one aggregate's
+                signature replaced by its neighbour's, and B6 and each B7
+                kernel launched on the device route (a B7 count is one per
+                grid launch, the folds' further launches included).
 Then the run's wall time, one JSON line per kernel (``{"kernels": [...]}``)
 and, last, the ``{"ok": true, "device": ...}`` line.
 
@@ -244,7 +264,7 @@ def phase_build() -> dict:
     print(f"build: nvcc {seconds:.3f} s; with the native host libraries {native_s:.3f} s")
     for name in _kernels._LIBRARIES:
         for line in _kernels.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(word in line for word in ("entry function", "registers", "spill", "smem")):
                 print(f"  ptxas {name}: {line.strip()}")
     if not all(host_ok):
         sys.exit("chip_smoke: the native host libraries need g++")
@@ -1154,20 +1174,21 @@ def phase_epoch(registry: dict) -> dict:
 
 def _zero_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    from ethereum_consensus_tpu_torch.ops import epoch, g1, sha256, shuffle, sweeps
+    from ethereum_consensus_tpu_torch.ops import epoch, g1, pairing, sha256, shuffle, sweeps
 
     sha256.launch_count = shuffle.launch_count = g1.launch_count = epoch.launch_count = 0
-    for name in sweeps.launch_counts:
-        sweeps.launch_counts[name] = 0
+    for counts in (sweeps.launch_counts, pairing.launch_counts):
+        for name in counts:
+            counts[name] = 0
 
 
 def _launch_counts() -> dict:
     """Every kernel's launches since ``_zero_launch_counts``."""
-    from ethereum_consensus_tpu_torch.ops import epoch, g1, sha256, shuffle, sweeps
+    from ethereum_consensus_tpu_torch.ops import epoch, g1, pairing, sha256, shuffle, sweeps
 
     return {"sha256_64b": sha256.launch_count, "shuffle": shuffle.launch_count,
             "g1_sum_sets": g1.launch_count, "fused_epoch": epoch.launch_count,
-            **sweeps.launch_counts}
+            **sweeps.launch_counts, **pairing.launch_counts}
 
 
 # --- the altair sweeps and the fused epoch kernel -------------------------
@@ -1847,6 +1868,450 @@ def phase_altair(registry: dict) -> dict:
             "root": root.hex(), "sha256": digest}
 
 
+# --- the batched pairing (B7) and the verification window --------------------
+
+# Lane counts of the pairing phase's checks; the last is the window's 528
+# sets (8 blocks of 64 aggregates, a proposer and a randao set).
+PAIRING_CHECK_NS = (1, 2, 3, 64, 528)
+PAIRING_PLAIN_MILLER_LANES = 64
+PAIRING_TAMPERED_SET = 5
+# Multiply-adds of the least work of each B7 function, whatever formulas the
+# kernels use. Over Fp2 a product takes 3 Fp multiplications (Karatsuba), a
+# square 2 (complex squaring) and a product by an Fp scalar 2. G1: doubling
+# dbl-2009-l (2 multiplications, 5 squarings), and the affine base added by
+# the mixed addition (G1_MIXED_ADD_MADS). G2, over Fp2: doubling 2 products
+# and 5 squares, the affine base added by the mixed addition (7 and 4: it
+# gives the coordinates of the reference's general formula at Z2 = 1), two
+# lanes' sums by add-2007-bl (11 and 5, the same coordinates as the
+# reference's 12 and 4). Fq12: Karatsuba Fq6 of 6 Fp2 products, so a
+# product 18, a squaring 12 (two Fq6 products) and the sparse line product
+# 13 (over Fp4 = Fp2[w^3] the line is (c00 + c11 w^3) + c12 w^3 w^2).
+# The Miller steps keep the native library's line scaling, which fixes each
+# Miller value: the doubling step makes 6 Fp2 products, 6 squares and 2
+# scalar products, the addition step 10, 4 and 2, each then a line product.
+FP2_MUL_MADS = 3 * FP_MUL_MADS
+FP2_SQR_MADS = FP2_SCALAR_MADS = 2 * FP_MUL_MADS
+G1_DBL_MADS = 2 * FP_MUL_MADS + 5 * FP_SQR_MADS
+G2_DBL_MADS = 2 * FP2_MUL_MADS + 5 * FP2_SQR_MADS
+G2_MIXED_ADD_MADS = 7 * FP2_MUL_MADS + 4 * FP2_SQR_MADS
+G2_ADD_MADS = 11 * FP2_MUL_MADS + 5 * FP2_SQR_MADS
+FP12_MUL_MADS, FP12_SQR_MADS, FP12_LINE_MADS = (k * FP2_MUL_MADS for k in (18, 12, 13))
+MILLER_DBL_MADS = 6 * FP2_MUL_MADS + 6 * FP2_SQR_MADS + 2 * FP2_SCALAR_MADS + FP12_LINE_MADS
+MILLER_ADD_MADS = 10 * FP2_MUL_MADS + 4 * FP2_SQR_MADS + 2 * FP2_SCALAR_MADS + FP12_LINE_MADS
+WINDOW_BLOCKS = 8  # the chain pipeline's default window
+WINDOW_FIRST_SLOT = 2
+# the aggregate of block 3's attestation 17 gets its neighbour's signature
+WINDOW_TAMPERED_BLOCK, WINDOW_TAMPERED_ATTESTATION = 3, 17
+
+
+def _scalar_mul_mads(scalars: list, dbl: int, add: int) -> int:
+    """Multiply-adds of double-and-add over these scalars: from the top bit
+    on, a doubling per lower bit and an addition per lower set bit (the
+    steps before the top bit work on infinity and cost nothing)."""
+    return sum((s.bit_length() - 1) * dbl + (bin(s).count("1") - 1) * add
+               for s in scalars if s)
+
+
+def _affine_mads() -> int:
+    """The affine conversion of one lane: a^(p - 2) from its top bit (a
+    squaring per lower bit, a product per lower set bit), then z^-2 (a
+    squaring) and z^-3, x z^-2, y z^-3 (3 products)."""
+    from ethereum_consensus_tpu_torch.ops.fq import P_INT
+
+    e = P_INT - 2
+    return ((e.bit_length() - 1) * FP_SQR_MADS + (bin(e).count("1") - 1) * FP_MUL_MADS
+            + FP_SQR_MADS + 3 * FP_MUL_MADS)
+
+
+def _miller_mads() -> int:
+    from ethereum_consensus_tpu_torch.ops.pairing import BLS_X_ABS
+
+    below_top = BLS_X_ABS.bit_length() - 1
+    return (below_top * (FP12_SQR_MADS + MILLER_DBL_MADS)
+            + (bin(BLS_X_ABS).count("1") - 1) * MILLER_ADD_MADS)
+
+
+def g1_mul_affine_bound_ms(scalars: list) -> tuple[float, str]:
+    mads = (_scalar_mul_mads(scalars, G1_DBL_MADS, G1_MIXED_ADD_MADS)
+            + len(scalars) * _affine_mads())
+    return _bound(mads, len(scalars) * (96 + 16 + 96))
+
+
+def g2_mul_sum_bound_ms(scalars: list) -> tuple[float, str]:
+    live = sum(1 for s in scalars if s)
+    mads = (_scalar_mul_mads(scalars, G2_DBL_MADS, G2_MIXED_ADD_MADS)
+            + max(live - 1, 0) * G2_ADD_MADS)
+    return _bound(mads, len(scalars) * (192 + 16) + 288)
+
+
+def miller_loop_bound_ms(n: int) -> tuple[float, str]:
+    return _bound(n * _miller_mads(), n * (96 + 192 + 576))
+
+
+def fp12_product_bound_ms(n: int) -> tuple[float, str]:
+    return _bound((n - 1) * FP12_MUL_MADS, 576 * (n + 1))
+
+
+def _timed_once(fn) -> tuple:
+    """(result, CUDA-event milliseconds) of one call of ``fn``."""
+    box: list = []
+    ms = _cuda_ms(lambda: box.append(fn()), reps=1, warmup=0)
+    return box[0], ms
+
+
+def _pairing_batch(n: int, seed: int) -> dict:
+    """n signed sets of one key each, from a seed: raw affine keys, message
+    points and signatures, the compressed signatures and the blinders."""
+    from ethereum_consensus_tpu_torch.crypto import bls
+    from ethereum_consensus_tpu_torch.crypto.fields import R
+    from ethereum_consensus_tpu_torch.crypto.hash_to_curve import ETH_DST
+    from ethereum_consensus_tpu_torch.native import bls as native_bls
+
+    rng = np.random.default_rng(seed)
+    out = {"pk": [], "h": [], "sig": [], "sig96": [], "msg": []}
+    for _ in range(n):
+        sk = bls.SecretKey(int.from_bytes(rng.bytes(32), "big") % (R - 1) + 1)
+        msg = rng.bytes(32)
+        sig96 = sk.sign(msg).to_bytes()
+        out["pk"].append(sk.public_key().raw_uncompressed())
+        out["sig"].append(native_bls.g2_decompress(sig96, True)[1])
+        out["h"].append(native_bls.g2_decompress(
+            native_bls.hash_to_g2_compressed(msg, ETH_DST), False)[1])
+        out["sig96"].append(sig96)
+        out["msg"].append(msg)
+    out["scalars"] = [int.from_bytes(rng.bytes(16), "big") | 1 for _ in range(n)]
+    return out
+
+
+def _max_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
+
+
+def phase_pairing() -> dict:
+    """The four B7 kernels against their plain versions on the card,
+    bit-exact, at n in PAIRING_CHECK_NS on a seeded batch of signed sets;
+    the Miller values of every lane against the native miller_loop_raw; the
+    528-set verdict against the native batch verification, and one tampered
+    set rejected by both. CUDA-event times at 528 lanes."""
+    from ethereum_consensus_tpu_torch.crypto.hash_to_curve import ETH_DST
+    from ethereum_consensus_tpu_torch.native import bls as native_bls
+    from ethereum_consensus_tpu_torch.ops import fq, pairing
+
+    n_max = max(PAIRING_CHECK_NS)
+    t0 = time.perf_counter()
+    batch = _pairing_batch(n_max, seed=381)
+    make_s = time.perf_counter() - t0
+    scalars = batch["scalars"]
+    words = pairing.scalar_words(scalars, "cuda")
+    pk = torch.stack(pairing.g1_affine_from_raw(batch["pk"], "cuda"), dim=1).contiguous()
+    sig_xy = pairing.g2_affine_from_raw(batch["sig"], "cuda")
+    sig = torch.stack(sig_xy, dim=1).contiguous()
+    xq, yq = (v.contiguous() for v in pairing.g2_affine_from_raw(batch["h"], "cuda"))
+
+    # the plain versions: each lane-wise one runs once over all the lanes it
+    # is held against (the Miller loop over the first 64)
+    plain_pk, g1_plain_ms = _timed_once(lambda: pairing.g1_mul_affine_plain(pk, words))
+    plain_sig_lanes = pairing.g2_mul_batched(sig_xy, scalars)
+    xp, yp = plain_pk[:, 0].contiguous(), plain_pk[:, 1].contiguous()
+    lanes = PAIRING_PLAIN_MILLER_LANES
+    plain_miller, miller_plain_ms = _timed_once(
+        lambda: pairing.miller_loop_plain(xp[:lanes], yp[:lanes], xq[:lanes], yq[:lanes]))
+    # the native Miller value of every lane, on the blinded keys
+    pk_ints = fq.to_ints(plain_pk)
+    native_f = []
+    for i in range(n_max):
+        g1_raw = b"".join(v.to_bytes(48, "big") for v in pk_ints[2 * i : 2 * i + 2])
+        native = native_bls.miller_loop_raw(g1_raw, batch["h"][i])
+        native_f += [int.from_bytes(native[48 * k : 48 * (k + 1)], "big") for k in range(12)]
+    errs = {"g1_mul_affine": 0, "g2_mul_sum": 0, "miller_loop": 0, "fp12_product": 0}
+    native_ok = True
+    for n in PAIRING_CHECK_NS:
+        got_pk = pairing.g1_mul_affine(pk[:n], words[:n])
+        got_sum = pairing.g2_mul_sum(sig[:n], words[:n])
+        got_f = pairing.miller_loop(xp[:n], yp[:n], xq[:n], yq[:n])
+        got_prod = pairing.fp12_product(got_f)
+        torch.cuda.synchronize()
+        plain_prod = pairing.fp12_product_plain(got_f)
+        step = {
+            "g1_mul_affine": _max_err(got_pk, plain_pk[:n]),
+            "g2_mul_sum": _max_err(got_sum, pairing.g2_sum_points(plain_sig_lanes[:n])),
+            "miller_loop": _max_err(got_f[:lanes], plain_miller[:n]),
+            "fp12_product": _max_err(got_prod, plain_prod),
+        }
+        native_ok &= fq.to_ints(got_f) == native_f[: 12 * n]
+        print(f"pairing n={n}: max_abs_err vs plain {step}; the Miller values of all "
+              f"{n} lanes equal native {native_ok}")
+        for name, err in step.items():
+            errs[name] = max(errs[name], err)
+    if any(errs.values()) or not native_ok:
+        sys.exit(f"chip_smoke: a pairing kernel disagrees: {errs}, native {native_ok}")
+
+    sets = [([p], m, s) for p, m, s in zip(batch["pk"], batch["msg"], batch["sig96"])]
+    blinders = [s.to_bytes(16, "big") for s in scalars]
+    bad_sig, bad_sig96 = list(batch["sig"]), list(batch["sig96"])
+    bad_sig[PAIRING_TAMPERED_SET] = bad_sig[PAIRING_TAMPERED_SET + 1]
+    bad_sig96[PAIRING_TAMPERED_SET] = bad_sig96[PAIRING_TAMPERED_SET + 1]
+    bad_sets = [([p], m, s) for p, m, s in zip(batch["pk"], batch["msg"], bad_sig96)]
+    verdicts = {
+        "device": pairing.batch_verify_device(batch["pk"], batch["h"], batch["sig"], scalars),
+        "native": native_bls.batch_verify_raw(sets, ETH_DST, blinders),
+        "device_tampered": pairing.batch_verify_device(batch["pk"], batch["h"], bad_sig, scalars),
+        "native_tampered": native_bls.batch_verify_raw(bad_sets, ETH_DST, blinders),
+    }
+    print(f"pairing verdicts at {n_max} sets: {verdicts}")
+    if verdicts != {"device": True, "native": True, "device_tampered": False,
+                    "native_tampered": False}:
+        sys.exit("chip_smoke: the device batch verdict disagrees with the native one")
+
+    # the launches alone, at the window's 528 lanes
+    f_all = pairing.miller_loop(xp, yp, xq, yq)
+    timings = {
+        "g1_mul_affine": (_cuda_ms(lambda: pairing.g1_mul_affine_cuda(pk, words), reps=5),
+                          g1_plain_ms, g1_mul_affine_bound_ms(scalars)),
+        "g2_mul_sum": (_cuda_ms(lambda: pairing.g2_mul_sum_cuda(sig, words), reps=5),
+                       _timed_once(lambda: pairing.g2_mul_sum_plain(sig, words))[1],
+                       g2_mul_sum_bound_ms(scalars)),
+        "miller_loop": (_cuda_ms(lambda: pairing.miller_loop_cuda(xp, yp, xq, yq), reps=3),
+                        miller_plain_ms, miller_loop_bound_ms(n_max)),
+        "fp12_product": (_cuda_ms(lambda: pairing.fp12_product_cuda(f_all), reps=10),
+                         _timed_once(lambda: pairing.fp12_product_plain(f_all))[1],
+                         fp12_product_bound_ms(n_max)),
+    }
+    report = {"make_s": make_s, "verdicts": verdicts}
+    for name, (ms, plain_ms, (bound, bound_by)) in timings.items():
+        shape = f"{lanes} lanes" if name == "miller_loop" else f"{n_max} lanes"
+        print(f"pairing {name}: {ms:.4f} ms at {n_max} lanes (bound {bound:.4f} ms by "
+              f"{bound_by}); plain {plain_ms:.3f} ms at {shape}")
+        report[name] = {"ms": ms, "plain_ms": plain_ms, "plain_lanes": lanes if
+                        name == "miller_loop" else n_max, "bound_ms": bound,
+                        "bound_by": bound_by, "max_abs_err": errs[name]}
+    print(f"pairing: batch made in {make_s:.1f} s; kernel SASS instructions "
+          f"{_sass_instructions('pairing')}")
+    return report
+
+
+def build_window(registry: dict) -> dict:
+    """WINDOW_BLOCKS signed blocks at consecutive slots from
+    WINDOW_FIRST_SLOT on the registry's 2^20-validator phase0 state; block
+    k carries the 64 full aggregates of slot k (so no validator attests
+    twice) and is built as make_block builds one. The keys of those slots'
+    attesters and of the blocks' proposers are made real first. Returns the
+    pre-state's bytes and the blocks."""
+    from ethereum_consensus_tpu_torch import convert, ops
+    from ethereum_consensus_tpu_torch.crypto import bls
+    from ethereum_consensus_tpu_torch.crypto.fields import R
+    from ethereum_consensus_tpu_torch.domains import DomainType
+    from ethereum_consensus_tpu_torch.models.phase0 import block_processing, build
+    from ethereum_consensus_tpu_torch.models.phase0 import helpers as h
+    from ethereum_consensus_tpu_torch.models.phase0 import slot_processing
+    from ethereum_consensus_tpu_torch.models.phase0.containers import BeaconBlockHeader
+    from ethereum_consensus_tpu_torch.models.signature_batch import collect_signatures
+    from ethereum_consensus_tpu_torch.signing import compute_signing_root
+    from ethereum_consensus_tpu_torch.ssz import uint64
+
+    ops.uninstall()
+    gc.collect()
+    data, ctx = registry["data"], registry["ctx"]
+    ns = build(ctx.preset)
+    t0 = time.perf_counter()
+    state = convert.state_from_ssz(data, ctx.preset)
+    read_s = time.perf_counter() - t0
+    # committees and proposers of epoch 0 depend on its seeds and balances
+    # only, which the window's blocks leave as they are
+    t0 = time.perf_counter()
+    per_slot = h.get_committee_count_per_slot(state, 0, ctx)
+    committees = [[h.get_beacon_committee(state, slot, index, ctx) for index in range(per_slot)]
+                  for slot in range(WINDOW_BLOCKS)]
+    active = h.get_active_validator_indices(state, 0)
+    proposer_seed = h.get_seed(state, 0, DomainType.BEACON_PROPOSER, ctx)
+    slots = range(WINDOW_FIRST_SLOT, WINDOW_FIRST_SLOT + WINDOW_BLOCKS)
+    proposers = [h.compute_proposer_index(
+        state, active, hashlib.sha256(proposer_seed + slot.to_bytes(8, "little")).digest(), ctx)
+        for slot in slots]
+    keys = _realize_keys(state, [i for c in committees for cc in c for i in cc] + proposers)
+    keys_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pre = type(state).serialize(state)
+    serialize_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blocks = []
+    for k, slot in enumerate(slots):
+        slot_processing.process_slots(state, slot, ctx)
+        if h.get_beacon_proposer_index(state, ctx) != proposers[k]:
+            sys.exit(f"chip_smoke: the planned proposer of slot {slot} is not the state's")
+        attester_domain = h.get_domain(state, DomainType.BEACON_ATTESTER, 0, ctx)
+        target = ns.Checkpoint(epoch=0, root=h.get_block_root_at_slot(state, 0))
+        attestations = []
+        for index, committee in enumerate(committees[k]):
+            att_data = ns.AttestationData(
+                slot=k, index=index, beacon_block_root=h.get_block_root_at_slot(state, k),
+                source=state.current_justified_checkpoint.copy(), target=target.copy(),
+            )
+            root = compute_signing_root(ns.AttestationData, att_data, attester_domain)
+            summed = bls.SecretKey(sum(i + 1 for i in committee) % R)
+            attestations.append(ns.Attestation(
+                aggregation_bits=[True] * len(committee), data=att_data,
+                signature=summed.sign(root).to_bytes(),
+            ))
+        proposer_key = bls.SecretKey(proposers[k] + 1)
+        randao_root = compute_signing_root(
+            uint64, 0, h.get_domain(state, DomainType.RANDAO, 0, ctx))
+        block = ns.BeaconBlock(
+            slot=slot, proposer_index=proposers[k],
+            parent_root=BeaconBlockHeader.hash_tree_root(state.latest_block_header),
+            body=ns.BeaconBlockBody(
+                randao_reveal=proposer_key.sign(randao_root).to_bytes(),
+                eth1_data=state.eth1_data.copy(), attestations=attestations,
+            ),
+        )
+        # the signatures are checked when the window is verified, not here
+        with collect_signatures():
+            block_processing.process_block(state, block, ctx)
+        block.state_root = type(state).hash_tree_root(state)
+        proposer_domain = h.get_domain(state, DomainType.BEACON_PROPOSER, None, ctx)
+        root = compute_signing_root(ns.BeaconBlock, block, proposer_domain)
+        blocks.append(ns.SignedBeaconBlock(message=block,
+                                           signature=proposer_key.sign(root).to_bytes()))
+    blocks_s = time.perf_counter() - t0
+    del state
+    gc.collect()
+    print(f"window: {WINDOW_BLOCKS} blocks at slots {slots.start}..{slots.stop - 1}; state "
+          f"read {read_s:.1f} s; committees, proposers and {keys} real keys {keys_s:.1f} s; "
+          f"serialize {serialize_s:.1f} s; blocks {blocks_s:.1f} s")
+    return {"pre": pre, "ctx": ctx, "blocks": blocks, "keys": keys, "per_slot": per_slot,
+            "setup_s": {"read": read_s, "keys": keys_s, "serialize": serialize_s,
+                        "blocks": blocks_s}}
+
+
+def _verify_route(sets: list, installed: bool) -> dict:
+    """verify_signature_sets on one route, with host timers on its parts
+    and CUDA events on every kernel launch of the device route."""
+    from ethereum_consensus_tpu_torch import ops
+    from ethereum_consensus_tpu_torch.crypto import bls
+    from ethereum_consensus_tpu_torch.native import bls as native_bls
+    from ethereum_consensus_tpu_torch.ops import g1, pairing
+
+    ops.uninstall()
+    if installed:
+        ops.install(device="cuda")
+    events: list = []
+    parts: dict = {}
+    try:
+        with contextlib.ExitStack() as stack:
+            for module, name, key in (
+                    (native_bls, "batch_verify_raw", "native_batch"),
+                    (g1, "aggregate_pubkey_sets_device", "g1_aggregation"),
+                    (native_bls, "hash_to_g2_compressed", "hash_to_g2"),
+                    (pairing, "batch_verify_device", "batch_verify_device"),
+                    (pairing, "finalize_verdict", "finalize_verdict")):
+                stack.enter_context(_patched(module, name, _host_timer(parts, key)))
+            if installed:
+                for module, name, key in (
+                        (g1, "_launch", "g1_sum_sets"),
+                        (pairing, "g1_mul_affine_cuda", "g1_mul_affine"),
+                        (pairing, "g2_mul_sum_cuda", "g2_mul_sum"),
+                        (pairing, "miller_loop_cuda", "miller_loop"),
+                        (pairing, "fp12_product_cuda", "fp12_product")):
+                    stack.enter_context(_patched(module, name, _event_timer(events, key)))
+            _zero_launch_counts()
+            t0 = time.perf_counter()
+            verdicts = bls.verify_signature_sets(sets)
+            if installed:
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            route = bls.last_batch_route()
+            launches = _launch_counts()
+    finally:
+        ops.uninstall()
+    kernel_ms: dict = {}
+    for name, start, end in events:
+        kernel_ms[name] = kernel_ms.get(name, 0.0) + start.elapsed_time(end)
+    # the host route launches nothing: its card idles throughout
+    idle = 1.0 - sum(kernel_ms.values()) / (1e3 * seconds)
+    return {"verdicts": verdicts, "s": seconds, "route": route, "launches": launches,
+            "parts_s": parts, "kernel_ms_inside": kernel_ms, "idle_share": idle}
+
+
+def phase_window(registry: dict) -> dict:
+    """The slice's main path: a window of WINDOW_BLOCKS signed blocks on the
+    2^20-validator phase0 state applied through
+    Executor.apply_block_with_validation under defer_flushes, then its 528
+    sets verified with one verify_signature_sets call on the host route and
+    after ops.install(device="cuda") (the device pairing at the default 512
+    sets): the same verdicts, and the same blame for a copy with one
+    aggregate's signature replaced by its neighbour's."""
+    from ethereum_consensus_tpu_torch.crypto import bls
+    from ethereum_consensus_tpu_torch.executor import Executor, Validation
+    from ethereum_consensus_tpu_torch.models.phase0 import build
+    from ethereum_consensus_tpu_torch.models.signature_batch import SignatureBatch, defer_flushes
+
+    setup = build_window(registry)
+    ctx = setup["ctx"]
+    t0 = time.perf_counter()
+    state = build(ctx.preset).BeaconState.deserialize(setup["pre"])
+    read_s = time.perf_counter() - t0
+    sink = SignatureBatch()
+    executor = Executor(state, ctx)
+    t0 = time.perf_counter()
+    with defer_flushes(sink):
+        for signed in setup["blocks"]:
+            executor.apply_block_with_validation(signed, Validation.ENABLED)
+    apply_s = time.perf_counter() - t0
+    sets = list(sink.sets)
+    n_keys = sum(len(s.public_keys) for s in sets)
+    # both routes read the same PublicKey objects: decompress them once
+    t0 = time.perf_counter()
+    bls.warm_raw_keys(pk for s in sets for pk in s.public_keys)
+    warm_s = time.perf_counter() - t0
+    root = type(executor.state.data).hash_tree_root(executor.state.data).hex()
+    print(f"window: read {read_s:.1f} s; {WINDOW_BLOCKS} blocks applied under defer_flushes "
+          f"in {apply_s:.3f} s, post-state root {root}; {len(sets)} sets, {n_keys} keys, "
+          f"decompressed in {warm_s:.1f} s")
+    # each block: the proposer, the randao reveal, then its aggregates
+    per_block = setup["per_slot"] + 2
+    if len(sets) != WINDOW_BLOCKS * per_block:
+        sys.exit(f"chip_smoke: the window holds {len(sets)} sets, not {WINDOW_BLOCKS * per_block}")
+    t = (WINDOW_TAMPERED_BLOCK * per_block + 2
+         + min(WINDOW_TAMPERED_ATTESTATION, setup["per_slot"] - 2))
+    tampered = list(sets)
+    tampered[t] = bls.SignatureSet(sets[t].public_keys, sets[t].message, sets[t + 1].signature)
+    routes, blame = {}, {}
+    for name, installed in (("host", False), ("device", True)):
+        result = _verify_route(sets, installed)
+        bad = _verify_route(tampered, installed)
+        blame[name] = bad["verdicts"]
+        result["blame_s"] = bad["s"]
+        result["sets_per_s"] = len(sets) / result["s"]
+        routes[name] = result
+        print(f"window {name}: {len(sets)} sets in {result['s']:.3f} s "
+              f"({result['sets_per_s']:.1f} sets/s) {_rounded(result['parts_s'])}, route "
+              f"{result['route']!r}, all true {all(result['verdicts'])}; launches "
+              f"{result['launches']}"
+              + (f"; kernel ms inside {_rounded(result['kernel_ms_inside'], 4)}" if installed
+                 else "") + f"; idle share {result['idle_share']:.6f}"
+              + f"; tampered copy: false at {[i for i, v in enumerate(bad['verdicts']) if not v]}"
+              f" in {bad['s']:.3f} s, route {bad['route']!r}")
+    host, device = routes["host"], routes["device"]
+    if not (all(host["verdicts"]) and all(device["verdicts"])):
+        sys.exit("chip_smoke: a set of the window did not verify")
+    if (host["route"], device["route"]) != ("host", "device"):
+        sys.exit(f"chip_smoke: the routes ran {host['route']!r} and {device['route']!r}")
+    if blame["host"] != blame["device"] or [i for i, v in enumerate(blame["host"]) if not v] != [t]:
+        sys.exit("chip_smoke: the tampered window's blame differs between the routes")
+    # grid launches: the window's lanes and the extra pair through the Miller
+    # kernel; the two folds take 528 lanes to 9 block partials, then to one
+    want = {"g1_sum_sets": 1, "g1_mul_affine": 1, "g2_mul_sum": 2, "miller_loop": 2,
+            "fp12_product": 2}
+    if any(device["launches"][k] != v for k, v in want.items()) or any(
+            host["launches"][k] for k in want):
+        sys.exit(f"chip_smoke: the window's launches are off: device {device['launches']}, "
+                 f"host {host['launches']}")
+    return {"blocks": WINDOW_BLOCKS, "sets": len(sets), "keys": n_keys,
+            "real_keys": setup["keys"], "setup_s": setup["setup_s"], "read_s": read_s,
+            "apply_s": apply_s, "warm_s": warm_s, "root": root, "tampered_set": t,
+            "routes": routes}
+
+
 def _rounded(d: dict, places: int = 3) -> dict:
     return {k: round(v, places) for k, v in d.items()}
 
@@ -1860,6 +2325,7 @@ def main() -> int:
     registry = phase_registry(VALIDATORS)
     report["shuffle"] = phase_shuffle(registry["attester_seed"])
     report["g1"] = phase_g1(registry["committees"], registry["proposer"])
+    report["pairing"] = phase_pairing()
     report["htr"] = phase_htr(HTR_LOG2_LEAVES)
     report["slice"] = phase_slice(registry["data"], registry["ctx"], SLOTS)
     report["block"] = phase_block(registry)
@@ -1867,15 +2333,19 @@ def main() -> int:
     report["epoch"] = phase_epoch(registry)
     report["altair_sweeps"] = phase_altair_sweeps()
     report["altair"] = phase_altair(registry)
+    report["window"] = phase_window(registry)
 
     # each kernel's launches on the path it was ported for, and every
     # path's count beside them
     altair_routes = report["altair"]["routes"]
     paths = {"block": report["block"]["launches"], "epoch": report["epoch"]["launches"],
              "altair": altair_routes["device"]["launches"],
-             "altair_literal": altair_routes["literal"]["launches"]}
+             "altair_literal": altair_routes["literal"]["launches"],
+             "window": report["window"]["routes"]["device"]["launches"]}
     for name, timing in report["altair_sweeps"].items():
         report[name] = timing
+    for name in ("g1_mul_affine", "g2_mul_sum", "miller_loop", "fp12_product"):
+        report[name] = report["pairing"][name]
     sources = {
         "sha256_64b": ("sha256", "block", "ethereum_consensus_tpu_torch/csrc/sha256.cu",
                        "ethereum_consensus_tpu/ops/sha256.py:197"),
@@ -1896,6 +2366,16 @@ def main() -> int:
         "inactivity_penalties": ("inactivity_penalties", "altair_literal",
                                  "ethereum_consensus_tpu_torch/csrc/altair_sweeps.cu",
                                  "ethereum_consensus_tpu/ops/sweeps.py:191"),
+        "g1_mul_affine": ("g1_mul_affine", "window",
+                          "ethereum_consensus_tpu_torch/csrc/pairing.cu",
+                          "ethereum_consensus_tpu/ops/pairing.py:316"),
+        "g2_mul_sum": ("g2_mul_sum", "window", "ethereum_consensus_tpu_torch/csrc/pairing.cu",
+                       "ethereum_consensus_tpu/ops/pairing.py:332"),
+        "miller_loop": ("miller_loop", "window", "ethereum_consensus_tpu_torch/csrc/pairing.cu",
+                        "ethereum_consensus_tpu/ops/pairing.py:416"),
+        "fp12_product": ("fp12_product", "window",
+                         "ethereum_consensus_tpu_torch/csrc/pairing.cu",
+                         "ethereum_consensus_tpu/ops/pairing.py:474"),
     }
     kernels = {"kernels": [{
         "name": name,

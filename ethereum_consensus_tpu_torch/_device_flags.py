@@ -8,7 +8,8 @@ by ``ops.install()`` (and unset by ``ops.uninstall()``).
 Thresholds are minimum element counts: device sweeps, shuffles and
 aggregations win only above a size where the launch and the host<->device
 packing amortize; below the threshold the spec functions keep their host
-path.
+path. ``PAIRING_MIN_SETS`` counts the signature sets of one batched
+verification.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 SWEEPS_MIN_N: int | None = None
 SHUFFLE_MIN_N: int | None = None
 BLS_AGG_MIN_N: int | None = None
+PAIRING_MIN_SETS: int | None = None
 
 # The device that the routed kernels run on ("cuda", or "cpu" for their
 # plain versions); set by ops.install().
@@ -39,3 +41,11 @@ def bls_agg_enabled(n: int) -> bool:
     """Route G1 pubkey aggregation to the device kernel for an ``n``-point
     batch? (Below the threshold the native C++ adds win.)"""
     return BLS_AGG_MIN_N is not None and n >= BLS_AGG_MIN_N
+
+
+def pairing_enabled(n_sets: int) -> bool:
+    """Route the RLC batch verification of ``n_sets`` signature sets
+    (blinder multiplications, Miller loops, the Fq12 product) to the
+    device pairing kernels? The native multi-pairing keeps smaller
+    batches."""
+    return PAIRING_MIN_SETS is not None and n_sets >= PAIRING_MIN_SETS

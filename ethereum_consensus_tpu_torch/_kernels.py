@@ -105,6 +105,30 @@ _LIBRARIES = {
             ),
         },
     ),
+    "pairing": (
+        ("pairing.cu", "fp_tower.h", "fp381_core.h"),
+        {
+            "g1_mul_affine_launch": (
+                [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                 ctypes.c_void_p],
+                ctypes.c_int,
+            ),
+            "g2_mul_sum_launch": (
+                [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_void_p],
+                ctypes.c_int,
+            ),
+            "miller_loop_launch": (
+                [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p],
+                ctypes.c_int,
+            ),
+            "fp12_product_launch": (
+                [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_void_p],
+                ctypes.c_int,
+            ),
+        },
+    ),
 }
 
 _LOADED: dict = {}

@@ -4,6 +4,8 @@ SSZ bytes are the interchange with ``ethereum_consensus_tpu``: a state the
 reference serialized comes across through the port's own ``deserialize``.
 Word tensors hold SHA-256's big-endian uint32 words as ``torch.int32`` bit
 patterns, one item per column (lanes last), the layout the kernels take.
+Field elements come across as canonical integers: ``lv_to_ints`` reads the
+reference pairing stack's lazy columns (ops/fql.py there).
 """
 
 from __future__ import annotations
@@ -12,8 +14,14 @@ import numpy as np
 import torch
 
 from .models.phase0 import containers as phase0_containers
+from .crypto.fields import P as P_INT
 
-__all__ = ["chunks_from_words", "state_from_ssz", "words_from_chunks"]
+__all__ = ["chunks_from_words", "lv_to_ints", "state_from_ssz", "words_from_chunks"]
+
+# The reference's lazy field: 24 columns of 16 bits (a column may hold more
+# between its multiplications), Montgomery form with R' = 2^416.
+_LV_COLUMNS = 24
+_R_PRIME_INV = pow(1 << 416, -1, P_INT)
 
 
 def state_from_ssz(data: bytes, preset):
@@ -36,3 +44,12 @@ def words_from_chunks(chunks: bytes, device, width: int = 8) -> torch.Tensor:
 def chunks_from_words(t: torch.Tensor) -> bytes:
     """Inverse of ``words_from_chunks``: ``(width, N)`` words to N items."""
     return t.cpu().numpy().view(np.uint32).T.astype(">u4").tobytes()
+
+
+def lv_to_ints(cols) -> "list[int]":
+    """Canonical integers of a reference lazy-field array (numpy uint64, the
+    last axis 24 columns of 16 bits, R'-Montgomery), row-major over the
+    other axes."""
+    rows = np.asarray(cols, dtype=np.uint64).reshape(-1, _LV_COLUMNS)
+    return [sum(int(c) << (16 * i) for i, c in enumerate(row)) * _R_PRIME_INV % P_INT
+            for row in rows]

@@ -21,7 +21,11 @@ Batched verification: `verify_signature_sets` checks N independent
 multi-pairing (N+1 Miller loops, ONE final exponentiation) and falls back
 to per-set verification only to attribute failures. Above
 ``_device_flags.BLS_AGG_MIN_N`` keys the per-set pubkey aggregation runs as
-one launch of the CUDA G1 kernel (ops/g1.py); a device failure raises.
+one launch of the CUDA G1 kernel (ops/g1.py); from
+``_device_flags.PAIRING_MIN_SETS`` sets on, the blinder multiplications,
+Miller loops and their product run in the CUDA pairing kernels
+(ops/pairing.py) and the native library gives the final-exponentiation
+verdict. A device failure raises: no route answers for another.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from ..error import (
     InvalidSignatureError,
 )
 from ..native import bls as native_bls
+from ..telemetry import metrics as _metrics
 from .curves import (
     G1_GENERATOR,
     G1Point,
@@ -63,6 +68,7 @@ __all__ = [
     "warm_pubkey_cache",
     "warm_raw_keys",
     "backend_name",
+    "last_batch_route",
     "SECRET_KEY_SIZE",
     "PUBLIC_KEY_SIZE",
     "SIGNATURE_SIZE",
@@ -78,6 +84,20 @@ _BACKEND: str | None = None
 # guards the one-time backend resolution; reads stay lock-free — after the
 # first store the value never changes.
 _BACKEND_LOCK = threading.Lock()
+
+# which route proved each batched verification, counted, and the newest one
+# on each thread ("device", "host", or None when no RLC batch ran since the
+# thread's last verify_signature_sets call)
+_ROUTE_DEVICE = _metrics.counter("bls.pairing_route.device")
+_ROUTE_HOST = _metrics.counter("bls.pairing_route.host")
+_ROUTE_TL = threading.local()
+
+
+def last_batch_route() -> "str | None":
+    """The route ("device" or "host") of the newest batched verification
+    on the calling thread, or None if none ran (single sets and the
+    per-set blame verify on the host without the RLC batch)."""
+    return getattr(_ROUTE_TL, "route", None)
 
 
 def backend_name() -> str:
@@ -649,8 +669,11 @@ def _batch_all_valid(sets: list[SignatureSet], dst: bytes) -> bool:
 
     When the device G1 kernel is installed and the batch carries enough
     keys, every set's pubkey aggregation runs as ONE launch over all sets
-    (ops/g1.py) and the native multi-pairing sees single-key sets — the
-    device owns the O(total keys) work, the host the O(sets) pairings."""
+    (ops/g1.py) and the pairing sees single-key sets — the device owns the
+    O(total keys) work. Batches of at least ``_device_flags.PAIRING_MIN_SETS``
+    sets then take the device pairing route; smaller ones the native
+    multi-pairing. The blinders are drawn first, from ``secrets``, on both
+    routes: the batch's soundness rests on them."""
     # deferred registry parses (from_validated_bytes) materialize here,
     # through the eight-wide bulk path
     warm_raw_keys(pk for s in sets for pk in s.public_keys)
@@ -677,6 +700,13 @@ def _batch_all_valid(sets: list[SignatureSet], dst: bytes) -> bool:
             if any(s):
                 break
         scalars.append(s)
+    if _device_flags.pairing_enabled(len(sets)):
+        verdict = _batch_device_pairing(sets, dst, scalars)
+        _ROUTE_DEVICE.inc()
+        _ROUTE_TL.route = "device"
+        return verdict
+    _ROUTE_HOST.inc()
+    _ROUTE_TL.route = "host"
     # raw-affine pubkeys: decompressed once per key (cached on the
     # PublicKey — subgroup-checked at parse time), so repeat verifiers
     # (the same validators every block) never pay the sqrt again
@@ -685,6 +715,49 @@ def _batch_all_valid(sets: list[SignatureSet], dst: bytes) -> bool:
           s.signature.to_bytes()) for s in sets],
         dst,
         scalars,
+    )
+
+
+def _batch_device_pairing(
+    sets: list[SignatureSet], dst: bytes, scalars: list[bytes]
+) -> bool:
+    """The device route of the RLC batch: per-set pubkey aggregation on the
+    card when a set has several keys (ops/g1.py), the native hash_to_g2 per
+    message, then the blinder multiplications, the N + 1 Miller loops and
+    their product in the pairing kernels (ops/pairing.py) with the native
+    final-exponentiation verdict. A False verdict is exact (the soundness
+    of the native batch); a kernel that fails to build or launch raises."""
+    from ..ops import pairing as device_pairing
+
+    device = _device_flags.DEVICE
+    if any(len(s.public_keys) > 1 for s in sets):
+        from ..ops import g1 as device_g1
+
+        agg = device_g1.aggregate_pubkey_sets_device(
+            [[pk.raw_uncompressed() for pk in s.public_keys] for s in sets],
+            device=device,
+        )
+        if any(is_inf for _, is_inf in agg):
+            return False  # an identity aggregate never verifies
+        pk_raws = [raw for raw, _ in agg]
+    else:
+        pk_raws = [s.public_keys[0].raw_uncompressed() for s in sets]
+    h_raws = []
+    for s in sets:
+        rc, raw, _ = native_bls.g2_decompress(
+            native_bls.hash_to_g2_compressed(s.message, dst), check_subgroup=False
+        )
+        if rc != 0:
+            raise RuntimeError(f"hash_to_g2 gave a point that does not decompress: rc {rc}")
+        h_raws.append(raw)
+    sig_raws = []
+    for s in sets:
+        if s.signature.is_infinity():
+            return False  # an identity signature never verifies
+        sig_raws.append(s.signature.raw_uncompressed())
+    return device_pairing.batch_verify_device(
+        pk_raws, h_raws, sig_raws, [int.from_bytes(sc, "big") for sc in scalars],
+        device=device,
     )
 
 
@@ -706,6 +779,9 @@ def verify_signature_sets(
     batch with probability <= 2^-128."""
     if not sets:
         return []
+    # each batched verification stamps its route; clearing first tells "no
+    # RLC batch ran" apart (single sets and the blame verify per set)
+    _ROUTE_TL.route = None
     if _native() and len(sets) > 1 and _batch_all_valid(sets, dst):
         return [True] * len(sets)
     return [s.verify(dst) for s in sets]

@@ -31,6 +31,8 @@ import numpy as np
 import torch
 
 from .. import _kernels
+from . import fq
+from .fq import P_INT
 
 __all__ = [
     "P_INT",
@@ -41,15 +43,11 @@ __all__ = [
     "g1_sum_sets_plain",
     "jacobian_to_affine",
     "launch_count",
+    "point_add",
+    "point_double",
     "points_from_raw",
     "sets_to_csr",
 ]
-
-# the BLS12-381 base field modulus
-P_INT = int(
-    "1a0111ea397fe69a4b1ba7b6434bacd764774b84f38512bf6730d2a0f6b0f6241eabfffeb153ffffb9feffffffffaaab",
-    16,
-)
 
 # threads per block of the kernel: the plain version folds the same lanes
 THREADS = 128
@@ -106,167 +104,57 @@ def jacobian_to_affine(sums: torch.Tensor) -> "list[tuple[bytes, bool]]":
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch version: Fp in 24 x 16-bit limbs held in int64, Montgomery
-# form with R = 2^384 (the kernel's R), fully reduced after every operation.
-# Carries and borrows resolve with whole-tensor steps (a few parallel
-# rounds, then a carry-lookahead), not one limb at a time: on the card each
-# tensor op is a launch.
+# Plain PyTorch version: the points over the field of ops/fq.py (24 x 16-bit
+# limbs in int64, Montgomery form with the kernel's R = 2^384).
 # ---------------------------------------------------------------------------
 
-_L = 24
-_MASK16 = 0xFFFF
-_R = 1 << 384
-_N_PRIME = (-pow(P_INT, -1, _R)) % _R  # -p^-1 mod R
-_CONSTS: dict = {}
-
-
-def _const(value: int, device) -> torch.Tensor:
-    key = (value, str(device))
-    t = _CONSTS.get(key)
-    if t is None:
-        t = torch.tensor([(value >> (16 * i)) & _MASK16 for i in range(_L)],
-                         dtype=torch.int64, device=device)
-        _CONSTS[key] = t
-    return t
-
-
-def _nearest_below(stop: torch.Tensor, value: torch.Tensor, inclusive: bool) -> torch.Tensor:
-    """For each limb i, ``value`` at the nearest limb j < i (j <= i when
-    ``inclusive``) where ``stop`` holds, or 0 where there is none: the
-    carry or borrow that reaches limb i through a run of propagating
-    limbs."""
-    n = stop.shape[-1]
-    idx = torch.arange(n, device=stop.device).expand_as(stop)
-    last = torch.cummax(torch.where(stop, idx, -1), dim=-1).values
-    if not inclusive:
-        last = torch.nn.functional.pad(last[..., :-1], (1, 0), value=-1)
-    found = torch.gather(value, -1, last.clamp(min=0))
-    return torch.where(last >= 0, found, 0)
-
-
-def _carry(t: torch.Tensor) -> "tuple[torch.Tensor, torch.Tensor]":
-    """Non-negative limbs below 2^48 -> (16-bit limbs, carry out of the
-    top limb). Four parallel rounds leave every limb at most 2^16; the last
-    carries (0 or 1) then resolve by lookahead."""
-    top = torch.zeros(t.shape[:-1], dtype=torch.int64, device=t.device)
-    for _ in range(4):
-        c = t >> 16
-        top = top + c[..., -1]
-        t = (t & _MASK16) + torch.nn.functional.pad(c[..., :-1], (1, 0))
-    generate = t >> 16  # limb == 2^16: a carry out whatever comes in
-    propagate = t == _MASK16  # a carry out only if one comes in
-    t = (t + _nearest_below(~propagate, generate, inclusive=False)) & _MASK16
-    return t, top + _nearest_below(~propagate, generate, inclusive=True)[..., -1]
-
-
-def _sub_limbs(a: torch.Tensor, b: torch.Tensor) -> "tuple[torch.Tensor, torch.Tensor]":
-    """a - b mod 2^384 on 16-bit limbs; returns (limbs, borrow 0/1)."""
-    d = a - b
-    generate = (d < 0).to(torch.int64)  # a borrow out whatever comes in
-    stop = d != 0  # a zero limb passes the incoming borrow on
-    borrow_in = _nearest_below(stop, generate, inclusive=False)
-    out = (d - borrow_in) & _MASK16
-    return out, _nearest_below(stop, generate, inclusive=True)[..., -1]
-
-
-def _reduce_once(t: torch.Tensor, top: torch.Tensor) -> torch.Tensor:
-    """t + top * 2^384 (< 2p) minus p when it is at least p."""
-    d, borrow = _sub_limbs(t, _const(P_INT, t.device))
-    keep = (top == 0) & (borrow == 1)
-    return torch.where(keep[..., None], t, d)
-
-
-def _fadd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return _reduce_once(*_carry(a + b))
-
-
-def _fsub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    d, borrow = _sub_limbs(a, b)
-    return _carry(d + borrow[..., None] * _const(P_INT, a.device))[0]
-
-
-def _product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Schoolbook product of limb vectors (..., n) x (..., m) -> (..., n+m)
-    column sums, unnormalized (each below 2^37 for 16-bit limbs). The outer
-    product's row i is shifted right by i (pad, flatten, re-fold) so that
-    each column k sums the terms a_i b_(k-i)."""
-    a, b = torch.broadcast_tensors(a[..., :, None], b[..., None, :])
-    n, m = a.shape[-2], a.shape[-1]
-    rows = torch.nn.functional.pad(a * b, (0, n)).flatten(-2)[..., : n * (m + n - 1)]
-    cols = rows.unflatten(-1, (n, m + n - 1)).sum(dim=-2)
-    return torch.nn.functional.pad(cols, (0, 1))
-
-
-def _fmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a * b * 2^-384 mod p (Montgomery REDC with the whole R):
-    m = (T mod R) * (-p^-1) mod R, then (T + m p) / R < 2p."""
-    t, _ = _carry(_product(a, b))
-    m, _ = _carry(_product(t[..., :_L], _const(_N_PRIME, a.device))[..., :_L])
-    u, _ = _carry(t + _product(m, _const(P_INT, a.device)))
-    return _reduce_once(u[..., _L:], torch.zeros_like(u[..., 0]))
-
-
-def _is_zero(a: torch.Tensor) -> torch.Tensor:
-    return (a == 0).all(dim=-1)
-
-
-def _g1_double(p: torch.Tensor) -> torch.Tensor:
-    """dbl-2009-l on (..., 3, 24) Montgomery Jacobian points."""
+def point_double(p: torch.Tensor) -> torch.Tensor:
+    """dbl-2009-l on (..., 3, 24) Montgomery Jacobian points (fp381_core.h
+    g1_double; the G1 set sums and the pairing's blinder multiplication)."""
     x, y, z = p.unbind(-2)
-    a = _fmul(x, x)
-    b = _fmul(y, y)
-    c = _fmul(b, b)
-    xb = _fadd(x, b)
-    d = _fsub(_fsub(_fmul(xb, xb), a), c)
-    d = _fadd(d, d)
-    e = _fadd(_fadd(a, a), a)
-    f = _fmul(e, e)
-    x3 = _fsub(f, _fadd(d, d))
-    c8 = _fadd(c, c)
-    c8 = _fadd(c8, c8)
-    c8 = _fadd(c8, c8)
-    y3 = _fsub(_fmul(e, _fsub(d, x3)), c8)
-    yz = _fmul(y, z)
-    return torch.stack([x3, y3, _fadd(yz, yz)], dim=-2)
+    a = fq.mul(x, x)
+    b = fq.mul(y, y)
+    c = fq.mul(b, b)
+    xb = fq.add(x, b)
+    d = fq.sub(fq.sub(fq.mul(xb, xb), a), c)
+    d = fq.add(d, d)
+    e = fq.add(fq.add(a, a), a)
+    f = fq.mul(e, e)
+    x3 = fq.sub(f, fq.add(d, d))
+    c8 = fq.add(c, c)
+    c8 = fq.add(c8, c8)
+    c8 = fq.add(c8, c8)
+    y3 = fq.sub(fq.mul(e, fq.sub(d, x3)), c8)
+    yz = fq.mul(y, z)
+    return torch.stack([x3, y3, fq.add(yz, yz)], dim=-2)
 
 
-def _g1_add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+def point_add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """add-2007-bl with the kernel's branches as selects: q at infinity
     gives p, p at infinity gives q, P == Q doubles, P == -Q is infinity."""
     x1, y1, z1 = p.unbind(-2)
     x2, y2, z2 = q.unbind(-2)
-    z1z1 = _fmul(z1, z1)
-    z2z2 = _fmul(z2, z2)
-    u1 = _fmul(x1, z2z2)
-    u2 = _fmul(x2, z1z1)
-    s1 = _fmul(_fmul(y1, z2), z2z2)
-    s2 = _fmul(_fmul(y2, z1), z1z1)
-    h = _fsub(u2, u1)
-    r = _fsub(s2, s1)
-    hh = _fmul(h, h)
-    hhh = _fmul(h, hh)
-    v = _fmul(u1, hh)
-    x3 = _fsub(_fsub(_fmul(r, r), hhh), _fadd(v, v))
-    y3 = _fsub(_fmul(r, _fsub(v, x3)), _fmul(s1, hhh))
-    z3 = _fmul(_fmul(z1, z2), h)
+    z1z1 = fq.mul(z1, z1)
+    z2z2 = fq.mul(z2, z2)
+    u1 = fq.mul(x1, z2z2)
+    u2 = fq.mul(x2, z1z1)
+    s1 = fq.mul(fq.mul(y1, z2), z2z2)
+    s2 = fq.mul(fq.mul(y2, z1), z1z1)
+    h = fq.sub(u2, u1)
+    r = fq.sub(s2, s1)
+    hh = fq.mul(h, h)
+    hhh = fq.mul(h, hh)
+    v = fq.mul(u1, hh)
+    x3 = fq.sub(fq.sub(fq.mul(r, r), hhh), fq.add(v, v))
+    y3 = fq.sub(fq.mul(r, fq.sub(v, x3)), fq.mul(s1, hhh))
+    z3 = fq.mul(fq.mul(z1, z2), h)
     out = torch.stack([x3, y3, z3], dim=-2)
-    h_zero = _is_zero(h)[..., None, None]
-    r_zero = _is_zero(r)[..., None, None]
-    out = torch.where(h_zero & r_zero, _g1_double(p), out)
+    h_zero = fq.is_zero(h)[..., None, None]
+    r_zero = fq.is_zero(r)[..., None, None]
+    out = torch.where(h_zero & r_zero, point_double(p), out)
     out = torch.where(h_zero & ~r_zero, torch.zeros_like(out), out)
-    out = torch.where(_is_zero(z1)[..., None, None], q, out)
-    return torch.where(_is_zero(z2)[..., None, None], p, out)
-
-
-def _to_limbs16(limbs32: torch.Tensor) -> torch.Tensor:
-    v = limbs32.to(torch.int64) & 0xFFFFFFFF
-    return torch.stack([v & _MASK16, v >> 16], dim=-1).flatten(-2)
-
-
-def _to_limbs32(limbs16: torch.Tensor) -> torch.Tensor:
-    pairs = limbs16.unflatten(-1, (-1, 2))
-    v = pairs[..., 0] | (pairs[..., 1] << 16)
-    return (v - ((v & 0x80000000) << 1)).to(torch.int32)
+    out = torch.where(fq.is_zero(z1)[..., None, None], q, out)
+    return torch.where(fq.is_zero(z2)[..., None, None], p, out)
 
 
 def _check(points: torch.Tensor, offsets: torch.Tensor) -> int:
@@ -295,30 +183,27 @@ def g1_sum_sets_plain(points: torch.Tensor, offsets: torch.Tensor) -> torch.Tens
     begin, end = offsets[:-1], offsets[1:]
     lane = torch.arange(THREADS, dtype=torch.int64, device=device)
     # one infinity row at the end stands in for every out-of-set lane
-    pts = torch.cat([_to_limbs16(points), torch.zeros((1, 2, _L), dtype=torch.int64,
+    pts = torch.cat([fq.limbs16(points), torch.zeros((1, 2, fq.LIMBS), dtype=torch.int64,
                                                       device=device)])
     pad = pts.shape[0] - 1
-    acc = torch.zeros((n_sets, THREADS, 3, _L), dtype=torch.int64, device=device)
+    acc = torch.zeros((n_sets, THREADS, 3, fq.LIMBS), dtype=torch.int64, device=device)
     steps = int(((end - begin).max().item() + THREADS - 1) // THREADS)
-    one = _const(_R % P_INT, device)
-    r2 = _const(_R * _R % P_INT, device)
+    one = fq.const(fq.R % P_INT, device)
     for j in range(steps):
         k = begin[:, None] + lane[None, :] + j * THREADS
         valid = k < end[:, None]
         xy = pts[torch.where(valid, k, pad)]
-        live = ~(_is_zero(xy[..., 0, :]) & _is_zero(xy[..., 1, :]))
-        jac = torch.stack([_fmul(xy[..., 0, :], r2), _fmul(xy[..., 1, :], r2),
+        live = ~(fq.is_zero(xy[..., 0, :]) & fq.is_zero(xy[..., 1, :]))
+        jac = torch.stack([fq.to_mont(xy[..., 0, :]), fq.to_mont(xy[..., 1, :]),
                            one.expand_as(xy[..., 0, :])], dim=-2)
         jac = torch.where(live[..., None, None], jac, torch.zeros_like(jac))
-        acc = torch.where(valid[..., None, None], _g1_add(acc, jac), acc)
+        acc = torch.where(valid[..., None, None], point_add(acc, jac), acc)
     stride = THREADS // 2
     while stride:
-        acc = torch.cat([_g1_add(acc[:, :stride], acc[:, stride : 2 * stride]),
+        acc = torch.cat([point_add(acc[:, :stride], acc[:, stride : 2 * stride]),
                          acc[:, stride:]], dim=1)
         stride //= 2
-    unit = torch.zeros(_L, dtype=torch.int64, device=device)
-    unit[0] = 1
-    return _to_limbs32(_fmul(acc[:, 0], unit))
+    return fq.limbs32(fq.from_mont(acc[:, 0]))
 
 
 # ---------------------------------------------------------------------------

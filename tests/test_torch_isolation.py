@@ -41,7 +41,9 @@ def test_module_imports_neither_jax_nor_the_reference(path):
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, ethereum_consensus_tpu_torch, ethereum_consensus_tpu_torch.ops, "
-        "ethereum_consensus_tpu_torch.convert, ethereum_consensus_tpu_torch.models; "
+        "ethereum_consensus_tpu_torch.convert, ethereum_consensus_tpu_torch.models, "
+        "ethereum_consensus_tpu_torch.ops.fq, ethereum_consensus_tpu_torch.ops.fq2, "
+        "ethereum_consensus_tpu_torch.ops.fq12, ethereum_consensus_tpu_torch.ops.pairing; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r}]; "
         "assert not bad, bad"
