@@ -5,8 +5,12 @@
 Phases, each of which exits non-zero when it fails:
   1. device   — require CUDA; print the card's name and power limit.
   2. build    — compile every kernel in ethereum_consensus_tpu_torch/csrc
-                (one nvcc per source, all at once) and the two native host
-                libraries (SHA-256, BLS12-381) beside them.
+                (one nvcc per library, all at once: the mxu builds of
+                g1_sum.cu and pairing.cu beside the u64 ones) and the two
+                native host libraries (SHA-256, BLS12-381) beside them.
+     mxu      — B8 alone: the int8 tensor-core Montgomery product
+                (fq8.mont7r) over 2^20 seeded pairs, bit-exact against
+                fq.mul and the plain mont7r on the card; CUDA-event times.
   3. sha256   — the SHA-256 kernel against its plain PyTorch version on the
                 card, bit-exact, for N in {1, 1000, 1024, 1025, 2^22}, a
                 sample against hashlib; CUDA-event times at N = 2^17 .. 2^22.
@@ -20,7 +24,9 @@ Phases, each of which exits non-zero when it fails:
                 limb: the edge sets (infinity lane, doubling, P + -P, only
                 infinity, empty, ragged), one set of 2^15 keys, and the
                 block's 66 sets of 32,770 keys; some sums against the native
-                aggregation.
+                aggregation. Its mxu build (fq8.set_multiplier("mxu")) limb
+                for limb against the u64 kernel on the edge and block sets and
+                against the plain version under mxu on the edge sets.
   7. htr      — the device merkleizer on 2^20 random chunks against the host
                 merkleizer.
   8. slice    — process_slots to slot 3 with the CUDA hasher installed and
@@ -76,17 +82,22 @@ Phases, each of which exits non-zero when it fails:
                 signed sets; the Miller values of every lane against the
                 native miller_loop_raw; the 528-set verdict against the native
                 batch verification, a tampered set rejected by both;
-                CUDA-event times at 528 lanes.
+                CUDA-event times at 528 lanes. Their mxu builds bit-exact
+                against the u64 kernels at every n, against the plain
+                versions under mxu at n <= 3, all 528 Miller lanes against
+                the native ones; CUDA-event times at 528 lanes.
  15. window   — eight signed blocks at slots 2..9 on the registry state
                 (each with the 64 full aggregates of one slot of epoch 0;
                 those 262,144 attesters' keys made real) applied through
                 Executor.apply_block_with_validation under defer_flushes,
                 then their 528 sets verified by one verify_signature_sets
-                call on the host route and after ops.install(device="cuda")
-                (the device pairing from 512 sets on): every verdict true
-                on both, the same blame for a copy with one aggregate's
+                call on the host route, after ops.install(device="cuda")
+                (the device pairing from 512 sets on) and on that device
+                route with fq8.set_multiplier("mxu"): every verdict true on
+                all three, the same blame for a copy with one aggregate's
                 signature replaced by its neighbour's, and B6 and each B7
-                kernel launched on the device route (a B7 count is one per
+                kernel launched on the device route, their mxu builds and
+                none of the u64 ones on the mxu route (a B7 count is one per
                 grid launch, the folds' further launches included).
 Then the run's wall time, one JSON line per kernel (``{"kernels": [...]}``)
 and, last, the ``{"ok": true, "device": ...}`` line.
@@ -144,6 +155,9 @@ SHUFFLE_OPS_PER_INDEX_ROUND = 12
 FP_MUL_MADS = 288
 FP_SQR_MADS = 78 + 144
 G1_MIXED_ADD_MADS = 7 * FP_MUL_MADS + 4 * FP_SQR_MADS
+# B8 alone: the products of the mxu phase, and the bytes of one product
+MXU_PAIRS = 1 << 20
+MONT_BYTES = 3 * 48
 # 32-bit integer operations of one validator's hysteresis update: two
 # 64-bit adds and unsigned compares (2 + 2 each) and their OR, the 64-bit
 # remainder by a divisor fixed for the whole sweep as a Barrett reduction
@@ -320,6 +334,46 @@ def phase_sha256() -> dict:
             "max_abs_err": max(c["max_abs_err"] for c in checks)}
 
 
+def mont_bound_ms(n: int) -> tuple[float, str]:
+    """n Montgomery products: one CIOS product's multiply-adds each, and
+    two operands read and one result written (48 bytes each)."""
+    return _bound(n * FP_MUL_MADS, n * MONT_BYTES)
+
+
+def phase_mxu() -> dict:
+    """B8 alone, its main path: fq8.mont7r over MXU_PAIRS seeded pairs of
+    Montgomery values on the card (with 0, 1, p - 1 and R mod p among
+    them), bit-exact against fq.mul and against the plain mont7r on the
+    card; CUDA-event ms of the kernel and of the plain version."""
+    from ethereum_consensus_tpu_torch.ops import fq, fq8
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    a, b = (torch.randint(-(2**31), 2**31, (MXU_PAIRS, 12), dtype=torch.int32, device="cuda",
+                          generator=gen) for _ in range(2))
+    a[:, 11] &= 0x0FFFFFFF  # below 2^380 < p
+    b[:, 11] &= 0x0FFFFFFF
+    edges = fq.from_ints([0, 1, fq.P_INT - 1, fq.R % fq.P_INT], "cuda")
+    a[:4], b[:4], b[4:8] = edges, edges.flip(0), edges
+    _zero_launch_counts()
+    got = fq8.mont7r(a, b)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    a16, b16 = fq.limbs16(a), fq.limbs16(b)
+    errs = {"vs fq.mul": _max_err(got, fq.limbs32(fq.mul(a16, b16))),
+            "vs plain": _max_err(got, fq.limbs32(fq8.mont7r_plain(a16, b16)))}
+    ms = _cuda_ms(lambda: fq8.mont7r_cuda(a, b), reps=10)
+    plain_ms = _cuda_ms(lambda: fq8.mont7r_plain(a16, b16), reps=3, warmup=1)
+    bound, bound_by = mont_bound_ms(MXU_PAIRS)
+    print(f"mxu: {MXU_PAIRS} products: max_abs_err {errs}; {ms:.4f} ms (bound {bound:.4f} ms by "
+          f"{bound_by}); plain {plain_ms:.3f} ms; launches {launches['mont_mxu']}; kernel SASS "
+          f"instructions {_sass_instructions('mont_mxu')}")
+    if any(errs.values()) or launches["mont_mxu"] != 1:
+        sys.exit(f"chip_smoke: the mxu product disagrees or did not launch: {errs}, {launches}")
+    return {"pairs": MXU_PAIRS, "checks": errs, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "max_abs_err": max(errs.values()),
+            "launches": launches}
+
+
 def _synthetic_pubkey(index: int) -> bytes:
     """48 bytes that never decompress as a BLS key (leading 0xff)."""
     return (b"\xff" + hashlib.sha256(b"synthetic-pk" + index.to_bytes(8, "little")).digest()[:15]
@@ -492,11 +546,12 @@ def phase_g1(committees: list, proposer: int) -> dict:
                  k[:200], k[:129]]
     shapes = [("edge", edge_sets), ("one set of 2^15", [attesters[: 1 << 15]]),
               ("block", block_sets)]
-    checks = {}
+    checks, outputs = {}, {}
     for name, sets in shapes:
         points, offsets = g1.sets_to_csr(sets)
         points_d, offsets_d = points.cuda(), offsets.cuda()
         got = g1.g1_sum_sets(points_d, offsets_d)
+        outputs[name] = (points_d, offsets_d, got)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         plain = g1.g1_sum_sets_plain(points_d, offsets_d)
@@ -526,7 +581,41 @@ def phase_g1(committees: list, proposer: int) -> dict:
     main = checks["block"]
     return {"checks": checks, "ms": main["ms"], "plain_ms": plain_ms,
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "max_abs_err": max(c["max_abs_err"] for c in checks.values())}
+            "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
+            "mxu": _g1_mxu(outputs, main)}
+
+
+def _g1_mxu(outputs: dict, main: dict) -> dict:
+    """B6's mxu build (EC_PAIRING_MULT=mxu): against the u64 kernel on the
+    block's sets, against the plain version under mxu on the edge sets,
+    limb for limb; CUDA-event ms at the block's shape."""
+    from ethereum_consensus_tpu_torch.ops import fq8, g1
+
+    fq8.set_multiplier("mxu")
+    try:
+        errs = {}
+        for name in ("edge", "block"):
+            points_d, offsets_d, u64 = outputs[name]
+            got = g1.g1_sum_sets(points_d, offsets_d)
+            torch.cuda.synchronize()
+            errs[f"{name} vs u64"] = _max_err(got, u64)
+        points_d, offsets_d, _ = outputs["edge"]
+        errs["edge vs plain"] = _max_err(g1.g1_sum_sets(points_d, offsets_d),
+                                         g1.g1_sum_sets_plain(points_d, offsets_d))
+        points_d, offsets_d, _ = outputs["block"]
+        sets = offsets_d.shape[0] - 1
+        ms = _cuda_ms(lambda: g1._launch(points_d, offsets_d, sets), reps=10)
+        plain_ms = _cuda_ms(lambda: g1.g1_sum_sets_plain(points_d, offsets_d), reps=3, warmup=1)
+    finally:
+        fq8.set_multiplier("u64")
+    print(f"g1 mxu build: max_abs_err {errs}; {ms:.4f} ms at the block's {sets} sets (u64 "
+          f"{main['ms']:.4f}; bound {main['bound_ms']:.4f} ms by {main['bound_by']}); plain "
+          f"under mxu {plain_ms:.3f} ms; kernel SASS instructions "
+          f"{_sass_instructions('g1_sum_mxu')}")
+    if any(errs.values()):
+        sys.exit(f"chip_smoke: the mxu G1 set-sum kernel disagrees: {errs}")
+    return {"checks": errs, "ms": ms, "plain_ms": plain_ms, "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "max_abs_err": max(errs.values())}
 
 
 def phase_htr(log2_leaves: int) -> dict:
@@ -1174,21 +1263,23 @@ def phase_epoch(registry: dict) -> dict:
 
 def _zero_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    from ethereum_consensus_tpu_torch.ops import epoch, g1, pairing, sha256, shuffle, sweeps
+    from ethereum_consensus_tpu_torch.ops import epoch, fq8, g1, pairing, sha256, shuffle, sweeps
 
     sha256.launch_count = shuffle.launch_count = g1.launch_count = epoch.launch_count = 0
-    for counts in (sweeps.launch_counts, pairing.launch_counts):
+    g1.launch_count_mxu = 0
+    for counts in (sweeps.launch_counts, pairing.launch_counts, fq8.launch_counts):
         for name in counts:
             counts[name] = 0
 
 
 def _launch_counts() -> dict:
     """Every kernel's launches since ``_zero_launch_counts``."""
-    from ethereum_consensus_tpu_torch.ops import epoch, g1, pairing, sha256, shuffle, sweeps
+    from ethereum_consensus_tpu_torch.ops import epoch, fq8, g1, pairing, sha256, shuffle, sweeps
 
     return {"sha256_64b": sha256.launch_count, "shuffle": shuffle.launch_count,
             "g1_sum_sets": g1.launch_count, "fused_epoch": epoch.launch_count,
-            **sweeps.launch_counts, **pairing.launch_counts}
+            **sweeps.launch_counts, **pairing.launch_counts,
+            "g1_sum_sets_mxu": g1.launch_count_mxu, **fq8.launch_counts}
 
 
 # --- the altair sweeps and the fused epoch kernel -------------------------
@@ -2025,12 +2116,14 @@ def phase_pairing() -> dict:
         native_f += [int.from_bytes(native[48 * k : 48 * (k + 1)], "big") for k in range(12)]
     errs = {"g1_mul_affine": 0, "g2_mul_sum": 0, "miller_loop": 0, "fp12_product": 0}
     native_ok = True
+    u64_out = {}
     for n in PAIRING_CHECK_NS:
         got_pk = pairing.g1_mul_affine(pk[:n], words[:n])
         got_sum = pairing.g2_mul_sum(sig[:n], words[:n])
         got_f = pairing.miller_loop(xp[:n], yp[:n], xq[:n], yq[:n])
         got_prod = pairing.fp12_product(got_f)
         torch.cuda.synchronize()
+        u64_out[n] = (got_pk, got_sum, got_f, got_prod)
         plain_prod = pairing.fp12_product_plain(got_f)
         step = {
             "g1_mul_affine": _max_err(got_pk, plain_pk[:n]),
@@ -2087,6 +2180,73 @@ def phase_pairing() -> dict:
                         "bound_by": bound_by, "max_abs_err": errs[name]}
     print(f"pairing: batch made in {make_s:.1f} s; kernel SASS instructions "
           f"{_sass_instructions('pairing')}")
+    report["mxu"] = _pairing_mxu(pk, words, sig, xp, yp, xq, yq, u64_out, native_f, report)
+    return report
+
+
+def _pairing_mxu(pk, words, sig, xp, yp, xq, yq, u64_out: dict, native_f: list,
+                 u64: dict) -> dict:
+    """The four B7 kernels' mxu build (EC_PAIRING_MULT=mxu) on the same
+    lanes: bit-exact against the u64 kernels at every n of
+    PAIRING_CHECK_NS, against the plain versions under mxu at n <= 3 (the
+    plain tower on the card takes seconds a call), the Miller values of all
+    lanes against the native ones; CUDA-event ms at the window's 528 lanes,
+    and the plain versions' ms under mxu at 3 lanes."""
+    from ethereum_consensus_tpu_torch.ops import fq, fq8, pairing
+
+    names = ("g1_mul_affine", "g2_mul_sum", "miller_loop", "fp12_product")
+    errs = {name: 0 for name in names}
+    plain_errs = {name: 0 for name in names}
+    plain_n = 3
+    fq8.set_multiplier("mxu")
+    try:
+        for n in PAIRING_CHECK_NS:
+            got_f = pairing.miller_loop(xp[:n], yp[:n], xq[:n], yq[:n])
+            got = (pairing.g1_mul_affine(pk[:n], words[:n]), pairing.g2_mul_sum(sig[:n], words[:n]),
+                   got_f, pairing.fp12_product(got_f))
+            torch.cuda.synchronize()
+            for name, a, b in zip(names, got, u64_out[n]):
+                errs[name] = max(errs[name], _max_err(a, b))
+            native_ok = fq.to_ints(got_f) == native_f[: 12 * n]
+            if n <= plain_n:
+                plain = (pairing.g1_mul_affine_plain(pk[:n], words[:n]),
+                         pairing.g2_mul_sum_plain(sig[:n], words[:n]),
+                         pairing.miller_loop_plain(xp[:n], yp[:n], xq[:n], yq[:n]),
+                         pairing.fp12_product_plain(got_f))
+                for name, a, b in zip(names, got, plain):
+                    plain_errs[name] = max(plain_errs[name], _max_err(a, b))
+            print(f"pairing mxu n={n}: max_abs_err vs u64 {errs}, vs plain under mxu (n <= "
+                  f"{plain_n}) {plain_errs}; the Miller values of all {n} lanes equal native "
+                  f"{native_ok}")
+            if any(errs.values()) or any(plain_errs.values()) or not native_ok:
+                sys.exit(f"chip_smoke: a pairing kernel's mxu build disagrees at n={n}")
+        n_max = max(PAIRING_CHECK_NS)
+        f_all = u64_out[n_max][2]
+        p3 = slice(0, plain_n)
+        timings = {
+            "g1_mul_affine": (_cuda_ms(lambda: pairing.g1_mul_affine_cuda(pk, words), reps=5),
+                              _timed_once(lambda: pairing.g1_mul_affine_plain(
+                                  pk[p3], words[p3]))[1]),
+            "g2_mul_sum": (_cuda_ms(lambda: pairing.g2_mul_sum_cuda(sig, words), reps=5),
+                           _timed_once(lambda: pairing.g2_mul_sum_plain(sig[p3], words[p3]))[1]),
+            "miller_loop": (_cuda_ms(lambda: pairing.miller_loop_cuda(xp, yp, xq, yq), reps=3),
+                            _timed_once(lambda: pairing.miller_loop_plain(
+                                xp[p3], yp[p3], xq[p3], yq[p3]))[1]),
+            "fp12_product": (_cuda_ms(lambda: pairing.fp12_product_cuda(f_all), reps=10),
+                             _timed_once(lambda: pairing.fp12_product_plain(f_all[p3]))[1]),
+        }
+    finally:
+        fq8.set_multiplier("u64")
+    report = {}
+    for name, (ms, plain_ms) in timings.items():
+        row = u64[name]
+        print(f"pairing {name} mxu build: {ms:.4f} ms at {n_max} lanes (u64 {row['ms']:.4f}; "
+              f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}); plain under mxu "
+              f"{plain_ms:.3f} ms at {plain_n} lanes")
+        report[name] = {"ms": ms, "plain_ms": plain_ms, "plain_lanes": plain_n,
+                        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                        "max_abs_err": max(errs[name], plain_errs[name])}
+    print(f"pairing mxu build: kernel SASS instructions {_sass_instructions('pairing_mxu')}")
     return report
 
 
@@ -2183,17 +2343,20 @@ def build_window(registry: dict) -> dict:
                         "blocks": blocks_s}}
 
 
-def _verify_route(sets: list, installed: bool) -> dict:
+def _verify_route(sets: list, installed: bool, multiplier: str = "u64") -> dict:
     """verify_signature_sets on one route, with host timers on its parts
-    and CUDA events on every kernel launch of the device route."""
+    and CUDA events on every kernel launch of the device route (each B6 and
+    B7 kernel under its name, "_mxu" added on the mxu multiplier)."""
     from ethereum_consensus_tpu_torch import ops
     from ethereum_consensus_tpu_torch.crypto import bls
     from ethereum_consensus_tpu_torch.native import bls as native_bls
-    from ethereum_consensus_tpu_torch.ops import g1, pairing
+    from ethereum_consensus_tpu_torch.ops import fq8, g1, pairing
 
     ops.uninstall()
     if installed:
         ops.install(device="cuda")
+    fq8.set_multiplier(multiplier)
+    suffix = "_mxu" if multiplier == "mxu" else ""
     events: list = []
     parts: dict = {}
     try:
@@ -2212,7 +2375,7 @@ def _verify_route(sets: list, installed: bool) -> dict:
                         (pairing, "g2_mul_sum_cuda", "g2_mul_sum"),
                         (pairing, "miller_loop_cuda", "miller_loop"),
                         (pairing, "fp12_product_cuda", "fp12_product")):
-                    stack.enter_context(_patched(module, name, _event_timer(events, key)))
+                    stack.enter_context(_patched(module, name, _event_timer(events, key + suffix)))
             _zero_launch_counts()
             t0 = time.perf_counter()
             verdicts = bls.verify_signature_sets(sets)
@@ -2222,6 +2385,7 @@ def _verify_route(sets: list, installed: bool) -> dict:
             route = bls.last_batch_route()
             launches = _launch_counts()
     finally:
+        fq8.set_multiplier("u64")
         ops.uninstall()
     kernel_ms: dict = {}
     for name, start, end in events:
@@ -2276,9 +2440,10 @@ def phase_window(registry: dict) -> dict:
     tampered = list(sets)
     tampered[t] = bls.SignatureSet(sets[t].public_keys, sets[t].message, sets[t + 1].signature)
     routes, blame = {}, {}
-    for name, installed in (("host", False), ("device", True)):
-        result = _verify_route(sets, installed)
-        bad = _verify_route(tampered, installed)
+    for name, installed, multiplier in (("host", False, "u64"), ("device", True, "u64"),
+                                        ("device_mxu", True, "mxu")):
+        result = _verify_route(sets, installed, multiplier)
+        bad = _verify_route(tampered, installed, multiplier)
         blame[name] = bad["verdicts"]
         result["blame_s"] = bad["s"]
         result["sets_per_s"] = len(sets) / result["s"]
@@ -2291,21 +2456,28 @@ def phase_window(registry: dict) -> dict:
                  else "") + f"; idle share {result['idle_share']:.6f}"
               + f"; tampered copy: false at {[i for i, v in enumerate(bad['verdicts']) if not v]}"
               f" in {bad['s']:.3f} s, route {bad['route']!r}")
-    host, device = routes["host"], routes["device"]
-    if not (all(host["verdicts"]) and all(device["verdicts"])):
+    host, device, mxu = routes["host"], routes["device"], routes["device_mxu"]
+    if not all(all(r["verdicts"]) for r in routes.values()):
         sys.exit("chip_smoke: a set of the window did not verify")
-    if (host["route"], device["route"]) != ("host", "device"):
-        sys.exit(f"chip_smoke: the routes ran {host['route']!r} and {device['route']!r}")
-    if blame["host"] != blame["device"] or [i for i, v in enumerate(blame["host"]) if not v] != [t]:
+    if (host["route"], device["route"], mxu["route"]) != ("host", "device", "device"):
+        sys.exit(f"chip_smoke: the routes ran {host['route']!r}, {device['route']!r} and "
+                 f"{mxu['route']!r}")
+    if (blame["host"] != blame["device"] or blame["host"] != blame["device_mxu"]
+            or [i for i, v in enumerate(blame["host"]) if not v] != [t]):
         sys.exit("chip_smoke: the tampered window's blame differs between the routes")
     # grid launches: the window's lanes and the extra pair through the Miller
     # kernel; the two folds take 528 lanes to 9 block partials, then to one
+    # (under mxu the G2 lanes first, then the same two folds over them)
     want = {"g1_sum_sets": 1, "g1_mul_affine": 1, "g2_mul_sum": 2, "miller_loop": 2,
             "fp12_product": 2}
-    if any(device["launches"][k] != v for k, v in want.items()) or any(
-            host["launches"][k] for k in want):
+    want_mxu = {f"{k}_mxu": v for k, v in want.items()}
+    want_mxu["g2_mul_sum_mxu"] = 3
+    if (any(device["launches"][k] != v for k, v in want.items())
+            or any(mxu["launches"][k] != v for k, v in want_mxu.items())
+            or any(host["launches"][k] or host["launches"][m] or device["launches"][m]
+                   or mxu["launches"][k] for k, m in zip(want, want_mxu))):
         sys.exit(f"chip_smoke: the window's launches are off: device {device['launches']}, "
-                 f"host {host['launches']}")
+                 f"mxu {mxu['launches']}, host {host['launches']}")
     return {"blocks": WINDOW_BLOCKS, "sets": len(sets), "keys": n_keys,
             "real_keys": setup["keys"], "setup_s": setup["setup_s"], "read_s": read_s,
             "apply_s": apply_s, "warm_s": warm_s, "root": root, "tampered_set": t,
@@ -2322,6 +2494,7 @@ def main() -> int:
     report = {"device": phase_device()}
     report["build"] = phase_build()
     report["sha256"] = phase_sha256()
+    report["mxu"] = phase_mxu()
     registry = phase_registry(VALIDATORS)
     report["shuffle"] = phase_shuffle(registry["attester_seed"])
     report["g1"] = phase_g1(registry["committees"], registry["proposer"])
@@ -2341,11 +2514,16 @@ def main() -> int:
     paths = {"block": report["block"]["launches"], "epoch": report["epoch"]["launches"],
              "altair": altair_routes["device"]["launches"],
              "altair_literal": altair_routes["literal"]["launches"],
-             "window": report["window"]["routes"]["device"]["launches"]}
+             "window": report["window"]["routes"]["device"]["launches"],
+             "mxu": report["mxu"]["launches"],
+             "window_mxu": report["window"]["routes"]["device_mxu"]["launches"]}
     for name, timing in report["altair_sweeps"].items():
         report[name] = timing
     for name in ("g1_mul_affine", "g2_mul_sum", "miller_loop", "fp12_product"):
         report[name] = report["pairing"][name]
+        report[f"{name}_mxu"] = report["pairing"]["mxu"][name]
+    report["mont_mxu"] = report["mxu"]
+    report["g1_sum_sets_mxu"] = report["g1"]["mxu"]
     sources = {
         "sha256_64b": ("sha256", "block", "ethereum_consensus_tpu_torch/csrc/sha256.cu",
                        "ethereum_consensus_tpu/ops/sha256.py:197"),
@@ -2376,6 +2554,26 @@ def main() -> int:
         "fp12_product": ("fp12_product", "window",
                          "ethereum_consensus_tpu_torch/csrc/pairing.cu",
                          "ethereum_consensus_tpu/ops/pairing.py:474"),
+        # the mxu multiplier (EC_PAIRING_MULT=mxu): B8 alone, then B6 and B7
+        # on it, each replacing the reference's function under
+        # fql.set_multiplier("mxu")
+        "mont_mxu": ("mont_mxu", "mxu", "ethereum_consensus_tpu_torch/csrc/mont_mxu.cu",
+                     "ethereum_consensus_tpu/ops/fq8.py:300"),
+        "g1_sum_sets_mxu": ("g1_sum_sets_mxu", "window_mxu",
+                            "ethereum_consensus_tpu_torch/csrc/g1_sum.cu",
+                            "ethereum_consensus_tpu/ops/pairing.py:594"),
+        "g1_mul_affine_mxu": ("g1_mul_affine_mxu", "window_mxu",
+                              "ethereum_consensus_tpu_torch/csrc/pairing.cu",
+                              "ethereum_consensus_tpu/ops/pairing.py:316"),
+        "g2_mul_sum_mxu": ("g2_mul_sum_mxu", "window_mxu",
+                           "ethereum_consensus_tpu_torch/csrc/pairing.cu",
+                           "ethereum_consensus_tpu/ops/pairing.py:332"),
+        "miller_loop_mxu": ("miller_loop_mxu", "window_mxu",
+                            "ethereum_consensus_tpu_torch/csrc/pairing.cu",
+                            "ethereum_consensus_tpu/ops/pairing.py:416"),
+        "fp12_product_mxu": ("fp12_product_mxu", "window_mxu",
+                             "ethereum_consensus_tpu_torch/csrc/pairing.cu",
+                             "ethereum_consensus_tpu/ops/pairing.py:474"),
     }
     kernels = {"kernels": [{
         "name": name,

@@ -12,6 +12,10 @@ The flags the port reads:
                            routes to the device pairing by default;
                            off/none/host pins the host multi-pairing;
                            anything else raises
+  EC_PAIRING_MULT=<kind>   the product of the pairing and set-sum path:
+                           u64 (CIOS, the default) or mxu (the int8
+                           digit product of ops/fq8.py), in any case;
+                           anything else raises
 
 Reference parity: ethereum_consensus_tpu/_env.py (the subset the ported
 modules read).
@@ -21,7 +25,9 @@ from __future__ import annotations
 
 import os
 
-__all__ = ["flag_off", "min_count"]
+__all__ = ["MULTIPLIERS", "flag_off", "min_count", "multiplier"]
+
+MULTIPLIERS = ("u64", "mxu")
 
 
 def flag_off(key: str) -> bool:
@@ -45,3 +51,16 @@ def min_count(key: str, default: int) -> "int | None":
     except ValueError:
         raise ValueError(f"{key}={raw!r}: expected a count or off/none/host") from None
     return n if n > 0 else None
+
+
+def multiplier(key: str = "EC_PAIRING_MULT") -> str:
+    """The pairing multiplier: "u64" when the key is unset, "u64" or "mxu"
+    in any case. Any other value raises ValueError (the reference takes
+    the CIOS path there)."""
+    raw = os.environ.get(key)
+    if raw is None:
+        return "u64"
+    value = raw.strip().lower()
+    if value not in MULTIPLIERS:
+        raise ValueError(f"{key}={raw!r}: expected one of {', '.join(MULTIPLIERS)}")
+    return value

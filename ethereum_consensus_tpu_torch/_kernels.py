@@ -2,6 +2,9 @@
 
 Each kernel source compiles with ``nvcc`` into a shared library with a plain
 C interface, bound with ctypes (pointers and the stream as ``c_void_p``).
+A library may add compiler flags to its source's: the ``*_mxu`` builds of
+``g1_sum.cu`` and ``pairing.cu`` define ``FP381_MUL_MXU``, which makes every
+field product the int8 tensor-core product of ``csrc/fp_mma.h``.
 Libraries go into ``_build/`` beside this file, named by a hash of the
 sources and flags, so a source edit rebuilds and an unchanged tree reuses
 the library. Builds happen on first use, never at import: the package
@@ -29,7 +32,37 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",
 ]
 
-# library name -> (sources, {C function: (argtypes, restype)})
+# library name -> (sources, {C function: (argtypes, restype)}[, extra nvcc flags])
+_G1_SUM_FUNCTIONS = {
+    "g1_sum_sets_launch": (
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_int64, ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+}
+_PAIRING_FUNCTIONS = {
+    "g1_mul_affine_launch": (
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+         ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+    "g2_mul_sum_launch": (
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+    "miller_loop_launch": (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+    "fp12_product_launch": (
+        [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+}
+_MXU = ("-DFP381_MUL_MXU",)
+
 _LIBRARIES = {
     "sha256": (
         ("sha256.cu", "sha256_core.h"),
@@ -95,35 +128,16 @@ _LIBRARIES = {
             ),
         },
     ),
-    "g1_sum": (
-        ("g1_sum.cu", "fp381_core.h"),
+    "g1_sum": (("g1_sum.cu", "fp381_core.h"), _G1_SUM_FUNCTIONS),
+    "g1_sum_mxu": (("g1_sum.cu", "fp381_core.h", "fp_mma.h"), _G1_SUM_FUNCTIONS, _MXU),
+    "pairing": (("pairing.cu", "fp_tower.h", "fp381_core.h"), _PAIRING_FUNCTIONS),
+    "pairing_mxu": (("pairing.cu", "fp_tower.h", "fp381_core.h", "fp_mma.h"),
+                    _PAIRING_FUNCTIONS, _MXU),
+    "mont_mxu": (
+        ("mont_mxu.cu", "fp_mma.h", "fp381_core.h"),
         {
-            "g1_sum_sets_launch": (
-                [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_int64, ctypes.c_void_p],
-                ctypes.c_int,
-            ),
-        },
-    ),
-    "pairing": (
-        ("pairing.cu", "fp_tower.h", "fp381_core.h"),
-        {
-            "g1_mul_affine_launch": (
+            "mont_mxu_launch": (
                 [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                 ctypes.c_void_p],
-                ctypes.c_int,
-            ),
-            "g2_mul_sum_launch": (
-                [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_void_p],
-                ctypes.c_int,
-            ),
-            "miller_loop_launch": (
-                [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p],
-                ctypes.c_int,
-            ),
-            "fp12_product_launch": (
-                [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
                  ctypes.c_void_p],
                 ctypes.c_int,
             ),
@@ -141,9 +155,15 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _flags(name: str) -> list:
+    """nvcc's flags for library ``name``: the common ones and its own."""
+    entry = _LIBRARIES[name]
+    return [*NVCC_FLAGS, *(entry[2] if len(entry) > 2 else ())]
+
+
 def _paths(name: str) -> tuple[str, str]:
-    sources, _ = _LIBRARIES[name]
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    sources = _LIBRARIES[name][0]
+    digest = hashlib.sha256(" ".join(_flags(name)).encode())
     for src in sources:
         with open(os.path.join(_CSRC, src), "rb") as f:
             digest.update(f.read())
@@ -165,12 +185,12 @@ def build_all() -> float:
     t0 = time.perf_counter()
     os.makedirs(_BUILD, exist_ok=True)
     running = []
-    for name, (sources, _) in _LIBRARIES.items():
+    for name, (sources, *_) in _LIBRARIES.items():
         lib_path, log_path = _paths(name)
         if os.path.exists(lib_path):
             continue
         tmp = f"{lib_path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, sources[0])]
+        cmd = [_nvcc(), *_flags(name), "-o", tmp, os.path.join(_CSRC, sources[0])]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )

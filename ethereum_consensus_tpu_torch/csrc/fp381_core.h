@@ -11,6 +11,12 @@
 // scanning) with 32x32->64-bit products; every operation returns a fully
 // reduced value in [0, p).
 //
+// The multiplier is a compile-time policy: by default mul is the CIOS
+// product below; built with -DFP381_MUL_MXU it is the warp-cooperative int8
+// tensor-core product of fp_mma.h (the reference's EC_PAIRING_MULT=mxu), a
+// call (not inlined), and every thread of a warp must then hold the same
+// operands. Either gives the same canonical value.
+//
 // G1 (y^2 = x^3 + 4, a = 0): Jacobian (X, Y, Z), Z = 0 encodes infinity.
 // Addition is add-2007-bl and doubling dbl-2009-l, the formulas of the
 // reference's strict-field kernels; the addition is complete: either
@@ -43,6 +49,13 @@
   0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu, 0x53c758bau,        \
       0x5f489857u, 0x70525745u, 0x77ce5853u, 0xa256ec6du, 0x5c071a97u,    \
       0xfa80e493u, 0x15f65ec3u
+
+// the qualifiers of fp_mma.h's product: a call, not inlined, under nvcc
+#ifdef __CUDACC__
+#define FP381_MUL_CALL __host__ __device__ __noinline__
+#else
+#define FP381_MUL_CALL inline
+#endif
 
 namespace fp381 {
 
@@ -130,6 +143,20 @@ FP381_HD Fp sub(const Fp& a, const Fp& b) {
   return d;
 }
 
+}  // namespace fp381
+
+#ifdef FP381_MUL_MXU
+namespace fp_mma {
+FP381_MUL_CALL fp381::Fp mont(fp381::Fp a, fp381::Fp b);  // fp_mma.h
+}  // namespace fp_mma
+#endif
+
+namespace fp381 {
+
+#ifdef FP381_MUL_MXU
+// a * b * R^-1 mod p on the int8 tensor cores (fp_mma.h)
+FP381_HD Fp mul(const Fp& a, const Fp& b) { return fp_mma::mont(a, b); }
+#else
 // a * b * R^-1 mod p (CIOS). Each step's sum a_j*b_i + t_j + carry is at
 // most (2^32-1)^2 + 2(2^32-1) = 2^64 - 1, so one uint64_t holds it.
 FP381_HD Fp mul(const Fp& a, const Fp& b) {
@@ -164,6 +191,7 @@ FP381_HD Fp mul(const Fp& a, const Fp& b) {
   }
   return reduce_once(t, t[kLimbs]);  // t < 2p
 }
+#endif
 
 FP381_HD Fp sqr(const Fp& a) { return mul(a, a); }
 
@@ -243,3 +271,7 @@ FP381_HD G1Jac g1_to_canonical(const G1Jac& p) {
 }
 
 }  // namespace fp381
+
+#ifdef FP381_MUL_MXU
+#include "fp_mma.h"
+#endif

@@ -34,6 +34,20 @@
 // the block-verification shape (66 sets, 32,770 keys) only 66 of the 132
 // SMs hold a block, and each thread's additions form one dependent chain,
 // so this simple kernel is latency-bound well above that bound.
+//
+// Built with -DFP381_MUL_MXU (the "mxu" library, ops/fq8.py's switch; the
+// reference's EC_PAIRING_MULT=mxu reaches its set sums through
+// ops/g1.py:253 aggregate_pubkey_sets_device -> ops/pairing.py:616
+// g1_sum_sets on the lazy field), every Fp product is the warp-cooperative
+// int8 tensor-core product of fp_mma.h, which a whole warp computes with
+// the same operands in every thread. The block then holds 8 warps, and
+// warp w runs the chains of the 128 lanes w, w + 8, ... in turn (lane t
+// adds points offsets[s] + t, + 128, ...); the 128 partial sums fold in the
+// same 7 levels, warp w taking the pairs w, w + 8, ... of each, so the
+// Jacobian sums agree limb for limb with the u64 kernel's and with the
+// plain version. Lane 0 of a warp stores. Bounded by each product's byte
+// reduction, which all 32 threads repeat, and by the 16 chains a warp runs
+// in turn.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,7 +56,13 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;  // the lanes of a set, whose partial sums fold
+#ifdef FP381_MUL_MXU
+constexpr int kWarps = fp_mma::kMaxWarps;
+constexpr int kBlockThreads = 32 * kWarps;
+#else
+constexpr int kBlockThreads = kThreads;
+#endif
 
 __device__ __forceinline__ fp381::Fp load_fp(const uint32_t* p) {
   fp381::Fp r;
@@ -56,7 +76,7 @@ __device__ __forceinline__ void store_fp(uint32_t* p, const fp381::Fp& a) {
   for (int i = 0; i < fp381::kLimbs; ++i) p[i] = a.v[i];
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBlockThreads)
     g1_sum_sets_kernel(const uint32_t* __restrict__ points,
                        const int64_t* __restrict__ offsets,
                        uint32_t* __restrict__ out) {
@@ -66,6 +86,42 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t begin = offsets[set];
   const int64_t end = offsets[set + 1];
 
+#ifdef FP381_MUL_MXU
+  const int warp = tid >> 5;
+  const bool storing = (tid & 31) == 0;
+#pragma unroll 1
+  for (int lane = warp; lane < kThreads; lane += kWarps) {
+    fp381::G1Jac acc = fp381::g1_infinity();
+#pragma unroll 1
+    for (int64_t k = begin + lane; k < end; k += kThreads) {
+      const uint32_t* p = points + k * 2 * fp381::kLimbs;
+      acc = fp381::g1_add(acc, fp381::g1_from_affine(load_fp(p), load_fp(p + fp381::kLimbs)));
+    }
+    if (storing) partial[lane] = acc;
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
+#pragma unroll 1
+    for (int lane = warp; lane < stride; lane += kWarps) {
+      const fp381::G1Jac a = partial[lane];
+      const fp381::G1Jac b = partial[lane + stride];
+      const fp381::G1Jac r = fp381::g1_add(a, b);
+      __syncwarp();
+      if (storing) partial[lane] = r;
+    }
+    __syncthreads();
+  }
+  if (tid < 32) {
+    const fp381::G1Jac sum = fp381::g1_to_canonical(partial[0]);
+    if (tid == 0) {
+      uint32_t* o = out + set * 3 * fp381::kLimbs;
+      store_fp(o, sum.x);
+      store_fp(o + fp381::kLimbs, sum.y);
+      store_fp(o + 2 * fp381::kLimbs, sum.z);
+    }
+  }
+#else
   fp381::G1Jac acc = fp381::g1_infinity();
   for (int64_t k = begin + tid; k < end; k += kThreads) {
     const uint32_t* p = points + k * 2 * fp381::kLimbs;
@@ -88,6 +144,7 @@ __global__ void __launch_bounds__(kThreads)
     store_fp(o + fp381::kLimbs, sum.y);
     store_fp(o + 2 * fp381::kLimbs, sum.z);
   }
+#endif
 }
 
 }  // namespace
@@ -100,7 +157,7 @@ extern "C" int g1_sum_sets_launch(const void* points, const void* offsets,
   if (n_sets <= 0 || n_sets > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  g1_sum_sets_kernel<<<static_cast<unsigned>(n_sets), kThreads, 0,
+  g1_sum_sets_kernel<<<static_cast<unsigned>(n_sets), kBlockThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(points),
       static_cast<const int64_t*>(offsets), static_cast<uint32_t*>(out));

@@ -50,6 +50,21 @@
 // frames in local memory (ptxas: 4,000 bytes for the Miller kernel) and
 // builds take about 90 s instead of many minutes. The folds keep one point
 // or Fq12 per thread in shared memory (18 and 36 KB per block).
+//
+// Built with -DFP381_MUL_MXU (the "mxu" library, ops/fq8.py's switch), every
+// Fp product is the warp-cooperative int8 tensor-core product of fp_mma.h
+// (the reference's EC_PAIRING_MULT=mxu, fql.py:140 -> fq8.py:300 mont7r), so
+// the kernels run one WARP per lane: every thread of the warp holds the
+// lane's values, takes the same branches (the blinders' bits, the special
+// cases of the point additions: the same data in every thread) and calls
+// each product together, and lane 0 stores. A warp whose lane is past n
+// exits whole. G2's products and the sum become two passes: one warp per
+// lane writes [r_i] sig_i, then the fold kernel folds the n points; the
+// folds hold their 64 values a block as before, with 8 warps taking the
+// pairs of each level in the same order, so the G2 sum and the Fq12 product
+// agree limb for limb with the u64 kernels'. What bounds this mapping: each
+// product's byte reduction, which all 32 threads repeat (fp_mma.h); at 528
+// lanes it fills 528 warps, four per SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,11 +80,38 @@ using tower::Fp12;
 using tower::Fp2;
 using tower::G2Jac;
 
-constexpr int kLaneThreads = 32;  // g1_mul_affine and miller_loop
 constexpr int kTreeThreads = 64;  // g2_mul_sum and fp12_product: lanes, then the fold
+#ifdef FP381_MUL_MXU
+constexpr int kLaneWarps = 4;                      // lanes (one a warp) a block
+constexpr int kLanesPerBlock = kLaneWarps;
+constexpr int kLaneBlockThreads = 32 * kLaneWarps;
+constexpr int kTreeWarps = fp_mma::kMaxWarps;      // a fold block's warps (64 values)
+constexpr int kTreeBlockThreads = 32 * kTreeWarps;
+#else
+constexpr int kLaneThreads = 32;  // g1_mul_affine and miller_loop
+constexpr int kLanesPerBlock = kLaneThreads;
+constexpr int kLaneBlockThreads = kLaneThreads;
+constexpr int kTreeBlockThreads = kTreeThreads;
+#endif
 constexpr int kFp2Words = 2 * kLimbs;
 constexpr int kG2JacWords = 3 * kFp2Words;
 constexpr int kFp12Words = 6 * kFp2Words;
+
+#ifdef FP381_MUL_MXU
+// a warp per lane: warp w of the block
+__device__ __forceinline__ int64_t lane_index() {
+  return static_cast<int64_t>(blockIdx.x) * kLaneWarps + (threadIdx.x >> 5);
+}
+__device__ __forceinline__ bool storing_thread() { return (threadIdx.x & 31) == 0; }
+// the thread or warp that stores a fold block's result
+__device__ __forceinline__ bool block_leader() { return threadIdx.x < 32; }
+#else
+__device__ __forceinline__ int64_t lane_index() {
+  return static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+}
+__device__ __forceinline__ bool storing_thread() { return true; }
+__device__ __forceinline__ bool block_leader() { return threadIdx.x == 0; }
+#endif
 
 __device__ __forceinline__ Fp load_mont(const uint32_t* p) {
   Fp r;
@@ -80,6 +122,7 @@ __device__ __forceinline__ Fp load_mont(const uint32_t* p) {
 
 __device__ __forceinline__ void store_canonical(uint32_t* p, const Fp& a) {
   const Fp c = fp381::from_mont(a);
+  if (!storing_thread()) return;
 #pragma unroll
   for (int i = 0; i < kLimbs; ++i) p[i] = c.v[i];
 }
@@ -122,12 +165,12 @@ __device__ void store_fp12(uint32_t* p, const Fp12& a) {
 }
 
 // points (n, 2, 12), scalars (n, 4) -> out (n, 2, 12) affine
-__global__ void __launch_bounds__(kLaneThreads)
+__global__ void __launch_bounds__(kLaneBlockThreads)
     g1_mul_affine_kernel(const uint32_t* __restrict__ points,
                          const uint32_t* __restrict__ scalars, int64_t n,
                          uint32_t* __restrict__ out) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  const int64_t i = lane_index();
+  if (i >= n) return;  // under mxu the whole warp
   const uint32_t* p = points + i * 2 * kLimbs;
   const G1Jac pk{load_mont(p), load_mont(p + kLimbs), fp381::one_mont()};
   uint32_t k[tower::kScalarWords];
@@ -146,6 +189,24 @@ __global__ void __launch_bounds__(kLaneThreads)
 // order. Leaves the block's result in s[0].
 template <typename T, typename Op>
 __device__ void fold(T* s, Op op) {
+#ifdef FP381_MUL_MXU
+  // warp w takes the pairs w, w + 8, ... of each level; values are copied
+  // out before the product and stored by lane 0 after the warp has read them
+  const int warp = threadIdx.x >> 5;
+#pragma unroll 1
+  for (int stride = 1; stride < kTreeThreads; stride <<= 1) {
+    __syncthreads();
+#pragma unroll 1
+    for (int t = 2 * stride * warp; t < kTreeThreads; t += 2 * stride * kTreeWarps) {
+      const T a = s[t];
+      const T b = s[t + stride];
+      const T r = op(a, b);
+      __syncwarp();
+      if (storing_thread()) s[t] = r;
+    }
+  }
+  __syncthreads();
+#else
   const int tid = threadIdx.x;
 #pragma unroll 1
   for (int stride = 1; stride < kTreeThreads; stride <<= 1) {
@@ -153,6 +214,24 @@ __device__ void fold(T* s, Op op) {
     if ((tid & (2 * stride - 1)) == 0) s[tid] = op(s[tid], s[tid + stride]);
   }
   __syncthreads();
+#endif
+}
+
+// The block's 64 values: load(i) for the items i < n of the block, the
+// identity past n (under mxu one warp a value, lane 0 storing it).
+template <typename T, typename Load>
+__device__ void fill(T* s, int64_t n, Load load, const T& identity) {
+#ifdef FP381_MUL_MXU
+#pragma unroll 1
+  for (int v = threadIdx.x >> 5; v < kTreeThreads; v += kTreeWarps) {
+    const int64_t i = static_cast<int64_t>(blockIdx.x) * kTreeThreads + v;
+    const T x = i < n ? load(i) : identity;
+    if (storing_thread()) s[v] = x;
+  }
+#else
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kTreeThreads + threadIdx.x;
+  s[threadIdx.x] = i < n ? load(i) : identity;
+#endif
 }
 
 struct G2Add {
@@ -165,6 +244,28 @@ struct Fp12Mul {
   }
 };
 
+__device__ __forceinline__ G2Jac g2_mul_lane(const uint32_t* points, const uint32_t* scalars,
+                                           int64_t i) {
+  const uint32_t* p = points + i * 2 * kFp2Words;
+  const G2Jac sig{load_fp2(p), load_fp2(p + kFp2Words), tower::fp2_one()};
+  uint32_t k[tower::kScalarWords];
+#pragma unroll
+  for (int w = 0; w < tower::kScalarWords; ++w) k[w] = __ldg(scalars + i * tower::kScalarWords + w);
+  return tower::g2_mul(sig, k);
+}
+
+#ifdef FP381_MUL_MXU
+// affine points (n, 2, 2, 12), scalars (n, 4) -> (n, 3, 2, 12) Jacobian
+// [k_i] Q_i, one warp a lane (the first pass of the sum)
+__global__ void __launch_bounds__(kLaneBlockThreads)
+    g2_mul_lanes_kernel(const uint32_t* __restrict__ points,
+                        const uint32_t* __restrict__ scalars, int64_t n,
+                        uint32_t* __restrict__ lanes) {
+  const int64_t i = lane_index();
+  if (i >= n) return;  // the whole warp
+  store_g2_jac(lanes + i * kG2JacWords, g2_mul_lane(points, scalars, i));
+}
+#else
 // affine points (n, 2, 2, 12), scalars (n, 4) -> one Jacobian partial sum
 // (3, 2, 12) per block
 __global__ void __launch_bounds__(kTreeThreads)
@@ -173,52 +274,43 @@ __global__ void __launch_bounds__(kTreeThreads)
                        uint32_t* __restrict__ partials) {
   __shared__ G2Jac s[kTreeThreads];
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kTreeThreads + threadIdx.x;
-  G2Jac acc = tower::g2_infinity();
-  if (i < n) {
-    const uint32_t* p = points + i * 2 * kFp2Words;
-    const G2Jac sig{load_fp2(p), load_fp2(p + kFp2Words), tower::fp2_one()};
-    uint32_t k[tower::kScalarWords];
-#pragma unroll
-    for (int w = 0; w < tower::kScalarWords; ++w) k[w] = __ldg(scalars + i * tower::kScalarWords + w);
-    acc = tower::g2_mul(sig, k);
-  }
-  s[threadIdx.x] = acc;
+  s[threadIdx.x] = i < n ? g2_mul_lane(points, scalars, i) : tower::g2_infinity();
   fold(s, G2Add());
   if (threadIdx.x == 0) store_g2_jac(partials + blockIdx.x * kG2JacWords, s[0]);
 }
+#endif
 
 // Jacobian points (n, 3, 2, 12) -> one partial sum per block
-__global__ void __launch_bounds__(kTreeThreads)
+__global__ void __launch_bounds__(kTreeBlockThreads)
     g2_fold_kernel(const uint32_t* __restrict__ points, int64_t n,
                    uint32_t* __restrict__ partials) {
   __shared__ G2Jac s[kTreeThreads];
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kTreeThreads + threadIdx.x;
-  s[threadIdx.x] = i < n ? load_g2_jac(points + i * kG2JacWords) : tower::g2_infinity();
+  fill(s, n, [&](int64_t i) { return load_g2_jac(points + i * kG2JacWords); },
+       tower::g2_infinity());
   fold(s, G2Add());
-  if (threadIdx.x == 0) store_g2_jac(partials + blockIdx.x * kG2JacWords, s[0]);
+  if (block_leader()) store_g2_jac(partials + blockIdx.x * kG2JacWords, s[0]);
 }
 
 // G1 affine xp, yp (n, 12) and G2 affine xq, yq (n, 2, 12) -> (n, 12, 12)
-__global__ void __launch_bounds__(kLaneThreads)
+__global__ void __launch_bounds__(kLaneBlockThreads)
     miller_loop_kernel(const uint32_t* __restrict__ xp, const uint32_t* __restrict__ yp,
                        const uint32_t* __restrict__ xq, const uint32_t* __restrict__ yq,
                        int64_t n, uint32_t* __restrict__ out) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  const int64_t i = lane_index();
+  if (i >= n) return;  // under mxu the whole warp
   const Fp12 f = tower::miller_loop(load_mont(xp + i * kLimbs), load_mont(yp + i * kLimbs),
                                     load_fp2(xq + i * kFp2Words), load_fp2(yq + i * kFp2Words));
   store_fp12(out + i * kFp12Words, f);
 }
 
 // Fq12 values (n, 12, 12) -> one partial product per block
-__global__ void __launch_bounds__(kTreeThreads)
+__global__ void __launch_bounds__(kTreeBlockThreads)
     fp12_fold_kernel(const uint32_t* __restrict__ values, int64_t n,
                      uint32_t* __restrict__ partials) {
   __shared__ Fp12 s[kTreeThreads];
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kTreeThreads + threadIdx.x;
-  s[threadIdx.x] = i < n ? load_fp12(values + i * kFp12Words) : tower::fp12_one();
+  fill(s, n, [&](int64_t i) { return load_fp12(values + i * kFp12Words); }, tower::fp12_one());
   fold(s, Fp12Mul());
-  if (threadIdx.x == 0) store_fp12(partials + blockIdx.x * kFp12Words, s[0]);
+  if (block_leader()) store_fp12(partials + blockIdx.x * kFp12Words, s[0]);
 }
 
 int64_t blocks_for(int64_t n, int threads) { return (n + threads - 1) / threads; }
@@ -236,7 +328,7 @@ int fold_levels(FoldKernel kernel, const uint32_t* src, int64_t count, int words
   while (count > 1) {
     const int64_t blocks = blocks_for(count, kTreeThreads);
     uint32_t* dst = blocks == 1 ? out : work;
-    kernel<<<static_cast<unsigned>(blocks), kTreeThreads, 0, stream>>>(src, count, dst);
+    kernel<<<static_cast<unsigned>(blocks), kTreeBlockThreads, 0, stream>>>(src, count, dst);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return -static_cast<int>(err);
     ++launches;
@@ -265,7 +357,7 @@ constexpr int kBadCount = -static_cast<int>(cudaErrorInvalidValue);
 extern "C" int g1_mul_affine_launch(const void* points, const void* scalars, int64_t n,
                                     void* out, void* stream) {
   if (bad_count(n)) return kBadCount;
-  g1_mul_affine_kernel<<<static_cast<unsigned>(blocks_for(n, kLaneThreads)), kLaneThreads, 0,
+  g1_mul_affine_kernel<<<static_cast<unsigned>(blocks_for(n, kLanesPerBlock)), kLaneBlockThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(points), static_cast<const uint32_t*>(scalars), n,
       static_cast<uint32_t*>(out));
@@ -273,11 +365,24 @@ extern "C" int g1_mul_affine_launch(const void* points, const void* scalars, int
 }
 
 // points (n, 2, 2, 12), scalars (n, 4) -> out (3, 2, 12); work holds the
-// block partials and the fold's levels (ops/pairing.py g2_mul_sum_cuda)
+// block partials and the fold's levels (ops/pairing.py g2_mul_sum_cuda),
+// under mxu the n lanes' points before them
 extern "C" int g2_mul_sum_launch(const void* points, const void* scalars, int64_t n, void* work,
                                  void* out, void* stream) {
   if (bad_count(n)) return kBadCount;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#ifdef FP381_MUL_MXU
+  // the lanes' products into work (out for one lane), then their fold
+  uint32_t* lanes = n == 1 ? static_cast<uint32_t*>(out) : static_cast<uint32_t*>(work);
+  g2_mul_lanes_kernel<<<static_cast<unsigned>(blocks_for(n, kLanesPerBlock)), kLaneBlockThreads,
+                        0, s>>>(static_cast<const uint32_t*>(points),
+                                static_cast<const uint32_t*>(scalars), n, lanes);
+  const int lanes_rc = launched_once();
+  if (lanes_rc < 0 || n == 1) return lanes_rc;
+  const int lane_folds = fold_levels(g2_fold_kernel, lanes, n, kG2JacWords,
+                                     lanes + n * kG2JacWords, static_cast<uint32_t*>(out), s);
+  return lane_folds < 0 ? lane_folds : lanes_rc + lane_folds;
+#else
   const int64_t blocks = blocks_for(n, kTreeThreads);
   uint32_t* first = blocks == 1 ? static_cast<uint32_t*>(out) : static_cast<uint32_t*>(work);
   g2_mul_fold_kernel<<<static_cast<unsigned>(blocks), kTreeThreads, 0, s>>>(
@@ -287,13 +392,14 @@ extern "C" int g2_mul_sum_launch(const void* points, const void* scalars, int64_
   const int folds = fold_levels(g2_fold_kernel, first, blocks, kG2JacWords,
                                 first + blocks * kG2JacWords, static_cast<uint32_t*>(out), s);
   return folds < 0 ? folds : rc + folds;
+#endif
 }
 
 // xp, yp (n, 12), xq, yq (n, 2, 12) -> out (n, 12, 12)
 extern "C" int miller_loop_launch(const void* xp, const void* yp, const void* xq, const void* yq,
                                   int64_t n, void* out, void* stream) {
   if (bad_count(n)) return kBadCount;
-  miller_loop_kernel<<<static_cast<unsigned>(blocks_for(n, kLaneThreads)), kLaneThreads, 0,
+  miller_loop_kernel<<<static_cast<unsigned>(blocks_for(n, kLanesPerBlock)), kLaneBlockThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(xp), static_cast<const uint32_t*>(yp),
       static_cast<const uint32_t*>(xq), static_cast<const uint32_t*>(yq), n,
@@ -308,7 +414,7 @@ extern "C" int fp12_product_launch(const void* values, int64_t n, void* work, vo
   if (bad_count(n)) return kBadCount;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 1) {  // one value: the fold of one block (a Montgomery round trip)
-    fp12_fold_kernel<<<1, kTreeThreads, 0, s>>>(static_cast<const uint32_t*>(values), 1,
+    fp12_fold_kernel<<<1, kTreeBlockThreads, 0, s>>>(static_cast<const uint32_t*>(values), 1,
                                                 static_cast<uint32_t*>(out));
     return launched_once();
   }

@@ -3,9 +3,11 @@ tower under the plain versions of the pairing kernels (ops/pairing.py).
 
 An element is a ``(..., 2, 24)`` int64 tensor: c0 then c1, each in the
 Montgomery 16-bit limbs of ops/fq.py. Independent products are stacked
-into one call of ``fq.mul`` (``mul`` on a stacked ``(..., k, 2, 24)``
-tensor computes k products at once), so a whole Fq6 product is one field
-multiplication call: on the card each tensor op is a launch. Sums,
+into one call of ``fq8.mul`` (the selected multiplier's product: ``fq.mul``
+under "u64", ``fq8.mont7r_plain`` under "mxu"; ``mul`` on a stacked
+``(..., k, 2, 24)`` tensor computes k products at once), so a whole Fq6
+product is one field multiplication call: on the card each tensor op is a
+launch. Sums,
 differences and negation are limbwise: ``fq.add``, ``fq.sub`` and
 ``fq.neg`` serve Fq2 tensors as they are.
 
@@ -17,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from . import fq
+from . import fq, fq8
 
 __all__ = [
     "conj",
@@ -44,7 +46,7 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a, b = torch.broadcast_tensors(a, b)
     a0, a1 = a.unbind(-2)
     b0, b1 = b.unbind(-2)
-    t = fq.mul(torch.stack([a0, a1, a0, a1], dim=-2), torch.stack([b0, b1, b1, b0], dim=-2))
+    t = fq8.mul(torch.stack([a0, a1, a0, a1], dim=-2), torch.stack([b0, b1, b1, b0], dim=-2))
     return torch.stack([fq.sub(t[..., 0, :], t[..., 1, :]),
                         fq.add(t[..., 2, :], t[..., 3, :])], dim=-2)
 
@@ -58,7 +60,7 @@ def mul_many(pairs: "list[tuple[torch.Tensor, torch.Tensor]]") -> "list[torch.Te
 def square(a: torch.Tensor) -> torch.Tensor:
     """c0 = a0^2 - a1^2, c1 = 2 a0 a1: three products in one call."""
     a0, a1 = a.unbind(-2)
-    t = fq.mul(torch.stack([a0, a1, a0], dim=-2), torch.stack([a0, a1, a1], dim=-2))
+    t = fq8.mul(torch.stack([a0, a1, a0], dim=-2), torch.stack([a0, a1, a1], dim=-2))
     return torch.stack([fq.sub(t[..., 0, :], t[..., 1, :]),
                         fq.dbl(t[..., 2, :])], dim=-2)
 
@@ -81,9 +83,9 @@ def is_zero(a: torch.Tensor) -> torch.Tensor:
 def inv(a: torch.Tensor) -> torch.Tensor:
     """1 / (a0 + a1 u) = (a0 - a1 u) / (a0^2 + a1^2); 0 for 0."""
     a0, a1 = a.unbind(-2)
-    t = fq.mul(a, a)
-    norm_inv = fq.inv(fq.add(t[..., 0, :], t[..., 1, :]))
-    return fq.mul(torch.stack([a0, fq.neg(a1)], dim=-2), norm_inv[..., None, :])
+    t = fq8.mul(a, a)
+    norm_inv = fq8.inv(fq.add(t[..., 0, :], t[..., 1, :]))
+    return fq8.mul(torch.stack([a0, fq.neg(a1)], dim=-2), norm_inv[..., None, :])
 
 
 def from_ints(c0: int, c1: int, device="cpu") -> torch.Tensor:

@@ -22,7 +22,12 @@ Two paths with identical Jacobian output:
     products fit), the same formulas and the same order of additions as
     the kernel's 128 threads and its shared-memory fold.
 ``g1_sum_sets`` takes the plain version for CPU tensors only; for CUDA
-tensors it launches the kernel or raises.
+tensors it launches the kernel or raises. Under the "mxu" multiplier
+(``fq8.set_multiplier``, ``EC_PAIRING_MULT``) the plain version's products
+are ``fq8.mont7r``'s and the kernel is the mxu build of ``csrc/g1_sum.cu``
+(one warp a lane on the int8 tensor-core product), with the same sums;
+``aggregate_pubkeys_device``, the single-set sum, stays on u64 under both,
+as the reference's strict-field twin does.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ import numpy as np
 import torch
 
 from .. import _kernels
-from . import fq
+from . import fq, fq8
 from .fq import P_INT
 
 __all__ = [
@@ -52,9 +57,11 @@ __all__ = [
 # threads per block of the kernel: the plain version folds the same lanes
 THREADS = 128
 
-# Kernel launches since the count was last set to 0 (``g1_sum_sets_cuda``
-# adds one per launch and nowhere else).
+# Kernel launches since the counts were last set to 0 (``g1_sum_sets_cuda``
+# adds one per launch and nowhere else): the u64 build's, and the mxu
+# build's.
 launch_count = 0
+launch_count_mxu = 0
 
 
 # ---------------------------------------------------------------------------
@@ -108,50 +115,53 @@ def jacobian_to_affine(sums: torch.Tensor) -> "list[tuple[bytes, bool]]":
 # limbs in int64, Montgomery form with the kernel's R = 2^384).
 # ---------------------------------------------------------------------------
 
+def _products(*pairs):
+    """The field products of the (a, b) pairs, stacked into one call of the
+    selected multiplier's product (``fq8.mul``)."""
+    a, b = zip(*(torch.broadcast_tensors(x, y) for x, y in pairs))
+    return fq8.mul(torch.stack(a), torch.stack(b)).unbind(0)
+
+
 def point_double(p: torch.Tensor) -> torch.Tensor:
     """dbl-2009-l on (..., 3, 24) Montgomery Jacobian points (fp381_core.h
     g1_double; the G1 set sums and the pairing's blinder multiplication)."""
     x, y, z = p.unbind(-2)
-    a = fq.mul(x, x)
-    b = fq.mul(y, y)
-    c = fq.mul(b, b)
+    a, b, yz = _products((x, x), (y, y), (y, z))
     xb = fq.add(x, b)
-    d = fq.sub(fq.sub(fq.mul(xb, xb), a), c)
+    c, xb2 = _products((b, b), (xb, xb))
+    d = fq.sub(fq.sub(xb2, a), c)
     d = fq.add(d, d)
     e = fq.add(fq.add(a, a), a)
-    f = fq.mul(e, e)
+    (f,) = _products((e, e))
     x3 = fq.sub(f, fq.add(d, d))
     c8 = fq.add(c, c)
     c8 = fq.add(c8, c8)
     c8 = fq.add(c8, c8)
-    y3 = fq.sub(fq.mul(e, fq.sub(d, x3)), c8)
-    yz = fq.mul(y, z)
-    return torch.stack([x3, y3, fq.add(yz, yz)], dim=-2)
+    (ed,) = _products((e, fq.sub(d, x3)))
+    return torch.stack([x3, fq.sub(ed, c8), fq.add(yz, yz)], dim=-2)
 
 
 def point_add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """add-2007-bl with the kernel's branches as selects: q at infinity
-    gives p, p at infinity gives q, P == Q doubles, P == -Q is infinity."""
+    gives p, p at infinity gives q, P == Q doubles, P == -Q is infinity.
+    The doubling is computed only where some lane needs it."""
+    p, q = torch.broadcast_tensors(p, q)
     x1, y1, z1 = p.unbind(-2)
     x2, y2, z2 = q.unbind(-2)
-    z1z1 = fq.mul(z1, z1)
-    z2z2 = fq.mul(z2, z2)
-    u1 = fq.mul(x1, z2z2)
-    u2 = fq.mul(x2, z1z1)
-    s1 = fq.mul(fq.mul(y1, z2), z2z2)
-    s2 = fq.mul(fq.mul(y2, z1), z1z1)
+    z1z1, z2z2, y1z2, y2z1, z1z2 = _products((z1, z1), (z2, z2), (y1, z2), (y2, z1), (z1, z2))
+    u1, u2, s1, s2 = _products((x1, z2z2), (x2, z1z1), (y1z2, z2z2), (y2z1, z1z1))
     h = fq.sub(u2, u1)
     r = fq.sub(s2, s1)
-    hh = fq.mul(h, h)
-    hhh = fq.mul(h, hh)
-    v = fq.mul(u1, hh)
-    x3 = fq.sub(fq.sub(fq.mul(r, r), hhh), fq.add(v, v))
-    y3 = fq.sub(fq.mul(r, fq.sub(v, x3)), fq.mul(s1, hhh))
-    z3 = fq.mul(fq.mul(z1, z2), h)
-    out = torch.stack([x3, y3, z3], dim=-2)
+    hh, rr = _products((h, h), (r, r))
+    hhh, v, z3 = _products((h, hh), (u1, hh), (z1z2, h))
+    x3 = fq.sub(fq.sub(rr, hhh), fq.add(v, v))
+    rv, s1h = _products((r, fq.sub(v, x3)), (s1, hhh))
+    out = torch.stack([x3, fq.sub(rv, s1h), z3], dim=-2)
     h_zero = fq.is_zero(h)[..., None, None]
     r_zero = fq.is_zero(r)[..., None, None]
-    out = torch.where(h_zero & r_zero, point_double(p), out)
+    same = h_zero & r_zero
+    if bool(same.any()):
+        out = torch.where(same, point_double(p), out)
     out = torch.where(h_zero & ~r_zero, torch.zeros_like(out), out)
     out = torch.where(fq.is_zero(z1)[..., None, None], q, out)
     return torch.where(fq.is_zero(z2)[..., None, None], p, out)
@@ -194,7 +204,7 @@ def g1_sum_sets_plain(points: torch.Tensor, offsets: torch.Tensor) -> torch.Tens
         valid = k < end[:, None]
         xy = pts[torch.where(valid, k, pad)]
         live = ~(fq.is_zero(xy[..., 0, :]) & fq.is_zero(xy[..., 1, :]))
-        jac = torch.stack([fq.to_mont(xy[..., 0, :]), fq.to_mont(xy[..., 1, :]),
+        jac = torch.stack([fq8.to_mont(xy[..., 0, :]), fq8.to_mont(xy[..., 1, :]),
                            one.expand_as(xy[..., 0, :])], dim=-2)
         jac = torch.where(live[..., None, None], jac, torch.zeros_like(jac))
         acc = torch.where(valid[..., None, None], point_add(acc, jac), acc)
@@ -203,7 +213,7 @@ def g1_sum_sets_plain(points: torch.Tensor, offsets: torch.Tensor) -> torch.Tens
         acc = torch.cat([point_add(acc[:, :stride], acc[:, stride : 2 * stride]),
                          acc[:, stride:]], dim=1)
         stride //= 2
-    return fq.limbs32(fq.from_mont(acc[:, 0]))
+    return fq.limbs32(fq8.from_mont(acc[:, 0]))
 
 
 # ---------------------------------------------------------------------------
@@ -222,12 +232,19 @@ def g1_sum_sets_cuda(points: torch.Tensor, offsets: torch.Tensor) -> torch.Tenso
     return _launch(points, offsets, n_sets)
 
 
+def _library() -> str:
+    """The build of csrc/g1_sum.cu that the selected multiplier runs."""
+    return "g1_sum_mxu" if fq8.get_multiplier() == "mxu" else "g1_sum"
+
+
 def _launch(points: torch.Tensor, offsets: torch.Tensor, n_sets: int) -> torch.Tensor:
     """The launch alone, on inputs ``g1_sum_sets_cuda`` has checked (the
     offsets check waits for the card, so kernel timings call this
-    directly)."""
-    global launch_count
-    lib = _kernels.load("g1_sum")
+    directly): the u64 build, or the mxu build under "mxu"."""
+    global launch_count, launch_count_mxu
+    name = _library()
+    mxu = name == "g1_sum_mxu"
+    lib = _kernels.load(name)
     out = torch.empty((n_sets, 3, 12), dtype=torch.int32, device=points.device)
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream(points.device).cuda_stream
@@ -235,7 +252,10 @@ def _launch(points: torch.Tensor, offsets: torch.Tensor, n_sets: int) -> torch.T
                                     out.data_ptr(), n_sets, stream)
     if rc != 0:
         raise RuntimeError(f"g1_sum_sets kernel launch failed: CUDA error {rc}")
-    launch_count += 1
+    if mxu:
+        launch_count_mxu += 1
+    else:
+        launch_count += 1
     return out
 
 
@@ -270,4 +290,5 @@ def aggregate_pubkeys_device(raws: "list[bytes]", device="cuda") -> "tuple[bytes
     (crypto/bls.rs:114)."""
     if not raws:
         return b"\x00" * 96, True
-    return aggregate_pubkey_sets_device([raws], device=device)[0]
+    with fq8.pinned("u64"):
+        return aggregate_pubkey_sets_device([raws], device=device)[0]

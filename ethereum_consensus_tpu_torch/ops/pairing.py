@@ -27,6 +27,13 @@ significant first. G1 affine ``(N, 2, 12)`` (x, y); G2 affine
 order of ``fq12.fp12_to_ints``); scalars ``(N, 4)``, least significant
 word first.
 
+Under the "mxu" multiplier (``fq8.set_multiplier("mxu")`` or
+``EC_PAIRING_MULT=mxu``, the reference's ``fql.set_multiplier``) the
+wrappers launch the mxu build of the same kernels, one warp per lane with
+every Fp product on the int8 tensor cores (csrc/fp_mma.h), counted under
+``name + "_mxu"``; the plain versions multiply through ``fq8.mul``. The
+values are the same on both.
+
 Each kernel has a ``*_plain`` twin over the plain tower (ops/fq.py,
 fq2.py, fq12.py) with the same formulas, so the two agree limb for limb;
 the dispatcher takes the plain version for CPU tensors only and, for CUDA
@@ -51,7 +58,7 @@ import torch
 from .. import _kernels
 from ..crypto.fields import Fq, Fq2, Fq6, Fq12
 from ..native import bls as native_bls
-from . import fq, fq2, fq12, g1
+from . import fq, fq2, fq8, fq12, g1
 
 __all__ = [
     "BLS_X_ABS",
@@ -87,8 +94,10 @@ SCALAR_WORDS = 4
 # threads per block of the fold kernels (csrc/pairing.cu kTreeThreads)
 TREE_THREADS = 64
 
-# Kernel launches since the counts were last set to 0.
-launch_counts = {"g1_mul_affine": 0, "g2_mul_sum": 0, "miller_loop": 0, "fp12_product": 0}
+KERNELS = ("g1_mul_affine", "g2_mul_sum", "miller_loop", "fp12_product")
+# Kernel launches since the counts were last set to 0: the u64 kernels under
+# their names, the mxu builds' under name + "_mxu".
+launch_counts = {f"{name}{suffix}": 0 for suffix in ("", "_mxu") for name in KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -210,19 +219,19 @@ def _point_mul(double, add, points, words):
 
 def _g1_jacobian(points: torch.Tensor) -> torch.Tensor:
     """(N, 2, 12) canonical affine -> (N, 3, 24) Montgomery Jacobian, z = 1."""
-    xy = fq.to_mont(fq.limbs16(points))
+    xy = fq8.to_mont(fq.limbs16(points))
     one = fq.const(fq.R % fq.P_INT, points.device).expand_as(xy[:, 0])
     return torch.stack([xy[:, 0], xy[:, 1], one], dim=-2)
 
 
 def _g2_jacobian(points: torch.Tensor) -> torch.Tensor:
     """(N, 2, 2, 12) canonical affine -> (N, 3, 2, 24) Montgomery Jacobian."""
-    xy = fq.to_mont(fq.limbs16(points))
+    xy = fq8.to_mont(fq.limbs16(points))
     return torch.stack([xy[:, 0], xy[:, 1], fq2.one((points.shape[0],), points.device)], dim=-3)
 
 
 def _canonical(values: torch.Tensor) -> torch.Tensor:
-    return fq.limbs32(fq.from_mont(values))
+    return fq.limbs32(fq8.from_mont(values))
 
 
 def _check(name: str, tensors: dict) -> int:
@@ -246,24 +255,32 @@ def _check(name: str, tensors: dict) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _library() -> str:
+    """The build of csrc/pairing.cu that the selected multiplier runs."""
+    return "pairing_mxu" if fq8.get_multiplier() == "mxu" else "pairing"
+
+
 def _launch(kernel: str, fn_name: str, *args) -> None:
     """Call the C entry ``fn_name`` of csrc/pairing.cu with ``args``
-    (tensors as device pointers) on the current stream; count each grid
-    launch it made for ``kernel`` (the folds launch once per level)."""
+    (tensors as device pointers) on the current stream: the u64 build, or
+    under the "mxu" multiplier the mxu build (one warp a lane, fp_mma.h);
+    count each grid launch it made for ``kernel`` (the folds launch once per
+    level), the mxu build's under ``kernel + "_mxu"``."""
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     device = tensors[0].device
     if device.type != "cuda":
         raise ValueError(f"{kernel}: the kernel needs CUDA tensors, got {device}")
     if not all(t.is_contiguous() and t.device == device for t in tensors):
         raise ValueError(f"{kernel}: the tensors must be contiguous on one device")
-    lib = _kernels.load("pairing")
+    name = _library()
+    lib = _kernels.load(name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, fn_name)(
             *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args), stream)
     if rc <= 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {-rc}")
-    launch_counts[kernel] += rc
+    launch_counts[kernel + "_mxu" if name == "pairing_mxu" else kernel] += rc
 
 
 def _fold_work(count: int) -> int:
@@ -286,11 +303,11 @@ def g1_mul_affine_plain(points: torch.Tensor, scalars: torch.Tensor) -> torch.Te
     _check("g1_mul_affine", {"points": (points, (2, 12)), "scalars": (scalars, (4,))})
     x, y, z = _point_mul(g1.point_double, g1.point_add, _g1_jacobian(points),
                          scalars).unbind(-2)
-    z_inv = fq.inv(z)
-    z_inv2 = fq.mul(z_inv, z_inv)
-    ax, z_inv3 = fq.mul(torch.stack([x, z_inv2], dim=-2),
-                        torch.stack([z_inv2, z_inv], dim=-2)).unbind(-2)
-    return _canonical(torch.stack([ax, fq.mul(y, z_inv3)], dim=-2))
+    z_inv = fq8.inv(z)
+    z_inv2 = fq8.mul(z_inv, z_inv)
+    ax, z_inv3 = fq8.mul(torch.stack([x, z_inv2], dim=-2),
+                         torch.stack([z_inv2, z_inv], dim=-2)).unbind(-2)
+    return _canonical(torch.stack([ax, fq8.mul(y, z_inv3)], dim=-2))
 
 
 def g1_mul_affine_cuda(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
@@ -345,7 +362,7 @@ def _g2_fold(jac: torch.Tensor) -> torch.Tensor:
 def g2_sum_points(points: torch.Tensor) -> torch.Tensor:
     """Sum an (N, 3, 2, 12) batch of canonical Jacobian G2 points ->
     (3, 2, 12), limb for limb the reference's g2_sum_points."""
-    return _canonical(_g2_fold(fq.to_mont(fq.limbs16(points))))
+    return _canonical(_g2_fold(fq8.to_mont(fq.limbs16(points))))
 
 
 def g2_mul_sum_plain(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
@@ -358,8 +375,11 @@ def g2_mul_sum_plain(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tenso
 
 def g2_mul_sum_cuda(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
     n = _check("g2_mul_sum", {"points": (points, (2, 2, 12)), "scalars": (scalars, (4,))})
-    blocks = -(-n // TREE_THREADS)
-    items = 0 if blocks == 1 else blocks + _fold_work(blocks)
+    if _library() == "pairing_mxu":  # the n lanes' points, then the fold of n
+        items = 0 if n == 1 else n + _fold_work(n)
+    else:  # the block partials, then their fold
+        blocks = -(-n // TREE_THREADS)
+        items = 0 if blocks == 1 else blocks + _fold_work(blocks)
     work = torch.empty((max(items, 1), 3, 2, 12), dtype=torch.int32, device=points.device)
     out = torch.empty((3, 2, 12), dtype=torch.int32, device=points.device)
     _launch("g2_mul_sum", "g2_mul_sum_launch", points, scalars, n, work, out)
@@ -386,7 +406,7 @@ def _double_step(f, t, xp, yp):
     c, z3c, x3c, xb2 = _products([(b, b), (z2, z), (a, x), (xb, xb)])
     e = fq.add(fq.dbl(a), a)
     yz3, ez2 = _products([(y, z3c), (e, z2)])
-    ly, c12 = fq.mul(torch.stack([fq.dbl(yz3), ez2], dim=-3),
+    ly, c12 = fq8.mul(torch.stack([fq.dbl(yz3), ez2], dim=-3),
                      torch.stack([yp, xp], dim=-2)[..., None, :]).unbind(-3)
     c00 = fq.neg(fq2.mul_by_xi(ly))
     c11 = fq.sub(fq.dbl(b), fq.add(fq.dbl(x3c), x3c))
@@ -408,7 +428,7 @@ def _add_step(f, t, xp, yp, xq, yq):
     (s2,) = _products([(yq, z3c)])
     lam_n = fq.sub(y, s2)
     (lam_d,) = _products([(fq.sub(x, u2), z)])
-    ly, c12 = fq.mul(torch.stack([lam_d, lam_n], dim=-3),
+    ly, c12 = fq8.mul(torch.stack([lam_d, lam_n], dim=-3),
                      torch.stack([yp, xp], dim=-2)[..., None, :]).unbind(-3)
     c00 = fq.neg(fq2.mul_by_xi(ly))
     t1, t2 = _products([(yq, lam_d), (lam_n, xq)])
@@ -431,7 +451,7 @@ def miller_loop_plain(xp, yp, xq, yq) -> torch.Tensor:
     (N, 2, 3, 2, 12) canonical f_{|x|,Q_i}(P_i), conjugated."""
     n = _check("miller_loop", {"xp": (xp, (12,)), "yp": (yp, (12,)), "xq": (xq, (2, 12)),
                                "yq": (yq, (2, 12))})
-    xp, yp, xq, yq = (fq.to_mont(fq.limbs16(v)) for v in (xp, yp, xq, yq))
+    xp, yp, xq, yq = (fq8.to_mont(fq.limbs16(v)) for v in (xp, yp, xq, yq))
     t = torch.stack([xq, yq, fq2.one((n,), xp.device)], dim=-3)
     f = fq12.fp12_one((n,), xp.device)
     for bit in _X_BITS:
@@ -471,7 +491,7 @@ def miller_loop_batched(xp, yp, xq, yq) -> torch.Tensor:
 def fp12_product_plain(fs: torch.Tensor) -> torch.Tensor:
     """(N, 2, 3, 2, 12) canonical Fq12 values -> their product (2, 3, 2, 12)."""
     _check("fp12_product", {"fs": (fs, (2, 3, 2, 12))})
-    vals = fq.to_mont(fq.limbs16(fs))
+    vals = fq8.to_mont(fq.limbs16(fs))
     while vals.shape[0] > 1:
         if vals.shape[0] % 2:
             vals = torch.cat([vals, fq12.fp12_one((1,), fs.device)])

@@ -17,7 +17,12 @@ pair), compiled once in module-scoped fixtures:
     reference's; the G2 multiplication of a lane limb for limb and
     ``g2_sum_points`` on the reference's lanes;
   - ``fp_tower.h`` built with g++ and held against Python integers, the
-    native Miller loop and the plain versions.
+    native Miller loop and the plain versions;
+  - under the "mxu" multiplier (``fq8.set_multiplier``: every product of
+    the plain versions is ``fq8.mont7r``'s), the same batch's stages
+    identical to the u64 ones, a tampered batch's verdict against the
+    native one, the plain B6 set sums identical to the u64 ones, and the
+    dispatchers and launchers as under u64.
 
 The kernels themselves run only where a CUDA card is present.
 """
@@ -45,7 +50,7 @@ from ethereum_consensus_tpu.ops import fq12 as ref_fq12  # noqa: E402
 from ethereum_consensus_tpu.ops import fql as ref_fql  # noqa: E402
 from ethereum_consensus_tpu.ops import pairing as ref_pairing  # noqa: E402
 from ethereum_consensus_tpu_torch import _device_flags, _env, convert, ops  # noqa: E402
-from ethereum_consensus_tpu_torch.ops import fq, fq2, fq12, pairing  # noqa: E402
+from ethereum_consensus_tpu_torch.ops import fq, fq2, fq8, fq12, g1, pairing  # noqa: E402
 from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse fixture)
 
 CSRC = Path(pairing.__file__).resolve().parents[1] / "csrc"
@@ -77,12 +82,14 @@ def batch():
     first blinder is 1, as verify_signature_sets draws it, one has its top
     bit set."""
     rng = np.random.default_rng(5)
-    out = {"pk": [], "h": [], "sig": []}
+    out = {"pk": [], "h": [], "sig": [], "msg": [], "sig96": []}
     for _ in range(LANES):
         sk = ref_bls.SecretKey(int.from_bytes(rng.bytes(31), "big") + 1)
         msg = rng.bytes(32)
+        out["msg"].append(msg)
+        out["sig96"].append(sk.sign(msg).to_bytes())
         out["pk"].append(sk.public_key().raw_uncompressed())
-        out["sig"].append(ref_native.g2_decompress(sk.sign(msg).to_bytes(), True)[1])
+        out["sig"].append(ref_native.g2_decompress(out["sig96"][-1], True)[1])
         out["h"].append(ref_native.g2_decompress(
             ref_native.hash_to_g2_compressed(msg, ETH_DST), False)[1])
     out["scalars"] = [1, (1 << 127) | int.from_bytes(rng.bytes(15), "big")] + [
@@ -112,8 +119,7 @@ def reference(batch):
     }
 
 
-@pytest.fixture(scope="module")
-def port(batch):
+def _recorded_batch(batch) -> dict:
     """One ``batch_verify_device`` through the plain versions, each
     kernel's output recorded on the way."""
     seen: dict = {}
@@ -136,7 +142,31 @@ def port(batch):
         "miller_tensor": fs,
         "extra_pair": fq.to_ints(seen["miller_loop"][1]),
         "product": fq.to_ints(seen["fp12_product"][0]),
+        "tensors": {name: outs for name, outs in seen.items()},
     }
+
+
+@pytest.fixture(scope="module")
+def port(batch):
+    return _recorded_batch(batch)
+
+
+@pytest.fixture(scope="module")
+def port_mxu(batch):
+    """The same batch with every product of the plain versions on the mxu
+    multiplier."""
+    fq8.set_multiplier("mxu")
+    try:
+        return _recorded_batch(batch)
+    finally:
+        fq8.set_multiplier("u64")
+
+
+@pytest.fixture
+def mxu():
+    fq8.set_multiplier("mxu")
+    yield
+    fq8.set_multiplier("u64")
 
 
 # ---------------------------------------------------------------------------
@@ -334,6 +364,71 @@ def test_install_sets_and_uninstall_clears_the_pairing_gate():
         ops.uninstall()
     assert _device_flags.PAIRING_MIN_SETS is None
     assert not _device_flags.pairing_enabled(1 << 20)
+
+
+# ---------------------------------------------------------------------------
+# the mxu multiplier
+# ---------------------------------------------------------------------------
+
+
+def test_mxu_stages_equal_the_u64_stages(port, port_mxu):
+    """Each of the four functions' outputs (the Miller kernel's twice: the
+    four lanes and the extra pair), tensor for tensor."""
+    assert port_mxu["verdict"] is True
+    for name, outs in port["tensors"].items():
+        assert len(outs) == len(port_mxu["tensors"][name])
+        for u64, mxu in zip(outs, port_mxu["tensors"][name]):
+            assert torch.equal(u64, mxu), name
+
+
+def test_mxu_tampered_verdict_matches_native(batch, mxu):
+    """Two signatures swapped (the reference's tests/test_ops_pairing.py
+    parity case): false on the mxu multiplier and in the native batch."""
+    sig = list(batch["sig"])
+    sig[1], sig[2] = sig[2], sig[1]
+    assert pairing.batch_verify_device(batch["pk"], batch["h"], sig, batch["scalars"],
+                                       device="cpu") is False
+    sig96 = list(batch["sig96"])
+    sig96[1], sig96[2] = sig96[2], sig96[1]
+    blinders = [k.to_bytes(16, "big") for k in batch["scalars"]]
+    assert ref_native.batch_verify_raw([([pk], m, s) for pk, m, s in zip(
+        batch["pk"], batch["msg"], sig96)], ETH_DST, blinders) is False
+    assert ref_native.batch_verify_raw([([pk], m, s) for pk, m, s in zip(
+        batch["pk"], batch["msg"], batch["sig96"])], ETH_DST, blinders) is True
+
+
+def test_mxu_set_sums_equal_the_u64_set_sums(batch, monkeypatch):
+    """B6's plain version on three sets (one key; three; a repeat, P and
+    -P, and an infinity lane) under both multipliers; the single-set sum
+    makes no mxu product."""
+    pk = batch["pk"]
+    neg = pk[0][:48] + ((P - int.from_bytes(pk[0][48:], "big")) % P).to_bytes(48, "big")
+    points, offsets = g1.sets_to_csr([pk[:1], pk[1:4], [pk[2], pk[2], pk[0], neg,
+                                                       b"\x00" * 96]])
+    u64 = g1.g1_sum_sets(points, offsets)
+    fq8.set_multiplier("mxu")
+    try:
+        assert torch.equal(g1.g1_sum_sets(points, offsets), u64)
+        # the single-set sum stays on u64 under mxu
+        monkeypatch.setattr(fq8, "mont7r_plain", None)
+        assert g1.aggregate_pubkeys_device(pk[1:4], device="cpu") == g1.jacobian_to_affine(
+            u64[1:2])[0]
+    finally:
+        fq8.set_multiplier("u64")
+
+
+def test_mxu_dispatchers_take_plain_versions_and_launchers_refuse_cpu(batch, port, mxu):
+    before = (dict(pairing.launch_counts), g1.launch_count, g1.launch_count_mxu)
+    fs = port["miller_tensor"][:2]
+    assert torch.equal(pairing.fp12_product(fs), pairing.fp12_product_plain(fs))
+    assert (dict(pairing.launch_counts), g1.launch_count, g1.launch_count_mxu) == before
+    pk = torch.stack(pairing.g1_affine_from_raw(batch["pk"], "cpu"), dim=1)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pairing.g1_mul_affine_cuda(pk, port["words"])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pairing.fp12_product_cuda(port["miller_tensor"])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        g1.g1_sum_sets_cuda(*g1.sets_to_csr([batch["pk"]]))
 
 
 @pytest.fixture

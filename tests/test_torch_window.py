@@ -11,7 +11,8 @@ plain versions) and ``ops.install(pairing_min_sets=2)`` in the reference
 (its device programs on JAX's CPU). Verdicts, the blame of a copy with one
 aggregate's signature replaced by its neighbour's, and the route taken must
 agree. A kernel that fails raises out of ``verify_signature_sets``: no host
-route answers for it.
+route answers for it. The same window on the "mxu" multiplier runs in
+tests/test_torch_window_mxu.py.
 """
 
 import pytest
@@ -148,3 +149,4 @@ def test_a_failing_kernel_raises(port_sets, port_device_route, monkeypatch, kern
     monkeypatch.setattr(port_native, "batch_verify_raw", host_route)
     with pytest.raises(RuntimeError, match="CUDA error 719"):
         port_bls.verify_signature_sets(port_sets)
+
