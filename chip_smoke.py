@@ -27,8 +27,15 @@ Phases, each of which exits non-zero when it fails:
                 aggregation. Its mxu build (fq8.set_multiplier("mxu")) limb
                 for limb against the u64 kernel on the edge and block sets and
                 against the plain version under mxu on the edge sets.
-  7. htr      — the device merkleizer on 2^20 random chunks against the host
-                merkleizer.
+  7. htr      — the multi-level merkle kernel (B2) against its plain version
+                on the card and the host merkleizer, bit-exact, at 2^20
+                leaves without and with the limit 2^40, at 2^20 - 3, 1, 3
+                and 2^17 + 1 leaves, and from start_level 3; its CUDA-event
+                time at 2^20 leaves and limit 2^40 (at most 4 launches)
+                beside the per-level B1 chain it replaced; then the device
+                merkleizer on 2^20 random chunks against the host
+                merkleizer, its wall split into byte conversion, upload,
+                kernels and the root's way back.
   8. slice    — process_slots to slot 3 with the CUDA hasher installed and
                 without it must give identical bytes and roots, and the
                 SHA-256 kernel must have been launched.
@@ -99,6 +106,25 @@ Phases, each of which exits non-zero when it fails:
                 kernel launched on the device route, their mxu builds and
                 none of the u64 ones on the mxu route (a B7 count is one per
                 grid launch, the folds' further launches included).
+ 16. mesh     — the ECT_MESH route (parallel/, the reference's production
+                mesh switch) at ECT_MESH=1: the altair phase's block applied
+                cold through Executor.apply_block after ops.install(device=
+                "cuda") — the sharded fused epoch pass (B3's flag sums, their
+                psum, B3's element pass) and the sharded state roots (B2 per
+                shard, then from start_level over the gathered roots) — with
+                the altair routes' post-state bytes and root, the epoch and
+                merkle twins engaged; the window's 528 sets on the sharded RLC
+                route (B7 per shard, the partials folded by B7): every verdict
+                true, the host route's blame, the pairing twin engaged. Then
+                each twin at virtual_mesh(4, "cuda") and chip_mesh(1) on the
+                inputs those runs gave it: the largest sharded root against
+                the host root; the three MeshEpochSweeps entries (with u64
+                edge rows) against the unsharded B3 and B5-altair kernels and
+                their plain versions, and the wrap census; the pairing
+                partials against the unsharded route, limb for limb, the
+                verdict, and a blinder-0 lane. CUDA-event times of B3's split
+                launches and the rewards lane at 2^20; each twin's wall.
+                ECT_MESH=2 on the one card must raise.
 Then the run's wall time, one JSON line per kernel (``{"kernels": [...]}``)
 and, last, the ``{"ok": true, "device": ...}`` line.
 
@@ -618,31 +644,133 @@ def _g1_mxu(outputs: dict, main: dict) -> dict:
             "bound_by": main["bound_by"], "max_abs_err": max(errs.values())}
 
 
-def phase_htr(log2_leaves: int) -> dict:
-    from ethereum_consensus_tpu_torch import ops
+# (leaves, limit, start_level) of the htr phase's B2 checks: the registry
+# width with and without the registry limit, an odd width just below it, one
+# and three leaves, an odd width past a launch's blocks, and leaves three
+# levels above the chunk layer (the sharded merkleizer's top tree)
+MERKLE_CHECK_SHAPES = ((1 << 20, None, 0), (1 << 20, 2**40, 0), ((1 << 20) - 3, None, 0),
+                       (1, None, 0), (3, None, 0), ((1 << 17) + 1, None, 0),
+                       (1 << 17, 2**37, 3))
+MERKLE_MAX_LAUNCHES = 4  # at 2^20 leaves and limit 2^40
+
+
+def _b1_chain_root(words: torch.Tensor, zero_words: torch.Tensor, depth: int) -> torch.Tensor:
+    """The device merkleizer before B2: one B1 launch a level, the
+    concatenations between them, one more launch a zero-sibling level."""
     from ethereum_consensus_tpu_torch.ops import sha256
-    from ethereum_consensus_tpu_torch.ssz.merkle import merkleize_chunks
+
+    nodes, n, level = words, words.shape[1], 0
+    while n > 1:
+        if n % 2 == 1:
+            nodes = torch.cat([nodes, zero_words[level][:, None]], dim=1)
+            n += 1
+        pairs = nodes.reshape(8, n // 2, 2)
+        nodes = sha256.sha256_64b(torch.cat([pairs[:, :, 0], pairs[:, :, 1]], dim=0))
+        n //= 2
+        level += 1
+    for d in range(level, depth):
+        nodes = sha256.sha256_64b(torch.cat([nodes, zero_words[d][:, None]], dim=0))
+    return nodes[:, 0]
+
+
+def merkle_bound_ms(leaves: int, depth: int) -> tuple[float, str]:
+    """B2's least work: the tree's messages (every parent of the populated
+    tree, then one a zero-sibling level) at B1's operations a message; each
+    leaf read once, the root written once."""
+    messages = leaves - 1 + depth - (leaves - 1).bit_length()
+    return _bound(messages * SHA256_OPS_PER_MESSAGE, 32 * leaves + 32)
+
+
+def phase_htr(log2_leaves: int) -> dict:
+    """B2 (csrc/merkle.cu) against its plain version on the card and the
+    host merkleizer, bit-exact, on MERKLE_CHECK_SHAPES; its CUDA-event time
+    at 2^20 leaves and limit 2^40 beside the per-level B1 chain it replaces;
+    then ops.merkleize_chunks_device on 2^20 random chunks against the host
+    merkleizer, its wall split into byte conversion, upload, kernels and the
+    root's way back."""
+    from ethereum_consensus_tpu_torch import convert, ops
+    from ethereum_consensus_tpu_torch.ops import merkle, sha256
+    from ethereum_consensus_tpu_torch.ssz.merkle import merkleize_chunks, next_pow_of_two
 
     ops.uninstall()
+    zero = merkle.zero_hash_words("cuda")
+    rng = np.random.default_rng(42)
+    err, launches_at = 0, {}
+    for leaves, limit, start in MERKLE_CHECK_SHAPES:
+        chunks = rng.bytes(32 * leaves)
+        width = next_pow_of_two(leaves if limit is None else limit)
+        depth = (width - 1).bit_length() + start
+        words = convert.words_from_chunks(chunks, "cuda")
+        merkle.launch_count = 0
+        got = merkle.reduce_levels(words, zero, depth, start)
+        torch.cuda.synchronize()
+        launches = merkle.launch_count
+        plain = merkle.reduce_levels_plain(words, zero, depth, start)
+        host = merkleize_chunks(chunks, limit if start == 0 else width, level_offset=start)
+        step = int((got.to(torch.int64) - plain.to(torch.int64)).abs().max().item())
+        host_ok = convert.chunks_from_words(got[:, None]) == host
+        print(f"htr B2 {leaves} leaves, limit {limit}, start_level {start}: max_abs_err vs "
+              f"plain {step}, host root equal {host_ok}, {launches} launches")
+        if step or not host_ok:
+            sys.exit(f"chip_smoke: B2 disagrees at {leaves} leaves, limit {limit}, "
+                     f"start_level {start}")
+        err = max(err, step)
+        launches_at[f"{leaves}-{limit}-{start}"] = launches
+    if any(not 0 < count <= MERKLE_MAX_LAUNCHES for count in launches_at.values()):
+        sys.exit(f"chip_smoke: B2's launches are off: {launches_at}")
+
     n = 1 << log2_leaves
-    chunks = np.random.default_rng(42).bytes(32 * n)
-    sha256.launch_count = 0
+    chunks = rng.bytes(32 * n)
+    words = convert.words_from_chunks(chunks, "cuda")
+    ms = _cuda_ms(lambda: merkle.reduce_levels_cuda(words, zero, 40), reps=20)
+    b1_ms = _cuda_ms(lambda: _b1_chain_root(words, zero, 40), reps=10)
+    plain_ms = _cuda_ms(lambda: merkle.reduce_levels_plain(words, zero, 40), reps=3, warmup=1)
+    bound, bound_by = merkle_bound_ms(n, 40)
+    print(f"htr B2 2^{log2_leaves} leaves at limit 2^40: {ms:.4f} ms (bound {bound:.4f} ms by "
+          f"{bound_by}); the per-level B1 chain it replaces {b1_ms:.4f} ms; plain "
+          f"{plain_ms:.3f} ms; SASS instructions {_sass_instructions('merkle')}")
+
+    merkle.launch_count = sha256.launch_count = 0
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
         device_root = ops.merkleize_chunks_device(chunks, device="cuda")
         times.append(time.perf_counter() - t0)
-    launches = sha256.launch_count // 3
+    launch_counts = {"merkle_levels": merkle.launch_count // 3,
+                     "sha256_64b": sha256.launch_count // 3}
+    # the same call's steps apart, each ended on a synchronize
+    splits = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        host_words = convert.words_from_chunks(chunks, "cpu")
+        t1 = time.perf_counter()
+        dev = host_words.to("cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        root = merkle.merkle_root_words(dev, zero, n.bit_length() - 1)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        split_root = convert.chunks_from_words(root[:, None])
+        t4 = time.perf_counter()
+        splits.append({"bytes_to_words": t1 - t0, "upload": t2 - t1, "kernels": t3 - t2,
+                       "root_back": t4 - t3})
+    split = {k: statistics.median(sp[k] for sp in splits) for k in splits[0]}
     t0 = time.perf_counter()
     host_root = merkleize_chunks(chunks)
     host_s = time.perf_counter() - t0
     print(f"htr 2^{log2_leaves} leaves: device {statistics.median(times):.4f} s "
-          f"(first {times[0]:.4f} s, {launches} launches), host {host_s:.4f} s, "
-          f"roots equal {device_root == host_root}")
-    if device_root != host_root or launches == 0:
+          f"(first {times[0]:.4f} s, launches {launch_counts}), host {host_s:.4f} s, "
+          f"roots equal {device_root == host_root == split_root}; the device call's wall "
+          f"split {_rounded(split, 5)} s")
+    if device_root != host_root or split_root != host_root:
         sys.exit("chip_smoke: device merkle root disagrees with the host root")
+    if launch_counts["merkle_levels"] == 0:
+        sys.exit(f"chip_smoke: the device merkleizer's launches are off: {launch_counts}")
     return {"leaves": n, "device_s": statistics.median(times), "device_first_s": times[0],
-            "host_s": host_s, "launches": launches}
+            "host_s": host_s, "launches": launch_counts["merkle_levels"],
+            "launch_counts": launch_counts, "wall_split_s": split,
+            "launches_by_shape": launches_at, "ms": ms, "b1_chain_ms": b1_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err}
 
 
 def phase_slice(data: bytes, ctx, slots: int) -> dict:
@@ -1263,21 +1391,25 @@ def phase_epoch(registry: dict) -> dict:
 
 def _zero_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    from ethereum_consensus_tpu_torch.ops import epoch, fq8, g1, pairing, sha256, shuffle, sweeps
+    from ethereum_consensus_tpu_torch.ops import (epoch, fq8, g1, merkle, pairing, sha256,
+                                                  shuffle, sweeps)
 
     sha256.launch_count = shuffle.launch_count = g1.launch_count = epoch.launch_count = 0
-    g1.launch_count_mxu = 0
-    for counts in (sweeps.launch_counts, pairing.launch_counts, fq8.launch_counts):
+    g1.launch_count_mxu = merkle.launch_count = 0
+    for counts in (sweeps.launch_counts, pairing.launch_counts, fq8.launch_counts,
+                   epoch.launch_counts):
         for name in counts:
             counts[name] = 0
 
 
 def _launch_counts() -> dict:
     """Every kernel's launches since ``_zero_launch_counts``."""
-    from ethereum_consensus_tpu_torch.ops import epoch, fq8, g1, pairing, sha256, shuffle, sweeps
+    from ethereum_consensus_tpu_torch.ops import (epoch, fq8, g1, merkle, pairing, sha256,
+                                                  shuffle, sweeps)
 
-    return {"sha256_64b": sha256.launch_count, "shuffle": shuffle.launch_count,
-            "g1_sum_sets": g1.launch_count, "fused_epoch": epoch.launch_count,
+    return {"sha256_64b": sha256.launch_count, "merkle_levels": merkle.launch_count,
+            "shuffle": shuffle.launch_count, "g1_sum_sets": g1.launch_count,
+            "fused_epoch": epoch.launch_count, **epoch.launch_counts,
             **sweeps.launch_counts, **pairing.launch_counts,
             "g1_sum_sets_mxu": g1.launch_count_mxu, **fq8.launch_counts}
 
@@ -1793,7 +1925,7 @@ def _apply_altair(state, signed_block, ctx, timers: list, events: "list | None")
     from ethereum_consensus_tpu_torch.executor import Executor
     from ethereum_consensus_tpu_torch.models import transition
     from ethereum_consensus_tpu_torch.models.altair import state_transition
-    from ethereum_consensus_tpu_torch.ops import epoch, g1, sha256, shuffle, sweeps
+    from ethereum_consensus_tpu_torch.ops import epoch, g1, merkle, sha256, shuffle, sweeps
 
     parts: dict = {}
     with contextlib.ExitStack() as stack:
@@ -1806,6 +1938,10 @@ def _apply_altair(state, signed_block, ctx, timers: list, events: "list | None")
                     (sha256, "sha256_64b_cuda", "sha256_64b"), (shuffle, "_launch", "shuffle"),
                     (g1, "_launch", "g1_sum_sets"), (sweeps, "_launch", "effective_balance"),
                     (epoch, "_launch", "fused_epoch"),
+                    (merkle, "reduce_levels_cuda", "merkle_levels"),
+                    (epoch, "fused_flag_sums_cuda", "fused_flag_sums"),
+                    (epoch, "fused_epoch_apply_cuda", "fused_epoch_apply"),
+                    (epoch, "rewards_apply_cuda", "rewards_apply"),
                     (sweeps, "_launch_flag_deltas", "flag_deltas"),
                     (sweeps, "_launch_inactivity_updates", "inactivity_updates"),
                     (sweeps, "_launch_inactivity_penalties", "inactivity_penalties")):
@@ -1956,7 +2092,9 @@ def phase_altair(registry: dict) -> dict:
         sys.exit("chip_smoke: the tampered block was not rejected alike on both paths")
     return {"validators": setup["n"], "state_bytes": len(pre), "setup_s": setup["setup_s"],
             "scrambled": setup["scrambled"], "keys": n_keys, "routes": results,
-            "root": root.hex(), "sha256": digest}
+            "root": root.hex(), "sha256": digest,
+            # for the mesh phase, which applies the same block on ECT_MESH=1
+            "pre": pre, "ctx": ctx, "good": good, "before": setup["before"]}
 
 
 # --- the batched pairing (B7) and the verification window --------------------
@@ -2127,7 +2265,7 @@ def phase_pairing() -> dict:
         plain_prod = pairing.fp12_product_plain(got_f)
         step = {
             "g1_mul_affine": _max_err(got_pk, plain_pk[:n]),
-            "g2_mul_sum": _max_err(got_sum, pairing.g2_sum_points(plain_sig_lanes[:n])),
+            "g2_mul_sum": _max_err(got_sum, pairing.g2_sum_points_plain(plain_sig_lanes[:n])),
             "miller_loop": _max_err(got_f[:lanes], plain_miller[:n]),
             "fp12_product": _max_err(got_prod, plain_prod),
         }
@@ -2481,7 +2619,413 @@ def phase_window(registry: dict) -> dict:
     return {"blocks": WINDOW_BLOCKS, "sets": len(sets), "keys": n_keys,
             "real_keys": setup["keys"], "setup_s": setup["setup_s"], "read_s": read_s,
             "apply_s": apply_s, "warm_s": warm_s, "root": root, "tampered_set": t,
-            "routes": routes}
+            "routes": routes,
+            # for the mesh phase, which verifies them on ECT_MESH=1
+            "signature_sets": sets, "tampered_sets": tampered, "blame": blame["host"]}
+
+
+# --- the ECT_MESH route: the sharded twins (B9) ------------------------------
+
+MESH_VIRTUAL_SHARDS = 4
+# At 2^20 validators the state walk keeps its large lists as trees of
+# 4,096-chunk groups and re-merkleizes only the dirty groups, so no flat
+# rebuild reaches the default threshold of 2^15 chunks after the first mesh
+# consult: the mesh phase sets the threshold to the group size, and every
+# dirty group of the post-epoch roots takes the sharded merkleizer.
+MESH_MERKLE_MIN_CHUNKS = 1 << 12
+# rows of the captured epoch columns set to u64 edges (zero balances there:
+# their products wrap, no add does)
+MESH_EDGE_WORDS = (2**63, 2**64 - 1, 2**63 + 12345, 2**40 + 7)
+# rewards lane: the fused lane without the inactivity update (8 operations)
+REWARDS_OPS = FUSED_OPS - 8
+REWARDS_BYTES = 3 * 8 + 1 + 3 + 8
+# the flag sums: three masked adds and the masks (9 operations), the
+# effective balance, the flags and two masks read
+FLAG_SUMS_OPS = 9
+FLAG_SUMS_BYTES = 8 + 1 + 2
+# MeshEpochSweeps.fused's scalar keywords, in the fused kernel's order
+FUSED_KEYWORDS = ("increment", "brpi", "active_increments", "denominator", "bias",
+                  "recovery_rate", "weights", "weight_denominator", "leaking",
+                  "head_flag_index", "target_flag_index")
+
+
+@contextlib.contextmanager
+def _mesh_env(value: str):
+    """ECT_MESH set to ``value`` (and the merkle threshold to the state
+    walk's group size) around a fresh runtime."""
+    from ethereum_consensus_tpu_torch.parallel import runtime
+
+    runtime.reset()
+    os.environ["ECT_MESH"] = value
+    os.environ["ECT_MESH_MERKLE_MIN_CHUNKS"] = str(MESH_MERKLE_MIN_CHUNKS)
+    try:
+        yield runtime
+    finally:
+        os.environ.pop("ECT_MESH", None)
+        os.environ.pop("ECT_MESH_MERKLE_MIN_CHUNKS", None)
+        runtime.reset()
+
+
+def _capture(bucket: list):
+    """Record each call's arguments in ``bucket``, then call through."""
+    def wrap(fn):
+        def recorded(*args, **kwargs):
+            bucket.append((args, kwargs))
+            return fn(*args, **kwargs)
+        return recorded
+    return wrap
+
+
+def _division_count(cols: dict) -> int:
+    """The divisions the fused lanes of these columns need (as the
+    altair_sweeps phase counts them); the rewards lane needs the same."""
+    elig, unslashed = cols["eligible"], cols["active_prev"] & ~cols["slashed"]
+    participating = unslashed & (((cols["prev_part"] >> 1) & 1) == 1)
+    count = len(elig) + int((elig & ~participating).sum())
+    for f in range(3):
+        flag_set = unslashed & (((cols["prev_part"] >> f) & 1) == 1)
+        count += int((elig & flag_set).sum())
+        if f != 2:
+            count += int((elig & ~flag_set).sum())
+    return count
+
+
+def _mesh_sweeps(cols: dict, kwargs: dict, meshes: dict) -> dict:
+    """MeshEpochSweeps' three entries on ``cols`` at each mesh, bit-exact
+    against the unsharded B3 and B5-altair kernels and their plain versions,
+    and the wrap census; the three split kernels timed unsharded at 2^20."""
+    from ethereum_consensus_tpu_torch.ops import epoch, sweeps
+    from ethereum_consensus_tpu_torch.parallel.epoch import MeshEpochSweeps
+
+    names = ("balances", "eff", "prev_part", "slashed", "active_prev", "eligible", "scores")
+    host = [cols[k] for k in names]
+    dev = [torch.from_numpy(c.view(np.int64) if c.dtype == np.uint64 else c).cuda()
+           for c in host]
+    fused_kw = {k: kwargs[k] for k in FUSED_KEYWORDS}
+    rewards_kw = {k: v for k, v in fused_kw.items() if k not in ("bias", "recovery_rate")}
+    scalars = tuple(fused_kw.values())
+    rscalars = tuple(rewards_kw.values())
+    unsharded_scores, unsharded_balances, wrapped = epoch.fused_epoch_device(
+        *host, *scalars, device="cuda")
+    plain_scores, plain_balances, _ = epoch.fused_epoch_plain(*dev, *scalars)
+    participating = cols["active_prev"] & ~cols["slashed"] & (((cols["prev_part"] >> 1) & 1) == 1)
+    part_t, elig_t = (torch.from_numpy(np.ascontiguousarray(c)).cuda()
+                      for c in (participating, cols["eligible"]))
+    inactivity = sweeps.inactivity_updates(dev[6], part_t, elig_t, kwargs["bias"],
+                                           kwargs["recovery_rate"], kwargs["leaking"])
+    inactivity_plain = sweeps.inactivity_updates_plain(dev[6], part_t, elig_t, kwargs["bias"],
+                                                       kwargs["recovery_rate"], kwargs["leaking"])
+    sums = epoch.fused_flag_sums_cuda(*dev[1:5])
+    sums_plain = epoch.fused_flag_sums_plain(*dev[1:5])
+    post_scores = torch.from_numpy(unsharded_scores.view(np.int64)).cuda()
+    rewards_plain, _ = epoch.rewards_apply_plain(*dev[:6], post_scores, sums_plain.tolist(),
+                                                 *rscalars)
+    want = {
+        "fused": (unsharded_scores, unsharded_balances),
+        "fused_plain": (plain_scores.cpu().numpy().view(np.uint64),
+                        plain_balances.cpu().numpy().view(np.uint64)),
+        "inactivity": inactivity.cpu().numpy().view(np.uint64),
+        "inactivity_plain": inactivity_plain.cpu().numpy().view(np.uint64),
+        "rewards_plain": rewards_plain.cpu().numpy().view(np.uint64),
+    }
+    ok = (wrapped == 0 and torch.equal(sums, sums_plain)
+          and np.array_equal(want["fused"][0], want["fused_plain"][0])
+          and np.array_equal(want["fused"][1], want["fused_plain"][1])
+          and np.array_equal(want["inactivity"], want["inactivity_plain"])
+          and np.array_equal(want["rewards_plain"], unsharded_balances))
+    results, launches = {}, {}
+    for label, mesh in meshes.items():
+        runner = MeshEpochSweeps(mesh)
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        got_scores, got_balances = runner.fused(*host, **fused_kw)
+        fused_s = time.perf_counter() - t0
+        got_rewards = runner.rewards(*host[:6], unsharded_scores, **rewards_kw)
+        got_inactivity = runner.inactivity_scores(cols["scores"], cols["eligible"],
+                                                  participating, kwargs["bias"],
+                                                  kwargs["recovery_rate"], kwargs["leaking"])
+        launches[label] = _launch_counts()
+        hot = cols["balances"].copy()
+        hot[1] = np.uint64(2**64 - 1)
+        n = len(hot)
+        census = runner.fused(hot, cols["eff"], np.full(n, 7, np.uint8), np.zeros(n, bool),
+                              np.ones(n, bool), np.ones(n, bool), cols["scores"], **fused_kw)
+        exact = (np.array_equal(got_scores, want["fused"][0])
+                 and np.array_equal(got_balances, want["fused"][1])
+                 and np.array_equal(got_rewards, want["rewards_plain"])
+                 and np.array_equal(got_inactivity, want["inactivity"]))
+        results[label] = {"exact": exact, "census_none": census is None, "fused_s": fused_s}
+        ok &= exact and census is None
+    n = len(cols["balances"])
+    divisions = _division_count(cols)
+    # the launches alone, as the altair_sweeps phase times B3: the census
+    # is not read back inside the timed call
+    sums_list = sums.tolist()
+    scratch = epoch._sums_scratch(sums_list, "cuda")
+    words = epoch._scalars(*scalars)
+    rwords = words[:4] + words[6:]
+    timings = {
+        "fused_flag_sums": (lambda: epoch.fused_flag_sums_cuda(*dev[1:5]),
+                            lambda: epoch.fused_flag_sums_plain(*dev[1:5]),
+                            _bound(n * FLAG_SUMS_OPS, n * FLAG_SUMS_BYTES + 24)),
+        "fused_epoch_apply": (
+            lambda: epoch._launch_apply("fused_epoch_apply_launch", "fused_epoch_apply",
+                                        tuple(dev), words, scratch, True),
+            lambda: epoch.fused_epoch_apply_plain(*dev, sums_list, *scalars),
+            _bound(n * FUSED_OPS + divisions * DIV64_OPS, n * FUSED_BYTES)),
+        "rewards_apply": (
+            lambda: epoch._launch_apply("rewards_apply_launch", "rewards_apply",
+                                        (*dev[:6], post_scores), rwords, scratch, False),
+            lambda: epoch.rewards_apply_plain(*dev[:6], post_scores, sums_list, *rscalars),
+            _bound(n * REWARDS_OPS + divisions * DIV64_OPS, n * REWARDS_BYTES)),
+    }
+    out = {}
+    for name, (launch, plain, (bound, bound_by)) in timings.items():
+        ms = _cuda_ms(launch, reps=50, warmup=5)
+        plain_ms = _cuda_ms(plain, reps=5, warmup=1)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                     "max_abs_err": 0 if ok else 1}
+        print(f"mesh {name} n={n}: {ms:.4f} ms (bound {bound:.4f} ms by {bound_by}, "
+              f"{divisions} divisions); plain {plain_ms:.3f} ms; library: none")
+    print(f"mesh sweeps on the altair state's columns (+{len(MESH_EDGE_WORDS)} u64 edge rows): "
+          f"{results}; all exact against the unsharded kernels and the plain versions {ok}")
+    return {"ok": ok, "meshes": results, "launches": launches, "timings": out}
+
+
+def _pairing_partials(pk, h, sig, scalars, meshes: dict) -> dict:
+    """miller_partials_sharded on the window's sets at each mesh against
+    the unsharded route's Miller product and signature sum, limb for limb,
+    and its verdict; a blinder-0 lane beside a real one."""
+    from ethereum_consensus_tpu_torch.ops import fq, pairing
+    from ethereum_consensus_tpu_torch.parallel.pairing import miller_partials_sharded
+
+    xp, yp = pairing.g1_mul_batched(pairing.g1_affine_from_raw(pk, "cuda"), scalars)
+    fs = pairing.miller_loop_batched(xp, yp, *pairing.g2_affine_from_raw(h, "cuda"))
+    f_want = fq.to_ints(pairing.fp12_product(fs))
+    sig_t = torch.stack(pairing.g2_affine_from_raw(sig, "cuda"), dim=1).contiguous()
+    s_want = pairing._g2_point_to_raw(pairing.g2_mul_sum(sig_t, pairing.scalar_words(scalars,
+                                                                                      "cuda")))
+    results, ok = {}, True
+    for label, mesh in meshes.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f_total, s_raw, s_inf = miller_partials_sharded(mesh, pk, h, sig, scalars)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        exact = fq.to_ints(f_total) == f_want and (s_raw, s_inf) == s_want
+        verdict = pairing.finalize_verdict(f_total, s_raw, s_inf, device=mesh.devices[0])
+        results[label] = {"exact": exact, "verdict": verdict, "s": seconds}
+        ok &= exact and verdict
+    two = sig_t[:2].contiguous()
+    with_zero = pairing.g2_mul_sum(two, pairing.scalar_words([scalars[0], 0], "cuda"))
+    alone = pairing.g2_mul_sum(two[:1], pairing.scalar_words(scalars[:1], "cuda"))
+    zero = pairing.g2_mul_sum(two[:1], pairing.scalar_words([0], "cuda"))
+    blinder_zero_ok = (pairing._g2_point_to_raw(with_zero) == pairing._g2_point_to_raw(alone)
+                       and not bool(zero.any()))
+    print(f"mesh pairing partials on the window's {len(pk)} sets: {results}; a blinder-0 lane "
+          f"is the identity {blinder_zero_ok}")
+    return {"ok": ok and blinder_zero_ok, "meshes": results}
+
+
+def _twin_times(cols: dict, kwargs: dict, chunks: bytes, pk, h, sig, scalars) -> dict:
+    """Each twin's wall on the card (a synchronize at its end) at the main
+    path's shape, at ECT_MESH=1's one shard and at the virtual shards, and
+    with its kernels' plain versions in their place (the pairing twin on
+    one set: its plain Miller loop is seconds a lane)."""
+    from ethereum_consensus_tpu_torch.ops import epoch, merkle, pairing
+    from ethereum_consensus_tpu_torch.parallel import chip_mesh, virtual_mesh
+    from ethereum_consensus_tpu_torch.parallel import merkle as pmerkle
+    from ethereum_consensus_tpu_torch.parallel.epoch import MeshEpochSweeps
+    from ethereum_consensus_tpu_torch.parallel.pairing import miller_partials_sharded
+
+    fused_kw = {k: kwargs[k] for k in FUSED_KEYWORDS}
+    host = [cols[k] for k in ("balances", "eff", "prev_part", "slashed", "active_prev",
+                              "eligible", "scores")]
+    twins = {
+        "merkle": lambda m: pmerkle.sharded_merkleize_chunks(chunks, m, limit=2**40),
+        "epoch": lambda m: MeshEpochSweeps(m).fused(*host, **fused_kw),
+        "pairing": lambda m: miller_partials_sharded(m, pk, h, sig, scalars),
+    }
+    plain = {
+        "merkle": [(merkle, "reduce_levels_cuda", merkle.reduce_levels_plain)],
+        "epoch": [(epoch, "fused_flag_sums_cuda", epoch.fused_flag_sums_plain),
+                  (epoch, "fused_epoch_apply_cuda", epoch.fused_epoch_apply_plain)],
+        "pairing": [(pairing, f"{k}_cuda", getattr(pairing, f"{k}_plain"))
+                    for k in ("g1_mul_affine", "miller_loop", "fp12_product", "g2_mul_sum",
+                              "g2_sum_points")],
+    }
+    meshes = {"1": chip_mesh(1), str(MESH_VIRTUAL_SHARDS): virtual_mesh(MESH_VIRTUAL_SHARDS)}
+
+    def wall(fn, mesh) -> float:
+        fn(mesh)  # warm
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn(mesh)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return 1e3 * statistics.median(times)
+
+    out = {}
+    for name, fn in twins.items():
+        out[name] = {label: wall(fn, mesh) for label, mesh in meshes.items()}
+        with contextlib.ExitStack() as stack:
+            for module, attr, replacement in plain[name]:
+                stack.enter_context(_patched(module, attr, lambda _fn, r=replacement: r))
+            if name == "pairing":
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                miller_partials_sharded(meshes["1"], pk[:1], h[:1], sig[:1], scalars[:1])
+                torch.cuda.synchronize()
+                out[name]["plain_1_set"] = 1e3 * (time.perf_counter() - t0)
+            else:
+                out[name]["plain_1"] = wall(fn, meshes["1"])
+    print(f"mesh twins, ms on the card (plain: the kernels' plain versions in their place): "
+          f"{ {k: _rounded(v, 3) for k, v in out.items()} }")
+    return out
+
+
+def phase_mesh(altair: dict, window: dict) -> dict:
+    """The ECT_MESH route (parallel/): the altair phase's block applied cold
+    through Executor.apply_block with ECT_MESH=1 and ops.install(device=
+    "cuda") — the sharded fused epoch pass (B3's split launches) and the
+    sharded state roots (B2) — with the altair routes' post-state root; the
+    window's 528 sets on the sharded RLC route with the host route's
+    verdicts and blame; then each twin at the function level, at
+    virtual_mesh(4, "cuda") and chip_mesh(1), bit-exact against the
+    unsharded kernels on the inputs those runs captured; and ECT_MESH=2 on
+    the one card raising."""
+    from ethereum_consensus_tpu_torch import ops
+    from ethereum_consensus_tpu_torch.models import epoch_vector
+    from ethereum_consensus_tpu_torch.models.altair import build
+    from ethereum_consensus_tpu_torch.parallel import chip_mesh, virtual_mesh
+    from ethereum_consensus_tpu_torch.parallel import merkle as pmerkle
+    from ethereum_consensus_tpu_torch.parallel import pairing as ppairing
+    from ethereum_consensus_tpu_torch.parallel import runtime
+    from ethereum_consensus_tpu_torch.parallel.epoch import MeshEpochSweeps
+    from ethereum_consensus_tpu_torch.ssz.merkle import merkleize_chunks
+
+    ctx, good = altair["ctx"], altair["good"]
+    state_type = build(ctx.preset).BeaconState
+    engaged, merkle_calls, fused_calls, batches = [], [], [], []
+    with _mesh_env("1"), contextlib.ExitStack() as stack:
+        stack.enter_context(_patched(runtime, "_engage", lambda fn: lambda kind: (
+            engaged.append(kind), fn(kind))[1]))
+        stack.enter_context(_patched(pmerkle, "sharded_merkleize_chunks",
+                                     _capture(merkle_calls)))
+        stack.enter_context(_patched(MeshEpochSweeps, "fused", _capture(fused_calls)))
+        stack.enter_context(_patched(ppairing, "batch_verify_sharded", _capture(batches)))
+        ops.uninstall()
+        gc.collect()
+        t0 = time.perf_counter()
+        state = state_type.deserialize(altair["pre"])
+        read_s = time.perf_counter() - t0
+        ops.install(device="cuda")
+        events: list = []
+        timers = [(epoch_vector, "_inactivity_and_rewards", "inactivity_and_rewards"),
+                  (MeshEpochSweeps, "fused", "mesh_fused"),
+                  (pmerkle, "sharded_merkleize_chunks", "sharded_merkle")]
+        fused_mesh = epoch_vector.metrics.counter("epoch_vector.fused.mesh")
+        before = fused_mesh.value()
+        _zero_launch_counts()
+        seconds, parts, post = _apply_altair(state, good, ctx, timers, events)
+        launches = _launch_counts()
+        passes = fused_mesh.value() - before
+        ops.uninstall()
+        digest = hashlib.sha256(state_type.serialize(post)).hexdigest()
+        root = state_type.hash_tree_root(post).hex()
+        # the registry's 2^20 validator roots, as the root walk keeps them
+        # beside the list's tree (chunks, tree, root)
+        _, registry_roots, _, registry_root = post.validators._tree_memo
+        registry_roots = bytes(registry_roots)
+        kernel_ms: dict = {}
+        for kname, start, end in events:
+            kernel_ms[kname] = kernel_ms.get(kname, 0.0) + start.elapsed_time(end)
+        idle = 1.0 - sum(kernel_ms.values()) / (1e3 * seconds)
+        apply_kinds = sorted(set(engaged))
+        print(f"mesh altair (ECT_MESH=1): read {read_s:.1f} s; apply {seconds:.3f} s "
+              f"{_rounded(parts)}; sharded fused passes {passes}; engaged {apply_kinds} "
+              f"({len(engaged)} engages, {len(merkle_calls)} sharded roots); launches "
+              f"{launches}; kernel ms inside {_rounded(kernel_ms, 4)}; idle share {idle:.6f}")
+        print(f"mesh altair: post-state sha256 {digest}, root {root} (the altair routes': "
+              f"{altair['root']})")
+        del state, post
+        gc.collect()
+        if (digest, root) != (altair["sha256"], altair["root"]):
+            sys.exit("chip_smoke: the altair block's post-state on the ECT_MESH route differs")
+        if passes != 1 or not {"epoch", "merkle"} <= set(apply_kinds):
+            sys.exit(f"chip_smoke: the ECT_MESH apply did not engage the epoch and merkle "
+                     f"twins: {apply_kinds}, {passes} sharded fused passes")
+        if min(launches[k] for k in ("merkle_levels", "fused_flag_sums",
+                                     "fused_epoch_apply")) == 0 or launches["fused_epoch"]:
+            sys.exit(f"chip_smoke: the ECT_MESH apply's launches are off: {launches}")
+
+        engaged.clear()
+        route = _verify_route(window["signature_sets"], installed=True)
+        blame = _verify_route(window["tampered_sets"], installed=True)
+        window_kinds = sorted(set(engaged))
+        print(f"mesh window (ECT_MESH=1): {len(route['verdicts'])} sets in {route['s']:.3f} s "
+              f"{_rounded(route['parts_s'])}, route {route['route']!r}, all true "
+              f"{all(route['verdicts'])}, engaged {window_kinds}; launches {route['launches']}; "
+              f"kernel ms inside {_rounded(route['kernel_ms_inside'], 4)}; idle share "
+              f"{route['idle_share']:.6f}; tampered copy: false at "
+              f"{[i for i, v in enumerate(blame['verdicts']) if not v]} in {blame['s']:.3f} s")
+        if (not all(route["verdicts"]) or route["route"] != "device"
+                or blame["verdicts"] != window["blame"] or "pairing" not in window_kinds):
+            sys.exit("chip_smoke: the window's verdicts or blame on the ECT_MESH route differ")
+        if min(route["launches"][k] for k in ("g1_sum_sets", "g1_mul_affine", "g2_mul_sum",
+                                               "miller_loop", "fp12_product")) == 0:
+            sys.exit(f"chip_smoke: the ECT_MESH window's launches are off: {route['launches']}")
+
+    # the function level, on the inputs the main path gave the twins
+    meshes = {"1": chip_mesh(1), str(MESH_VIRTUAL_SHARDS): virtual_mesh(MESH_VIRTUAL_SHARDS)}
+    host_root = merkleize_chunks(registry_roots, 2**40)
+    merkle_ok = host_root == registry_root and all(
+        pmerkle.sharded_merkleize_chunks(registry_roots, m, limit=2**40) == host_root
+        for m in meshes.values())
+    print(f"mesh merkle: the registry's {len(registry_roots) // 32} validator roots at limit "
+          f"2^40 on {list(meshes)} shards give the host root and the walk's {merkle_ok}; "
+          f"the apply's sharded roots were of {sorted({len(a[0]) // 32 for a, _ in merkle_calls})} "
+          f"chunks")
+    (_, *fused_args), fused_kwargs = fused_calls[0]
+    names = ("balances", "eff", "prev_part", "slashed", "active_prev", "eligible", "scores")
+    cols = {k: np.array(v) for k, v in zip(names, fused_args)}
+    for i, word in enumerate(MESH_EDGE_WORDS):
+        cols["eff"][100 + i] = np.uint64(word)
+        cols["scores"][200 + i] = np.uint64(word)
+        cols["balances"][100 + i] = cols["balances"][200 + i] = 0
+    sweeps_out = _mesh_sweeps(cols, fused_kwargs, meshes)
+    pk, h, sig, scalars = max((args[:4] for args, _ in batches), key=lambda a: len(a[0]))
+    pairing_out = _pairing_partials(pk, h, sig, scalars, meshes)
+    twins = _twin_times({k: np.array(v) for k, v in zip(names, fused_args)}, fused_kwargs,
+                        registry_roots, pk, h, sig, scalars)
+    if not (merkle_ok and sweeps_out["ok"] and pairing_out["ok"]):
+        sys.exit("chip_smoke: a sharded twin disagrees with the unsharded kernels")
+    label = str(MESH_VIRTUAL_SHARDS)
+    if min(sweeps_out["launches"][label][k] for k in ("fused_flag_sums", "fused_epoch_apply",
+                                                       "rewards_apply",
+                                                       "inactivity_updates")) == 0:
+        sys.exit(f"chip_smoke: the sharded sweeps' launches are off: {sweeps_out['launches']}")
+
+    # no hidden fallback: two devices asked of one card
+    with _mesh_env("2") as rt:
+        try:
+            rt.mesh()
+        except RuntimeError as exc:
+            refused = str(exc)
+        else:
+            sys.exit("chip_smoke: ECT_MESH=2 on one card did not raise")
+    print(f"mesh: ECT_MESH=2 on {torch.cuda.device_count()} card raises: {refused!r}")
+    return {"altair": {"read_s": read_s, "apply_s": seconds, "parts_s": parts,
+                       "launches": launches, "kernel_ms_inside": kernel_ms, "idle_share": idle,
+                       "engaged": apply_kinds, "root": root},
+            "window": {k: route[k] for k in ("s", "route", "launches", "parts_s",
+                                             "kernel_ms_inside", "idle_share")}
+            | {"blame_s": blame["s"], "engaged": window_kinds},
+            "sweeps": {k: sweeps_out[k] for k in ("meshes", "launches")},
+            "pairing": pairing_out["meshes"], "twins_ms": twins,
+            "timings": sweeps_out["timings"], "refused": refused}
 
 
 def _rounded(d: dict, places: int = 3) -> dict:
@@ -2507,6 +3051,7 @@ def main() -> int:
     report["altair_sweeps"] = phase_altair_sweeps()
     report["altair"] = phase_altair(registry)
     report["window"] = phase_window(registry)
+    report["mesh"] = phase_mesh(report["altair"], report["window"])
 
     # each kernel's launches on the path it was ported for, and every
     # path's count beside them
@@ -2516,7 +3061,11 @@ def main() -> int:
              "altair_literal": altair_routes["literal"]["launches"],
              "window": report["window"]["routes"]["device"]["launches"],
              "mxu": report["mxu"]["launches"],
-             "window_mxu": report["window"]["routes"]["device_mxu"]["launches"]}
+             "window_mxu": report["window"]["routes"]["device_mxu"]["launches"],
+             "htr": report["htr"]["launch_counts"],
+             "mesh_altair": report["mesh"]["altair"]["launches"],
+             "mesh_window": report["mesh"]["window"]["launches"],
+             "mesh_sweeps": report["mesh"]["sweeps"]["launches"][str(MESH_VIRTUAL_SHARDS)]}
     for name, timing in report["altair_sweeps"].items():
         report[name] = timing
     for name in ("g1_mul_affine", "g2_mul_sum", "miller_loop", "fp12_product"):
@@ -2524,6 +3073,9 @@ def main() -> int:
         report[f"{name}_mxu"] = report["pairing"]["mxu"][name]
     report["mont_mxu"] = report["mxu"]
     report["g1_sum_sets_mxu"] = report["g1"]["mxu"]
+    report["merkle_levels"] = report["htr"]
+    for name, timing in report["mesh"]["timings"].items():
+        report[name] = timing
     sources = {
         "sha256_64b": ("sha256", "block", "ethereum_consensus_tpu_torch/csrc/sha256.cu",
                        "ethereum_consensus_tpu/ops/sha256.py:197"),
@@ -2574,6 +3126,21 @@ def main() -> int:
         "fp12_product_mxu": ("fp12_product_mxu", "window_mxu",
                              "ethereum_consensus_tpu_torch/csrc/pairing.cu",
                              "ethereum_consensus_tpu/ops/pairing.py:474"),
+        # the ECT_MESH route: B2 under the sharded state root (and alone on
+        # the htr path), B3's launches apart under the sharded epoch pass,
+        # the rewards lane under the sharded staged rewards
+        "merkle_levels": ("merkle_levels", "mesh_altair",
+                          "ethereum_consensus_tpu_torch/csrc/merkle.cu",
+                          "ethereum_consensus_tpu/ops/merkle.py:44"),
+        "fused_flag_sums": ("fused_flag_sums", "mesh_altair",
+                            "ethereum_consensus_tpu_torch/csrc/fused_epoch.cu",
+                            "ethereum_consensus_tpu/parallel/epoch.py:88"),
+        "fused_epoch_apply": ("fused_epoch_apply", "mesh_altair",
+                              "ethereum_consensus_tpu_torch/csrc/fused_epoch.cu",
+                              "ethereum_consensus_tpu/parallel/epoch.py:88"),
+        "rewards_apply": ("rewards_apply", "mesh_sweeps",
+                          "ethereum_consensus_tpu_torch/csrc/fused_epoch.cu",
+                          "ethereum_consensus_tpu/parallel/epoch.py:132"),
     }
     kernels = {"kernels": [{
         "name": name,

@@ -16,6 +16,15 @@ The flags the port reads:
                            u64 (CIOS, the default) or mxu (the int8
                            digit product of ops/fq8.py), in any case;
                            anything else raises
+  ECT_MESH=<n>|auto|off    the mesh runtime (parallel/runtime.py): a mesh
+                           over the first n devices, every device when
+                           there are at least two, or none (unset, off, 0,
+                           none, host); any other value raises when the
+                           mesh is first consulted
+  ECT_MESH_EPOCH_MIN_N=<n>        the registry size from which the epoch
+                                  sweeps take the mesh
+  ECT_MESH_MERKLE_MIN_CHUNKS=<n>  the chunk count from which a flat
+                                  merkle rebuild takes the mesh
 
 Reference parity: ethereum_consensus_tpu/_env.py (the subset the ported
 modules read).
@@ -25,7 +34,8 @@ from __future__ import annotations
 
 import os
 
-__all__ = ["MULTIPLIERS", "flag_off", "min_count", "multiplier"]
+__all__ = ["MULTIPLIERS", "flag_off", "mesh_requested", "min_count", "mode", "multiplier",
+           "threshold"]
 
 MULTIPLIERS = ("u64", "mxu")
 
@@ -34,6 +44,32 @@ def flag_off(key: str) -> bool:
     """True when the flag explicitly disables its feature (off/0/false,
     case-insensitive). Unset is NOT off: features default on."""
     return os.environ.get(key, "").strip().lower() in ("off", "0", "false")
+
+
+def mode(key: str, default: str = "") -> str:
+    """Stripped, lowercased environ value — the mode-string idiom
+    (``ECT_MESH=Auto`` reads as ``"auto"``)."""
+    return os.environ.get(key, default).strip().lower()
+
+
+def mesh_requested(key: str = "ECT_MESH") -> bool:
+    """Is a mesh explicitly requested? The gate host layers consult BEFORE
+    importing the parallel package: unset/off/0/none/host all mean "no
+    mesh"."""
+    return mode(key) not in ("", "off", "0", "none", "host")
+
+
+def threshold(key: str, default: int) -> int:
+    """A size threshold of at least 1: ``default`` when the key is unset or
+    empty, else the count (a count below 1 reads as 1). Any other value
+    raises ValueError (the reference takes the default there)."""
+    raw = os.environ.get(key, "").strip()
+    if not raw:
+        return default
+    try:
+        return max(1, int(raw))
+    except ValueError:
+        raise ValueError(f"{key}={raw!r}: expected a count") from None
 
 
 def min_count(key: str, default: int) -> "int | None":

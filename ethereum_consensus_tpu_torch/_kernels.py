@@ -51,6 +51,10 @@ _PAIRING_FUNCTIONS = {
          ctypes.c_void_p, ctypes.c_void_p],
         ctypes.c_int,
     ),
+    "g2_sum_launch": (
+        [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+        ctypes.c_int,
+    ),
     "miller_loop_launch": (
         [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p],
         ctypes.c_int,
@@ -70,6 +74,16 @@ _LIBRARIES = {
             "sha256_64b_launch": (
                 [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                  ctypes.c_void_p],
+                ctypes.c_int,
+            ),
+        },
+    ),
+    "merkle": (
+        ("merkle.cu", "merkle_core.h", "sha256_core.h"),
+        {
+            "merkle_root_launch": (
+                [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
                 ctypes.c_int,
             ),
         },
@@ -124,6 +138,20 @@ _LIBRARIES = {
             "fused_epoch_launch": (
                 [ctypes.c_void_p] * 7 + [ctypes.c_int64] + [ctypes.c_uint64] * 10
                 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4,
+                ctypes.c_int,
+            ),
+            "fused_flag_sums_launch": (
+                [ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_void_p] * 2,
+                ctypes.c_int,
+            ),
+            "fused_epoch_apply_launch": (
+                [ctypes.c_void_p] * 7 + [ctypes.c_int64] + [ctypes.c_uint64] * 10
+                + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4,
+                ctypes.c_int,
+            ),
+            "rewards_apply_launch": (
+                [ctypes.c_void_p] * 7 + [ctypes.c_int64] + [ctypes.c_uint64] * 8
+                + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3,
                 ctypes.c_int,
             ),
         },

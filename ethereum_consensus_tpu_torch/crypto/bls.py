@@ -725,7 +725,9 @@ def _batch_device_pairing(
     card when a set has several keys (ops/g1.py), the native hash_to_g2 per
     message, then the blinder multiplications, the N + 1 Miller loops and
     their product in the pairing kernels (ops/pairing.py) with the native
-    final-exponentiation verdict. A False verdict is exact (the soundness
+    final-exponentiation verdict — sharded over the mesh
+    (parallel/pairing.py) when ``ECT_MESH`` provisioned one, or when the
+    routed device type has several devices. A False verdict is exact (the soundness
     of the native batch); a kernel that fails to build or launch raises."""
     from ..ops import pairing as device_pairing
 
@@ -755,9 +757,21 @@ def _batch_device_pairing(
         if s.signature.is_infinity():
             return False  # an identity signature never verifies
         sig_raws.append(s.signature.raw_uncompressed())
+    blinders = [int.from_bytes(sc, "big") for sc in scalars]
+    from ..parallel import mesh as _mesh
+    from ..parallel import runtime as _mesh_runtime
+
+    # the provisioned ECT_MESH mesh owns the sharded route; without one,
+    # several devices of the routed type still shard over them all
+    mesh = _mesh_runtime.pairing_mesh(len(sets))
+    if mesh is None and _mesh.device_count() > 1:
+        mesh = _mesh.default_device_mesh()
+    if mesh is not None:
+        from ..parallel.pairing import batch_verify_sharded
+
+        return batch_verify_sharded(pk_raws, h_raws, sig_raws, blinders, mesh=mesh)
     return device_pairing.batch_verify_device(
-        pk_raws, h_raws, sig_raws, [int.from_bytes(sc, "big") for sc in scalars],
-        device=device,
+        pk_raws, h_raws, sig_raws, blinders, device=device,
     )
 
 

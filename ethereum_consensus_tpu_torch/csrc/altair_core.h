@@ -125,21 +125,19 @@ ALTAIR_HD void fused_flag_increments(FusedScalars* s, const uint64_t sums[3]) {
   }
 }
 
-// One validator through the fused epoch kernel, operation for operation the
-// reference's fused_epoch_kernel: the inactivity update, three flag pairs,
-// the inactivity penalty off the POST-update score, then the four pairs
-// applied in sequence with zero saturation between them. Returns the number
-// of pairs whose add wrapped (the reference's wrap census).
-ALTAIR_HD int fused_epoch_lane(const FusedScalars& s, uint64_t balance,
-                               uint64_t eff, uint8_t part, bool slashed,
-                               bool active_prev, bool eligible,
-                               uint64_t score, uint64_t* new_score,
-                               uint64_t* new_balance) {
+// One validator's rewards and penalties, operation for operation the
+// reference's fused_epoch_kernel after its inactivity update: three flag
+// pairs, the inactivity penalty off `score` (the POST-update score), then the
+// four pairs applied in sequence with zero saturation between them. Returns
+// the number of pairs whose add wrapped (the reference's wrap census). The
+// lane of the reference's mesh twin _rewards_sharded (parallel/epoch.py:132),
+// which reads the scores after the update.
+ALTAIR_HD int rewards_lane(const FusedScalars& s, uint64_t balance, uint64_t eff,
+                           uint8_t part, bool slashed, bool active_prev, bool eligible,
+                           uint64_t score, uint64_t* new_balance) {
   const bool unslashed_active = active_prev && !slashed;
   const bool participating =
       unslashed_active && ((part >> s.target_flag_index) & 1);
-  const uint64_t score_out = inactivity_update(
-      score, participating, eligible, s.bias, s.recovery_rate, s.leaking);
   const uint64_t base_reward = (eff / s.increment) * s.brpi;
   int wrapped = 0;
   uint64_t bal = balance;
@@ -159,11 +157,27 @@ ALTAIR_HD int fused_epoch_lane(const FusedScalars& s, uint64_t balance,
     bal = raised >= penalty ? raised - penalty : 0;
   }
   const uint64_t penalty =
-      (eligible && !participating) ? eff * score_out / s.denominator : 0;
+      (eligible && !participating) ? eff * score / s.denominator : 0;
   bal = bal >= penalty ? bal - penalty : 0;  // the pair's reward is 0
-  *new_score = score_out;
   *new_balance = bal;
   return wrapped;
+}
+
+// One validator through the fused epoch kernel, operation for operation the
+// reference's fused_epoch_kernel: the inactivity update, then the lane of
+// rewards_lane off the POST-update score.
+ALTAIR_HD int fused_epoch_lane(const FusedScalars& s, uint64_t balance,
+                               uint64_t eff, uint8_t part, bool slashed,
+                               bool active_prev, bool eligible,
+                               uint64_t score, uint64_t* new_score,
+                               uint64_t* new_balance) {
+  const bool participating =
+      active_prev && !slashed && ((part >> s.target_flag_index) & 1);
+  const uint64_t score_out = inactivity_update(
+      score, participating, eligible, s.bias, s.recovery_rate, s.leaking);
+  *new_score = score_out;
+  return rewards_lane(s, balance, eff, part, slashed, active_prev, eligible,
+                      score_out, new_balance);
 }
 
 }  // namespace altair_core

@@ -22,7 +22,11 @@
 // order). Then one thread per validator runs the whole lane; thread 0 of
 // each block turns the sums into increments in shared memory. The wrap
 // census (zero for a real state) is summed per warp and per block, so a
-// block adds to the device word at most once.
+// block adds to the device word at most once. The two launches are also
+// entries of their own (fused_flag_sums_launch, fused_epoch_apply_launch),
+// and rewards_apply_launch runs the element pass without the inactivity
+// update: the reference's mesh twins add every shard's sums before any shard
+// applies them.
 //
 // What bounds it on an H100: the element pass reads 28 bytes a validator
 // (three words, four one-byte columns) and writes 16; the reduction reads the
@@ -85,6 +89,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// kScores: the inactivity update, then the rewards (the fused epoch kernel,
+// scores written to out_scores); otherwise the rewards alone off the given
+// scores (the reference's mesh twin _rewards_sharded), out_scores unused.
+template <bool kScores>
 __global__ void __launch_bounds__(kThreads)
     fused_epoch_kernel(altair_core::FusedScalars scalars,
                        const uint64_t* __restrict__ balances,
@@ -110,9 +118,15 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   unsigned int wrapped = 0;
   if (i < n) {
-    wrapped = altair_core::fused_epoch_lane(
-        s, balances[i], eff[i], prev_part[i], slashed[i], active_prev[i],
-        eligible[i], scores[i], &out_scores[i], &out_balances[i]);
+    if (kScores) {
+      wrapped = altair_core::fused_epoch_lane(
+          s, balances[i], eff[i], prev_part[i], slashed[i], active_prev[i],
+          eligible[i], scores[i], &out_scores[i], &out_balances[i]);
+    } else {
+      wrapped = altair_core::rewards_lane(
+          s, balances[i], eff[i], prev_part[i], slashed[i], active_prev[i],
+          eligible[i], scores[i], &out_balances[i]);
+    }
   }
   // the census: a warp sum, one shared add per warp, one global add per
   // block, so lanes that wrap together do not queue on one word
@@ -122,6 +136,68 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0 && block_wraps != 0) {
     atomicAdd(&sums_and_wraps[3], static_cast<unsigned long long>(block_wraps));
   }
+}
+
+// The kernel's scalars, or false for a zero divisor or a flag index outside
+// 0..2 (the launchers then refuse).
+bool make_scalars(uint64_t increment, uint64_t brpi, uint64_t active_increments,
+                  uint64_t denominator, uint64_t bias, uint64_t recovery_rate,
+                  uint64_t weight0, uint64_t weight1, uint64_t weight2,
+                  uint64_t weight_denominator, int leaking, int head_flag_index,
+                  int target_flag_index, altair_core::FusedScalars* scalars) {
+  const uint64_t divisor = active_increments * weight_denominator;
+  if (increment == 0 || weight_denominator == 0 || divisor == 0 ||
+      denominator == 0 || head_flag_index < 0 || head_flag_index > 2 ||
+      target_flag_index < 0 || target_flag_index > 2) {
+    return false;
+  }
+  scalars->increment = increment;
+  scalars->brpi = brpi;
+  scalars->divisor = divisor;
+  scalars->denominator = denominator;
+  scalars->bias = bias;
+  scalars->recovery_rate = recovery_rate;
+  scalars->weights[0] = weight0;
+  scalars->weights[1] = weight1;
+  scalars->weights[2] = weight2;
+  scalars->weight_denominator = weight_denominator;
+  scalars->leaking = leaking != 0;
+  scalars->head_flag_index = head_flag_index;
+  scalars->target_flag_index = target_flag_index;
+  for (int f = 0; f < 3; ++f) scalars->unslashed_increments[f] = 0;
+  return true;
+}
+
+// The flag sums into words[0..2], which the caller zeroed.
+cudaError_t launch_flag_sums(const void* eff, const void* prev_part, const void* slashed,
+                             const void* active_prev, int64_t n,
+                             unsigned long long* words, cudaStream_t s) {
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  const unsigned reduce_blocks =
+      static_cast<unsigned>(blocks < kReduceBlocks ? blocks : kReduceBlocks);
+  flag_sums_kernel<<<reduce_blocks, kThreads, 0, s>>>(
+      static_cast<const uint64_t*>(eff), static_cast<const uint8_t*>(prev_part),
+      static_cast<const bool*>(slashed), static_cast<const bool*>(active_prev),
+      n, words);
+  return cudaGetLastError();
+}
+
+// The element pass on the sums in words[0..2], the census into words[3].
+template <bool kScores>
+cudaError_t launch_lanes(const altair_core::FusedScalars& scalars, const void* balances,
+                         const void* eff, const void* prev_part, const void* slashed,
+                         const void* active_prev, const void* eligible, const void* scores,
+                         int64_t n, unsigned long long* words, void* out_scores,
+                         void* out_balances, cudaStream_t s) {
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  fused_epoch_kernel<kScores><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      scalars, static_cast<const uint64_t*>(balances),
+      static_cast<const uint64_t*>(eff), static_cast<const uint8_t*>(prev_part),
+      static_cast<const bool*>(slashed), static_cast<const bool*>(active_prev),
+      static_cast<const bool*>(eligible), static_cast<const uint64_t*>(scores),
+      n, words, static_cast<uint64_t*>(out_scores),
+      static_cast<uint64_t*>(out_balances));
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -142,47 +218,93 @@ extern "C" int fused_epoch_launch(
     uint64_t weight2, uint64_t weight_denominator, int leaking,
     int head_flag_index, int target_flag_index, void* scratch,
     void* out_scores, void* out_balances, void* stream) {
-  const uint64_t divisor = active_increments * weight_denominator;
-  if (n < 0 || increment == 0 || weight_denominator == 0 || divisor == 0 ||
-      denominator == 0 || head_flag_index < 0 || head_flag_index > 2 ||
-      target_flag_index < 0 || target_flag_index > 2) {
+  altair_core::FusedScalars scalars;
+  if (n < 0 || !make_scalars(increment, brpi, active_increments, denominator, bias,
+                             recovery_rate, weight0, weight1, weight2,
+                             weight_denominator, leaking, head_flag_index,
+                             target_flag_index, &scalars)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t rc = cudaMemsetAsync(scratch, 0, 4 * sizeof(uint64_t), s);
   if (rc != cudaSuccess || n == 0) return static_cast<int>(rc);
-  altair_core::FusedScalars scalars;
-  scalars.increment = increment;
-  scalars.brpi = brpi;
-  scalars.divisor = divisor;
-  scalars.denominator = denominator;
-  scalars.bias = bias;
-  scalars.recovery_rate = recovery_rate;
-  scalars.weights[0] = weight0;
-  scalars.weights[1] = weight1;
-  scalars.weights[2] = weight2;
-  scalars.weight_denominator = weight_denominator;
-  scalars.leaking = leaking != 0;
-  scalars.head_flag_index = head_flag_index;
-  scalars.target_flag_index = target_flag_index;
-  for (int f = 0; f < 3; ++f) scalars.unslashed_increments[f] = 0;
-
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  const unsigned reduce_blocks =
-      static_cast<unsigned>(blocks < kReduceBlocks ? blocks : kReduceBlocks);
   unsigned long long* words = static_cast<unsigned long long*>(scratch);
-  flag_sums_kernel<<<reduce_blocks, kThreads, 0, s>>>(
-      static_cast<const uint64_t*>(eff), static_cast<const uint8_t*>(prev_part),
-      static_cast<const bool*>(slashed), static_cast<const bool*>(active_prev),
-      n, words);
-  rc = cudaGetLastError();
+  rc = launch_flag_sums(eff, prev_part, slashed, active_prev, n, words, s);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  fused_epoch_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-      scalars, static_cast<const uint64_t*>(balances),
-      static_cast<const uint64_t*>(eff), static_cast<const uint8_t*>(prev_part),
-      static_cast<const bool*>(slashed), static_cast<const bool*>(active_prev),
-      static_cast<const bool*>(eligible), static_cast<const uint64_t*>(scores),
-      n, words, static_cast<uint64_t*>(out_scores),
-      static_cast<uint64_t*>(out_balances));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_lanes<true>(scalars, balances, eff, prev_part, slashed,
+                                             active_prev, eligible, scores, n, words,
+                                             out_scores, out_balances, s));
+}
+
+// The two launches of fused_epoch_launch as entries of their own, for the
+// reference's mesh twins (parallel/epoch.py:88 _fused_sharded, :132
+// _rewards_sharded): every shard's flag sums must be complete, and added
+// across the shards mod 2^64 (the reference's psum), before any shard
+// applies them.
+
+// The three flag sums of the (n,) columns into sums[0..2] (zeroed here).
+// Returns cudaGetLastError() (0 = launched); n == 0 launches nothing but the
+// zeroing.
+extern "C" int fused_flag_sums_launch(const void* eff, const void* prev_part,
+                                      const void* slashed, const void* active_prev,
+                                      int64_t n, void* sums, void* stream) {
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t rc = cudaMemsetAsync(sums, 0, 3 * sizeof(uint64_t), s);
+  if (rc != cudaSuccess || n == 0) return static_cast<int>(rc);
+  return static_cast<int>(launch_flag_sums(eff, prev_part, slashed, active_prev, n,
+                                           static_cast<unsigned long long*>(sums), s));
+}
+
+// fused_epoch_launch's element pass on given sums: scratch[0..2] hold the
+// three flag sums (the caller's), scratch[3] is zeroed here and receives the
+// wrap census.
+extern "C" int fused_epoch_apply_launch(
+    const void* balances, const void* eff, const void* prev_part,
+    const void* slashed, const void* active_prev, const void* eligible,
+    const void* scores, int64_t n, uint64_t increment, uint64_t brpi,
+    uint64_t active_increments, uint64_t denominator, uint64_t bias,
+    uint64_t recovery_rate, uint64_t weight0, uint64_t weight1,
+    uint64_t weight2, uint64_t weight_denominator, int leaking,
+    int head_flag_index, int target_flag_index, void* scratch,
+    void* out_scores, void* out_balances, void* stream) {
+  altair_core::FusedScalars scalars;
+  if (n < 0 || !make_scalars(increment, brpi, active_increments, denominator, bias,
+                             recovery_rate, weight0, weight1, weight2,
+                             weight_denominator, leaking, head_flag_index,
+                             target_flag_index, &scalars)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned long long* words = static_cast<unsigned long long*>(scratch);
+  cudaError_t rc = cudaMemsetAsync(words + 3, 0, sizeof(uint64_t), s);
+  if (rc != cudaSuccess || n == 0) return static_cast<int>(rc);
+  return static_cast<int>(launch_lanes<true>(scalars, balances, eff, prev_part, slashed,
+                                             active_prev, eligible, scores, n, words,
+                                             out_scores, out_balances, s));
+}
+
+// The rewards lane alone (no inactivity update; `scores` are the
+// post-update scores) on given sums, as fused_epoch_apply_launch.
+extern "C" int rewards_apply_launch(
+    const void* balances, const void* eff, const void* prev_part,
+    const void* slashed, const void* active_prev, const void* eligible,
+    const void* scores, int64_t n, uint64_t increment, uint64_t brpi,
+    uint64_t active_increments, uint64_t denominator, uint64_t weight0,
+    uint64_t weight1, uint64_t weight2, uint64_t weight_denominator, int leaking,
+    int head_flag_index, int target_flag_index, void* scratch,
+    void* out_balances, void* stream) {
+  altair_core::FusedScalars scalars;
+  if (n < 0 || !make_scalars(increment, brpi, active_increments, denominator, 0, 0,
+                             weight0, weight1, weight2, weight_denominator, leaking,
+                             head_flag_index, target_flag_index, &scalars)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned long long* words = static_cast<unsigned long long*>(scratch);
+  cudaError_t rc = cudaMemsetAsync(words + 3, 0, sizeof(uint64_t), s);
+  if (rc != cudaSuccess || n == 0) return static_cast<int>(rc);
+  return static_cast<int>(launch_lanes<false>(scalars, balances, eff, prev_part, slashed,
+                                              active_prev, eligible, scores, n, words,
+                                              nullptr, out_balances, s));
 }

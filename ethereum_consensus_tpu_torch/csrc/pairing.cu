@@ -13,7 +13,8 @@
 //                  and :292 g2_sum_points -> :275 _g2_tree_reduce:
 //                  sum_i [r_i] sig_i as one Jacobian point. Each block's
 //                  lanes multiply, then fold pairwise in shared memory;
-//                  further launches fold the block partials the same way.
+//                  further launches fold the block partials the same way;
+//                  g2_sum_launch runs that fold alone over Jacobian points.
 //                  The fold pairs neighbours at strides 1, 2, 4, ... with
 //                  infinity past the last lane: the reference's XOR-fold
 //                  tree over its power-of-two padding, so the Jacobian sum
@@ -393,6 +394,22 @@ extern "C" int g2_mul_sum_launch(const void* points, const void* scalars, int64_
                                 first + blocks * kG2JacWords, static_cast<uint32_t*>(out), s);
   return folds < 0 ? folds : rc + folds;
 #endif
+}
+
+// Jacobian points (n, 3, 2, 12) -> out (3, 2, 12), their sum by the fold of
+// g2_mul_sum (the reference's g2_sum_points, which folds the mesh twin's
+// per-shard partials); work holds the fold's levels (ops/pairing.py
+// g2_sum_points_cuda)
+extern "C" int g2_sum_launch(const void* points, int64_t n, void* work, void* out, void* stream) {
+  if (bad_count(n)) return kBadCount;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 1) {  // one point: the fold of one block (a Montgomery round trip)
+    g2_fold_kernel<<<1, kTreeBlockThreads, 0, s>>>(static_cast<const uint32_t*>(points), 1,
+                                              static_cast<uint32_t*>(out));
+    return launched_once();
+  }
+  return fold_levels(g2_fold_kernel, static_cast<const uint32_t*>(points), n, kG2JacWords,
+                     static_cast<uint32_t*>(work), static_cast<uint32_t*>(out), s);
 }
 
 // xp, yp (n, 12), xq, yq (n, 2, 12) -> out (n, 12, 12)

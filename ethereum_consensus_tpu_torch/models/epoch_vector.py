@@ -50,14 +50,21 @@ phase0's justification and rewards are fed by the committee-mask kernel
 (``models/committees.py``), with the spec-helper walks as fallback +
 oracle.
 
+With ``ECT_MESH`` set, the pass consults the mesh runtime
+(``parallel/runtime.py``) once: an engaged runner (``parallel/epoch.py``
+``MeshEpochSweeps``) takes the fused route sharded (``ec.mesh.fused``), and
+the staged inactivity and rewards stages sharded where the fused route
+declines. The runtime counts every decline; a failing shard raises.
+
 Telemetry: ``epoch_vector.epochs`` counts engaged passes,
 ``epoch_vector.fallback.{reason}`` every decline,
-``epoch_vector.fused.device`` every fused launch.
+``epoch_vector.fused.device`` every fused launch and
+``epoch_vector.fused.mesh`` every sharded fused pass.
 
 Reference parity: ethereum_consensus_tpu/models/epoch_vector.py, the
 phase0 and altair rows. Left out until the slices that need them: the
 later forks' rows and stages (electra's pending deposits and
-consolidations, capella's historical summaries), the mesh branches (B9),
+consolidations, capella's historical summaries),
 ``jitted_kernels`` / ``kernel_cache_census`` (the port calls
 ``ops/epoch.py`` directly), and the trace spans and routing journal
 (telemetry slice).
@@ -218,6 +225,9 @@ class _EpochColumns:
         # masks at the pre-pass registry (activity is stable within the
         # epoch window — every spec write targets future epochs)
         "active_prev", "active_cur", "eligible",
+        # the mesh runner for this pass (parallel/runtime.py) — None when
+        # the mesh is off or declined, and the unsharded kernels run
+        "mesh",
         # True when ops.install routed the sweeps device-ward: inactivity
         # and rewards run as one launch of the fused epoch kernel
         "fused",
@@ -356,6 +366,7 @@ def _sync(state, context, fork):
     ec.inact = ec.b_inact
     ec._total_active = None
     ec._active_cur_count = None
+    ec.mesh = None
     ec.fused = False
     return ec
 
@@ -464,13 +475,21 @@ def _inactivity_updates(ec, leaking: bool) -> None:
         & _flag_mask(ec, ec.prev_part, _TIMELY_TARGET_FLAG_INDEX)
     )
     context = ec.context
+    bias = int(context.inactivity_score_bias)
+    recovery = int(context.inactivity_score_recovery_rate)
+    if ec.mesh is not None:
+        # the sharded sweep (parallel/epoch.py); a failing shard raises
+        ec.inact = ec.mesh.inactivity_scores(
+            ec.inact, ec.eligible, participating, bias, recovery, leaking
+        )
+        return
     ec.inact = inactivity_scores_kernel(
         ec.np,
         ec.inact,
         ec.eligible,
         participating,
-        int(context.inactivity_score_bias),
-        int(context.inactivity_score_recovery_rate),
+        bias,
+        recovery,
         leaking,
     )
 
@@ -492,6 +511,11 @@ def _rewards_altair(ec, leaking: bool) -> None:
 
     increment = ec.increment
     brpi, active_increments = _reward_scalars(ec)
+    if ec.mesh is not None:
+        new_balances = _mesh_rewards(ec, brpi, active_increments, leaking)
+        if new_balances is not None:
+            ec.balances = new_balances
+            return
     base_reward = (ec.eff // np.uint64(increment)) * np.uint64(brpi)
     unslashed_all = ~ec.slashed
     pairs = []
@@ -579,6 +603,46 @@ def _penalty_denominator(ec) -> int:
     )
 
 
+def _mesh_rewards(ec, brpi: int, active_increments: int, leaking: bool):
+    """Route the whole rewards stage through the mesh runner (one sharded
+    sweep: per-flag psum sums, flag deltas, inactivity penalties and the
+    in-order application — parallel/epoch.py). Returns the new balances
+    column, or None with the decline counted: the host stage then
+    recomputes everything. The declines preserve the spec (a product past
+    the u64 lane, a wrap the guards should have made unreachable); a
+    failing shard raises."""
+    from ..parallel import runtime as _mesh_runtime
+    from .altair.constants import (
+        PARTICIPATION_FLAG_WEIGHTS,
+        TIMELY_HEAD_FLAG_INDEX,
+        WEIGHT_DENOMINATOR,
+    )
+
+    # the host stage clamps pathological eff*score products through exact
+    # python ints — a kernel cannot, so those states decline up front
+    if ec.n and int(ec.eff.max(initial=0)) * int(ec.inact.max(initial=0)) >= 1 << 64:
+        _mesh_runtime.decline("epoch", "u64_product")
+        return None
+    new_balances = ec.mesh.rewards(
+        ec.balances, ec.eff, ec.prev_part, ec.slashed, ec.active_prev,
+        ec.eligible, ec.inact,
+        increment=ec.increment,
+        brpi=brpi,
+        active_increments=active_increments,
+        denominator=_penalty_denominator(ec),
+        weights=tuple(int(w) for w in PARTICIPATION_FLAG_WEIGHTS),
+        weight_denominator=int(WEIGHT_DENOMINATOR),
+        leaking=leaking,
+        head_flag_index=int(TIMELY_HEAD_FLAG_INDEX),
+        target_flag_index=_TIMELY_TARGET_FLAG_INDEX,
+    )
+    if new_balances is None:
+        # a u64 wrap the lane guards should have made unreachable: the host
+        # path re-runs and its literal mirror raises the structured error
+        _mesh_runtime.decline("epoch", "wrap_guard")
+    return new_balances
+
+
 def _rewards_literal_apply(ec, pairs) -> None:
     """Terminal mirror of the literal overflow fallback: commit the
     stages so far, then apply the SAME deltas through increase /
@@ -604,13 +668,15 @@ def _fused_fallback(reason: str) -> None:
 
 
 def _fused_route(ec, leaking: bool) -> bool:
-    """Run inactivity + rewards as ONE launch of the fused epoch kernel
-    (``ops/epoch.py``) when ``ops.install`` routed the sweeps
-    device-ward. Returns True with ``ec.inact``/``ec.balances`` rebound;
-    False = run the staged host kernels (bit-identical). The two declines
-    are spec-preserving choices of route, never a hidden failure: a build
-    or launch failure of the kernel raises."""
-    if not ec.fused:
+    """Run inactivity + rewards as ONE fused pass — mesh-sharded
+    (parallel/epoch.py: the flag sums per shard, their psum, the element
+    pass per shard) when the mesh owns the pass, else one launch of the
+    fused epoch kernel (``ops/epoch.py``) when ``ops.install`` routed the
+    sweeps device-ward. Returns True with ``ec.inact``/``ec.balances``
+    rebound; False = run the staged kernels (bit-identical). The two
+    declines are spec-preserving choices of route, never a hidden failure:
+    a build or launch failure of a kernel raises."""
+    if not ec.fused and ec.mesh is None:
         return False
     from .. import _device_flags
     from ..ops import epoch as _epoch
@@ -631,6 +697,33 @@ def _fused_route(ec, leaking: bool) -> bool:
         _fused_fallback("u64_product")
         return False
     brpi, active_increments = _reward_scalars(ec)
+    if ec.mesh is not None:
+        out = ec.mesh.fused(
+            ec.balances, ec.eff, ec.prev_part, ec.slashed, ec.active_prev,
+            ec.eligible, ec.inact,
+            increment=ec.increment,
+            brpi=brpi,
+            active_increments=active_increments,
+            denominator=_penalty_denominator(ec),
+            bias=bias,
+            recovery_rate=int(context.inactivity_score_recovery_rate),
+            weights=tuple(int(w) for w in PARTICIPATION_FLAG_WEIGHTS),
+            weight_denominator=int(WEIGHT_DENOMINATOR),
+            leaking=leaking,
+            head_flag_index=int(TIMELY_HEAD_FLAG_INDEX),
+            target_flag_index=_TIMELY_TARGET_FLAG_INDEX,
+        )
+        if out is None:
+            # a wrap the guards should have made unreachable: the staged
+            # path re-runs and its literal mirror raises the structured
+            # error at the exact index
+            from ..parallel import runtime as _mesh_runtime
+
+            _mesh_runtime.decline("epoch", "wrap_guard")
+            return False
+        ec.inact, ec.balances = out
+        metrics.counter("epoch_vector.fused.mesh").inc()
+        return True
     scores, balances, wrapped = _epoch.fused_epoch_device(
         ec.balances, ec.eff, ec.prev_part, ec.slashed, ec.active_prev,
         ec.eligible, ec.inact,
@@ -996,6 +1089,14 @@ def process_epoch_columnar(state, context, fork: str) -> bool:
     if ec is None:
         return False
     ec.fused = fused
+    if _env.mesh_requested():
+        # the mesh runtime consult (parallel/runtime.py): an engaged runner
+        # shards the inactivity and rewards sweeps; the runtime counts every
+        # decline. The guard is a plain env read, so a mesh-off process
+        # never imports the parallel package.
+        from ..parallel import runtime as _mesh_runtime
+
+        ec.mesh = _mesh_runtime.epoch_sweeps(n, family=family)
     from .phase0.epoch_processing import (
         process_eth1_data_reset,
         process_historical_roots_update,

@@ -16,8 +16,16 @@ output on the whole u64 range:
   - ``fused_epoch_plain``: int64 tensor ops, with the unsigned helpers of
     ``ops/sweeps.py``.
 ``fused_epoch`` takes the plain version for CPU tensors only; for CUDA
-tensors it launches the kernel or raises. The reference's mesh-sharded
-twin (its ``psum`` argument) waits for the multi-chip slice.
+tensors it launches the kernel or raises.
+
+The reference's mesh twins (parallel/epoch.py :88 ``_fused_sharded``, the
+same kernel with its sums wrapped in ``psum``, and :132
+``_rewards_sharded``, the rewards alone off the post-update scores) need
+the kernel's two launches apart: every shard's flag sums, added across the
+shards mod 2^64, before any shard applies them. ``fused_flag_sums`` is the
+first launch alone (three words out), ``fused_epoch_apply`` the second on
+given sums, and ``rewards_apply`` the second without the inactivity
+update; each has its plain version and its count in ``launch_counts``.
 """
 
 from __future__ import annotations
@@ -30,16 +38,28 @@ from .sweeps import _MASK64, _as_int64, _check_columns, _check_cuda, _udiv, _ult
 
 __all__ = [
     "fused_epoch",
+    "fused_epoch_apply",
+    "fused_epoch_apply_cuda",
+    "fused_epoch_apply_plain",
     "fused_epoch_cuda",
     "fused_epoch_device",
     "fused_epoch_plain",
+    "fused_flag_sums",
+    "fused_flag_sums_cuda",
+    "fused_flag_sums_plain",
     "launch_count",
+    "launch_counts",
+    "rewards_apply",
+    "rewards_apply_cuda",
+    "rewards_apply_plain",
 ]
 
 # Kernel launches since the count was last set to 0 (``_launch`` adds one
 # per launch, the reduction and the element pass together, and nowhere
 # else).
 launch_count = 0
+# The split entries' launches, one count each, added where they launch.
+launch_counts = {"fused_flag_sums": 0, "fused_epoch_apply": 0, "rewards_apply": 0}
 
 
 def _scalars(increment: int, brpi: int, active_increments: int, denominator: int,
@@ -70,24 +90,33 @@ def _scalars(increment: int, brpi: int, active_increments: int, denominator: int
 def _check_fused_columns(balances, eff, prev_part, slashed, active_prev, eligible,
                          scores) -> None:
     _check_columns((balances, eff, scores), (slashed, active_prev, eligible))
+    _check_flag_columns(eff, prev_part, slashed, active_prev)
+
+
+def _check_flag_columns(eff, prev_part, slashed, active_prev) -> None:
+    _check_columns((eff,), (slashed, active_prev))
     if (prev_part.dtype != torch.uint8 or prev_part.shape != eff.shape
             or prev_part.device != eff.device):
         raise TypeError("prev_part must be an (n,) uint8 column beside the others")
 
 
-def fused_epoch_plain(balances, eff, prev_part, slashed, active_prev, eligible, scores,
-                      increment: int, brpi: int, active_increments: int,
-                      denominator: int, bias: int, recovery_rate: int, weights,
-                      weight_denominator: int, leaking: bool, head_flag_index: int,
-                      target_flag_index: int):
-    """(new_scores, new_balances, wrapped) in plain PyTorch: two (n,) int64
-    word columns and the wrap census as an int."""
-    _check_fused_columns(balances, eff, prev_part, slashed, active_prev, eligible, scores)
-    words = _scalars(increment, brpi, active_increments, denominator, bias,
-                     recovery_rate, weights, weight_denominator, leaking,
-                     head_flag_index, target_flag_index)
+def _flag_sums(eff, prev_part, slashed, active_prev) -> list:
+    """The three flag sums, each over the unslashed validators active in
+    the previous epoch with the flag set, mod 2^64."""
+    zero = torch.zeros_like(eff)
+    unslashed_all = active_prev & ~slashed
+    return [_usum(torch.where(unslashed_all & ((prev_part >> index) & 1).to(torch.bool), eff,
+                              zero))
+            for index in range(3)]
+
+
+def _apply_plain(balances, eff, prev_part, slashed, active_prev, eligible, scores, sums,
+                 words: tuple, update_scores: bool):
+    """The element pass on the flag sums ``sums``: (new_scores, new_balances,
+    wrapped), the scores unchanged without ``update_scores``."""
     increment, brpi, active_increments, denominator, bias, recovery = words[:6]
-    weights, weight_denominator = words[6:9], words[9]
+    weights, weight_denominator, leaking = words[6:9], words[9], bool(words[10])
+    head_flag_index, target_flag_index = words[11], words[12]
     divisor = (active_increments * weight_denominator) & _MASK64
     zero = torch.zeros_like(eff)
     unslashed_all = active_prev & ~slashed
@@ -96,19 +125,22 @@ def fused_epoch_plain(balances, eff, prev_part, slashed, active_prev, eligible, 
         return unslashed_all & ((prev_part >> index) & 1).to(torch.bool)
 
     participating = flag(target_flag_index)
-    # process_inactivity_updates (spec order: before the reward deltas)
-    new_scores = torch.where(eligible & participating, scores - _umin(scores, 1), scores)
-    new_scores = torch.where(eligible & ~participating, new_scores + _as_int64(bias), new_scores)
-    if not leaking:
-        new_scores = torch.where(eligible, new_scores - _umin(new_scores, recovery), new_scores)
+    new_scores = scores
+    if update_scores:
+        # process_inactivity_updates (spec order: before the reward deltas)
+        new_scores = torch.where(eligible & participating, scores - _umin(scores, 1), scores)
+        new_scores = torch.where(eligible & ~participating, new_scores + _as_int64(bias),
+                                 new_scores)
+        if not leaking:
+            new_scores = torch.where(eligible, new_scores - _umin(new_scores, recovery),
+                                     new_scores)
 
     base_reward = _udiv(eff, increment) * _as_int64(brpi)
     pairs = []
     for index, weight in enumerate(weights):
         unslashed = flag(index)
         # get_total_balance floors at one increment
-        flag_sum = _usum(torch.where(unslashed, eff, zero))
-        increments = max(increment, flag_sum) // increment
+        increments = max(increment, int(sums[index]) & _MASK64) // increment
         w = _as_int64(weight)
         if leaking:
             rewards = zero
@@ -137,6 +169,21 @@ def fused_epoch_plain(balances, eff, prev_part, slashed, active_prev, eligible, 
         wrapped += int(_ult(raised, new_balances).sum())
         new_balances = torch.where(~_ult(raised, penalties), raised - penalties, zero)
     return new_scores, new_balances, wrapped
+
+
+def fused_epoch_plain(balances, eff, prev_part, slashed, active_prev, eligible, scores,
+                      increment: int, brpi: int, active_increments: int,
+                      denominator: int, bias: int, recovery_rate: int, weights,
+                      weight_denominator: int, leaking: bool, head_flag_index: int,
+                      target_flag_index: int):
+    """(new_scores, new_balances, wrapped) in plain PyTorch: two (n,) int64
+    word columns and the wrap census as an int."""
+    _check_fused_columns(balances, eff, prev_part, slashed, active_prev, eligible, scores)
+    words = _scalars(increment, brpi, active_increments, denominator, bias,
+                     recovery_rate, weights, weight_denominator, leaking,
+                     head_flag_index, target_flag_index)
+    return _apply_plain(balances, eff, prev_part, slashed, active_prev, eligible, scores,
+                        _flag_sums(eff, prev_part, slashed, active_prev), words, True)
 
 
 def fused_epoch_cuda(balances, eff, prev_part, slashed, active_prev, eligible, scores,
@@ -182,6 +229,160 @@ def fused_epoch(*args, **kwargs):
     """The kernel for CUDA tensors, the plain version for CPU tensors."""
     balances = args[0] if args else kwargs["balances"]
     fn = fused_epoch_plain if balances.device.type == "cpu" else fused_epoch_cuda
+    return fn(*args, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# The two launches apart, for the mesh twins (parallel/epoch.py)
+# ---------------------------------------------------------------------------
+
+
+def _sum_words(sums) -> list:
+    if len(sums) != 3:
+        raise ValueError(f"need the three flag sums, got {len(sums)}")
+    return [int(v) & _MASK64 for v in sums]
+
+
+def fused_flag_sums_plain(eff, prev_part, slashed, active_prev) -> torch.Tensor:
+    """The three flag sums mod 2^64, as a (3,) int64 tensor of u64 bit
+    patterns on the columns' device."""
+    _check_flag_columns(eff, prev_part, slashed, active_prev)
+    sums = _flag_sums(eff, prev_part, slashed, active_prev)
+    return torch.tensor([_as_int64(v) for v in sums], dtype=torch.int64, device=eff.device)
+
+
+def fused_flag_sums_cuda(eff, prev_part, slashed, active_prev) -> torch.Tensor:
+    """The flag sums on the card (csrc/fused_epoch.cu, the fused kernel's
+    first launch); the (3,) result stays on the card."""
+    columns = (eff, prev_part, slashed, active_prev)
+    _check_flag_columns(*columns)
+    _check_cuda("fused_flag_sums_cuda", columns)
+    lib = _kernels.load("fused_epoch")
+    sums = torch.empty(3, dtype=torch.int64, device=eff.device)
+    with torch.cuda.device(eff.device):
+        stream = torch.cuda.current_stream(eff.device).cuda_stream
+        rc = lib.fused_flag_sums_launch(*(t.data_ptr() for t in columns), eff.shape[0],
+                                        sums.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"flag sums kernel launch failed: CUDA error {rc}")
+    launch_counts["fused_flag_sums"] += 1
+    return sums
+
+
+def fused_flag_sums(eff, prev_part, slashed, active_prev) -> torch.Tensor:
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    fn = fused_flag_sums_plain if eff.device.type == "cpu" else fused_flag_sums_cuda
+    return fn(eff, prev_part, slashed, active_prev)
+
+
+def fused_epoch_apply_plain(balances, eff, prev_part, slashed, active_prev, eligible, scores,
+                            sums, increment: int, brpi: int, active_increments: int,
+                            denominator: int, bias: int, recovery_rate: int, weights,
+                            weight_denominator: int, leaking: bool, head_flag_index: int,
+                            target_flag_index: int):
+    """``fused_epoch_plain`` on given flag sums (three u64 words):
+    (new_scores, new_balances, wrapped)."""
+    _check_fused_columns(balances, eff, prev_part, slashed, active_prev, eligible, scores)
+    words = _scalars(increment, brpi, active_increments, denominator, bias,
+                     recovery_rate, weights, weight_denominator, leaking,
+                     head_flag_index, target_flag_index)
+    return _apply_plain(balances, eff, prev_part, slashed, active_prev, eligible, scores,
+                        _sum_words(sums), words, True)
+
+
+def _sums_scratch(sums, device) -> torch.Tensor:
+    """The element pass's four device words: the three flag sums, then the
+    census (zeroed by the launcher)."""
+    return torch.tensor([_as_int64(v) for v in _sum_words(sums)] + [0],
+                        dtype=torch.int64).to(device)
+
+
+def _launch_apply(fn_name: str, count: str, columns: tuple, words: tuple,
+                  scratch: torch.Tensor, out_scores: bool):
+    """Launch ``fn_name`` (the element pass) on checked inputs and the
+    ``_sums_scratch`` words; returns (new_scores or None, new_balances), the
+    census left in scratch[3]."""
+    lib = _kernels.load("fused_epoch")
+    balances = columns[0]
+    new_scores = torch.empty_like(balances) if out_scores else None
+    new_balances = torch.empty_like(balances)
+    outs = ((new_scores,) if out_scores else ()) + (new_balances,)
+    with torch.cuda.device(balances.device):
+        stream = torch.cuda.current_stream(balances.device).cuda_stream
+        rc = getattr(lib, fn_name)(
+            *(t.data_ptr() for t in columns), balances.shape[0], *words,
+            scratch.data_ptr(), *(t.data_ptr() for t in outs), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{count} kernel launch failed: CUDA error {rc}")
+    launch_counts[count] += 1
+    return new_scores, new_balances
+
+
+def fused_epoch_apply_cuda(balances, eff, prev_part, slashed, active_prev, eligible, scores,
+                           sums, increment: int, brpi: int, active_increments: int,
+                           denominator: int, bias: int, recovery_rate: int, weights,
+                           weight_denominator: int, leaking: bool, head_flag_index: int,
+                           target_flag_index: int):
+    """The fused kernel's element pass on given sums, on the card;
+    reading the census waits for the kernel."""
+    columns = (balances, eff, prev_part, slashed, active_prev, eligible, scores)
+    _check_fused_columns(*columns)
+    _check_cuda("fused_epoch_apply_cuda", columns)
+    words = _scalars(increment, brpi, active_increments, denominator, bias,
+                     recovery_rate, weights, weight_denominator, leaking,
+                     head_flag_index, target_flag_index)
+    scratch = _sums_scratch(sums, balances.device)
+    new_scores, new_balances = _launch_apply("fused_epoch_apply_launch", "fused_epoch_apply",
+                                             columns, words, scratch, True)
+    return new_scores, new_balances, int(scratch[3])
+
+
+def fused_epoch_apply(*args, **kwargs):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    balances = args[0] if args else kwargs["balances"]
+    fn = fused_epoch_apply_plain if balances.device.type == "cpu" else fused_epoch_apply_cuda
+    return fn(*args, **kwargs)
+
+
+def rewards_apply_plain(balances, eff, prev_part, slashed, active_prev, eligible, scores, sums,
+                        increment: int, brpi: int, active_increments: int, denominator: int,
+                        weights, weight_denominator: int, leaking: bool,
+                        head_flag_index: int, target_flag_index: int):
+    """The rewards and penalties off ``scores`` (the post-update scores) on
+    given flag sums, without the inactivity update: (new_balances,
+    wrapped)."""
+    _check_fused_columns(balances, eff, prev_part, slashed, active_prev, eligible, scores)
+    words = _scalars(increment, brpi, active_increments, denominator, 0, 0, weights,
+                     weight_denominator, leaking, head_flag_index, target_flag_index)
+    _, new_balances, wrapped = _apply_plain(balances, eff, prev_part, slashed, active_prev,
+                                            eligible, scores, _sum_words(sums), words, False)
+    return new_balances, wrapped
+
+
+def rewards_apply_cuda(balances, eff, prev_part, slashed, active_prev, eligible, scores, sums,
+                       increment: int, brpi: int, active_increments: int, denominator: int,
+                       weights, weight_denominator: int, leaking: bool,
+                       head_flag_index: int, target_flag_index: int):
+    """The rewards lane on given sums, on the card (csrc/fused_epoch.cu);
+    reading the census waits for the kernel."""
+    columns = (balances, eff, prev_part, slashed, active_prev, eligible, scores)
+    _check_fused_columns(*columns)
+    _check_cuda("rewards_apply_cuda", columns)
+    words = _scalars(increment, brpi, active_increments, denominator, 0, 0, weights,
+                     weight_denominator, leaking, head_flag_index, target_flag_index)
+    # the launcher takes no bias or recovery rate: the lane updates no score
+    words = words[:4] + words[6:]
+    scratch = _sums_scratch(sums, balances.device)
+    _, new_balances = _launch_apply("rewards_apply_launch", "rewards_apply", columns, words,
+                                    scratch, False)
+    return new_balances, int(scratch[3])
+
+
+def rewards_apply(*args, **kwargs):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    balances = args[0] if args else kwargs["balances"]
+    fn = rewards_apply_plain if balances.device.type == "cpu" else rewards_apply_cuda
     return fn(*args, **kwargs)
 
 

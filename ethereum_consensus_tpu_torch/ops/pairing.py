@@ -40,7 +40,9 @@ the dispatcher takes the plain version for CPU tensors only and, for CUDA
 tensors, launches the kernel or raises. ``launch_counts`` counts each
 kernel's grid launches (a wrapper adds them where it launches, nowhere
 else): one per call, and one more per fold level of ``g2_mul_sum`` and
-``fp12_product`` beyond 64 lanes.
+``fp12_product`` beyond 64 lanes. ``g2_sum_points`` (the sum of Jacobian
+points, which the mesh twin's per-shard partials take) runs
+``g2_mul_sum``'s fold kernel alone and counts under its name.
 
 The reference is ethereum_consensus_tpu/ops/pairing.py, whose public names
 and argument order these are. It pads batches to powers of two with
@@ -78,6 +80,8 @@ __all__ = [
     "g2_mul_sum_cuda",
     "g2_mul_sum_plain",
     "g2_sum_points",
+    "g2_sum_points_cuda",
+    "g2_sum_points_plain",
     "launch_counts",
     "miller_loop",
     "miller_loop_batched",
@@ -359,10 +363,27 @@ def _g2_fold(jac: torch.Tensor) -> torch.Tensor:
     return jac[0]
 
 
-def g2_sum_points(points: torch.Tensor) -> torch.Tensor:
+def g2_sum_points_plain(points: torch.Tensor) -> torch.Tensor:
     """Sum an (N, 3, 2, 12) batch of canonical Jacobian G2 points ->
     (3, 2, 12), limb for limb the reference's g2_sum_points."""
+    _check("g2_sum_points", {"points": (points, (3, 2, 12))})
     return _canonical(_g2_fold(fq8.to_mont(fq.limbs16(points))))
+
+
+def g2_sum_points_cuda(points: torch.Tensor) -> torch.Tensor:
+    """The sum by ``g2_mul_sum``'s fold kernel, counted as its launches."""
+    n = _check("g2_sum_points", {"points": (points, (3, 2, 12))})
+    work = torch.empty((max(_fold_work(n), 1), 3, 2, 12), dtype=torch.int32, device=points.device)
+    out = torch.empty((3, 2, 12), dtype=torch.int32, device=points.device)
+    _launch("g2_mul_sum", "g2_sum_launch", points, n, work, out)
+    return out
+
+
+def g2_sum_points(points: torch.Tensor) -> torch.Tensor:
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    if points.device.type == "cpu":
+        return g2_sum_points_plain(points)
+    return g2_sum_points_cuda(points.contiguous())
 
 
 def g2_mul_sum_plain(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
