@@ -125,6 +125,23 @@ Phases, each of which exits non-zero when it fails:
                 verdict, and a blinder-0 lane. CUDA-event times of B3's split
                 launches and the rewards lane at 2^20; each twin's wall.
                 ECT_MESH=2 on the one card must raise.
+ 17. step     — the sharded chain step and epoch sweep step (parallel/step.py,
+                the reference's graft-entry chain step) at 2^20 validators,
+                on chip_mesh(1) and virtual_mesh(4, "cuda"): the chain step
+                at 2^20 and 2^20 + 5 with u64 edge rows (root against the host
+                SSZ root of List[uint64, 2^40], total against numpy, new
+                effective balances against the hysteresis kernel), the
+                epoch step on the altair_sweeps columns with u64 edge rows
+                (against the host columnar kernels of models/epoch_vector.py
+                and the plain step, leaking and not; the score bound's
+                OverflowError); the three shard kernels (chain_step_shard,
+                epoch_step_sums, epoch_step_apply) bit-exact against their
+                plain versions at 2^20, CUDA-event times; each step's wall;
+                then the graft twin (graft_entry.py): entry("cuda")'s root
+                against the host merkleizer, and dryrun_multichip(4, "cuda")
+                with a 2^13-validator minimal altair block built here (16
+                aggregates, a full sync aggregate), every stage checked and
+                the block's device-routed root equal to the host root.
 Then the run's wall time, one JSON line per kernel (``{"kernels": [...]}``)
 and, last, the ``{"ok": true, "device": ...}`` line.
 
@@ -406,14 +423,15 @@ def _synthetic_pubkey(index: int) -> bytes:
             + index.to_bytes(32, "big"))
 
 
-def build_registry_state(validators: int):
-    """A phase0 mainnet-preset state of ``validators`` active validators,
-    built directly (no deposits): the registry every slot hashes."""
+def build_registry_state(validators: int, ctx=None, public_key=_synthetic_pubkey):
+    """A phase0 state of ``validators`` active validators on ``ctx``'s
+    preset (mainnet by default), built directly (no deposits): the registry
+    every slot hashes. ``public_key(i)`` gives validator i's key."""
     from ethereum_consensus_tpu_torch.config import Context
     from ethereum_consensus_tpu_torch.models.phase0 import build
     from ethereum_consensus_tpu_torch.primitives import FAR_FUTURE_EPOCH, GENESIS_EPOCH
 
-    ctx = Context.for_mainnet()
+    ctx = ctx or Context.for_mainnet()
     ns = build(ctx.preset)
     eth1_block_hash = b"\x42" * 32
     state = ns.BeaconState(
@@ -429,7 +447,7 @@ def build_registry_state(validators: int):
     )
     state.validators = [
         ns.Validator(
-            public_key=_synthetic_pubkey(i),
+            public_key=public_key(i),
             withdrawal_credentials=b"\x00"
             + hashlib.sha256(b"wc" + i.to_bytes(8, "little")).digest()[1:],
             effective_balance=ctx.MAX_EFFECTIVE_BALANCE,
@@ -1391,27 +1409,28 @@ def phase_epoch(registry: dict) -> dict:
 
 def _zero_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    from ethereum_consensus_tpu_torch.ops import (epoch, fq8, g1, merkle, pairing, sha256,
-                                                  shuffle, sweeps)
+    from ethereum_consensus_tpu_torch.ops import (chain_step, epoch, fq8, g1, merkle, pairing,
+                                                  sha256, shuffle, sweeps)
 
     sha256.launch_count = shuffle.launch_count = g1.launch_count = epoch.launch_count = 0
     g1.launch_count_mxu = merkle.launch_count = 0
     for counts in (sweeps.launch_counts, pairing.launch_counts, fq8.launch_counts,
-                   epoch.launch_counts):
+                   epoch.launch_counts, chain_step.launch_counts):
         for name in counts:
             counts[name] = 0
 
 
 def _launch_counts() -> dict:
     """Every kernel's launches since ``_zero_launch_counts``."""
-    from ethereum_consensus_tpu_torch.ops import (epoch, fq8, g1, merkle, pairing, sha256,
-                                                  shuffle, sweeps)
+    from ethereum_consensus_tpu_torch.ops import (chain_step, epoch, fq8, g1, merkle, pairing,
+                                                  sha256, shuffle, sweeps)
 
     return {"sha256_64b": sha256.launch_count, "merkle_levels": merkle.launch_count,
             "shuffle": shuffle.launch_count, "g1_sum_sets": g1.launch_count,
             "fused_epoch": epoch.launch_count, **epoch.launch_counts,
             **sweeps.launch_counts, **pairing.launch_counts,
-            "g1_sum_sets_mxu": g1.launch_count_mxu, **fq8.launch_counts}
+            "g1_sum_sets_mxu": g1.launch_count_mxu, **fq8.launch_counts,
+            **chain_step.launch_counts}
 
 
 # --- the altair sweeps and the fused epoch kernel -------------------------
@@ -1765,51 +1784,34 @@ def scramble_altair(state, ctx, seed: int) -> dict:
             "scored": int((scores > 0).sum()), "target_missed": missed, "entrants": 256}
 
 
-def make_altair_block(state, ctx, committees: list):
-    """A signed block at ALTAIR_BLOCK_SLOT on ``state`` (at slot 95, the
-    committees' and the proposer's keys real) carrying one aggregate per
-    slot-95 committee and a full sync aggregate over slot 95's block root.
-    Each aggregate is one signature under the sum of its signers' secret
-    keys (duplicates in the sync committee counted), the same point as
-    aggregating their signatures. The state root comes from a host run on a
-    scratch copy, which verifies every signature inline. Returns the block
-    and a copy whose sync-aggregate signature is replaced by the block's
-    own signature, re-signed."""
+def _altair_block(scratch, ctx, slot: int, attestations: list):
+    """A block at ``slot`` on ``scratch`` (a state processed to ``slot``, the
+    proposer's and the sync committee's keys real) carrying
+    ``attestations`` and a full sync aggregate over the previous slot's
+    block root: one signature under the sum of the members' secret keys
+    (duplicates counted), the same point as aggregating their signatures.
+    Runs process_block on ``scratch`` for the state root. Returns the block
+    and ``signed(message)``, which signs a message as the proposer."""
     from ethereum_consensus_tpu_torch.crypto import bls
     from ethereum_consensus_tpu_torch.crypto.fields import R
     from ethereum_consensus_tpu_torch.domains import DomainType
     from ethereum_consensus_tpu_torch.models.altair import block_processing, build
     from ethereum_consensus_tpu_torch.models.altair import helpers as h
-    from ethereum_consensus_tpu_torch.models.altair import slot_processing
     from ethereum_consensus_tpu_torch.models.phase0.containers import BeaconBlockHeader
     from ethereum_consensus_tpu_torch.primitives import Root
     from ethereum_consensus_tpu_torch.signing import compute_signing_root
     from ethereum_consensus_tpu_torch.ssz import uint64
 
     ns = build(ctx.preset)
-    scratch = state.copy()
-    slot_processing.process_slots(scratch, ALTAIR_BLOCK_SLOT, ctx)
     proposer = h.get_beacon_proposer_index(scratch, ctx)
-    epoch = ALTAIR_BLOCK_SLOT // int(ctx.SLOTS_PER_EPOCH)
-    att_slot = ALTAIR_BLOCK_SLOT - 1
-    head_root = h.get_block_root_at_slot(scratch, att_slot)
-    target = ns.Checkpoint(epoch=epoch - 1, root=h.get_block_root(scratch, epoch - 1, ctx))
-    attester_domain = h.get_domain(scratch, DomainType.BEACON_ATTESTER, epoch - 1, ctx)
-    attestations = []
-    for index, committee in enumerate(committees):
-        data = ns.AttestationData(slot=att_slot, index=index, beacon_block_root=head_root,
-                                  source=scratch.previous_justified_checkpoint.copy(),
-                                  target=target.copy())
-        root = compute_signing_root(ns.AttestationData, data, attester_domain)
-        attestations.append(ns.Attestation(
-            aggregation_bits=[True] * len(committee), data=data,
-            signature=bls.SecretKey(sum(i + 1 for i in committee) % R).sign(root).to_bytes(),
-        ))
+    epoch = slot // int(ctx.SLOTS_PER_EPOCH)
+    previous = slot - 1
     by_key = {bytes(v.public_key): i for i, v in enumerate(scratch.validators)}
     members = [by_key[bytes(pk)] for pk in scratch.current_sync_committee.public_keys]
     sync_domain = h.get_domain(scratch, DomainType.SYNC_COMMITTEE,
-                               att_slot // int(ctx.SLOTS_PER_EPOCH), ctx)
-    sync_root = compute_signing_root(Root, head_root, sync_domain)
+                               previous // int(ctx.SLOTS_PER_EPOCH), ctx)
+    sync_root = compute_signing_root(Root, h.get_block_root_at_slot(scratch, previous),
+                                     sync_domain)
     sync_aggregate = ns.SyncAggregate(
         sync_committee_bits=[True] * len(members),
         sync_committee_signature=bls.SecretKey(sum(i + 1 for i in members) % R)
@@ -1819,7 +1821,7 @@ def make_altair_block(state, ctx, committees: list):
     randao_root = compute_signing_root(
         uint64, epoch, h.get_domain(scratch, DomainType.RANDAO, epoch, ctx))
     block = ns.BeaconBlock(
-        slot=ALTAIR_BLOCK_SLOT, proposer_index=proposer,
+        slot=slot, proposer_index=proposer,
         parent_root=BeaconBlockHeader.hash_tree_root(scratch.latest_block_header),
         body=ns.BeaconBlockBody(
             randao_reveal=proposer_key.sign(randao_root).to_bytes(),
@@ -1836,6 +1838,51 @@ def make_altair_block(state, ctx, committees: list):
         return ns.SignedBeaconBlock(message=message,
                                     signature=proposer_key.sign(root).to_bytes())
 
+    return block, signed
+
+
+def _aggregate(ns, data, committee: list, domain) -> object:
+    """A full aggregate of ``committee`` over ``data``: one signature under
+    the sum of the members' secret keys SecretKey(i + 1)."""
+    from ethereum_consensus_tpu_torch.crypto import bls
+    from ethereum_consensus_tpu_torch.crypto.fields import R
+    from ethereum_consensus_tpu_torch.signing import compute_signing_root
+
+    root = compute_signing_root(ns.AttestationData, data, domain)
+    return ns.Attestation(
+        aggregation_bits=[True] * len(committee), data=data,
+        signature=bls.SecretKey(sum(i + 1 for i in committee) % R).sign(root).to_bytes(),
+    )
+
+
+def make_altair_block(state, ctx, committees: list):
+    """A signed block at ALTAIR_BLOCK_SLOT on ``state`` (at slot 95, the
+    committees' and the proposer's keys real) carrying one aggregate per
+    slot-95 committee and a full sync aggregate over slot 95's block root.
+    The state root comes from a host run on a scratch copy, which verifies
+    every signature inline. Returns the block and a copy whose
+    sync-aggregate signature is replaced by the block's own signature,
+    re-signed."""
+    from ethereum_consensus_tpu_torch.domains import DomainType
+    from ethereum_consensus_tpu_torch.models.altair import build
+    from ethereum_consensus_tpu_torch.models.altair import helpers as h
+    from ethereum_consensus_tpu_torch.models.altair import slot_processing
+
+    ns = build(ctx.preset)
+    scratch = state.copy()
+    slot_processing.process_slots(scratch, ALTAIR_BLOCK_SLOT, ctx)
+    epoch = ALTAIR_BLOCK_SLOT // int(ctx.SLOTS_PER_EPOCH)
+    att_slot = ALTAIR_BLOCK_SLOT - 1
+    head_root = h.get_block_root_at_slot(scratch, att_slot)
+    target = ns.Checkpoint(epoch=epoch - 1, root=h.get_block_root(scratch, epoch - 1, ctx))
+    attester_domain = h.get_domain(scratch, DomainType.BEACON_ATTESTER, epoch - 1, ctx)
+    attestations = [
+        _aggregate(ns, ns.AttestationData(slot=att_slot, index=index, beacon_block_root=head_root,
+                                          source=scratch.previous_justified_checkpoint.copy(),
+                                          target=target.copy()),
+                   committee, attester_domain)
+        for index, committee in enumerate(committees)]
+    block, signed = _altair_block(scratch, ctx, ALTAIR_BLOCK_SLOT, attestations)
     good = signed(block)
     tampered = block.copy()
     tampered.body.sync_aggregate.sync_committee_signature = bytes(good.signature)
@@ -3028,6 +3075,354 @@ def phase_mesh(altair: dict, window: dict) -> dict:
             "timings": sweeps_out["timings"], "refused": refused}
 
 
+# --- the sharded chain step and the graft entry's twin (B9-step) -------------
+
+STEP_SIZES = (VALIDATORS, VALIDATORS + 5)  # the main path's registry, and an unaligned one
+STEP_VIRTUAL_SHARDS = 4
+# The chain step's shard kernel (K1): the hysteresis update
+# (SWEEPS_OPS_PER_VALIDATOR), the masked add of the new effective balance (a
+# 64-bit add and a select, 4) and the two byte swaps of its chunk words (one
+# PRMT each). Bytes: two words and a flag read, the new effective balance and
+# two chunk words written.
+CHAIN_STEP_OPS = SWEEPS_OPS_PER_VALIDATOR + 4 + 2
+CHAIN_STEP_BYTES = 8 + 8 + 1 + 8 + 8
+# The epoch step's sums (K2): the flag sums' masks and adds, and the active
+# total's select and add (3). Bytes: the effective balance and four flags.
+EPOCH_SUMS_OPS = FLAG_SUMS_OPS + 3
+EPOCH_SUMS_BYTES = 8 + 4
+# The graft twin's dryrun: its shards, and its block stage's registry (the
+# reference's 2^13 validators, minimal preset)
+DRYRUN_SHARDS = 4
+DRYRUN_BLOCK_VALIDATORS = 1 << 13
+STEP_WALL_CALLS = 3
+
+
+def _chain_columns(n: int, seed: int) -> tuple:
+    """Seeded registry columns of the chain step (numpy): effective balances
+    in whole increments from 16 to 32 ETH, balances within 1.5 increments of
+    them (hysteresis crossings both ways), 5% inactive; u64 edge rows:
+    balances within a threshold of 2^64 (the compare wraps) and two active
+    rows above 2^63 that their balance keeps (the total wraps mod 2^64)."""
+    rng = np.random.default_rng(seed)
+    inc = ALTAIR_INCREMENT
+    eff = rng.integers(16, 33, n, dtype=np.uint64) * np.uint64(inc)
+    balances = (eff.astype(np.int64) + rng.integers(-3 * inc // 2, 3 * inc // 2, n)).astype(
+        np.uint64)
+    active = rng.random(n) < 0.95
+    balances[3] = np.uint64((1 << 64) - 1 - inc // 8)
+    balances[5] = np.uint64((1 << 64) - 1)
+    eff[3] = np.uint64(32 * inc)
+    for i in (7, 11):
+        eff[i] = balances[i] = np.uint64(2**63 + 12345 * i)
+        active[i] = True
+    return balances, eff, active
+
+
+def _step_epoch_columns(n: int) -> tuple:
+    """The epoch step's columns (numpy, the step's order): _altair_columns'
+    (words at and above 2^63, scores near 2^64: rows above the score bound),
+    validators active in the current epoch, and two u64 edge rows: flag 0's
+    sum wraps to 5, below one increment (row 30), and the active total to
+    2^64 - 1 (row 31), where the step's isqrt returns 2^32."""
+    gen = torch.Generator(device="cuda").manual_seed(20261019)
+    c = {k: v.cpu().numpy() for k, v in _altair_columns(n, gen).items()}
+    rng = np.random.default_rng(9)
+    balances, eff, scores = (c[k].view(np.uint64).copy() for k in ("balances", "eff", "scores"))
+    part, slashed, active_prev, eligible = (c[k].copy() for k in (
+        "prev_part", "slashed", "active_prev", "eligible"))
+    active_cur = active_prev & (rng.random(n) < 0.98)
+    part[30], slashed[30], eligible[30] = 1, False, True
+    active_prev[30], active_cur[30] = True, False
+    part[31], active_prev[31], active_cur[31] = 0, False, True
+    eff[30] = eff[31] = 0
+    m = (1 << 64) - 1
+    flag0 = active_prev & ~slashed & ((part & 1) == 1)
+    eff[30] = np.uint64((5 - int(eff[flag0].sum())) & m)
+    eff[31] = np.uint64((m - int(eff[active_cur].sum())) & m)
+    return balances, eff, part, slashed, active_prev, active_cur, eligible, scores
+
+
+def _epoch_step_host(cols: tuple, leaking: bool) -> tuple:
+    """The epoch step through the host columnar kernels of
+    models/epoch_vector.py (numpy u64, wraps included) on the step's scalars:
+    (new balances, new scores, total_active)."""
+    from ethereum_consensus_tpu_torch.models import epoch_vector as ev
+    from ethereum_consensus_tpu_torch.ops import sweeps
+
+    balances, eff, part, slashed, active_prev, active_cur, eligible, scores = cols
+    inc = ALTAIR_INCREMENT
+    flags = [active_prev & ~slashed & (((part >> f) & 1) == 1) for f in range(3)]
+    new_scores = ev.inactivity_scores_kernel(np, scores, eligible, flags[1], ALTAIR_BIAS,
+                                             ALTAIR_RECOVERY, leaking)
+    total = max(int(eff[active_cur].sum()), inc)
+    brpi = inc * ALTAIR_BRF // sweeps.isqrt_u64(total)
+    base = (eff // np.uint64(inc)) * np.uint64(brpi)
+    pairs = [ev.flag_deltas_kernel(np, base, eligible, flags[f], w, int(eff[flags[f]].sum()) // inc,
+                                   total // inc, ALTAIR_WD, leaking, f == 2)
+             for f, w in enumerate(ALTAIR_WEIGHTS)]
+    missed = eligible & ~flags[1]
+    pairs.append((np.zeros_like(eff), np.where(
+        missed, eff * new_scores // np.uint64(ALTAIR_BIAS * ALTAIR_QUOTIENT), np.uint64(0))))
+    return ev.apply_delta_pairs_kernel(np, balances, pairs), new_scores, total
+
+
+def _cuda_column(c: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(
+        c.view(np.int64) if c.dtype == np.uint64 else c)).cuda()
+
+
+def _words_err(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Largest |got - want| over unsigned words (64- or 32-bit)."""
+    bits = 64 if got.dtype == torch.int64 else 32
+    mask = (1 << bits) - 1
+    wrong = (got != want).nonzero(as_tuple=True)
+    return max((abs((int(a) & mask) - (int(b) & mask)) for a, b in
+                zip(got[wrong].tolist(), want[wrong].tolist())), default=0)
+
+
+def build_dryrun_block() -> tuple:
+    """The block stage of the graft twin's dryrun, as the reference's dryrun
+    builds it (__graft_entry__.py:291-312): a minimal-preset state of 2^13
+    validators, every key real (SecretKey(i + 1)), upgraded to altair at
+    epoch 0, and a signed block at slot 4 with one full aggregate per
+    committee of slots 0..3 (16 at this size) and a full sync aggregate.
+    Returns (pre_state, signed_block, context)."""
+    from ethereum_consensus_tpu_torch.config import Context
+    from ethereum_consensus_tpu_torch.crypto import bls
+    from ethereum_consensus_tpu_torch.domains import DomainType
+    from ethereum_consensus_tpu_torch.models.altair import build, slot_processing
+    from ethereum_consensus_tpu_torch.models.altair import helpers as h
+    from ethereum_consensus_tpu_torch.models.altair import upgrade_to_altair
+
+    ctx = Context.for_minimal()
+    ctx.altair_fork_epoch = 0
+    keys = [bls.SecretKey(i + 1).public_key().to_bytes() for i in range(DRYRUN_BLOCK_VALIDATORS)]
+    phase0_state, _ = build_registry_state(DRYRUN_BLOCK_VALIDATORS, ctx, keys.__getitem__)
+    state = upgrade_to_altair(phase0_state, ctx)
+    target = int(state.slot) + 4
+    scratch = state.copy()
+    slot_processing.process_slots(scratch, target, ctx)
+    ns = build(ctx.preset)
+    spe = int(ctx.SLOTS_PER_EPOCH)
+    epoch = target // spe
+    per_slot = h.get_committee_count_per_slot(scratch, epoch, ctx)
+    domain = h.get_domain(scratch, DomainType.BEACON_ATTESTER, epoch, ctx)
+    checkpoint = ns.Checkpoint(epoch=epoch, root=h.get_block_root_at_slot(scratch, epoch * spe))
+    attestations = [
+        _aggregate(ns, ns.AttestationData(
+            slot=slot, index=index, beacon_block_root=h.get_block_root_at_slot(scratch, slot),
+            source=scratch.current_justified_checkpoint.copy(), target=checkpoint.copy()),
+            h.get_beacon_committee(scratch, slot, index, ctx), domain)
+        for slot in range(target - 4, target)
+        if slot + int(ctx.MIN_ATTESTATION_INCLUSION_DELAY) <= target
+        for index in range(per_slot)]
+    block, signed = _altair_block(scratch, ctx, target, attestations)
+    return state, signed(block), ctx
+
+
+def _step_kernels(chain: tuple, cols: tuple, hysteresis: tuple, consts: tuple) -> dict:
+    """K1, K2 and K3 against their plain versions on the card at 2^20,
+    bit-exact, and their CUDA-event times beside their bounds."""
+    from ethereum_consensus_tpu_torch.ops import chain_step as cs
+
+    bal, eff, act = (_cuda_column(c) for c in chain)
+    k1 = cs.chain_step_shard_cuda(bal, eff, act, hysteresis)
+    p1 = cs.chain_step_shard_plain(bal, eff, act, hysteresis)
+    dev = [_cuda_column(c) for c in cols]
+    sum_cols = tuple(dev[1:6])
+    apply_cols = (*dev[:5], dev[6], dev[7])
+    k2, p2 = cs.epoch_step_sums_cuda(*sum_cols), cs.epoch_step_sums_plain(*sum_cols)
+    sums = p2.tolist()
+    k3 = cs.epoch_step_apply_cuda(*apply_cols, sums, *consts)
+    p3 = cs.epoch_step_apply_plain(*apply_cols, sums, *consts)
+    torch.cuda.synchronize()
+    errs = {"chain_step_shard": max(_words_err(a, b) for a, b in zip(k1, p1)),
+            "epoch_step_sums": _words_err(k2, p2),
+            "epoch_step_apply": max(_words_err(a, b) for a, b in zip(k3, p3))}
+    n = bal.shape[0]
+    divisions = _division_count({"eligible": cols[6], "active_prev": cols[4],
+                                 "slashed": cols[3], "prev_part": cols[2]})
+    args = cs.apply_args(sums, *consts)
+    timings = {
+        "chain_step_shard": (lambda: cs._launch_chain(bal, eff, act, hysteresis),
+                             lambda: cs.chain_step_shard_plain(bal, eff, act, hysteresis),
+                             _bound(n * CHAIN_STEP_OPS, n * CHAIN_STEP_BYTES)),
+        "epoch_step_sums": (lambda: cs._launch_sums(sum_cols),
+                            lambda: cs.epoch_step_sums_plain(*sum_cols),
+                            _bound(n * EPOCH_SUMS_OPS, n * EPOCH_SUMS_BYTES + 32)),
+        "epoch_step_apply": (lambda: cs._launch_apply(apply_cols, args),
+                             lambda: cs.epoch_step_apply_plain(*apply_cols, sums, *consts),
+                             _bound(n * FUSED_OPS + divisions * DIV64_OPS, n * FUSED_BYTES)),
+    }
+    out = {}
+    for name, (launch, plain, (bound, bound_by)) in timings.items():
+        ms = _cuda_ms(launch, reps=50, warmup=5)
+        plain_ms = _cuda_ms(plain, reps=5, warmup=1)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                     "max_abs_err": errs[name]}
+        print(f"step {name} n={n}: {ms:.4f} ms (bound {bound:.4f} ms by {bound_by}); plain "
+              f"{plain_ms:.3f} ms; library: none; max_abs_err vs plain {errs[name]}")
+    print(f"step: SASS instructions chain_step {_sass_instructions('chain_step')}")
+    return out
+
+
+def _wall_ms(fn) -> float:
+    """Host median of STEP_WALL_CALLS calls, each ended by a synchronize,
+    after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(STEP_WALL_CALLS):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(times)
+
+
+def phase_step() -> dict:
+    """The sharded chain step and epoch sweep step (parallel/step.py) at
+    2^20 validators on chip_mesh(1) and virtual_mesh(4, "cuda"): roots
+    against the host SSZ root, totals against numpy, effective balances
+    against B5-hysteresis, the epoch step against the host columnar kernels
+    and the plain step, the score bound's OverflowError; K1, K2 and K3
+    against their plain versions; each step's wall; then the graft twin's
+    entry() and dryrun_multichip(4) with its block stage built here."""
+    from ethereum_consensus_tpu_torch import graft_entry
+    from ethereum_consensus_tpu_torch.config import Context
+    from ethereum_consensus_tpu_torch.convert import chunks_from_words
+    from ethereum_consensus_tpu_torch.ops import chain_step as cs
+    from ethereum_consensus_tpu_torch.ops import sweeps
+    from ethereum_consensus_tpu_torch.ops.merkle import zero_hash_words
+    from ethereum_consensus_tpu_torch.parallel import chip_mesh, make_chain_step, virtual_mesh
+    from ethereum_consensus_tpu_torch.parallel.step import make_epoch_sweep_step, run_chain_step
+    from ethereum_consensus_tpu_torch.ssz import List, uint64
+    from ethereum_consensus_tpu_torch.ssz.merkle import merkleize_chunks
+
+    phase_t0 = time.perf_counter()
+    ctx = Context.for_mainnet()
+    hysteresis = sweeps.hysteresis_scalars(ctx)
+    consts = (ALTAIR_INCREMENT, ALTAIR_BRF, ALTAIR_BIAS, ALTAIR_RECOVERY, ALTAIR_QUOTIENT,
+              ALTAIR_WEIGHTS, ALTAIR_WD, False, 2, 1)
+    meshes = {"1": chip_mesh(1), str(STEP_VIRTUAL_SHARDS): virtual_mesh(STEP_VIRTUAL_SHARDS)}
+    t0 = time.perf_counter()
+    chain = {n: _chain_columns(n, seed=n) for n in STEP_SIZES}
+    cols = _step_epoch_columns(VALIDATORS)
+    inputs_s = time.perf_counter() - t0
+
+    def chain_step(mesh, n):
+        return run_chain_step(make_chain_step(mesh), mesh, *chain[n],
+                              zero_hash_words(mesh.devices[0]))
+
+    def epoch_step(mesh, leaking=False):
+        return make_epoch_sweep_step(mesh, ctx, is_leaking=leaking, check_score_bound=False)(*cols)
+
+    # the main path: one chain step and one epoch step at 2^20 on the card
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    main_chain = chain_step(meshes["1"], VALIDATORS)
+    main_epoch = epoch_step(meshes["1"])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    print(f"step main path (chain step and epoch step at n={VALIDATORS}, one shard): "
+          f"{main_s:.3f} s; launches { {k: v for k, v in launches.items() if v} }")
+
+    checks, ok = {}, True
+    for n, (bal, eff, act) in chain.items():
+        want_root = List[uint64, 2**40].hash_tree_root([int(b) for b in bal])
+        want_eff = sweeps.effective_balance_updates(
+            _cuda_column(bal), _cuda_column(eff), ctx).cpu().numpy().view(np.uint64)
+        want_total = int(want_eff[act].sum())  # numpy's u64 sum wraps mod 2^64
+        for label, mesh in meshes.items():
+            new_eff, total, root = (main_chain if (n, label) == (VALIDATORS, "1")
+                                    else chain_step(mesh, n))
+            exact = (root.astype(">u4").tobytes() == want_root and total == want_total
+                     and np.array_equal(new_eff, want_eff))
+            checks[f"chain {n} @{label}"] = exact
+            ok &= exact
+        edges_ok = want_eff[3] == 32 * ALTAIR_INCREMENT and want_total < sum(
+            int(e) for e in want_eff[act])
+        checks[f"chain {n} edge rows"] = bool(edges_ok)
+        ok &= bool(edges_ok)
+    dev = [_cuda_column(c) for c in cols]
+    sums = cs.epoch_step_sums_plain(*dev[1:6]).tolist()
+    for leaking in (False, True):
+        want_bal, want_scores, want_total = _epoch_step_host(cols, leaking)
+        plain_bal, plain_scores = cs.epoch_step_apply_plain(
+            *dev[:5], dev[6], dev[7], sums, *consts[:7], leaking, 2, 1)
+        plain_ok = (np.array_equal(plain_bal.cpu().numpy().view(np.uint64), want_bal)
+                    and np.array_equal(plain_scores.cpu().numpy().view(np.uint64), want_scores))
+        checks[f"epoch plain step leaking={leaking}"] = plain_ok
+        ok &= plain_ok
+        for label, mesh in meshes.items():
+            new_bal, new_scores, total = (main_epoch if (leaking, label) == (False, "1")
+                                          else epoch_step(mesh, leaking))
+            exact = (np.array_equal(new_bal.cpu().numpy().view(np.uint64), want_bal)
+                     and np.array_equal(new_scores.cpu().numpy().view(np.uint64), want_scores)
+                     and total == want_total)
+            checks[f"epoch leaking={leaking} @{label}"] = exact
+            ok &= exact
+    edge_ok = sums[0] == 5 and want_total == (1 << 64) - 1
+    checks["epoch edge rows (flag sum 5, active total 2^64 - 1)"] = edge_ok
+    try:
+        make_epoch_sweep_step(meshes["1"], ctx)(*cols)
+    except OverflowError:
+        checks["epoch score bound raises"] = True
+    else:
+        checks["epoch score bound raises"] = False
+        ok = False
+    ok &= edge_ok
+    print(f"step checks: {checks}")
+    if not ok:
+        sys.exit("chip_smoke: the sharded chain step or epoch step disagrees with the host")
+    for name in ("chain_step_shard", "epoch_step_sums", "epoch_step_apply", "merkle_levels",
+                 "sha256_64b"):
+        if launches[name] == 0:
+            sys.exit(f"chip_smoke: the step's main path did not launch {name}: {launches}")
+
+    kernels = _step_kernels(chain[VALIDATORS], cols, hysteresis, consts)
+    if any(k["max_abs_err"] for k in kernels.values()):
+        sys.exit(f"chip_smoke: a step kernel disagrees with its plain version: {kernels}")
+
+    walls = {}
+    for label, mesh in meshes.items():
+        walls[f"chain@{label}"] = _wall_ms(lambda m=mesh: chain_step(m, VALIDATORS))
+        walls[f"epoch@{label}"] = _wall_ms(lambda m=mesh: epoch_step(m))
+    print(f"step walls at n={VALIDATORS}, ms (host medians of {STEP_WALL_CALLS} calls, numpy "
+          f"in and out): {_rounded(walls)}")
+
+    # the graft entry's twin
+    fn, args = graft_entry.entry("cuda")
+    entry_root = chunks_from_words(fn(*args)[:, None])
+    entry_ok = entry_root == merkleize_chunks(chunks_from_words(args[0]))
+    print(f"graft entry(): root {entry_root.hex()} on {args[0].shape[1]} leaves equals the host "
+          f"merkleizer's {entry_ok}")
+    if not entry_ok:
+        sys.exit("chip_smoke: the graft twin's entry() root differs from the host merkleizer")
+    t0 = time.perf_counter()
+    block = build_dryrun_block()
+    block_build_s = time.perf_counter() - t0
+    print(f"dryrun block stage: {DRYRUN_BLOCK_VALIDATORS} validators (minimal, every key real), "
+          f"block at slot {int(block[1].message.slot)} with "
+          f"{len(block[1].message.body.attestations)} aggregates, built in {block_build_s:.1f} s")
+    _zero_launch_counts()
+    summary = graft_entry.dryrun_multichip(DRYRUN_SHARDS, "cuda", block=block)
+    dryrun_launches = _launch_counts()
+    print(f"dryrun launches { {k: v for k, v in dryrun_launches.items() if v} }")
+    for name in ("chain_step_shard", "epoch_step_sums", "epoch_step_apply", "merkle_levels",
+                 "sha256_64b", "g1_sum_sets", "g1_mul_affine", "g2_mul_sum", "miller_loop",
+                 "fp12_product"):
+        if dryrun_launches[name] == 0:
+            sys.exit(f"chip_smoke: the dryrun did not launch {name}: {dryrun_launches}")
+    phase_s = time.perf_counter() - phase_t0
+    print(f"step phase: {phase_s:.1f} s")
+    return {"phase_s": phase_s, "checks": checks, "inputs_s": inputs_s, "main_s": main_s, "launches": launches,
+            "kernels": kernels, "walls_ms": walls, "entry_root": entry_root.hex(),
+            "block_build_s": block_build_s, "dryrun": summary,
+            "dryrun_launches": dryrun_launches}
+
+
 def _rounded(d: dict, places: int = 3) -> dict:
     return {k: round(v, places) for k, v in d.items()}
 
@@ -3052,6 +3447,7 @@ def main() -> int:
     report["altair"] = phase_altair(registry)
     report["window"] = phase_window(registry)
     report["mesh"] = phase_mesh(report["altair"], report["window"])
+    report["step"] = phase_step()
 
     # each kernel's launches on the path it was ported for, and every
     # path's count beside them
@@ -3065,7 +3461,8 @@ def main() -> int:
              "htr": report["htr"]["launch_counts"],
              "mesh_altair": report["mesh"]["altair"]["launches"],
              "mesh_window": report["mesh"]["window"]["launches"],
-             "mesh_sweeps": report["mesh"]["sweeps"]["launches"][str(MESH_VIRTUAL_SHARDS)]}
+             "mesh_sweeps": report["mesh"]["sweeps"]["launches"][str(MESH_VIRTUAL_SHARDS)],
+             "step": report["step"]["launches"], "dryrun": report["step"]["dryrun_launches"]}
     for name, timing in report["altair_sweeps"].items():
         report[name] = timing
     for name in ("g1_mul_affine", "g2_mul_sum", "miller_loop", "fp12_product"):
@@ -3075,6 +3472,8 @@ def main() -> int:
     report["g1_sum_sets_mxu"] = report["g1"]["mxu"]
     report["merkle_levels"] = report["htr"]
     for name, timing in report["mesh"]["timings"].items():
+        report[name] = timing
+    for name, timing in report["step"]["kernels"].items():
         report[name] = timing
     sources = {
         "sha256_64b": ("sha256", "block", "ethereum_consensus_tpu_torch/csrc/sha256.cu",
@@ -3141,6 +3540,18 @@ def main() -> int:
         "rewards_apply": ("rewards_apply", "mesh_sweeps",
                           "ethereum_consensus_tpu_torch/csrc/fused_epoch.cu",
                           "ethereum_consensus_tpu/parallel/epoch.py:132"),
+        # the sharded chain step and epoch sweep step (B9-step): the shard
+        # pass of make_chain_step's body, and the sums and element pass of
+        # _epoch_sweep_step's
+        "chain_step_shard": ("chain_step_shard", "step",
+                             "ethereum_consensus_tpu_torch/csrc/chain_step.cu",
+                             "ethereum_consensus_tpu/parallel/step.py:112"),
+        "epoch_step_sums": ("epoch_step_sums", "step",
+                            "ethereum_consensus_tpu_torch/csrc/chain_step.cu",
+                            "ethereum_consensus_tpu/parallel/step.py:294"),
+        "epoch_step_apply": ("epoch_step_apply", "step",
+                             "ethereum_consensus_tpu_torch/csrc/chain_step.cu",
+                             "ethereum_consensus_tpu/parallel/step.py:294"),
     }
     kernels = {"kernels": [{
         "name": name,

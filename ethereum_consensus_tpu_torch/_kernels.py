@@ -156,6 +156,25 @@ _LIBRARIES = {
             ),
         },
     ),
+    "chain_step": (
+        ("chain_step.cu", "chain_step_core.h", "altair_core.h", "sweeps_core.h"),
+        {
+            "chain_step_shard_launch": (
+                [ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_uint64] * 4
+                + [ctypes.c_void_p] * 4,
+                ctypes.c_int,
+            ),
+            "epoch_step_sums_launch": (
+                [ctypes.c_void_p] * 5 + [ctypes.c_int64] + [ctypes.c_void_p] * 2,
+                ctypes.c_int,
+            ),
+            "epoch_step_apply_launch": (
+                [ctypes.c_void_p] * 7 + [ctypes.c_int64] + [ctypes.c_uint64] * 13
+                + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3,
+                ctypes.c_int,
+            ),
+        },
+    ),
     "g1_sum": (("g1_sum.cu", "fp381_core.h"), _G1_SUM_FUNCTIONS),
     "g1_sum_mxu": (("g1_sum.cu", "fp381_core.h", "fp_mma.h"), _G1_SUM_FUNCTIONS, _MXU),
     "pairing": (("pairing.cu", "fp_tower.h", "fp381_core.h"), _PAIRING_FUNCTIONS),

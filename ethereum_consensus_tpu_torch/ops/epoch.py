@@ -110,10 +110,17 @@ def _flag_sums(eff, prev_part, slashed, active_prev) -> list:
             for index in range(3)]
 
 
-def _apply_plain(balances, eff, prev_part, slashed, active_prev, eligible, scores, sums,
-                 words: tuple, update_scores: bool):
-    """The element pass on the flag sums ``sums``: (new_scores, new_balances,
-    wrapped), the scores unchanged without ``update_scores``."""
+def _flag_increments(sums, increment: int) -> list:
+    """Each flag's unslashed increments: get_total_balance floors the sum at
+    one increment."""
+    return [max(increment, int(s) & _MASK64) // increment for s in sums]
+
+
+def _apply_plain(balances, eff, prev_part, slashed, active_prev, eligible, scores,
+                 increments, words: tuple, update_scores: bool):
+    """The element pass on each flag's unslashed ``increments``:
+    (new_scores, new_balances, wrapped), the scores unchanged without
+    ``update_scores``."""
     increment, brpi, active_increments, denominator, bias, recovery = words[:6]
     weights, weight_denominator, leaking = words[6:9], words[9], bool(words[10])
     head_flag_index, target_flag_index = words[11], words[12]
@@ -139,15 +146,13 @@ def _apply_plain(balances, eff, prev_part, slashed, active_prev, eligible, score
     pairs = []
     for index, weight in enumerate(weights):
         unslashed = flag(index)
-        # get_total_balance floors at one increment
-        increments = max(increment, int(sums[index]) & _MASK64) // increment
         w = _as_int64(weight)
         if leaking:
             rewards = zero
         else:
             rewards = torch.where(
                 eligible & unslashed,
-                _udiv(base_reward * w * _as_int64(increments), divisor), zero,
+                _udiv(base_reward * w * _as_int64(increments[index]), divisor), zero,
             )
         if index == head_flag_index:
             penalties = zero
@@ -182,8 +187,9 @@ def fused_epoch_plain(balances, eff, prev_part, slashed, active_prev, eligible, 
     words = _scalars(increment, brpi, active_increments, denominator, bias,
                      recovery_rate, weights, weight_denominator, leaking,
                      head_flag_index, target_flag_index)
+    increments = _flag_increments(_flag_sums(eff, prev_part, slashed, active_prev), words[0])
     return _apply_plain(balances, eff, prev_part, slashed, active_prev, eligible, scores,
-                        _flag_sums(eff, prev_part, slashed, active_prev), words, True)
+                        increments, words, True)
 
 
 def fused_epoch_cuda(balances, eff, prev_part, slashed, active_prev, eligible, scores,
@@ -287,7 +293,7 @@ def fused_epoch_apply_plain(balances, eff, prev_part, slashed, active_prev, elig
                      recovery_rate, weights, weight_denominator, leaking,
                      head_flag_index, target_flag_index)
     return _apply_plain(balances, eff, prev_part, slashed, active_prev, eligible, scores,
-                        _sum_words(sums), words, True)
+                        _flag_increments(_sum_words(sums), words[0]), words, True)
 
 
 def _sums_scratch(sums, device) -> torch.Tensor:
@@ -356,7 +362,9 @@ def rewards_apply_plain(balances, eff, prev_part, slashed, active_prev, eligible
     words = _scalars(increment, brpi, active_increments, denominator, 0, 0, weights,
                      weight_denominator, leaking, head_flag_index, target_flag_index)
     _, new_balances, wrapped = _apply_plain(balances, eff, prev_part, slashed, active_prev,
-                                            eligible, scores, _sum_words(sums), words, False)
+                                            eligible, scores,
+                                            _flag_increments(_sum_words(sums), words[0]), words,
+                                            False)
     return new_balances, wrapped
 
 

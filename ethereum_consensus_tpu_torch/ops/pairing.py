@@ -50,6 +50,12 @@ generator lanes so that jit reuses shapes; the port launches at any n with
 the same verdicts and values. Its Miller steps, like these, copy the
 native library's (native/bls12_381.cpp), so every Miller value equals the
 native ``miller_loop_raw``.
+
+``g1_sum_sets`` is the reference's raw-bytes set aggregation (:616, over
+its lazy-field fold :594): B6 (``ops/g1.py``) per set, the sets padded to
+the widest set's power of two with infinity lanes as the reference pads
+them; its ``sharding`` argument becomes ``mesh``, whose shards each sum a
+contiguous slice of the sets on their own device.
 """
 
 from __future__ import annotations
@@ -57,7 +63,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import _kernels
+from .. import _device_flags, _kernels
 from ..crypto.fields import Fq, Fq2, Fq6, Fq12
 from ..native import bls as native_bls
 from . import fq, fq2, fq8, fq12, g1
@@ -74,6 +80,7 @@ __all__ = [
     "g1_mul_affine_cuda",
     "g1_mul_affine_plain",
     "g1_mul_batched",
+    "g1_sum_sets",
     "g2_affine_from_raw",
     "g2_mul_batched",
     "g2_mul_sum",
@@ -599,6 +606,30 @@ def finalize_verdict(f_total: torch.Tensor, s_raw: bytes, s_inf: bool, device="c
         # one Fq12 product on the host, as the reference takes it
         f_ints = _fq12_ints(_fq12(f_ints) * _fq12(fq.to_ints(f_extra[0])))
     return native_bls.fp12_final_exp_is_one(b"".join(v.to_bytes(48, "big") for v in f_ints))
+
+
+def g1_sum_sets(raw_sets: "list[list[bytes]]", mesh=None) -> "list[tuple[bytes, bool]]":
+    """S independent G1 point sums: raw96 affine inputs (all-zero is
+    infinity), ``(raw96, is_inf)`` outputs. Sets pad to the widest set's
+    power of two with infinity lanes, as the reference's do. With ``mesh``
+    (``parallel.Mesh``) the set axis splits over its shards, each shard's
+    sets summed by B6 (``ops/g1.py g1_sum_sets``) on its device; without one
+    the sets run on the routed device (``ops.install(device=...)``)."""
+    if not raw_sets:
+        return []
+    widest = max(max(len(s) for s in raw_sets), 1)
+    width = 1 << (widest - 1).bit_length()
+    padded = [list(s) + [b"\x00" * 96] * (width - len(s)) for s in raw_sets]
+    devices = mesh.devices if mesh is not None else (torch.device(_device_flags.DEVICE),)
+    per = -(-len(padded) // len(devices))
+    out: "list[tuple[bytes, bool]]" = []
+    for i, device in enumerate(devices):
+        shard = padded[i * per:(i + 1) * per]
+        if shard:
+            points, offsets = g1.sets_to_csr(shard)
+            out.extend(g1.jacobian_to_affine(g1.g1_sum_sets(points.to(device),
+                                                            offsets.to(device))))
+    return out
 
 
 def batch_verify_device(pk_raws: "list[bytes]", h_raws: "list[bytes]",

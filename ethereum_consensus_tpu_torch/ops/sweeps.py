@@ -126,7 +126,14 @@ def effective_balance_updates_plain(balances: torch.Tensor, effective: torch.Ten
     """The new effective balance of every validator, in plain PyTorch:
     (n,) int64 words."""
     _check(balances, effective)
-    increment, max_effective, down, up = hysteresis_scalars(context)
+    return _hysteresis_plain(balances, effective, hysteresis_scalars(context))
+
+
+def _hysteresis_plain(balances: torch.Tensor, effective: torch.Tensor,
+                      scalars: tuple) -> torch.Tensor:
+    """The hysteresis update of (n,) int64 words on the u64 scalars
+    (increment, max_effective, down, up)."""
+    increment, max_effective, down, up = scalars
     if not 0 < increment < 1 << 63:
         raise ValueError(f"the plain version needs 0 < increment < 2^63, got {increment}")
     update = _ult(balances + _as_int64(down), effective) | _ult(

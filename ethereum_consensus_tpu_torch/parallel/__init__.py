@@ -10,14 +10,19 @@ flat ``hash_tree_root`` rebuilds (``merkle.py``) through it. Not imported
 by the host layers: they consult a plain env read (``_env.mesh_requested``)
 before importing ``runtime``.
 
-Reference parity: ethereum_consensus_tpu/parallel/. Left out until the
-slices that reach them: ``step.py`` (the sharded chain step, reached from
-``__graft_entry__.py``) and ``runtime.proof_gather`` (``proofs/``);
+``step.py`` is the distributed chain step of the graft entry
+(``graft_entry.py``): the hysteresis sweep, its total and the balances root
+sharded over a mesh, and the sharded altair epoch sweep step.
+
+Reference parity: ethereum_consensus_tpu/parallel/ (``step.py``:
+``make_chain_step`` :75, ``run_chain_step`` :174, ``make_epoch_sweep_step``
+:201). ``runtime.proof_gather`` waits for the slice that ports ``proofs/``;
 ``_compat.py`` only wraps ``shard_map`` and has no counterpart.
 """
 
 from .mesh import Mesh, all_gather, chip_mesh, default_device_mesh, psum_words
 from .merkle import sharded_merkle_root_words, sharded_merkleize_chunks
+from .step import make_chain_step
 from .virtual_mesh import virtual_mesh
 
 __all__ = [
@@ -25,6 +30,7 @@ __all__ = [
     "all_gather",
     "chip_mesh",
     "default_device_mesh",
+    "make_chain_step",
     "psum_words",
     "sharded_merkle_root_words",
     "sharded_merkleize_chunks",

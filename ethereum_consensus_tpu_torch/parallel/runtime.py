@@ -16,12 +16,12 @@ exercises the sharded code paths on one device), ``ECT_MESH=auto`` takes
 every device when there are at least two, and unset/``off`` disables the
 runtime — the host layers then never import this package.
 
-Every engage bumps ``mesh.engage``; every decline bumps
-``mesh.decline.{reason}``. The declines are routing decisions of the
-configuration, as the reference's: ``below_threshold``, ``phase0_family``,
-``mesh_shape`` (a mesh the merkle tree cannot split into aligned
-subtrees), ``single_device`` (``auto`` on one device), and the epoch
-engine's spec-preserving ``u64_product`` and ``wrap_guard``. Device
+Every engage bumps ``mesh.engage`` and ``mesh.engage.{kind}``; every
+decline bumps ``mesh.decline.{reason}``. The declines are routing decisions
+of the configuration, as the reference's: ``below_threshold``,
+``phase0_family``, ``mesh_shape`` (a mesh the merkle tree cannot split
+into aligned subtrees), ``single_device`` (``auto`` on one device), and the
+epoch engine's spec-preserving ``u64_product`` and ``wrap_guard``. Device
 trouble is not a decline here: where the reference returns the work to the
 host (``device_unusable``, its fault hook's recovery), the port raises — a
 mesh that cannot be built (a bad value, more devices than there are), a
@@ -98,9 +98,10 @@ def decline(kind: str, reason: str) -> None:
 
 
 def _engage(kind: str) -> None:
-    """Count one engaged mesh route (``mesh.engage``); ``kind`` as in
-    ``decline``."""
+    """Count one engaged mesh route (``mesh.engage``, and
+    ``mesh.engage.{kind}``); ``kind`` as in ``decline``."""
     _metrics.counter("mesh.engage").inc()
+    _metrics.counter(f"mesh.engage.{kind}").inc()
 
 
 def _provision() -> tuple:
