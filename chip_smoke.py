@@ -89,7 +89,10 @@ Phases, each of which exits non-zero when it fails:
                 signed sets; the Miller values of every lane against the
                 native miller_loop_raw; the 528-set verdict against the native
                 batch verification, a tampered set rejected by both;
-                CUDA-event times at 528 lanes. Their mxu builds bit-exact
+                CUDA-event times at 528 lanes, and at one lane (a lane's
+                latency) for the Miller loop and the G2 sum; ptxas' lines
+                of their crew kernels (pairing_lanes.h). Their mxu builds
+                bit-exact
                 against the u64 kernels at every n, against the plain
                 versions under mxu at n <= 3, all 528 Miller lanes against
                 the native ones; CUDA-event times at 528 lanes.
@@ -105,7 +108,8 @@ Phases, each of which exits non-zero when it fails:
                 signature replaced by its neighbour's, and B6 and each B7
                 kernel launched on the device route, their mxu builds and
                 none of the u64 ones on the mxu route (a B7 count is one per
-                grid launch, the folds' further launches included).
+                grid launch, the folds' further launches included; the
+                Miller loop once, the extra pair its lane 528).
  16. mesh     — the ECT_MESH route (parallel/, the reference's production
                 mesh switch) at ECT_MESH=1: the altair phase's block applied
                 cold through Executor.apply_block after ops.install(device=
@@ -2263,12 +2267,44 @@ def _max_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
+# the u64 build's crew kernels (csrc/pairing_lanes.h)
+PAIRING_CREW_KERNELS = ("miller_loop_kernel", "g2_mul_lanes_kernel", "g2_fold_kernel")
+
+
+def _ptxas_summary(library: str, kernel: str) -> dict:
+    """Registers, stack frame, spills and shared memory of one kernel from
+    its library's ``-Xptxas -v`` lines."""
+    import re
+
+    from ethereum_consensus_tpu_torch import _kernels
+
+    out, inside = {}, False
+    for line in _kernels.build_log(library).splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            inside = kernel in line
+        elif inside:
+            for key, pattern in (("stack_frame", r"(\d+) bytes stack frame"),
+                                 ("spill_stores", r"(\d+) bytes spill stores"),
+                                 ("spill_loads", r"(\d+) bytes spill loads"),
+                                 ("registers", r"Used (\d+) registers"),
+                                 ("smem", r"(\d+) bytes smem")):
+                match = re.search(pattern, line)
+                if match:
+                    out[key] = int(match.group(1))
+    return out
+
+
 def phase_pairing() -> dict:
     """The four B7 kernels against their plain versions on the card,
     bit-exact, at n in PAIRING_CHECK_NS on a seeded batch of signed sets;
     the Miller values of every lane against the native miller_loop_raw; the
     528-set verdict against the native batch verification, and one tampered
-    set rejected by both. CUDA-event times at 528 lanes."""
+    set rejected by both. The window's Miller launch, the 528 lanes and the
+    extra pair (-G, S) as lane 528, against the native Miller values, and
+    its product against the plain one. CUDA-event times at the window's
+    shapes (529 lanes for the Miller loop and the product, 528 for the
+    blinders), and at one lane for the Miller loop and the G2 sum (one
+    lane's latency)."""
     from ethereum_consensus_tpu_torch.crypto.hash_to_curve import ETH_DST
     from ethereum_consensus_tpu_torch.native import bls as native_bls
     from ethereum_consensus_tpu_torch.ops import fq, pairing
@@ -2299,7 +2335,8 @@ def phase_pairing() -> dict:
         g1_raw = b"".join(v.to_bytes(48, "big") for v in pk_ints[2 * i : 2 * i + 2])
         native = native_bls.miller_loop_raw(g1_raw, batch["h"][i])
         native_f += [int.from_bytes(native[48 * k : 48 * (k + 1)], "big") for k in range(12)]
-    errs = {"g1_mul_affine": 0, "g2_mul_sum": 0, "miller_loop": 0, "fp12_product": 0}
+    errs = {"g1_mul_affine": 0, "g2_mul_sum": 0, "miller_loop": 0, "fp12_product": 0,
+            "g2_sum_points": 0}
     native_ok = True
     u64_out = {}
     for n in PAIRING_CHECK_NS:
@@ -2310,9 +2347,13 @@ def phase_pairing() -> dict:
         torch.cuda.synchronize()
         u64_out[n] = (got_pk, got_sum, got_f, got_prod)
         plain_prod = pairing.fp12_product_plain(got_f)
+        plain_sum = pairing.g2_sum_points_plain(plain_sig_lanes[:n])
         step = {
             "g1_mul_affine": _max_err(got_pk, plain_pk[:n]),
-            "g2_mul_sum": _max_err(got_sum, pairing.g2_sum_points_plain(plain_sig_lanes[:n])),
+            "g2_mul_sum": _max_err(got_sum, plain_sum),
+            # g2_mul_sum's fold alone (g2_sum_launch), over the plain lanes
+            "g2_sum_points": _max_err(pairing.g2_sum_points_cuda(
+                plain_sig_lanes[:n].contiguous()), plain_sum),
             "miller_loop": _max_err(got_f[:lanes], plain_miller[:n]),
             "fp12_product": _max_err(got_prod, plain_prod),
         }
@@ -2341,42 +2382,85 @@ def phase_pairing() -> dict:
                     "native_tampered": False}:
         sys.exit("chip_smoke: the device batch verdict disagrees with the native one")
 
-    # the launches alone, at the window's 528 lanes
-    f_all = pairing.miller_loop(xp, yp, xq, yq)
+    # the window's Miller launch (batch_verify_device): the 528 lanes, then
+    # the extra pair (-G, S) at lane 528, S the G2 sum of the blinded
+    # signatures
+    s_raw, s_inf = pairing._g2_point_to_raw(u64_out[n_max][1])
+    if s_inf:
+        sys.exit("chip_smoke: the blinded signatures sum to infinity")
+    extra = pairing._extra_pair(s_raw, "cuda")
+    wide = tuple(torch.cat([v, e]).contiguous() for v, e in zip((xp, yp, xq, yq), extra))
+    f_wide = pairing.miller_loop(*wide)
+    prod_wide = pairing.fp12_product(f_wide)
+    torch.cuda.synchronize()
+    native_extra = native_bls.miller_loop_raw(pairing._neg_g1_generator_raw(), s_raw)
+    native_extra_f = [int.from_bytes(native_extra[48 * k : 48 * (k + 1)], "big")
+                      for k in range(12)]
+    wide_native_ok = fq.to_ints(f_wide) == native_f + native_extra_f
+    plain_prod_wide, prod_plain_ms = _timed_once(lambda: pairing.fp12_product_plain(f_wide))
+    wide_errs = {"miller_loop": _max_err(f_wide[n_max:], pairing.miller_loop_plain(*extra)),
+                 "fp12_product": _max_err(prod_wide, plain_prod_wide)}
+    print(f"pairing window launch ({n_max} lanes and the extra pair): max_abs_err vs plain "
+          f"{wide_errs}; the Miller values of all {n_max + 1} lanes equal native "
+          f"{wide_native_ok}")
+    if any(wide_errs.values()) or not wide_native_ok:
+        sys.exit(f"chip_smoke: the window's Miller launch disagrees: {wide_errs}, "
+                 f"native {wide_native_ok}")
+    for name, err in wide_errs.items():
+        errs[name] = max(errs[name], err)
+
+    # the launches alone, at the window's shapes
     timings = {
         "g1_mul_affine": (_cuda_ms(lambda: pairing.g1_mul_affine_cuda(pk, words), reps=5),
                           g1_plain_ms, g1_mul_affine_bound_ms(scalars)),
         "g2_mul_sum": (_cuda_ms(lambda: pairing.g2_mul_sum_cuda(sig, words), reps=5),
                        _timed_once(lambda: pairing.g2_mul_sum_plain(sig, words))[1],
                        g2_mul_sum_bound_ms(scalars)),
-        "miller_loop": (_cuda_ms(lambda: pairing.miller_loop_cuda(xp, yp, xq, yq), reps=3),
-                        miller_plain_ms, miller_loop_bound_ms(n_max)),
-        "fp12_product": (_cuda_ms(lambda: pairing.fp12_product_cuda(f_all), reps=10),
-                         _timed_once(lambda: pairing.fp12_product_plain(f_all))[1],
-                         fp12_product_bound_ms(n_max)),
+        "miller_loop": (_cuda_ms(lambda: pairing.miller_loop_cuda(*wide), reps=3),
+                        miller_plain_ms, miller_loop_bound_ms(n_max + 1)),
+        "fp12_product": (_cuda_ms(lambda: pairing.fp12_product_cuda(f_wide), reps=10),
+                         prod_plain_ms, fp12_product_bound_ms(n_max + 1)),
     }
-    report = {"make_s": make_s, "verdicts": verdicts}
+    # one lane: the latency of a lane's schedule
+    one_lane_ms = {
+        "g2_mul_sum": _cuda_ms(lambda: pairing.g2_mul_sum_cuda(sig[:1], words[:1]), reps=5),
+        "miller_loop": _cuda_ms(lambda: pairing.miller_loop_cuda(xp[:1], yp[:1], xq[:1], yq[:1]),
+                                reps=5),
+    }
+    # the G2 sum's fold launches alone, over the 528 lanes' points
+    lanes_jac = plain_sig_lanes.contiguous()
+    fold_ms = _cuda_ms(lambda: pairing.g2_sum_points_cuda(lanes_jac), reps=5)
+    print(f"pairing g2_sum_points (the fold alone): {fold_ms:.4f} ms at {n_max} points")
+    crews = {kernel: _ptxas_summary("pairing", kernel) for kernel in PAIRING_CREW_KERNELS}
+    for kernel, summary in crews.items():
+        print(f"pairing ptxas {kernel}: {summary}")
+    report = {"make_s": make_s, "verdicts": verdicts, "one_lane_ms": one_lane_ms,
+              "fold_ms": fold_ms, "ptxas": crews}
     for name, (ms, plain_ms, (bound, bound_by)) in timings.items():
-        shape = f"{lanes} lanes" if name == "miller_loop" else f"{n_max} lanes"
-        print(f"pairing {name}: {ms:.4f} ms at {n_max} lanes (bound {bound:.4f} ms by "
-              f"{bound_by}); plain {plain_ms:.3f} ms at {shape}")
-        report[name] = {"ms": ms, "plain_ms": plain_ms, "plain_lanes": lanes if
-                        name == "miller_loop" else n_max, "bound_ms": bound,
-                        "bound_by": bound_by, "max_abs_err": errs[name]}
+        at = n_max + 1 if name in ("miller_loop", "fp12_product") else n_max
+        plain_at = lanes if name == "miller_loop" else at
+        one = f"; {one_lane_ms[name]:.4f} ms at 1 lane" if name in one_lane_ms else ""
+        print(f"pairing {name}: {ms:.4f} ms at {at} lanes{one} (bound {bound:.4f} ms by "
+              f"{bound_by}); plain {plain_ms:.3f} ms at {plain_at} lanes")
+        report[name] = {"ms": ms, "lanes": at, "plain_ms": plain_ms, "plain_lanes": plain_at,
+                        "bound_ms": bound, "bound_by": bound_by, "max_abs_err": errs[name]}
     print(f"pairing: batch made in {make_s:.1f} s; kernel SASS instructions "
           f"{_sass_instructions('pairing')}")
-    report["mxu"] = _pairing_mxu(pk, words, sig, xp, yp, xq, yq, u64_out, native_f, report)
+    report["mxu"] = _pairing_mxu(pk, words, sig, xp, yp, xq, yq, u64_out, native_f,
+                                 (wide, f_wide, prod_wide), report)
     return report
 
 
 def _pairing_mxu(pk, words, sig, xp, yp, xq, yq, u64_out: dict, native_f: list,
-                 u64: dict) -> dict:
+                 window: tuple, u64: dict) -> dict:
     """The four B7 kernels' mxu build (EC_PAIRING_MULT=mxu) on the same
     lanes: bit-exact against the u64 kernels at every n of
-    PAIRING_CHECK_NS, against the plain versions under mxu at n <= 3 (the
-    plain tower on the card takes seconds a call), the Miller values of all
-    lanes against the native ones; CUDA-event ms at the window's 528 lanes,
-    and the plain versions' ms under mxu at 3 lanes."""
+    PAIRING_CHECK_NS and on the window's Miller launch (``window``: its 529
+    lanes, the u64 Miller values and their product), against the plain
+    versions under mxu at n <= 3 (the plain tower on the card takes seconds
+    a call), the Miller values of all lanes against the native ones;
+    CUDA-event ms at the window's shapes, and the plain versions' ms under
+    mxu at 3 lanes."""
     from ethereum_consensus_tpu_torch.ops import fq, fq8, pairing
 
     names = ("g1_mul_affine", "g2_mul_sum", "miller_loop", "fp12_product")
@@ -2405,8 +2489,14 @@ def _pairing_mxu(pk, words, sig, xp, yp, xq, yq, u64_out: dict, native_f: list,
                   f"{native_ok}")
             if any(errs.values()) or any(plain_errs.values()) or not native_ok:
                 sys.exit(f"chip_smoke: a pairing kernel's mxu build disagrees at n={n}")
-        n_max = max(PAIRING_CHECK_NS)
-        f_all = u64_out[n_max][2]
+        wide, f_wide, prod_wide = window
+        got_f = pairing.miller_loop(*wide)
+        errs["miller_loop"] = max(errs["miller_loop"], _max_err(got_f, f_wide))
+        errs["fp12_product"] = max(errs["fp12_product"],
+                                   _max_err(pairing.fp12_product(got_f), prod_wide))
+        print(f"pairing mxu window launch ({len(f_wide)} lanes): max_abs_err vs u64 {errs}")
+        if any(errs.values()):
+            sys.exit("chip_smoke: the mxu build disagrees on the window's Miller launch")
         p3 = slice(0, plain_n)
         timings = {
             "g1_mul_affine": (_cuda_ms(lambda: pairing.g1_mul_affine_cuda(pk, words), reps=5),
@@ -2414,22 +2504,23 @@ def _pairing_mxu(pk, words, sig, xp, yp, xq, yq, u64_out: dict, native_f: list,
                                   pk[p3], words[p3]))[1]),
             "g2_mul_sum": (_cuda_ms(lambda: pairing.g2_mul_sum_cuda(sig, words), reps=5),
                            _timed_once(lambda: pairing.g2_mul_sum_plain(sig[p3], words[p3]))[1]),
-            "miller_loop": (_cuda_ms(lambda: pairing.miller_loop_cuda(xp, yp, xq, yq), reps=3),
+            "miller_loop": (_cuda_ms(lambda: pairing.miller_loop_cuda(*wide), reps=3),
                             _timed_once(lambda: pairing.miller_loop_plain(
                                 xp[p3], yp[p3], xq[p3], yq[p3]))[1]),
-            "fp12_product": (_cuda_ms(lambda: pairing.fp12_product_cuda(f_all), reps=10),
-                             _timed_once(lambda: pairing.fp12_product_plain(f_all[p3]))[1]),
+            "fp12_product": (_cuda_ms(lambda: pairing.fp12_product_cuda(f_wide), reps=10),
+                             _timed_once(lambda: pairing.fp12_product_plain(f_wide[p3]))[1]),
         }
     finally:
         fq8.set_multiplier("u64")
     report = {}
     for name, (ms, plain_ms) in timings.items():
         row = u64[name]
-        print(f"pairing {name} mxu build: {ms:.4f} ms at {n_max} lanes (u64 {row['ms']:.4f}; "
-              f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}); plain under mxu "
-              f"{plain_ms:.3f} ms at {plain_n} lanes")
-        report[name] = {"ms": ms, "plain_ms": plain_ms, "plain_lanes": plain_n,
-                        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        print(f"pairing {name} mxu build: {ms:.4f} ms at {row['lanes']} lanes (u64 "
+              f"{row['ms']:.4f}; bound {row['bound_ms']:.4f} ms by {row['bound_by']}); plain "
+              f"under mxu {plain_ms:.3f} ms at {plain_n} lanes")
+        report[name] = {"ms": ms, "lanes": row["lanes"], "plain_ms": plain_ms,
+                        "plain_lanes": plain_n, "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"],
                         "max_abs_err": max(errs[name], plain_errs[name])}
     print(f"pairing mxu build: kernel SASS instructions {_sass_instructions('pairing_mxu')}")
     return report
@@ -2551,7 +2642,8 @@ def _verify_route(sets: list, installed: bool, multiplier: str = "u64") -> dict:
                     (g1, "aggregate_pubkey_sets_device", "g1_aggregation"),
                     (native_bls, "hash_to_g2_compressed", "hash_to_g2"),
                     (pairing, "batch_verify_device", "batch_verify_device"),
-                    (pairing, "finalize_verdict", "finalize_verdict")):
+                    (pairing, "finalize_verdict", "finalize_verdict"),
+                    (pairing, "_final_exp_is_one", "final_exp")):
                 stack.enter_context(_patched(module, name, _host_timer(parts, key)))
             if installed:
                 for module, name, key in (
@@ -2650,13 +2742,12 @@ def phase_window(registry: dict) -> dict:
     if (blame["host"] != blame["device"] or blame["host"] != blame["device_mxu"]
             or [i for i, v in enumerate(blame["host"]) if not v] != [t]):
         sys.exit("chip_smoke: the tampered window's blame differs between the routes")
-    # grid launches: the window's lanes and the extra pair through the Miller
-    # kernel; the two folds take 528 lanes to 9 block partials, then to one
-    # (under mxu the G2 lanes first, then the same two folds over them)
-    want = {"g1_sum_sets": 1, "g1_mul_affine": 1, "g2_mul_sum": 2, "miller_loop": 2,
+    # grid launches: one Miller launch over the window's lanes and the extra
+    # pair (lane 528); the G2 lanes, then two folds that take them to 9 block
+    # partials, then to one; the Fq12 product's two folds (the same on mxu)
+    want = {"g1_sum_sets": 1, "g1_mul_affine": 1, "g2_mul_sum": 3, "miller_loop": 1,
             "fp12_product": 2}
     want_mxu = {f"{k}_mxu": v for k, v in want.items()}
-    want_mxu["g2_mul_sum_mxu"] = 3
     if (any(device["launches"][k] != v for k, v in want.items())
             or any(mxu["launches"][k] != v for k, v in want_mxu.items())
             or any(host["launches"][k] or host["launches"][m] or device["launches"][m]

@@ -1,25 +1,27 @@
 // The device half of BLS12-381 RLC batch verification,
 //     prod_i e([r_i] pk_i, H_i) * e(-G, sum_i [r_i] sig_i) == 1,
-// for Hopper (sm_90a): four kernels, each one thread per lane, over the
-// field and tower of fp381_core.h and fp_tower.h.
+// for Hopper (sm_90a): four kernels over the field and tower of
+// fp381_core.h and fp_tower.h, two of them (the Miller loop and the G2
+// blinder sum) on the crews of pairing_lanes.h in this u64 build.
 //
 //   g1_mul_affine  replaces the reference's (ethereum_consensus_tpu
 //                  ops/pairing.py) :316 _mul_scan_g1 (via :349
 //                  g1_mul_batched) and :530 _g1_jacobian_to_affine:
 //                  [r_i] pk_i for 128-bit blinders, MSB first, on the
 //                  Jacobian formulas of fp381_core.h (those of g1_sum.cu),
-//                  then affine through one Fermat inversion per lane.
+//                  then affine through one Fermat inversion per lane. One
+//                  thread per lane.
 //   g2_mul_sum     replaces :332 _mul_scan_g2 (via :354 g2_mul_batched)
 //                  and :292 g2_sum_points -> :275 _g2_tree_reduce:
-//                  sum_i [r_i] sig_i as one Jacobian point. Each block's
-//                  lanes multiply, then fold pairwise in shared memory;
-//                  further launches fold the block partials the same way;
-//                  g2_sum_launch runs that fold alone over Jacobian points.
-//                  The fold pairs neighbours at strides 1, 2, 4, ... with
-//                  infinity past the last lane: the reference's XOR-fold
-//                  tree over its power-of-two padding, so the Jacobian sum
-//                  agrees limb for limb. The affine conversion stays on the
-//                  host (the reference's :543 _g2_point_to_raw).
+//                  sum_i [r_i] sig_i as one Jacobian point. A lanes pass
+//                  writes each [r_i] sig_i; fold launches pair neighbours at
+//                  strides 1, 2, 4, ... inside each 64-lane block with
+//                  infinity past the last lane, then the block partials the
+//                  same way (the reference's XOR-fold tree over its
+//                  power-of-two padding, so the Jacobian sum agrees limb for
+//                  limb); g2_sum_launch runs the fold alone over Jacobian
+//                  points (the mesh twin's partials). The affine conversion
+//                  stays on the host (the reference's :543 _g2_point_to_raw).
 //   miller_loop    replaces :416 miller_loop_batched with :362
 //                  _double_step, :387 _add_step and ops/fq12.py :134
 //                  fp12_sqr, :150 fp12_mul_by_line, :145 fp12_conj:
@@ -27,7 +29,7 @@
 //   fp12_product   replaces :474 fp12_product -> :454 _fp12_tree: the
 //                  product of N Fq12 values, a per-block tree, then
 //                  launches over the partials (exact: the order of a field
-//                  product does not change its value).
+//                  product does not change its value). One thread per value.
 //
 // Values cross the boundary canonical (not Montgomery), 12 x 32-bit limbs,
 // least significant first: G1 affine (x, y); G2 affine (x.c0, x.c1, y.c0,
@@ -35,42 +37,57 @@
 // in the order c0.a0.c0, c0.a0.c1, ..., c1.a2.c1. Scalars are 4 words,
 // least significant first.
 //
-// What bounds them on an H100: integer multiply-adds. One Fp product is 288
-// 32x32->64-bit multiply-adds (144 for the product, 144 for the Montgomery
-// reduction); these kernels square with the general product, and a lane's
-// Miller loop makes 9,426 Fp products, its G2 blinder multiplication about
-// 4,800 for a random 128-bit blinder, its G1 one about 1,900 and the affine
-// conversion 612 (1.2 to 1.5 times the least work of each function, which
-// chip_smoke.py's bounds count). At the window's shape (528 lanes)
-// one thread per lane fills 17 warps (g1_mul_affine, miller_loop) or 9
-// blocks of 64 threads (g2_mul_sum) on 132 SMs: the card is mostly idle and
-// each lane's products form one dependent chain, so these simple kernels
-// are bound by latency far above the operation bound. Each lane carries f
-// (144 words), T (72) and the inputs through a call tree that stays rolled
-// and out of line (fp_tower.h): the tower's values pass through the stack
-// frames in local memory (ptxas: 4,000 bytes for the Miller kernel) and
-// builds take about 90 s instead of many minutes. The folds keep one point
-// or Fq12 per thread in shared memory (18 and 36 KB per block).
+// What bounds them on an H100: integer multiply-adds and, at the window's
+// 528 lanes, latency. One Fp product is 288 32x32->64-bit multiply-adds;
+// a lane's Miller loop makes 9,426 Fp products, its G2 blinder
+// multiplication about 4,800 for a random 128-bit blinder, its G1 one about
+// 1,900 and the affine conversion 612 (1.2 to 1.5 times the least work of
+// each function, which chip_smoke.py's bounds count).
 //
+// The first design ran every kernel one thread per lane: at 528 lanes 17
+// warps on 17 of the 132 SMs (g1_mul_affine, miller_loop) or 9 blocks of 64
+// threads on 9 SMs (g2_mul_sum, lanes and fold in one kernel), each lane's
+// thousands of products one dependent chain, and the tower's values passed
+// through out-of-line calls (fp_tower.h's __noinline__ policy) in stack
+// frames in local memory (ptxas: 4,000 bytes for the Miller kernel). The
+// extra pair's Miller launch at n = 1 took as long as the 528-lane one.
+//
+// The Miller loop and the G2 sum now run on crews (pairing_lanes.h): a
+// lane's values in shared memory, its work split into steps of independent
+// Fp2 products and linear sums, each product's three Fp products on three
+// threads, the crew synced between steps. miller_loop runs a warp per lane
+// (4 lanes a block: at 528 lanes 132 blocks, a warp on every scheduler of
+// every SM); a doubling iteration is 4 product steps, the widest 22
+// products. g2_mul_sum's lanes pass runs a warp per lane the same way, its
+// folds 32 crews of 4 threads a block. What still bounds them: the latency
+// of one lane's steps (each a chain of Fp products, then the combine and
+// the linear sums), __syncwarp between them, and the idle threads of narrow
+// steps; the work of 528 lanes keeps only four warps on each SM.
+
 // Built with -DFP381_MUL_MXU (the "mxu" library, ops/fq8.py's switch), every
 // Fp product is the warp-cooperative int8 tensor-core product of fp_mma.h
 // (the reference's EC_PAIRING_MULT=mxu, fql.py:140 -> fq8.py:300 mont7r), so
-// the kernels run one WARP per lane: every thread of the warp holds the
-// lane's values, takes the same branches (the blinders' bits, the special
-// cases of the point additions: the same data in every thread) and calls
-// each product together, and lane 0 stores. A warp whose lane is past n
-// exits whole. G2's products and the sum become two passes: one warp per
-// lane writes [r_i] sig_i, then the fold kernel folds the n points; the
-// folds hold their 64 values a block as before, with 8 warps taking the
-// pairs of each level in the same order, so the G2 sum and the Fq12 product
-// agree limb for limb with the u64 kernels'. What bounds this mapping: each
-// product's byte reduction, which all 32 threads repeat (fp_mma.h); at 528
-// lanes it fills 528 warps, four per SM.
+// the kernels run one WARP per lane on the tower's functions: every thread
+// of the warp holds the lane's values, takes the same branches (the
+// blinders' bits, the special cases of the point additions: the same data
+// in every thread) and calls each product together, and lane 0 stores. A
+// warp whose lane is past n exits whole. G2's products and the sum are two
+// passes: one warp per lane writes [r_i] sig_i, then the fold kernel folds
+// the n points; the folds hold their 64 values a block, with 8 warps taking
+// the pairs of each level in the same order, so the G2 sum and the Fq12
+// product agree limb for limb with the u64 kernels'. What bounds this
+// mapping: each product's byte reduction, which all 32 threads repeat
+// (fp_mma.h); at 528 lanes it fills 528 warps, four per SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #include "fp_tower.h"
+#ifndef FP381_MUL_MXU
+#include "pairing_lanes.h"
+#endif
 
 namespace {
 
@@ -81,18 +98,33 @@ using tower::Fp12;
 using tower::Fp2;
 using tower::G2Jac;
 
-constexpr int kTreeThreads = 64;  // g2_mul_sum and fp12_product: lanes, then the fold
+constexpr int kTreeThreads = 64;  // the folds' values a block
 #ifdef FP381_MUL_MXU
 constexpr int kLaneWarps = 4;                      // lanes (one a warp) a block
 constexpr int kLanesPerBlock = kLaneWarps;
 constexpr int kLaneBlockThreads = 32 * kLaneWarps;
 constexpr int kTreeWarps = fp_mma::kMaxWarps;      // a fold block's warps (64 values)
 constexpr int kTreeBlockThreads = 32 * kTreeWarps;
+constexpr int kMillerLanes = kLanesPerBlock;
+constexpr int kMillerBlockThreads = kLaneBlockThreads;
+constexpr int kG2LanesPerBlock = kLanesPerBlock;
+constexpr int kG2LaneBlockThreads = kLaneBlockThreads;
+constexpr int kG2FoldThreads = kTreeBlockThreads;
+constexpr size_t kG2FoldSmem = 0;
 #else
-constexpr int kLaneThreads = 32;  // g1_mul_affine and miller_loop
+constexpr int kLaneThreads = 32;  // g1_mul_affine: one thread a lane
 constexpr int kLanesPerBlock = kLaneThreads;
 constexpr int kLaneBlockThreads = kLaneThreads;
 constexpr int kTreeBlockThreads = kTreeThreads;
+constexpr int kMillerLanes = 4;  // a warp a lane
+constexpr int kMillerBlockThreads = 32 * kMillerLanes;
+constexpr int kG2LanesPerBlock = 4;  // a warp a lane
+constexpr int kG2LaneBlockThreads = 32 * kG2LanesPerBlock;
+constexpr int kG2FoldCrews = kTreeThreads / 2;  // the first level's pairs
+constexpr int kG2FoldCrewThreads = lanes::kG2Width;  // a crew an addition
+constexpr int kG2FoldThreads = kG2FoldCrews * kG2FoldCrewThreads;
+constexpr size_t kG2FoldSmem =
+    kG2FoldCrews * (lanes::kG2Slots * sizeof(Fp2) + 3 * lanes::kG2Width * sizeof(Fp));
 #endif
 constexpr int kFp2Words = 2 * kLimbs;
 constexpr int kG2JacWords = 3 * kFp2Words;
@@ -135,16 +167,6 @@ __device__ __forceinline__ Fp2 load_fp2(const uint32_t* p) {
 __device__ __forceinline__ void store_fp2(uint32_t* p, const Fp2& a) {
   store_canonical(p, a.c0);
   store_canonical(p + kLimbs, a.c1);
-}
-
-__device__ G2Jac load_g2_jac(const uint32_t* p) {
-  return G2Jac{load_fp2(p), load_fp2(p + kFp2Words), load_fp2(p + 2 * kFp2Words)};
-}
-
-__device__ void store_g2_jac(uint32_t* p, const G2Jac& a) {
-  store_fp2(p, a.x);
-  store_fp2(p + kFp2Words, a.y);
-  store_fp2(p + 2 * kFp2Words, a.z);
 }
 
 __device__ Fp12 load_fp12(const uint32_t* p) {
@@ -235,27 +257,27 @@ __device__ void fill(T* s, int64_t n, Load load, const T& identity) {
 #endif
 }
 
-struct G2Add {
-  __device__ G2Jac operator()(const G2Jac& a, const G2Jac& b) const { return tower::g2_add(a, b); }
-};
-
 struct Fp12Mul {
   __device__ Fp12 operator()(const Fp12& a, const Fp12& b) const {
     return tower::fp12_mul(a, b);
   }
 };
 
-__device__ __forceinline__ G2Jac g2_mul_lane(const uint32_t* points, const uint32_t* scalars,
-                                           int64_t i) {
-  const uint32_t* p = points + i * 2 * kFp2Words;
-  const G2Jac sig{load_fp2(p), load_fp2(p + kFp2Words), tower::fp2_one()};
-  uint32_t k[tower::kScalarWords];
-#pragma unroll
-  for (int w = 0; w < tower::kScalarWords; ++w) k[w] = __ldg(scalars + i * tower::kScalarWords + w);
-  return tower::g2_mul(sig, k);
+#ifdef FP381_MUL_MXU
+__device__ G2Jac load_g2_jac(const uint32_t* p) {
+  return G2Jac{load_fp2(p), load_fp2(p + kFp2Words), load_fp2(p + 2 * kFp2Words)};
 }
 
-#ifdef FP381_MUL_MXU
+__device__ void store_g2_jac(uint32_t* p, const G2Jac& a) {
+  store_fp2(p, a.x);
+  store_fp2(p + kFp2Words, a.y);
+  store_fp2(p + 2 * kFp2Words, a.z);
+}
+
+struct G2Add {
+  __device__ G2Jac operator()(const G2Jac& a, const G2Jac& b) const { return tower::g2_add(a, b); }
+};
+
 // affine points (n, 2, 2, 12), scalars (n, 4) -> (n, 3, 2, 12) Jacobian
 // [k_i] Q_i, one warp a lane (the first pass of the sum)
 __global__ void __launch_bounds__(kLaneBlockThreads)
@@ -264,22 +286,13 @@ __global__ void __launch_bounds__(kLaneBlockThreads)
                         uint32_t* __restrict__ lanes) {
   const int64_t i = lane_index();
   if (i >= n) return;  // the whole warp
-  store_g2_jac(lanes + i * kG2JacWords, g2_mul_lane(points, scalars, i));
+  const uint32_t* p = points + i * 2 * kFp2Words;
+  const G2Jac sig{load_fp2(p), load_fp2(p + kFp2Words), tower::fp2_one()};
+  uint32_t k[tower::kScalarWords];
+#pragma unroll
+  for (int w = 0; w < tower::kScalarWords; ++w) k[w] = __ldg(scalars + i * tower::kScalarWords + w);
+  store_g2_jac(lanes + i * kG2JacWords, tower::g2_mul(sig, k));
 }
-#else
-// affine points (n, 2, 2, 12), scalars (n, 4) -> one Jacobian partial sum
-// (3, 2, 12) per block
-__global__ void __launch_bounds__(kTreeThreads)
-    g2_mul_fold_kernel(const uint32_t* __restrict__ points,
-                       const uint32_t* __restrict__ scalars, int64_t n,
-                       uint32_t* __restrict__ partials) {
-  __shared__ G2Jac s[kTreeThreads];
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kTreeThreads + threadIdx.x;
-  s[threadIdx.x] = i < n ? g2_mul_lane(points, scalars, i) : tower::g2_infinity();
-  fold(s, G2Add());
-  if (threadIdx.x == 0) store_g2_jac(partials + blockIdx.x * kG2JacWords, s[0]);
-}
-#endif
 
 // Jacobian points (n, 3, 2, 12) -> one partial sum per block
 __global__ void __launch_bounds__(kTreeBlockThreads)
@@ -298,11 +311,113 @@ __global__ void __launch_bounds__(kLaneBlockThreads)
                        const uint32_t* __restrict__ xq, const uint32_t* __restrict__ yq,
                        int64_t n, uint32_t* __restrict__ out) {
   const int64_t i = lane_index();
-  if (i >= n) return;  // under mxu the whole warp
+  if (i >= n) return;  // the whole warp
   const Fp12 f = tower::miller_loop(load_mont(xp + i * kLimbs), load_mont(yp + i * kLimbs),
                                     load_fp2(xq + i * kFp2Words), load_fp2(yq + i * kFp2Words));
   store_fp12(out + i * kFp12Words, f);
 }
+#else
+// Component k (0..5: x.c0, x.c1, y.c0, y.c1, z.c0, z.c1) of the point in
+// slots [first, first + 3).
+__device__ __forceinline__ Fp& component(Fp2* s, int first, int k) {
+  Fp2& v = s[first + k / 2];
+  return (k & 1) ? v.c1 : v.c0;
+}
+
+// affine points (n, 2, 2, 12), scalars (n, 4) -> (n, 3, 2, 12) Jacobian
+// [k_i] Q_i: a warp a lane, kG2LanesPerBlock lanes a block (the first pass
+// of the sum)
+__global__ void __launch_bounds__(kG2LaneBlockThreads)
+    g2_mul_lanes_kernel(const uint32_t* __restrict__ points,
+                        const uint32_t* __restrict__ scalars, int64_t n,
+                        uint32_t* __restrict__ lanes_out) {
+  __shared__ Fp2 slots[kG2LanesPerBlock][lanes::kG2Slots];
+  __shared__ Fp scratch[kG2LanesPerBlock][3 * lanes::kG2Width];
+  const int warp = threadIdx.x >> 5;
+  const int t = threadIdx.x & 31;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kG2LanesPerBlock + warp;
+  if (i >= n) return;  // the whole warp
+  Fp2* s = slots[warp];
+  // q = (x, y, 1): x.c0, x.c1, y.c0, y.c1 one a thread
+  if (t < 4) component(s, lanes::X2, t) = load_mont(points + i * 2 * kFp2Words + t * kLimbs);
+  if (t == 4) s[lanes::Z2] = tower::fp2_one();
+  const uint32_t* k = scalars + i * tower::kScalarWords;
+  const lanes::Scalar scalar{__ldg(k), __ldg(k + 1), __ldg(k + 2), __ldg(k + 3)};
+  const lanes::Crew c{s, scratch[warp], t, 32, 0xffffffffu};
+  lanes::crew_sync(c);
+  lanes::g2_crew(c, true, scalar);
+  if (t < 6) store_canonical(lanes_out + i * kG2JacWords + t * kLimbs, component(s, lanes::X1, t));
+}
+
+// Jacobian points (n, 3, 2, 12) -> one partial sum per 64 points: crew g
+// adds points 2g and 2g + 1 of the block (infinity past n), then at point
+// stride s = 2, 4, ..., 32 the crews g at multiples of s add the partial of
+// crew g + s/2 to their own.
+__global__ void __launch_bounds__(kG2FoldThreads)
+    g2_fold_kernel(const uint32_t* __restrict__ points, int64_t n,
+                   uint32_t* __restrict__ partials) {
+  extern __shared__ Fp2 fold_slots[];  // the crews' slots, then their scratch
+  Fp* fold_scratch = &fold_slots[kG2FoldCrews * lanes::kG2Slots].c0;
+  const int crew = threadIdx.x / kG2FoldCrewThreads;
+  const int t = threadIdx.x % kG2FoldCrewThreads;
+  const lanes::Crew c{fold_slots + crew * lanes::kG2Slots, fold_scratch + crew * 3 * lanes::kG2Width, t,
+                      kG2FoldCrewThreads,
+                      ((1u << kG2FoldCrewThreads) - 1) << (threadIdx.x & 31 & ~(kG2FoldCrewThreads - 1))};
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kTreeThreads + 2 * crew;
+  for (int f = t; f < 12; f += kG2FoldCrewThreads) {  // p's six components, then q's
+    const int64_t j = first + f / 6;
+    component(c.s, f < 6 ? lanes::X1 : lanes::X2, f % 6) =
+        j < n ? load_mont(points + j * kG2JacWords + (f % 6) * kLimbs) : fp381::zero();
+  }
+#pragma unroll 1
+  for (int stride = 1; stride < kTreeThreads; stride <<= 1) {
+    if (stride > 1) __syncthreads();
+    if (crew % stride != 0) continue;
+    if (stride > 1) {
+      const Fp2* partner = fold_slots + (crew + stride / 2) * lanes::kG2Slots;
+      for (int f = t; f < 3; f += kG2FoldCrewThreads) c.s[lanes::X2 + f] = partner[lanes::X1 + f];
+    }
+    lanes::crew_sync(c);
+    lanes::g2_crew(c, false, lanes::Scalar{});
+  }
+  __syncthreads();
+  if (crew != 0) return;
+  for (int f = t; f < 6; f += kG2FoldCrewThreads)
+    store_canonical(partials + blockIdx.x * kG2JacWords + f * kLimbs, component(c.s, lanes::X1, f));
+}
+
+// G1 affine xp, yp (n, 12) and G2 affine xq, yq (n, 2, 12) -> (n, 12, 12):
+// a warp a lane, kMillerLanes lanes a block
+__global__ void __launch_bounds__(kMillerBlockThreads)
+    miller_loop_kernel(const uint32_t* __restrict__ xp, const uint32_t* __restrict__ yp,
+                       const uint32_t* __restrict__ xq, const uint32_t* __restrict__ yq,
+                       int64_t n, uint32_t* __restrict__ out) {
+  __shared__ Fp2 slots[kMillerLanes][lanes::kMillerSlots];
+  __shared__ Fp scratch[kMillerLanes][3 * lanes::kMillerThreads];
+  const int warp = threadIdx.x >> 5;
+  const int t = threadIdx.x & 31;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kMillerLanes + warp;
+  if (i >= n) return;  // the whole warp
+  Fp2* s = slots[warp];
+  if (t < 2) {  // P: (xp, 0), (yp, 0)
+    s[lanes::XP + t] = Fp2{load_mont((t == 0 ? xp : yp) + i * kLimbs), fp381::zero()};
+  } else if (t < 6) {  // Q and T = (xq, yq, 1)
+    const Fp v = load_mont((t < 4 ? xq : yq) + i * kFp2Words + (t & 1) * kLimbs);
+    component(s, lanes::QX, t - 2) = v;
+    component(s, lanes::TX, t - 2) = v;
+  } else if (t < 12) {  // f = 1
+    s[lanes::F0 + t - 6] = t == 6 ? tower::fp2_one() : tower::fp2_zero();
+  } else if (t == 12) {
+    s[lanes::TZ] = tower::fp2_one();
+  }
+  __syncwarp();
+  lanes::miller_crew(lanes::Crew{s, scratch[warp], t, 32, 0xffffffffu});
+  if (t < 12) {  // conjugated: c1 negated
+    const Fp v = component(s, lanes::F0 + 3 * (t / 6), t % 6);
+    store_canonical(out + i * kFp12Words + t * kLimbs, t < 6 ? v : tower::fp_neg(v));
+  }
+}
+#endif
 
 // Fq12 values (n, 12, 12) -> one partial product per block
 __global__ void __launch_bounds__(kTreeBlockThreads)
@@ -318,20 +433,47 @@ int64_t blocks_for(int64_t n, int threads) { return (n + threads - 1) / threads;
 
 bool bad_count(int64_t n) { return n <= 0 || n > (int64_t{1} << 30); }
 
+using FoldKernel = void (*)(const uint32_t*, int64_t, uint32_t*);
+
+constexpr int kMaxDevices = 64;
+
+// Opts the G2 fold kernel in to its kG2FoldSmem bytes of dynamic shared
+// memory (above 48 KB it must), once for each device: 0, or -cudaError.
+int g2_fold_opt_in() {
+  if (kG2FoldSmem == 0) return 0;
+  static std::atomic<bool> ready[kMaxDevices];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  const bool cached = device >= 0 && device < kMaxDevices;
+  if (cached && ready[device].load(std::memory_order_acquire)) return 0;
+  err = cudaFuncSetAttribute(reinterpret_cast<const void*>(g2_fold_kernel),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kG2FoldSmem));
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (cached) ready[device].store(true, std::memory_order_release);
+  return 0;
+}
+
+// One launch of a fold kernel over `count` items: -cudaError if refused, else 0.
+int launch_fold(FoldKernel kernel, int threads, size_t smem, int64_t blocks, const uint32_t* src,
+                int64_t count, uint32_t* dst, cudaStream_t stream) {
+  kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(src, count, dst);
+  const cudaError_t err = cudaGetLastError();
+  return err == cudaSuccess ? 0 : -static_cast<int>(err);
+}
+
 // Folds `count` items of `words` words at `src` with `kernel` until one is
 // left, which lands in `out`; the levels between use `work`. Returns the
 // number of grid launches, or -cudaError of a refused one.
-using FoldKernel = void (*)(const uint32_t*, int64_t, uint32_t*);
-
-int fold_levels(FoldKernel kernel, const uint32_t* src, int64_t count, int words, uint32_t* work,
-                uint32_t* out, cudaStream_t stream) {
+int fold_levels(FoldKernel kernel, int threads, size_t smem, const uint32_t* src, int64_t count,
+                int words, uint32_t* work, uint32_t* out, cudaStream_t stream) {
   int launches = 0;
   while (count > 1) {
     const int64_t blocks = blocks_for(count, kTreeThreads);
     uint32_t* dst = blocks == 1 ? out : work;
-    kernel<<<static_cast<unsigned>(blocks), kTreeBlockThreads, 0, stream>>>(src, count, dst);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return -static_cast<int>(err);
+    const int rc = launch_fold(kernel, threads, smem, blocks, src, count, dst, stream);
+    if (rc < 0) return rc;
     ++launches;
     src = dst;
     work += blocks * words;
@@ -366,34 +508,25 @@ extern "C" int g1_mul_affine_launch(const void* points, const void* scalars, int
 }
 
 // points (n, 2, 2, 12), scalars (n, 4) -> out (3, 2, 12); work holds the
-// block partials and the fold's levels (ops/pairing.py g2_mul_sum_cuda),
-// under mxu the n lanes' points before them
+// n lanes' points and the fold's levels (ops/pairing.py g2_mul_sum_cuda)
 extern "C" int g2_mul_sum_launch(const void* points, const void* scalars, int64_t n, void* work,
                                  void* out, void* stream) {
   if (bad_count(n)) return kBadCount;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#ifdef FP381_MUL_MXU
   // the lanes' products into work (out for one lane), then their fold
-  uint32_t* lanes = n == 1 ? static_cast<uint32_t*>(out) : static_cast<uint32_t*>(work);
-  g2_mul_lanes_kernel<<<static_cast<unsigned>(blocks_for(n, kLanesPerBlock)), kLaneBlockThreads,
-                        0, s>>>(static_cast<const uint32_t*>(points),
-                                static_cast<const uint32_t*>(scalars), n, lanes);
+  uint32_t* lane_points = n == 1 ? static_cast<uint32_t*>(out) : static_cast<uint32_t*>(work);
+  g2_mul_lanes_kernel<<<static_cast<unsigned>(blocks_for(n, kG2LanesPerBlock)),
+                        kG2LaneBlockThreads, 0, s>>>(static_cast<const uint32_t*>(points),
+                                                     static_cast<const uint32_t*>(scalars), n,
+                                                     lane_points);
   const int lanes_rc = launched_once();
   if (lanes_rc < 0 || n == 1) return lanes_rc;
-  const int lane_folds = fold_levels(g2_fold_kernel, lanes, n, kG2JacWords,
-                                     lanes + n * kG2JacWords, static_cast<uint32_t*>(out), s);
+  const int opt_in = g2_fold_opt_in();
+  if (opt_in < 0) return opt_in;
+  const int lane_folds = fold_levels(g2_fold_kernel, kG2FoldThreads, kG2FoldSmem, lane_points, n,
+                                     kG2JacWords, lane_points + n * kG2JacWords,
+                                     static_cast<uint32_t*>(out), s);
   return lane_folds < 0 ? lane_folds : lanes_rc + lane_folds;
-#else
-  const int64_t blocks = blocks_for(n, kTreeThreads);
-  uint32_t* first = blocks == 1 ? static_cast<uint32_t*>(out) : static_cast<uint32_t*>(work);
-  g2_mul_fold_kernel<<<static_cast<unsigned>(blocks), kTreeThreads, 0, s>>>(
-      static_cast<const uint32_t*>(points), static_cast<const uint32_t*>(scalars), n, first);
-  const int rc = launched_once();
-  if (rc < 0 || blocks == 1) return rc;
-  const int folds = fold_levels(g2_fold_kernel, first, blocks, kG2JacWords,
-                                first + blocks * kG2JacWords, static_cast<uint32_t*>(out), s);
-  return folds < 0 ? folds : rc + folds;
-#endif
 }
 
 // Jacobian points (n, 3, 2, 12) -> out (3, 2, 12), their sum by the fold of
@@ -403,12 +536,16 @@ extern "C" int g2_mul_sum_launch(const void* points, const void* scalars, int64_
 extern "C" int g2_sum_launch(const void* points, int64_t n, void* work, void* out, void* stream) {
   if (bad_count(n)) return kBadCount;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int opt_in = g2_fold_opt_in();
+  if (opt_in < 0) return opt_in;
   if (n == 1) {  // one point: the fold of one block (a Montgomery round trip)
-    g2_fold_kernel<<<1, kTreeBlockThreads, 0, s>>>(static_cast<const uint32_t*>(points), 1,
-                                              static_cast<uint32_t*>(out));
-    return launched_once();
+    const int rc = launch_fold(g2_fold_kernel, kG2FoldThreads, kG2FoldSmem, 1,
+                               static_cast<const uint32_t*>(points), 1,
+                               static_cast<uint32_t*>(out), s);
+    return rc < 0 ? rc : 1;
   }
-  return fold_levels(g2_fold_kernel, static_cast<const uint32_t*>(points), n, kG2JacWords,
+  return fold_levels(g2_fold_kernel, kG2FoldThreads, kG2FoldSmem,
+                     static_cast<const uint32_t*>(points), n, kG2JacWords,
                      static_cast<uint32_t*>(work), static_cast<uint32_t*>(out), s);
 }
 
@@ -416,7 +553,7 @@ extern "C" int g2_sum_launch(const void* points, int64_t n, void* work, void* ou
 extern "C" int miller_loop_launch(const void* xp, const void* yp, const void* xq, const void* yq,
                                   int64_t n, void* out, void* stream) {
   if (bad_count(n)) return kBadCount;
-  miller_loop_kernel<<<static_cast<unsigned>(blocks_for(n, kLanesPerBlock)), kLaneBlockThreads, 0,
+  miller_loop_kernel<<<static_cast<unsigned>(blocks_for(n, kMillerLanes)), kMillerBlockThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(xp), static_cast<const uint32_t*>(yp),
       static_cast<const uint32_t*>(xq), static_cast<const uint32_t*>(yq), n,
@@ -431,10 +568,12 @@ extern "C" int fp12_product_launch(const void* values, int64_t n, void* work, vo
   if (bad_count(n)) return kBadCount;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 1) {  // one value: the fold of one block (a Montgomery round trip)
-    fp12_fold_kernel<<<1, kTreeBlockThreads, 0, s>>>(static_cast<const uint32_t*>(values), 1,
-                                                static_cast<uint32_t*>(out));
-    return launched_once();
+    const int rc = launch_fold(fp12_fold_kernel, kTreeBlockThreads, 0, 1,
+                               static_cast<const uint32_t*>(values), 1,
+                               static_cast<uint32_t*>(out), s);
+    return rc < 0 ? rc : 1;
   }
-  return fold_levels(fp12_fold_kernel, static_cast<const uint32_t*>(values), n, kFp12Words,
+  return fold_levels(fp12_fold_kernel, kTreeBlockThreads, 0,
+                     static_cast<const uint32_t*>(values), n, kFp12Words,
                      static_cast<uint32_t*>(work), static_cast<uint32_t*>(out), s);
 }

@@ -4,20 +4,24 @@ batched pairing (csrc/pairing.cu) and their plain versions.
     prod_i e([r_i] pk_i, H_i) * e(-G, sum_i [r_i] sig_i) == 1
 
 The O(N) group work of ``verify_signature_sets``' random linear
-combination runs as four kernels, one thread per lane:
+combination runs as four kernels:
 
   - ``g1_mul_affine``: [r_i] pk_i for the 128-bit blinders, MSB first,
-    then affine through one Fermat inversion per lane;
-  - ``g2_mul_sum``: sum_i [r_i] sig_i as one Jacobian G2 point (each block
-    multiplies its lanes and folds them, further launches fold the block
-    partials);
-  - ``miller_loop``: f_{|x|,Q_i}(P_i), conjugated, per lane;
-  - ``fp12_product``: the product of the N Miller values.
+    then affine through one Fermat inversion per lane (a thread a lane);
+  - ``g2_mul_sum``: sum_i [r_i] sig_i as one Jacobian G2 point (a lanes
+    pass, a warp a lane, writes each [r_i] sig_i; fold launches pair
+    neighbours inside 64-lane blocks, then the block partials);
+  - ``miller_loop``: f_{|x|,Q_i}(P_i), conjugated, per lane (a warp a
+    lane, its Fp2 products spread over the warp's threads);
+  - ``fp12_product``: the product of the Miller values (a thread a value).
 
-The one extra pair e(-G, S) runs through the Miller kernel at n = 1, and
-the final exponentiation verdict is the native library's
-(``fp12_final_exp_is_one``): scalar and branchy, the wrong shape for the
-card.
+The sum S is taken first, so the extra pair e(-G, S) rides as lane n of
+the one Miller launch and into the product (the reference runs it through
+its Miller loop at n = 1 and multiplies on the host: the same Fq12 value,
+since the product's order does not change it); the final exponentiation
+verdict is the native library's (``fp12_final_exp_is_one``): scalar and
+branchy, the wrong shape for the card. ``finalize_verdict``, which closes
+the mesh twin's partials, still runs the extra pair at n = 1.
 
 Layout at the tensor boundary: canonical (not Montgomery) values as int32
 tensors carrying the uint32 limb bit patterns, 12 limbs of 32 bits, least
@@ -39,8 +43,9 @@ fq2.py, fq12.py) with the same formulas, so the two agree limb for limb;
 the dispatcher takes the plain version for CPU tensors only and, for CUDA
 tensors, launches the kernel or raises. ``launch_counts`` counts each
 kernel's grid launches (a wrapper adds them where it launches, nowhere
-else): one per call, and one more per fold level of ``g2_mul_sum`` and
-``fp12_product`` beyond 64 lanes. ``g2_sum_points`` (the sum of Jacobian
+else): one per call, and one more per fold level beyond 64 values
+(``fp12_product``) or per fold level at all (``g2_mul_sum``, whose lanes
+pass is the first launch). ``g2_sum_points`` (the sum of Jacobian
 points, which the mesh twin's per-shard partials take) runs
 ``g2_mul_sum``'s fold kernel alone and counts under its name.
 
@@ -102,7 +107,7 @@ BLS_X_ABS = 0xD201000000010000
 # the bits below the top bit of |x|, MSB first: the Miller schedule
 _X_BITS = [int(b) for b in bin(BLS_X_ABS)[3:]]
 SCALAR_WORDS = 4
-# threads per block of the fold kernels (csrc/pairing.cu kTreeThreads)
+# values per block of the fold kernels (csrc/pairing.cu kTreeThreads)
 TREE_THREADS = 64
 
 KERNELS = ("g1_mul_affine", "g2_mul_sum", "miller_loop", "fp12_product")
@@ -403,11 +408,8 @@ def g2_mul_sum_plain(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tenso
 
 def g2_mul_sum_cuda(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
     n = _check("g2_mul_sum", {"points": (points, (2, 2, 12)), "scalars": (scalars, (4,))})
-    if _library() == "pairing_mxu":  # the n lanes' points, then the fold of n
-        items = 0 if n == 1 else n + _fold_work(n)
-    else:  # the block partials, then their fold
-        blocks = -(-n // TREE_THREADS)
-        items = 0 if blocks == 1 else blocks + _fold_work(blocks)
+    # the n lanes' points (one lane lands in out), then the fold's levels
+    items = 0 if n == 1 else n + _fold_work(n)
     work = torch.empty((max(items, 1), 3, 2, 12), dtype=torch.int32, device=points.device)
     out = torch.empty((3, 2, 12), dtype=torch.int32, device=points.device)
     _launch("g2_mul_sum", "g2_mul_sum_launch", points, scalars, n, work, out)
@@ -594,18 +596,30 @@ def _fq12_ints(value: Fq12) -> "list[int]":
             for c in (c2.c0.n, c2.c1.n)]
 
 
+def _final_exp_is_one(f_ints: "list[int]") -> bool:
+    """The native final-exponentiation verdict on 12 canonical ints."""
+    return native_bls.fp12_final_exp_is_one(b"".join(v.to_bytes(48, "big") for v in f_ints))
+
+
+def _extra_pair(s_raw: bytes, device) -> tuple:
+    """The extra pair (-G, S) as one Miller lane: xp, yp (1, 12), xq, yq
+    (1, 2, 12)."""
+    return (*g1_affine_from_raw([_neg_g1_generator_raw()], device),
+            *g2_affine_from_raw([s_raw], device))
+
+
 def finalize_verdict(f_total: torch.Tensor, s_raw: bytes, s_inf: bool, device="cuda") -> bool:
-    """Close an RLC batch from its device partials: multiply the Miller
-    product ``f_total`` (2, 3, 2, 12) by the extra pair's Miller value
-    e(-G, sum_i [r_i] sig_i), which runs through the Miller kernel at
-    n = 1, and ask the native library for the final-exponentiation verdict."""
+    """Close an RLC batch from its device partials (the mesh twin's):
+    multiply the Miller product ``f_total`` (2, 3, 2, 12) by the extra
+    pair's Miller value e(-G, sum_i [r_i] sig_i), which runs through the
+    Miller kernel at n = 1, and ask the native library for the
+    final-exponentiation verdict."""
     f_ints = fq.to_ints(f_total)
     if not s_inf:
-        f_extra = miller_loop_batched(*g1_affine_from_raw([_neg_g1_generator_raw()], device),
-                                      *g2_affine_from_raw([s_raw], device))
+        f_extra = miller_loop_batched(*_extra_pair(s_raw, device))
         # one Fq12 product on the host, as the reference takes it
         f_ints = _fq12_ints(_fq12(f_ints) * _fq12(fq.to_ints(f_extra[0])))
-    return native_bls.fp12_final_exp_is_one(b"".join(v.to_bytes(48, "big") for v in f_ints))
+    return _final_exp_is_one(f_ints)
 
 
 def g1_sum_sets(raw_sets: "list[list[bytes]]", mesh=None) -> "list[tuple[bytes, bool]]":
@@ -642,12 +656,17 @@ def batch_verify_device(pk_raws: "list[bytes]", h_raws: "list[bytes]",
     points (raw192 affine, hash_to_g2 output); sig_raws: per-set
     signatures (raw192 affine); scalars: per-set 128-bit blinders, not
     zero. The O(N) group work runs in the four kernels on ``device`` (the
-    plain versions for ``"cpu"``); the extra pair's Miller loop too."""
+    plain versions for ``"cpu"``); the extra pair (-G, S) is the Miller
+    launch's lane n (no lane when S is infinity), so the product over the
+    n + 1 values closes the batch."""
     n = len(pk_raws)
     if not n or not len(h_raws) == len(sig_raws) == len(scalars) == n:
         raise ValueError("need one pubkey, message point, signature and scalar per set")
     xp, yp = g1_mul_batched(g1_affine_from_raw(pk_raws, device), scalars)
     sig = torch.stack(g2_affine_from_raw(sig_raws, device), dim=1).contiguous()
     s_raw, s_inf = _g2_point_to_raw(g2_mul_sum(sig, scalar_words(scalars, device)))
-    fs = miller_loop_batched(xp, yp, *g2_affine_from_raw(h_raws, device))
-    return finalize_verdict(fp12_product(fs), s_raw, s_inf, device)
+    lanes = [xp, yp, *g2_affine_from_raw(h_raws, device)]
+    if not s_inf:
+        lanes = [torch.cat([v, e]) for v, e in zip(lanes, _extra_pair(s_raw, device))]
+    fs = miller_loop_batched(*lanes)
+    return _final_exp_is_one(fq.to_ints(fp12_product(fs)))

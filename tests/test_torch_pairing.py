@@ -11,11 +11,14 @@ pair), compiled once in module-scoped fixtures:
     the inverse) against the reference's ops/fq2.py and ops/fq12.py;
   - one ``batch_verify_device`` through the plain versions, each kernel's
     output recorded: the G1 blinder multiplication (affine), the G2 sum
-    (Jacobian, limb for limb), the Miller values, the extra pair and their
-    product against the reference's functions, the Miller values also
-    against the native miller_loop_raw, and the verdict against the
-    reference's; the G2 multiplication of a lane limb for limb and
-    ``g2_sum_points`` on the reference's lanes;
+    (Jacobian, limb for limb), the one Miller call's n + 1 lanes (the
+    sets' Miller values, then the extra pair at lane n) and their product
+    against the reference's functions (the product against the reference's
+    product times its extra pair), the Miller values also against the
+    native miller_loop_raw, and the verdict against the reference's; the G2
+    multiplication of a lane limb for limb and ``g2_sum_points`` on the
+    reference's lanes; a batch whose signature sum is infinity runs no
+    extra lane and gives the reference's verdict;
   - ``fp_tower.h`` built with g++ and held against Python integers, the
     native Miller loop and the plain versions;
   - under the "mxu" multiplier (``fq8.set_multiplier``: every product of
@@ -110,18 +113,25 @@ def reference(batch):
     sig_lanes = ref_pairing.g2_mul_batched(sig_jac, batch["scalars"])
     xq, yq = ref_pairing.g2_affine_from_raw(batch["h"])
     fs = ref_pairing.miller_loop_batched(xp, yp, xq.arr, yq.arr)
+    sig_sum = ref_pairing.g2_sum_points(sig_lanes)
+    # the extra pair e(-G, S), as the reference's finalize_verdict takes it
+    s_raw, _ = ref_pairing._g2_point_to_raw(sig_sum)
+    extra = ref_pairing.miller_loop_batched(
+        *(v.arr for v in ref_pairing.g1_affine_from_raw([ref_pairing._neg_g1_generator_raw()])),
+        *(v.arr for v in ref_pairing.g2_affine_from_raw([s_raw])))
     return {
         "g1_affine": convert.lv_to_ints(np.stack([np.asarray(xp), np.asarray(yp)], axis=1)),
         "g2_lanes": convert.lv_to_ints(np.asarray(sig_lanes.arr)),
-        "g2_sum": convert.lv_to_ints(np.asarray(ref_pairing.g2_sum_points(sig_lanes).arr)),
+        "g2_sum": convert.lv_to_ints(np.asarray(sig_sum.arr)),
         "miller": convert.lv_to_ints(np.asarray(fs)),
         "product": convert.lv_to_ints(np.asarray(ref_pairing.fp12_product(fs))),
+        "extra_pair": convert.lv_to_ints(np.asarray(extra[0])),
     }
 
 
-def _recorded_batch(batch) -> dict:
-    """One ``batch_verify_device`` through the plain versions, each
-    kernel's output recorded on the way."""
+def _recorded_verdict(pk, h, sig, scalars) -> "tuple[bool, dict]":
+    """One ``batch_verify_device`` through the plain versions, and each
+    kernel's outputs recorded on the way."""
     seen: dict = {}
     with pytest.MonkeyPatch.context() as mp:
         for name in ("g1_mul_affine", "g2_mul_sum", "miller_loop", "fp12_product"):
@@ -130,17 +140,24 @@ def _recorded_batch(batch) -> dict:
                 seen.setdefault(_name, []).append(out)
                 return out
             mp.setattr(pairing, name, record)
-        verdict = pairing.batch_verify_device(batch["pk"], batch["h"], batch["sig"],
-                                              batch["scalars"], device="cpu")
+        verdict = pairing.batch_verify_device(pk, h, sig, scalars, device="cpu")
+    return verdict, seen
+
+
+def _recorded_batch(batch) -> dict:
+    """The batch's verdict and its stages: the one Miller call holds the
+    sets' lanes, then the extra pair at lane n."""
+    verdict, seen = _recorded_verdict(batch["pk"], batch["h"], batch["sig"], batch["scalars"])
     fs = seen["miller_loop"][0]
     return {
         "verdict": verdict,
         "words": pairing.scalar_words(batch["scalars"], "cpu"),
         "g1_affine": fq.to_ints(seen["g1_mul_affine"][0]),
         "g2_sum": fq.to_ints(seen["g2_mul_sum"][0]),
-        "miller": fq.to_ints(fs),
-        "miller_tensor": fs,
-        "extra_pair": fq.to_ints(seen["miller_loop"][1]),
+        "miller": fq.to_ints(fs[:LANES]),
+        "miller_tensor": fs[:LANES],
+        "miller_calls": len(seen["miller_loop"]),
+        "extra_pair": fq.to_ints(fs[LANES:]),
         "product": fq.to_ints(seen["fp12_product"][0]),
         "tensors": {name: outs for name, outs in seen.items()},
     }
@@ -271,7 +288,11 @@ def test_miller_values_match_reference_and_native(batch, reference, port):
 
 
 def test_fp12_product_matches_reference(reference, port):
-    assert port["product"] == reference["product"]
+    """The product over the n + 1 lanes against the reference's product of
+    the n Miller values times its extra pair (one Fq12 product: the same
+    value in any order)."""
+    assert port["product"] == _fq12_ints(_fq12(reference["product"])
+                                         * _fq12(reference["extra_pair"]))
     # odd widths pad with one in the fold
     fs = port["miller_tensor"][:3]
     want = _fq12(port["miller"][:12]) * _fq12(port["miller"][12:24]) * _fq12(port["miller"][24:36])
@@ -287,14 +308,40 @@ def test_miller_product_matches_native(batch):
     assert pairing.miller_product_device(g1s, g2s, device="cpu") == _fq12_ints(want)
 
 
-def test_batch_verdict_matches_reference(batch, port):
+def test_batch_verdict_matches_reference(batch, reference, port):
     args = (batch["pk"], batch["h"], batch["sig"], batch["scalars"])
     assert ref_pairing.batch_verify_device(*args) is True
     assert port["verdict"] is True
-    # the extra pair e(-G, sum) through the Miller loop at n = 1
+    # the extra pair e(-G, sum): lane n of the one Miller call
+    assert port["miller_calls"] == 1
     s_raw, _ = pairing._g2_point_to_raw(fq.from_ints(port["g2_sum"]).reshape(3, 2, 12))
     neg_g = pairing._neg_g1_generator_raw()
     assert port["extra_pair"] == _raw576_ints(ref_native.miller_loop_raw(neg_g, s_raw))
+    assert port["extra_pair"] == reference["extra_pair"]
+
+
+def _neg_raw(raw: bytes) -> bytes:
+    """-P of a raw affine G1 (x || y) or G2 (x.c0 || x.c1 || y.c0 || y.c1)
+    point."""
+    half = len(raw) // 2
+    ys = [(P - int.from_bytes(raw[i : i + 48], "big")) % P for i in range(half, len(raw), 48)]
+    return raw[:half] + b"".join(y.to_bytes(48, "big") for y in ys)
+
+
+def test_signature_sum_at_infinity_adds_no_lane(batch):
+    """Sets (pk, H, sig) beside (-pk, H, -sig) under one blinder: the
+    signature sum is infinity, so the Miller call holds the four lanes
+    alone, and the verdict (true: the pairs cancel) is the reference's."""
+    pk = [batch["pk"][0], _neg_raw(batch["pk"][0]), batch["pk"][1], _neg_raw(batch["pk"][1])]
+    h = [batch["h"][0], batch["h"][0], batch["h"][1], batch["h"][1]]
+    sig = [batch["sig"][0], _neg_raw(batch["sig"][0]), batch["sig"][1],
+           _neg_raw(batch["sig"][1])]
+    scalars = [batch["scalars"][1]] * 2 + [batch["scalars"][2]] * 2
+    verdict, seen = _recorded_verdict(pk, h, sig, scalars)
+    assert not bool(seen["g2_mul_sum"][0].any())
+    assert [tuple(f.shape) for f in seen["miller_loop"]] == [(LANES, 2, 3, 2, 12)]
+    assert verdict is True
+    assert ref_pairing.batch_verify_device(pk, h, sig, scalars) is True
 
 
 def test_verdict_of_an_incomplete_product_is_false(batch, port):
@@ -372,7 +419,7 @@ def test_install_sets_and_uninstall_clears_the_pairing_gate():
 
 
 def test_mxu_stages_equal_the_u64_stages(port, port_mxu):
-    """Each of the four functions' outputs (the Miller kernel's twice: the
+    """Each of the four functions' outputs (the Miller kernel's once: the
     four lanes and the extra pair), tensor for tensor."""
     assert port_mxu["verdict"] is True
     for name, outs in port["tensors"].items():
