@@ -89,10 +89,12 @@ Phases, each of which exits non-zero when it fails:
                 signed sets; the Miller values of every lane against the
                 native miller_loop_raw; the 528-set verdict against the native
                 batch verification, a tampered set rejected by both;
-                CUDA-event times at 528 lanes, and at one lane (a lane's
-                latency) for the Miller loop and the G2 sum; ptxas' lines
-                of their crew kernels (pairing_lanes.h). Their mxu builds
-                bit-exact
+                CUDA-event times
+                at the window's shapes (528 lanes, 529 for the Miller loop
+                and the product), at one lane (a lane's latency; the
+                product at two values) and for G1 at blinder 1 (its
+                inversion alone); ptxas' lines of their crew kernels
+                (pairing_lanes.h). Their mxu builds bit-exact
                 against the u64 kernels at every n, against the plain
                 versions under mxu at n <= 3, all 528 Miller lanes against
                 the native ones; CUDA-event times at 528 lanes.
@@ -109,7 +111,8 @@ Phases, each of which exits non-zero when it fails:
                 kernel launched on the device route, their mxu builds and
                 none of the u64 ones on the mxu route (a B7 count is one per
                 grid launch, the folds' further launches included; the
-                Miller loop once, the extra pair its lane 528).
+                Miller loop once, the extra pair its lane 528); then B6
+                alone at the window's 528 sets.
  16. mesh     — the ECT_MESH route (parallel/, the reference's production
                 mesh switch) at ECT_MESH=1: the altair phase's block applied
                 cold through Executor.apply_block after ops.install(device=
@@ -509,8 +512,18 @@ def phase_registry(validators: int) -> dict:
           f"{sum(map(len, committees)) + 1} real keys {keys_s:.1f} s, "
           f"serialize {serialize_s:.1f} s; proposer {proposer}")
     return {"data": data, "ctx": ctx, "committees": committees, "proposer": proposer,
+            "state": state,
             "attester_seed": attester_seed, "state_bytes": len(data), "build_s": build_s,
             "committees_s": plan_s, "keys_s": keys_s, "serialize_s": serialize_s}
+
+
+def _setup_state(registry: dict):
+    """A copy of the registry's state for untimed set-up work (the block's
+    scratch run, the epoch, altair and window set-ups): a copy costs less
+    than a read. A timed path reads its state from SSZ instead: a copy
+    carries the registry's wiring, so its first root would skip the walk
+    that a state just read pays."""
+    return registry["state"].copy()
 
 
 def phase_shuffle(seed: bytes) -> dict:
@@ -876,7 +889,7 @@ def phase_slice(data: bytes, ctx, slots: int) -> dict:
             "one_validator_edit_s": edit_s}
 
 
-def make_block(data: bytes, ctx, committees: list, proposer: int):
+def make_block(scratch, ctx, committees: list, proposer: int):
     """A signed block at BLOCK_SLOT carrying one aggregate attestation per
     slot-0 committee (full participation). A committee's aggregate
     signature is one signature under the secret key sum(i + 1) mod r: the
@@ -884,7 +897,6 @@ def make_block(data: bytes, ctx, committees: list, proposer: int):
     signatures. The state root comes from a host run on a scratch copy,
     which also verifies every signature inline. Returns the block and a copy
     whose attestation TAMPERED_ATTESTATION carries the next one's signature."""
-    from ethereum_consensus_tpu_torch import convert
     from ethereum_consensus_tpu_torch.crypto import bls
     from ethereum_consensus_tpu_torch.crypto.fields import R
     from ethereum_consensus_tpu_torch.domains import DomainType
@@ -896,7 +908,6 @@ def make_block(data: bytes, ctx, committees: list, proposer: int):
     from ethereum_consensus_tpu_torch.ssz import uint64
 
     ns = build(ctx.preset)
-    scratch = convert.state_from_ssz(data, ctx.preset)
     slot_processing.process_slots(scratch, BLOCK_SLOT, ctx)
     if h.get_beacon_proposer_index(scratch, ctx) != proposer:
         sys.exit("chip_smoke: the planned proposer is not the state's proposer")
@@ -1036,7 +1047,8 @@ def phase_block(registry: dict) -> dict:
 
     data, ctx = registry["data"], registry["ctx"]
     t0 = time.perf_counter()
-    good, tampered = make_block(data, ctx, registry["committees"], registry["proposer"])
+    good, tampered = make_block(_setup_state(registry), ctx, registry["committees"],
+                                registry["proposer"])
     make_s = time.perf_counter() - t0
     n_keys = sum(len(a.aggregation_bits) for a in good.message.body.attestations) + 2
     t0 = time.perf_counter()
@@ -1324,11 +1336,11 @@ def phase_epoch(registry: dict) -> dict:
     from ethereum_consensus_tpu_torch.ops import g1, sha256, shuffle, sweeps
     from ethereum_consensus_tpu_torch.telemetry import metrics
 
-    data, ctx = registry["data"], registry["ctx"]
+    ctx = registry["ctx"]
     gc.collect()
     ops.uninstall()
     t0 = time.perf_counter()
-    state = convert.state_from_ssz(data, ctx.preset)
+    state = _setup_state(registry)
     slot_processing.process_slots(state, EPOCH_SCRAMBLE_SLOT, ctx)
     to_64_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1899,7 +1911,7 @@ def build_altair_pre_state(registry: dict) -> dict:
     (the 63 -> 64 boundary on the host route), the scramble, then the keys
     of slot 95's committees and of the slot-96 proposer made real, and the
     block. Returns the pre-state's bytes and the block."""
-    from ethereum_consensus_tpu_torch import convert, ops
+    from ethereum_consensus_tpu_torch import ops
     from ethereum_consensus_tpu_torch.config import Context
     from ethereum_consensus_tpu_torch.models.altair import helpers as ah
     from ethereum_consensus_tpu_torch.models.altair import slot_processing as aslots
@@ -1912,7 +1924,7 @@ def build_altair_pre_state(registry: dict) -> dict:
     ctx.altair_fork_epoch = ALTAIR_FORK_EPOCH
     fork_slot = ALTAIR_FORK_EPOCH * int(ctx.SLOTS_PER_EPOCH)
     t0 = time.perf_counter()
-    phase0_state = convert.state_from_ssz(registry["data"], ctx.preset)
+    phase0_state = _setup_state(registry)
     pslots.process_slots(phase0_state, fork_slot, ctx)
     to_fork_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2169,6 +2181,11 @@ PAIRING_TAMPERED_SET = 5
 # The Miller steps keep the native library's line scaling, which fixes each
 # Miller value: the doubling step makes 6 Fp2 products, 6 squares and 2
 # scalar products, the addition step 10, 4 and 2, each then a line product.
+# G1's affine conversion: the inverse of z by the binary extended Euclid
+# (its mean over random z, 534 halvings and 267 subtractions, each three
+# passes over 12 words; then one product into Montgomery form), then z^-2
+# (a squaring) and z^-3, x z^-2, y z^-3 (3 products).
+INVERSE_OPS = (534 + 267) * 3 * 12 + FP_MUL_MADS
 FP2_MUL_MADS = 3 * FP_MUL_MADS
 FP2_SQR_MADS = FP2_SCALAR_MADS = 2 * FP_MUL_MADS
 G1_DBL_MADS = 2 * FP_MUL_MADS + 5 * FP_SQR_MADS
@@ -2192,15 +2209,10 @@ def _scalar_mul_mads(scalars: list, dbl: int, add: int) -> int:
                for s in scalars if s)
 
 
-def _affine_mads() -> int:
-    """The affine conversion of one lane: a^(p - 2) from its top bit (a
-    squaring per lower bit, a product per lower set bit), then z^-2 (a
+def _affine_ops() -> int:
+    """The affine conversion of one lane: the inverse of z, then z^-2 (a
     squaring) and z^-3, x z^-2, y z^-3 (3 products)."""
-    from ethereum_consensus_tpu_torch.ops.fq import P_INT
-
-    e = P_INT - 2
-    return ((e.bit_length() - 1) * FP_SQR_MADS + (bin(e).count("1") - 1) * FP_MUL_MADS
-            + FP_SQR_MADS + 3 * FP_MUL_MADS)
+    return INVERSE_OPS + FP_SQR_MADS + 3 * FP_MUL_MADS
 
 
 def _miller_mads() -> int:
@@ -2213,7 +2225,7 @@ def _miller_mads() -> int:
 
 def g1_mul_affine_bound_ms(scalars: list) -> tuple[float, str]:
     mads = (_scalar_mul_mads(scalars, G1_DBL_MADS, G1_MIXED_ADD_MADS)
-            + len(scalars) * _affine_mads())
+            + len(scalars) * _affine_ops())
     return _bound(mads, len(scalars) * (96 + 16 + 96))
 
 
@@ -2268,7 +2280,8 @@ def _max_err(a: torch.Tensor, b: torch.Tensor) -> int:
 
 
 # the u64 build's crew kernels (csrc/pairing_lanes.h)
-PAIRING_CREW_KERNELS = ("miller_loop_kernel", "g2_mul_lanes_kernel", "g2_fold_kernel")
+PAIRING_CREW_KERNELS = ("g1_mul_affine_kernel", "miller_loop_kernel", "g2_mul_lanes_kernel",
+                        "g2_fold_kernel", "fp12_fold_kernel")
 
 
 def _ptxas_summary(library: str, kernel: str) -> dict:
@@ -2303,8 +2316,8 @@ def phase_pairing() -> dict:
     extra pair (-G, S) as lane 528, against the native Miller values, and
     its product against the plain one. CUDA-event times at the window's
     shapes (529 lanes for the Miller loop and the product, 528 for the
-    blinders), and at one lane for the Miller loop and the G2 sum (one
-    lane's latency)."""
+    blinders), and at one lane (two values for the product: one product)
+    for each kernel (one lane's latency)."""
     from ethereum_consensus_tpu_torch.crypto.hash_to_curve import ETH_DST
     from ethereum_consensus_tpu_torch.native import bls as native_bls
     from ethereum_consensus_tpu_torch.ops import fq, pairing
@@ -2421,12 +2434,19 @@ def phase_pairing() -> dict:
         "fp12_product": (_cuda_ms(lambda: pairing.fp12_product_cuda(f_wide), reps=10),
                          prod_plain_ms, fp12_product_bound_ms(n_max + 1)),
     }
-    # one lane: the latency of a lane's schedule
+    # one lane: the latency of a lane's schedule (the product: one product)
     one_lane_ms = {
+        "g1_mul_affine": _cuda_ms(lambda: pairing.g1_mul_affine_cuda(pk[:1], words[:1]), reps=5),
         "g2_mul_sum": _cuda_ms(lambda: pairing.g2_mul_sum_cuda(sig[:1], words[:1]), reps=5),
         "miller_loop": _cuda_ms(lambda: pairing.miller_loop_cuda(xp[:1], yp[:1], xq[:1], yq[:1]),
                                 reps=5),
+        "fp12_product": _cuda_ms(lambda: pairing.fp12_product_cuda(f_wide[:2]), reps=10),
     }
+    # blinder 1 leaves no doubling: the lane's inversion and affine steps
+    one_word = pairing.scalar_words([1], "cuda")
+    inverse_ms = _cuda_ms(lambda: pairing.g1_mul_affine_cuda(pk[:1], one_word), reps=5)
+    print(f"pairing g1_mul_affine at 1 lane, blinder 1 (the inversion and the affine steps "
+          f"alone): {inverse_ms:.4f} ms")
     # the G2 sum's fold launches alone, over the 528 lanes' points
     lanes_jac = plain_sig_lanes.contiguous()
     fold_ms = _cuda_ms(lambda: pairing.g2_sum_points_cuda(lanes_jac), reps=5)
@@ -2435,11 +2455,12 @@ def phase_pairing() -> dict:
     for kernel, summary in crews.items():
         print(f"pairing ptxas {kernel}: {summary}")
     report = {"make_s": make_s, "verdicts": verdicts, "one_lane_ms": one_lane_ms,
-              "fold_ms": fold_ms, "ptxas": crews}
+              "g1_blinder_1_ms": inverse_ms, "fold_ms": fold_ms, "ptxas": crews}
     for name, (ms, plain_ms, (bound, bound_by)) in timings.items():
         at = n_max + 1 if name in ("miller_loop", "fp12_product") else n_max
         plain_at = lanes if name == "miller_loop" else at
-        one = f"; {one_lane_ms[name]:.4f} ms at 1 lane" if name in one_lane_ms else ""
+        one = (f"; {one_lane_ms[name]:.4f} ms at {2 if name == 'fp12_product' else 1} "
+               f"{'values' if name == 'fp12_product' else 'lane'}")
         print(f"pairing {name}: {ms:.4f} ms at {at} lanes{one} (bound {bound:.4f} ms by "
               f"{bound_by}); plain {plain_ms:.3f} ms at {plain_at} lanes")
         report[name] = {"ms": ms, "lanes": at, "plain_ms": plain_ms, "plain_lanes": plain_at,
@@ -2533,7 +2554,7 @@ def build_window(registry: dict) -> dict:
     twice) and is built as make_block builds one. The keys of those slots'
     attesters and of the blocks' proposers are made real first. Returns the
     pre-state's bytes and the blocks."""
-    from ethereum_consensus_tpu_torch import convert, ops
+    from ethereum_consensus_tpu_torch import ops
     from ethereum_consensus_tpu_torch.crypto import bls
     from ethereum_consensus_tpu_torch.crypto.fields import R
     from ethereum_consensus_tpu_torch.domains import DomainType
@@ -2547,10 +2568,10 @@ def build_window(registry: dict) -> dict:
 
     ops.uninstall()
     gc.collect()
-    data, ctx = registry["data"], registry["ctx"]
+    ctx = registry["ctx"]
     ns = build(ctx.preset)
     t0 = time.perf_counter()
-    state = convert.state_from_ssz(data, ctx.preset)
+    state = _setup_state(registry)
     read_s = time.perf_counter() - t0
     # committees and proposers of epoch 0 depend on its seeds and balances
     # only, which the window's blocks leave as they are
@@ -2612,7 +2633,7 @@ def build_window(registry: dict) -> dict:
     del state
     gc.collect()
     print(f"window: {WINDOW_BLOCKS} blocks at slots {slots.start}..{slots.stop - 1}; state "
-          f"read {read_s:.1f} s; committees, proposers and {keys} real keys {keys_s:.1f} s; "
+          f"copied {read_s:.1f} s; committees, proposers and {keys} real keys {keys_s:.1f} s; "
           f"serialize {serialize_s:.1f} s; blocks {blocks_s:.1f} s")
     return {"pre": pre, "ctx": ctx, "blocks": blocks, "keys": keys, "per_slot": per_slot,
             "setup_s": {"read": read_s, "keys": keys_s, "serialize": serialize_s,
@@ -2671,6 +2692,23 @@ def _verify_route(sets: list, installed: bool, multiplier: str = "u64") -> dict:
     idle = 1.0 - sum(kernel_ms.values()) / (1e3 * seconds)
     return {"verdicts": verdicts, "s": seconds, "route": route, "launches": launches,
             "parts_s": parts, "kernel_ms_inside": kernel_ms, "idle_share": idle}
+
+
+def _window_g1_sum(sets: list) -> dict:
+    """B6 (the u64 build) alone at the window's shape: the device route's
+    set sums, one launch over the window's sets; CUDA-event ms beside the
+    bound of these keys."""
+    from ethereum_consensus_tpu_torch.ops import g1
+
+    raw_sets = [[pk.raw_uncompressed() for pk in s.public_keys] for s in sets]
+    points, offsets = g1.sets_to_csr(raw_sets)
+    points_d, offsets_d = points.cuda(), offsets.cuda()
+    ms = _cuda_ms(lambda: g1._launch(points_d, offsets_d, len(sets)), reps=5)
+    keys = sum(len(s) for s in raw_sets)
+    bound, bound_by = g1_bound_ms([sum(1 for r in s if any(r)) for s in raw_sets], keys)
+    print(f"window g1_sum_sets (u64) alone: {ms:.4f} ms at {len(sets)} sets, {keys} keys "
+          f"(bound {bound:.4f} ms by {bound_by})")
+    return {"ms": ms, "sets": len(sets), "keys": keys, "bound_ms": bound, "bound_by": bound_by}
 
 
 def phase_window(registry: dict) -> dict:
@@ -2744,7 +2782,8 @@ def phase_window(registry: dict) -> dict:
         sys.exit("chip_smoke: the tampered window's blame differs between the routes")
     # grid launches: one Miller launch over the window's lanes and the extra
     # pair (lane 528); the G2 lanes, then two folds that take them to 9 block
-    # partials, then to one; the Fq12 product's two folds (the same on mxu)
+    # partials, then to one; the Fq12 product's two folds (u64: 17 blocks of
+    # 32 values, then one; mxu: 9 blocks of 64, then one)
     want = {"g1_sum_sets": 1, "g1_mul_affine": 1, "g2_mul_sum": 3, "miller_loop": 1,
             "fp12_product": 2}
     want_mxu = {f"{k}_mxu": v for k, v in want.items()}
@@ -2754,10 +2793,11 @@ def phase_window(registry: dict) -> dict:
                    or mxu["launches"][k] for k, m in zip(want, want_mxu))):
         sys.exit(f"chip_smoke: the window's launches are off: device {device['launches']}, "
                  f"mxu {mxu['launches']}, host {host['launches']}")
+    b6 = _window_g1_sum(sets)
     return {"blocks": WINDOW_BLOCKS, "sets": len(sets), "keys": n_keys,
             "real_keys": setup["keys"], "setup_s": setup["setup_s"], "read_s": read_s,
             "apply_s": apply_s, "warm_s": warm_s, "root": root, "tampered_set": t,
-            "routes": routes,
+            "routes": routes, "g1_sum_sets": b6,
             # for the mesh phase, which verifies them on ECT_MESH=1
             "signature_sets": sets, "tampered_sets": tampered, "blame": blame["host"]}
 
@@ -3518,27 +3558,35 @@ def _rounded(d: dict, places: int = 3) -> dict:
     return {k: round(v, places) for k, v in d.items()}
 
 
+def _walled(name: str, phase, *args):
+    """phase(*args), its wall printed: where the run's 1,200 s go."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s wall")
+    return out
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)
     started = time.perf_counter()
     report = {"device": phase_device()}
-    report["build"] = phase_build()
-    report["sha256"] = phase_sha256()
-    report["mxu"] = phase_mxu()
-    registry = phase_registry(VALIDATORS)
-    report["shuffle"] = phase_shuffle(registry["attester_seed"])
-    report["g1"] = phase_g1(registry["committees"], registry["proposer"])
-    report["pairing"] = phase_pairing()
-    report["htr"] = phase_htr(HTR_LOG2_LEAVES)
-    report["slice"] = phase_slice(registry["data"], registry["ctx"], SLOTS)
-    report["block"] = phase_block(registry)
-    report["sweeps"] = phase_sweeps()
-    report["epoch"] = phase_epoch(registry)
-    report["altair_sweeps"] = phase_altair_sweeps()
-    report["altair"] = phase_altair(registry)
-    report["window"] = phase_window(registry)
-    report["mesh"] = phase_mesh(report["altair"], report["window"])
-    report["step"] = phase_step()
+    report["build"] = _walled("build", phase_build)
+    report["sha256"] = _walled("sha256", phase_sha256)
+    report["mxu"] = _walled("mxu", phase_mxu)
+    registry = _walled("registry", phase_registry, VALIDATORS)
+    report["shuffle"] = _walled("shuffle", phase_shuffle, registry["attester_seed"])
+    report["g1"] = _walled("g1", phase_g1, registry["committees"], registry["proposer"])
+    report["pairing"] = _walled("pairing", phase_pairing)
+    report["htr"] = _walled("htr", phase_htr, HTR_LOG2_LEAVES)
+    report["slice"] = _walled("slice", phase_slice, registry["data"], registry["ctx"], SLOTS)
+    report["block"] = _walled("block", phase_block, registry)
+    report["sweeps"] = _walled("sweeps", phase_sweeps)
+    report["epoch"] = _walled("epoch", phase_epoch, registry)
+    report["altair_sweeps"] = _walled("altair_sweeps", phase_altair_sweeps)
+    report["altair"] = _walled("altair", phase_altair, registry)
+    report["window"] = _walled("window", phase_window, registry)
+    report["mesh"] = _walled("mesh", phase_mesh, report["altair"], report["window"])
+    report["step"] = _walled("step", phase_step)
 
     # each kernel's launches on the path it was ported for, and every
     # path's count beside them

@@ -177,7 +177,8 @@ _LIBRARIES = {
     ),
     "g1_sum": (("g1_sum.cu", "fp381_core.h"), _G1_SUM_FUNCTIONS),
     "g1_sum_mxu": (("g1_sum.cu", "fp381_core.h", "fp_mma.h"), _G1_SUM_FUNCTIONS, _MXU),
-    "pairing": (("pairing.cu", "fp_tower.h", "fp381_core.h"), _PAIRING_FUNCTIONS),
+    "pairing": (("pairing.cu", "pairing_lanes.h", "fp_tower.h", "fp381_core.h"),
+                _PAIRING_FUNCTIONS),
     "pairing_mxu": (("pairing.cu", "fp_tower.h", "fp381_core.h", "fp_mma.h"),
                     _PAIRING_FUNCTIONS, _MXU),
     "mont_mxu": (

@@ -1,16 +1,13 @@
 // The device half of BLS12-381 RLC batch verification,
 //     prod_i e([r_i] pk_i, H_i) * e(-G, sum_i [r_i] sig_i) == 1,
 // for Hopper (sm_90a): four kernels over the field and tower of
-// fp381_core.h and fp_tower.h, two of them (the Miller loop and the G2
-// blinder sum) on the crews of pairing_lanes.h in this u64 build.
+// fp381_core.h and fp_tower.h, in this u64 build all four on the crews of
+// pairing_lanes.h.
 //
 //   g1_mul_affine  replaces the reference's (ethereum_consensus_tpu
 //                  ops/pairing.py) :316 _mul_scan_g1 (via :349
 //                  g1_mul_batched) and :530 _g1_jacobian_to_affine:
-//                  [r_i] pk_i for 128-bit blinders, MSB first, on the
-//                  Jacobian formulas of fp381_core.h (those of g1_sum.cu),
-//                  then affine through one Fermat inversion per lane. One
-//                  thread per lane.
+//                  [r_i] pk_i for 128-bit blinders, MSB first, then affine.
 //   g2_mul_sum     replaces :332 _mul_scan_g2 (via :354 g2_mul_batched)
 //                  and :292 g2_sum_points -> :275 _g2_tree_reduce:
 //                  sum_i [r_i] sig_i as one Jacobian point. A lanes pass
@@ -27,9 +24,9 @@
 //                  fp12_sqr, :150 fp12_mul_by_line, :145 fp12_conj:
 //                  f_{|x|,Q_i}(P_i), conjugated, per lane.
 //   fp12_product   replaces :474 fp12_product -> :454 _fp12_tree: the
-//                  product of N Fq12 values, a per-block tree, then
-//                  launches over the partials (exact: the order of a field
-//                  product does not change its value). One thread per value.
+//                  product of N Fq12 values, a tree inside each block, then
+//                  launches over the block partials (exact: the order of a
+//                  field product does not change its value).
 //
 // Values cross the boundary canonical (not Montgomery), 12 x 32-bit limbs,
 // least significant first: G1 affine (x, y); G2 affine (x.c0, x.c1, y.c0,
@@ -41,28 +38,48 @@
 // 528 lanes, latency. One Fp product is 288 32x32->64-bit multiply-adds;
 // a lane's Miller loop makes 9,426 Fp products, its G2 blinder
 // multiplication about 4,800 for a random 128-bit blinder, its G1 one about
-// 1,900 and the affine conversion 612 (1.2 to 1.5 times the least work of
-// each function, which chip_smoke.py's bounds count).
+// 1,900 (1.2 to 1.5 times the least work of each function, which
+// chip_smoke.py's bounds count).
 //
 // The first design ran every kernel one thread per lane: at 528 lanes 17
 // warps on 17 of the 132 SMs (g1_mul_affine, miller_loop) or 9 blocks of 64
-// threads on 9 SMs (g2_mul_sum, lanes and fold in one kernel), each lane's
+// threads on 9 SMs (g2_mul_sum, lanes and fold in one kernel; fp12_product,
+// whose fold kept half its threads idle at every level), each lane's
 // thousands of products one dependent chain, and the tower's values passed
 // through out-of-line calls (fp_tower.h's __noinline__ policy) in stack
 // frames in local memory (ptxas: 4,000 bytes for the Miller kernel). The
-// extra pair's Miller launch at n = 1 took as long as the 528-lane one.
+// G1 lane ended in a Fermat inversion: 380 dependent squarings, about a
+// quarter of its chain.
 //
-// The Miller loop and the G2 sum now run on crews (pairing_lanes.h): a
-// lane's values in shared memory, its work split into steps of independent
-// Fp2 products and linear sums, each product's three Fp products on three
-// threads, the crew synced between steps. miller_loop runs a warp per lane
-// (4 lanes a block: at 528 lanes 132 blocks, a warp on every scheduler of
-// every SM); a doubling iteration is 4 product steps, the widest 22
-// products. g2_mul_sum's lanes pass runs a warp per lane the same way, its
-// folds 32 crews of 4 threads a block. What still bounds them: the latency
-// of one lane's steps (each a chain of Fp products, then the combine and
-// the linear sums), __syncwarp between them, and the idle threads of narrow
-// steps; the work of 528 lanes keeps only four warps on each SM.
+// Every u64 kernel now runs on crews (pairing_lanes.h): a lane's values in
+// shared memory, its work split into steps of independent products and
+// linear sums, the products on the crew's threads, the crew synced between
+// steps.
+//   - miller_loop, g2_mul_sum's lanes pass and g1_mul_affine run a warp a
+//     lane, 4 lanes a block: at 528 lanes 132 blocks, a warp on every
+//     scheduler of every SM. A Miller doubling iteration is 4 product steps
+//     (the widest 22 Fp2 products, each three Fp products on three threads);
+//     g2_mul_sum's folds run 32 crews of 4 threads a block.
+//   - g1_mul_affine works on Fp slots, one Fp product a thread: a doubling
+//     is 3 product steps, the mixed addition (the base is affine) 4, each
+//     product's operands short linear sums that the thread forms first. The
+//     inverse of z is a binary extended Euclid on one thread (534 halvings
+//     and 267 subtractions of 12 limbs on average, at most 762 halvings,
+//     against the Fermat chain's 380 dependent squarings and 190 products,
+//     each of 288 multiply-adds): variable time, which the batch allows,
+//     since its inputs are public keys and blinders drawn after the sets
+//     are fixed.
+//   - fp12_product runs a warp a product of two values, 16 crews and 32
+//     values a block: the Fq12 product is 18 Fp2 products (Karatsuba over
+//     the w-halves of Karatsuba Fq6 products, 54 Fp products on the warp's
+//     32 threads) between steps of linear sums, and each level of the
+//     block's tree runs its pairs on as many warps. At the window's 529
+//     values: 17 blocks, then one block over their partials, 10 levels.
+// What still bounds them: the latency of one lane's steps (each a chain of
+// Fp products on a thread, then the combine and the linear sums),
+// __syncwarp between them, and the idle threads of narrow steps (G1's
+// widest is 6 products of the warp's 32 threads); the work of 528 lanes
+// keeps only four warps on each SM.
 
 // Built with -DFP381_MUL_MXU (the "mxu" library, ops/fq8.py's switch), every
 // Fp product is the warp-cooperative int8 tensor-core product of fp_mma.h
@@ -74,8 +91,9 @@
 // warp whose lane is past n exits whole. G2's products and the sum are two
 // passes: one warp per lane writes [r_i] sig_i, then the fold kernel folds
 // the n points; the folds hold their 64 values a block, with 8 warps taking
-// the pairs of each level in the same order, so the G2 sum and the Fq12
-// product agree limb for limb with the u64 kernels'. What bounds this
+// the pairs of each level in the same order, so the G2 sum agrees limb for
+// limb with the u64 kernels' (the Fq12 product's value is unique, so the
+// u64 fold's 32 values a block give the same limbs). What bounds this
 // mapping: each product's byte reduction, which all 32 threads repeat
 // (fp_mma.h); at 528 lanes it fills 528 warps, four per SM.
 
@@ -98,7 +116,7 @@ using tower::Fp12;
 using tower::Fp2;
 using tower::G2Jac;
 
-constexpr int kTreeThreads = 64;  // the folds' values a block
+constexpr int kTreeThreads = 64;  // the G2 fold's points a block (the mxu build's Fq12 values)
 #ifdef FP381_MUL_MXU
 constexpr int kLaneWarps = 4;                      // lanes (one a warp) a block
 constexpr int kLanesPerBlock = kLaneWarps;
@@ -111,11 +129,12 @@ constexpr int kG2LanesPerBlock = kLanesPerBlock;
 constexpr int kG2LaneBlockThreads = kLaneBlockThreads;
 constexpr int kG2FoldThreads = kTreeBlockThreads;
 constexpr size_t kG2FoldSmem = 0;
+constexpr int kFp12FoldValues = kTreeThreads;
+constexpr int kFp12FoldThreads = kTreeBlockThreads;
+constexpr size_t kFp12FoldSmem = 0;
 #else
-constexpr int kLaneThreads = 32;  // g1_mul_affine: one thread a lane
-constexpr int kLanesPerBlock = kLaneThreads;
-constexpr int kLaneBlockThreads = kLaneThreads;
-constexpr int kTreeBlockThreads = kTreeThreads;
+constexpr int kG1Lanes = 4;  // g1_mul_affine: a warp a lane
+constexpr int kG1BlockThreads = 32 * kG1Lanes;
 constexpr int kMillerLanes = 4;  // a warp a lane
 constexpr int kMillerBlockThreads = 32 * kMillerLanes;
 constexpr int kG2LanesPerBlock = 4;  // a warp a lane
@@ -125,6 +144,11 @@ constexpr int kG2FoldCrewThreads = lanes::kG2Width;  // a crew an addition
 constexpr int kG2FoldThreads = kG2FoldCrews * kG2FoldCrewThreads;
 constexpr size_t kG2FoldSmem =
     kG2FoldCrews * (lanes::kG2Slots * sizeof(Fp2) + 3 * lanes::kG2Width * sizeof(Fp));
+constexpr int kFp12FoldCrews = 16;  // a warp a product
+constexpr int kFp12FoldValues = 2 * kFp12FoldCrews;  // a fold block's values
+constexpr int kFp12FoldThreads = 32 * kFp12FoldCrews;
+constexpr size_t kFp12FoldSmem =
+    kFp12FoldCrews * (lanes::fq12::kSlots * sizeof(Fp2) + 3 * lanes::kFp12Products * sizeof(Fp));
 #endif
 constexpr int kFp2Words = 2 * kLimbs;
 constexpr int kG2JacWords = 3 * kFp2Words;
@@ -136,14 +160,10 @@ __device__ __forceinline__ int64_t lane_index() {
   return static_cast<int64_t>(blockIdx.x) * kLaneWarps + (threadIdx.x >> 5);
 }
 __device__ __forceinline__ bool storing_thread() { return (threadIdx.x & 31) == 0; }
-// the thread or warp that stores a fold block's result
+// the warp that stores a fold block's result
 __device__ __forceinline__ bool block_leader() { return threadIdx.x < 32; }
 #else
-__device__ __forceinline__ int64_t lane_index() {
-  return static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-}
 __device__ __forceinline__ bool storing_thread() { return true; }
-__device__ __forceinline__ bool block_leader() { return threadIdx.x == 0; }
 #endif
 
 __device__ __forceinline__ Fp load_mont(const uint32_t* p) {
@@ -169,6 +189,7 @@ __device__ __forceinline__ void store_fp2(uint32_t* p, const Fp2& a) {
   store_canonical(p + kLimbs, a.c1);
 }
 
+#ifdef FP381_MUL_MXU
 __device__ Fp12 load_fp12(const uint32_t* p) {
   Fp12 r;
   r.c0 = tower::Fp6{load_fp2(p), load_fp2(p + kFp2Words), load_fp2(p + 2 * kFp2Words)};
@@ -187,13 +208,13 @@ __device__ void store_fp12(uint32_t* p, const Fp12& a) {
   store_fp2(p + 2 * kFp2Words, a.c1.a2);
 }
 
-// points (n, 2, 12), scalars (n, 4) -> out (n, 2, 12) affine
+// points (n, 2, 12), scalars (n, 4) -> out (n, 2, 12) affine, a warp a lane
 __global__ void __launch_bounds__(kLaneBlockThreads)
     g1_mul_affine_kernel(const uint32_t* __restrict__ points,
                          const uint32_t* __restrict__ scalars, int64_t n,
                          uint32_t* __restrict__ out) {
   const int64_t i = lane_index();
-  if (i >= n) return;  // under mxu the whole warp
+  if (i >= n) return;  // the whole warp
   const uint32_t* p = points + i * 2 * kLimbs;
   const G1Jac pk{load_mont(p), load_mont(p + kLimbs), fp381::one_mont()};
   uint32_t k[tower::kScalarWords];
@@ -212,7 +233,6 @@ __global__ void __launch_bounds__(kLaneBlockThreads)
 // order. Leaves the block's result in s[0].
 template <typename T, typename Op>
 __device__ void fold(T* s, Op op) {
-#ifdef FP381_MUL_MXU
   // warp w takes the pairs w, w + 8, ... of each level; values are copied
   // out before the product and stored by lane 0 after the warp has read them
   const int warp = threadIdx.x >> 5;
@@ -229,32 +249,18 @@ __device__ void fold(T* s, Op op) {
     }
   }
   __syncthreads();
-#else
-  const int tid = threadIdx.x;
-#pragma unroll 1
-  for (int stride = 1; stride < kTreeThreads; stride <<= 1) {
-    __syncthreads();
-    if ((tid & (2 * stride - 1)) == 0) s[tid] = op(s[tid], s[tid + stride]);
-  }
-  __syncthreads();
-#endif
 }
 
 // The block's 64 values: load(i) for the items i < n of the block, the
-// identity past n (under mxu one warp a value, lane 0 storing it).
+// identity past n (one warp a value, lane 0 storing it).
 template <typename T, typename Load>
 __device__ void fill(T* s, int64_t n, Load load, const T& identity) {
-#ifdef FP381_MUL_MXU
 #pragma unroll 1
   for (int v = threadIdx.x >> 5; v < kTreeThreads; v += kTreeWarps) {
     const int64_t i = static_cast<int64_t>(blockIdx.x) * kTreeThreads + v;
     const T x = i < n ? load(i) : identity;
     if (storing_thread()) s[v] = x;
   }
-#else
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kTreeThreads + threadIdx.x;
-  s[threadIdx.x] = i < n ? load(i) : identity;
-#endif
 }
 
 struct Fp12Mul {
@@ -263,7 +269,6 @@ struct Fp12Mul {
   }
 };
 
-#ifdef FP381_MUL_MXU
 __device__ G2Jac load_g2_jac(const uint32_t* p) {
   return G2Jac{load_fp2(p), load_fp2(p + kFp2Words), load_fp2(p + 2 * kFp2Words)};
 }
@@ -316,12 +321,45 @@ __global__ void __launch_bounds__(kLaneBlockThreads)
                                     load_fp2(xq + i * kFp2Words), load_fp2(yq + i * kFp2Words));
   store_fp12(out + i * kFp12Words, f);
 }
+
+// Fq12 values (n, 12, 12) -> one partial product per 64 values
+__global__ void __launch_bounds__(kTreeBlockThreads)
+    fp12_fold_kernel(const uint32_t* __restrict__ values, int64_t n,
+                     uint32_t* __restrict__ partials) {
+  __shared__ Fp12 s[kTreeThreads];
+  fill(s, n, [&](int64_t i) { return load_fp12(values + i * kFp12Words); }, tower::fp12_one());
+  fold(s, Fp12Mul());
+  if (block_leader()) store_fp12(partials + blockIdx.x * kFp12Words, s[0]);
+}
 #else
-// Component k (0..5: x.c0, x.c1, y.c0, y.c1, z.c0, z.c1) of the point in
-// slots [first, first + 3).
+// Component k of the value in the Fp2 slots from first on: of a G2 point
+// 0..5 (x.c0, x.c1, y.c0, y.c1, z.c0, z.c1), of an Fq12 value 0..11.
 __device__ __forceinline__ Fp& component(Fp2* s, int first, int k) {
   Fp2& v = s[first + k / 2];
   return (k & 1) ? v.c1 : v.c0;
+}
+
+// points (n, 2, 12), scalars (n, 4) -> out (n, 2, 12) affine: a warp a
+// lane, kG1Lanes lanes a block. The bound's 1 (a block an SM, as the
+// window's 528 lanes run) lets ptxas keep the lane in registers: without
+// it, 80 registers and 16 bytes spilled.
+__global__ void __launch_bounds__(kG1BlockThreads, 1)
+    g1_mul_affine_kernel(const uint32_t* __restrict__ points,
+                         const uint32_t* __restrict__ scalars, int64_t n,
+                         uint32_t* __restrict__ out) {
+  __shared__ Fp slots[kG1Lanes][lanes::g1::kSlots];
+  const int lane = threadIdx.x >> 5;
+  const int t = threadIdx.x & 31;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kG1Lanes + lane;
+  if (i >= n) return;  // the whole warp
+  Fp* s = slots[lane];
+  if (t < 2) s[lanes::g1::PX + t] = load_mont(points + (i * 2 + t) * kLimbs);
+  const uint32_t* k = scalars + i * tower::kScalarWords;
+  const lanes::Scalar scalar{__ldg(k), __ldg(k + 1), __ldg(k + 2), __ldg(k + 3)};
+  const lanes::FpCrew c{s, t, 32, 0xffffffffu};
+  lanes::crew_sync(c);
+  lanes::g1::mul_affine_crew(c, scalar);
+  if (t < 2) store_canonical(out + (i * 2 + t) * kLimbs, s[lanes::g1::PX + t]);
 }
 
 // affine points (n, 2, 2, 12), scalars (n, 4) -> (n, 3, 2, 12) Jacobian
@@ -417,17 +455,46 @@ __global__ void __launch_bounds__(kMillerBlockThreads)
     store_canonical(out + i * kFp12Words + t * kLimbs, t < 6 ? v : tower::fp_neg(v));
   }
 }
-#endif
 
-// Fq12 values (n, 12, 12) -> one partial product per block
-__global__ void __launch_bounds__(kTreeBlockThreads)
+// Fq12 values (n, 12, 12) -> one partial product per kFp12FoldValues: crew
+// g multiplies values 2g and 2g + 1 of the block, then at stride s = 2, 4,
+// ..., 16 the crews g at multiples of s multiply their product by that of
+// crew g + s/2. Past n the values are one: a crew whose partner starts past
+// n keeps its product.
+__global__ void __launch_bounds__(kFp12FoldThreads, 1)
     fp12_fold_kernel(const uint32_t* __restrict__ values, int64_t n,
                      uint32_t* __restrict__ partials) {
-  __shared__ Fp12 s[kTreeThreads];
-  fill(s, n, [&](int64_t i) { return load_fp12(values + i * kFp12Words); }, tower::fp12_one());
-  fold(s, Fp12Mul());
-  if (block_leader()) store_fp12(partials + blockIdx.x * kFp12Words, s[0]);
+  using namespace lanes::fq12;
+  extern __shared__ Fp2 fold_slots[];  // the crews' slots, then their scratch
+  Fp* fold_scratch = &fold_slots[kFp12FoldCrews * kSlots].c0;
+  const int crew = threadIdx.x >> 5;
+  const int t = threadIdx.x & 31;
+  const lanes::Crew c{fold_slots + crew * kSlots, fold_scratch + crew * 3 * lanes::kFp12Products, t,
+                      32, 0xffffffffu};
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kFp12FoldValues + 2 * crew;
+  if (t < 24) {  // the pair's 24 Fp: a into FA, b into FB
+    const int64_t j = first + t / 12;
+    const int f = t % 12;
+    component(c.s, FA0, t) = j < n ? load_mont(values + j * kFp12Words + f * kLimbs)
+                             : f == 0 ? fp381::one_mont()
+                                      : fp381::zero();
+  }
+#pragma unroll 1
+  for (int stride = 1; stride <= kFp12FoldCrews; stride <<= 1) {
+    if (stride > 1) __syncthreads();
+    // the partner's first value: this crew's second, then crew g + s/2's
+    if (crew % stride != 0 || first + stride >= n) continue;
+    if (stride > 1) {
+      const Fp2* partner = fold_slots + (crew + stride / 2) * kSlots;
+      if (t < 6) c.s[FB0 + t] = partner[FA0 + t];
+    }
+    lanes::crew_sync(c);
+    lanes::fq12::mul_crew(c);
+  }
+  if (crew != 0) return;
+  if (t < 12) store_canonical(partials + blockIdx.x * kFp12Words + t * kLimbs, component(c.s, FA0, t));
 }
+#endif
 
 int64_t blocks_for(int64_t n, int threads) { return (n + threads - 1) / threads; }
 
@@ -437,22 +504,31 @@ using FoldKernel = void (*)(const uint32_t*, int64_t, uint32_t*);
 
 constexpr int kMaxDevices = 64;
 
-// Opts the G2 fold kernel in to its kG2FoldSmem bytes of dynamic shared
-// memory (above 48 KB it must), once for each device: 0, or -cudaError.
-int g2_fold_opt_in() {
-  if (kG2FoldSmem == 0) return 0;
-  static std::atomic<bool> ready[kMaxDevices];
+// Opts a fold kernel in to its `smem` bytes of dynamic shared memory (above
+// 48 KB it must), once for each device (`ready`, one flag a device): 0, or
+// -cudaError.
+int fold_opt_in(FoldKernel kernel, size_t smem, std::atomic<bool>* ready) {
+  if (smem == 0) return 0;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return -static_cast<int>(err);
   const bool cached = device >= 0 && device < kMaxDevices;
   if (cached && ready[device].load(std::memory_order_acquire)) return 0;
-  err = cudaFuncSetAttribute(reinterpret_cast<const void*>(g2_fold_kernel),
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kG2FoldSmem));
+  err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return -static_cast<int>(err);
   if (cached) ready[device].store(true, std::memory_order_release);
   return 0;
+}
+
+int g2_fold_opt_in() {
+  static std::atomic<bool> ready[kMaxDevices];
+  return fold_opt_in(g2_fold_kernel, kG2FoldSmem, ready);
+}
+
+int fp12_fold_opt_in() {
+  static std::atomic<bool> ready[kMaxDevices];
+  return fold_opt_in(fp12_fold_kernel, kFp12FoldSmem, ready);
 }
 
 // One launch of a fold kernel over `count` items: -cudaError if refused, else 0.
@@ -463,14 +539,15 @@ int launch_fold(FoldKernel kernel, int threads, size_t smem, int64_t blocks, con
   return err == cudaSuccess ? 0 : -static_cast<int>(err);
 }
 
-// Folds `count` items of `words` words at `src` with `kernel` until one is
-// left, which lands in `out`; the levels between use `work`. Returns the
-// number of grid launches, or -cudaError of a refused one.
-int fold_levels(FoldKernel kernel, int threads, size_t smem, const uint32_t* src, int64_t count,
-                int words, uint32_t* work, uint32_t* out, cudaStream_t stream) {
+// Folds `count` items of `words` words at `src` with `kernel`, `per_block`
+// items a block, until one is left, which lands in `out`; the levels between
+// use `work`. Returns the number of grid launches, or -cudaError of a
+// refused one.
+int fold_levels(FoldKernel kernel, int threads, size_t smem, int per_block, const uint32_t* src,
+                int64_t count, int words, uint32_t* work, uint32_t* out, cudaStream_t stream) {
   int launches = 0;
   while (count > 1) {
-    const int64_t blocks = blocks_for(count, kTreeThreads);
+    const int64_t blocks = blocks_for(count, per_block);
     uint32_t* dst = blocks == 1 ? out : work;
     const int rc = launch_fold(kernel, threads, smem, blocks, src, count, dst, stream);
     if (rc < 0) return rc;
@@ -500,10 +577,17 @@ constexpr int kBadCount = -static_cast<int>(cudaErrorInvalidValue);
 extern "C" int g1_mul_affine_launch(const void* points, const void* scalars, int64_t n,
                                     void* out, void* stream) {
   if (bad_count(n)) return kBadCount;
+#ifdef FP381_MUL_MXU
   g1_mul_affine_kernel<<<static_cast<unsigned>(blocks_for(n, kLanesPerBlock)), kLaneBlockThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(points), static_cast<const uint32_t*>(scalars), n,
       static_cast<uint32_t*>(out));
+#else
+  g1_mul_affine_kernel<<<static_cast<unsigned>(blocks_for(n, kG1Lanes)), kG1BlockThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(points), static_cast<const uint32_t*>(scalars), n,
+      static_cast<uint32_t*>(out));
+#endif
   return launched_once();
 }
 
@@ -523,8 +607,8 @@ extern "C" int g2_mul_sum_launch(const void* points, const void* scalars, int64_
   if (lanes_rc < 0 || n == 1) return lanes_rc;
   const int opt_in = g2_fold_opt_in();
   if (opt_in < 0) return opt_in;
-  const int lane_folds = fold_levels(g2_fold_kernel, kG2FoldThreads, kG2FoldSmem, lane_points, n,
-                                     kG2JacWords, lane_points + n * kG2JacWords,
+  const int lane_folds = fold_levels(g2_fold_kernel, kG2FoldThreads, kG2FoldSmem, kTreeThreads,
+                                     lane_points, n, kG2JacWords, lane_points + n * kG2JacWords,
                                      static_cast<uint32_t*>(out), s);
   return lane_folds < 0 ? lane_folds : lanes_rc + lane_folds;
 }
@@ -544,7 +628,7 @@ extern "C" int g2_sum_launch(const void* points, int64_t n, void* work, void* ou
                                static_cast<uint32_t*>(out), s);
     return rc < 0 ? rc : 1;
   }
-  return fold_levels(g2_fold_kernel, kG2FoldThreads, kG2FoldSmem,
+  return fold_levels(g2_fold_kernel, kG2FoldThreads, kG2FoldSmem, kTreeThreads,
                      static_cast<const uint32_t*>(points), n, kG2JacWords,
                      static_cast<uint32_t*>(work), static_cast<uint32_t*>(out), s);
 }
@@ -567,13 +651,15 @@ extern "C" int fp12_product_launch(const void* values, int64_t n, void* work, vo
                                    void* stream) {
   if (bad_count(n)) return kBadCount;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int opt_in = fp12_fold_opt_in();
+  if (opt_in < 0) return opt_in;
   if (n == 1) {  // one value: the fold of one block (a Montgomery round trip)
-    const int rc = launch_fold(fp12_fold_kernel, kTreeBlockThreads, 0, 1,
+    const int rc = launch_fold(fp12_fold_kernel, kFp12FoldThreads, kFp12FoldSmem, 1,
                                static_cast<const uint32_t*>(values), 1,
                                static_cast<uint32_t*>(out), s);
     return rc < 0 ? rc : 1;
   }
-  return fold_levels(fp12_fold_kernel, kTreeBlockThreads, 0,
+  return fold_levels(fp12_fold_kernel, kFp12FoldThreads, kFp12FoldSmem, kFp12FoldValues,
                      static_cast<const uint32_t*>(values), n, kFp12Words,
                      static_cast<uint32_t*>(work), static_cast<uint32_t*>(out), s);
 }

@@ -1,22 +1,33 @@
-// The u64 build's Miller loop and G2 blinder multiplication and sum
-// (pairing.cu) as crews of threads that share one lane: a lane's values live
-// in shared memory as Fp2 "slots", and the lane's work is a fixed schedule
-// of steps. A step is a row of independent ops: Fp2 products and small
-// linear combinations of slots. Each product is three Fp products (units),
-// each linear op two (a component each); the crew's threads take the step's
-// units in turn, sync, combine each product's three parts into its Fp2
-// value (a component a unit), and sync again. No op of a step reads a slot that another op of the step writes
+// The u64 build's four pairing kernels (pairing.cu) as crews of threads that
+// share one lane: a lane's values live in shared memory as "slots", and the
+// lane's work is a fixed schedule of steps. A step is a row of independent
+// ops: Fp2 products and small linear combinations of slots. Each product is
+// three Fp products (units), each linear op two (a component each); the
+// crew's threads take the step's units in turn, sync, combine each
+// product's three parts into its Fp2 value (a component a unit), and sync
+// again. No op of a step reads a slot that another op of the step writes
 // (check_steps).
 //
-//   miller_crew  a warp per lane: f (6 slots), T (3) and the lane's
-//                products. A doubling iteration is 8 steps, 4 with products:
-//                the 18 products of f^2 beside T's first 4 (66 units), T's
-//                next 6, T's last 3 beside the 6 line products with c11, the
-//                other 12 line products; with the addition 15 steps.
-//   g2_crew      [k] Q (double-and-add, MSB first) or p + q, on the
-//                reference's formulas and selects: steps of at most 4
-//                products, a warp a lane in the lanes pass, 4 threads an
-//                addition in the fold.
+//   miller_crew          a warp per lane: f (6 slots), T (3) and the lane's
+//                        products. A doubling iteration is 8 steps, 4 with
+//                        products: the 18 products of f^2 beside T's first
+//                        4 (66 units), T's next 6, T's last 3 beside the 6
+//                        line products with c11, the other 12 line products;
+//                        with the addition 15 steps.
+//   g2_crew              [k] Q (double-and-add, MSB first) or p + q, on the
+//                        reference's formulas and selects: steps of at most
+//                        4 products, a warp a lane in the lanes pass, 4
+//                        threads an addition in the fold.
+//   fq12::mul_crew       a * b in Fq12 for the product's fold, a warp a
+//                        product: Karatsuba over the w-halves of Karatsuba
+//                        Fq6 products, 18 Fp2 products (54 units) in one
+//                        step, one step of linear sums before it, two after.
+//   g1::mul_affine_crew  [k] P, then affine, on Fp slots (run_fp_steps: an
+//                        op is one Fp product of two short linear sums, or
+//                        one linear sum, one op a thread): a doubling is 3
+//                        product steps and a linear one, the mixed addition
+//                        4 and 1; the inverse of z is one thread's binary
+//                        extended Euclid, not a Fermat chain.
 //
 // What the schedule must keep: each Miller value depends on the native
 // library's line scaling (c00, c11, c12) and T's doubling and mixed-addition
@@ -62,6 +73,9 @@ enum Kind : uint8_t {
   kSqr = 2,    // out = a^2 (two Fp products)
   kScale = 3,  // out = a * b.c0 (an Fp2 by the Fp in b's first half)
   kLin = 4,    // out = the sum of up to kTerms terms c * xi^e * slot
+  // on Fp slots (run_fp_steps)
+  kFpMul = 5,  // out = (the sum of the first pad0 terms) * (the sum of the rest)
+  kFpLin = 6,  // out = the sum of up to kTerms terms c * slot
 };
 
 constexpr int kTerms = 6;
@@ -80,6 +94,8 @@ struct alignas(16) Op {
 #define SQR(o, a) {kSqr, (o), 0, 0, {(a), (a), 0, 0, 0, 0}}
 #define SCALE(o, a, k) {kScale, (o), 0, 0, {(a), (k), 0, 0, 0, 0}}
 #define LIN(o, ...) {kLin, (o), 0, 0, {__VA_ARGS__}}
+#define FMUL(o, na, ...) {kFpMul, (o), (na), 0, {__VA_ARGS__}}
+#define FLIN(o, ...) {kFpLin, (o), 0, 0, {__VA_ARGS__}}
 
 // The Fp products of a product op: unit j (0, 1, 2) of product p computes
 // m_j (Karatsuba for kMul: a0 b0, a1 b1, (a0 + a1)(b0 + b1); for kSqr
@@ -163,7 +179,9 @@ struct Crew {
   unsigned mask;
 };
 
-LANES_HD void crew_sync(const Crew& c) {
+// A crew's sync (Crew, or the G1 crew's FpCrew): its threads' __syncwarp.
+template <typename C>
+LANES_HD void crew_sync(const C& c) {
 #ifdef __CUDA_ARCH__
   __syncwarp(c.mask);
 #else
@@ -216,15 +234,16 @@ LANES_HD void run_steps(const Crew& c, const Op (*steps)[W], int count) {
 
 #ifndef __CUDA_ARCH__
 // The first step of the table whose ops are not independent (two write one
-// slot, or one reads a slot another writes, itself included) or not in
-// run_steps' order, or -1.
+// slot, or one reads a slot another writes, itself included), not in
+// run_steps' order or, for an Fp product, without two operands, or -1.
 template <int W>
 inline int check_steps(const Op (*steps)[W], int count, int slots) {
   for (int k = 0; k < count; ++k) {
     // products, then linear ops, then idle threads
     int order = 0;
     for (int t = 0; t < W; ++t) {
-      const int rank = is_product(steps[k][t].kind) ? 0 : steps[k][t].kind == kLin ? 1 : 2;
+      const int kind = steps[k][t].kind;
+      const int rank = is_product(kind) || kind == kFpMul ? 0 : kind == kLin || kind == kFpLin ? 1 : 2;
       if (rank < order) return k;
       order = rank;
     }
@@ -238,10 +257,16 @@ inline int check_steps(const Op (*steps)[W], int count, int slots) {
     for (int t = 0; t < W; ++t) {
       const Op& op = steps[k][t];
       if (op.kind == kNone) continue;
+      if (op.kind == kFpMul) {
+        for (int i = 0; i < op.pad0 && i < kTerms; ++i) {
+          if ((op.arg[i] >> 8) == 0) return k;
+        }
+        if (op.pad0 < 1 || op.pad0 >= kTerms || (op.arg[op.pad0] >> 8) == 0) return k;
+      }
+      const bool terms = op.kind == kLin || op.kind == kFpLin || op.kind == kFpMul;
       for (int i = 0; i < kTerms; ++i) {
         const uint16_t arg = op.arg[i];
-        if (op.kind == kLin && (arg >> 8) == 0) break;
-        if (op.kind != kLin && i >= 2) break;
+        if (terms ? (arg >> 8) == 0 : i >= 2) continue;
         if ((arg & 0x7f) >= slots || written[arg & 0x7f]) return k;
       }
     }
@@ -535,6 +560,395 @@ LANES_HD void g2_crew(const Crew& c, bool multiply, const Scalar& k) {
 }
 
 // ---------------------------------------------------------------------------
+// Fq12: a * b for the product's fold, a warp a product
+// ---------------------------------------------------------------------------
+
+constexpr int kFp12Width = 24;    // the widest step: the operands' 24 sums
+constexpr int kFp12Products = 18;  // the product step's Fp2 products
+
+// The slots and the table live in their own namespace: their names repeat
+// the Miller loop's.
+namespace fq12 {
+
+// Karatsuba over the w-halves, t0 = a.c0 b.c0, t1 = a.c1 b.c1, t2 = (a.c0 +
+// a.c1)(b.c0 + b.c1), each a Karatsuba Fq6 product x y: with v_i = x_i y_i
+// and m_ij = (x_i + x_j)(y_i + y_j), t = (v0 + xi (m12 - v1 - v2), m01 - v0 -
+// v1 + xi v2, m02 - v0 - v2 + v1); then a b = (t0 + v t1) + (t2 - t0 - t1) w.
+enum Slot : int {
+  FA0, FA1, FA2, FA3, FA4, FA5,  // a: c0.a0, c0.a1, c0.a2, c1.a0, c1.a1, c1.a2; a b lands here
+  FB0, FB1, FB2, FB3, FB4, FB5,  // b
+  // the operands: SA = a.c0 + a.c1, SB = b.c0 + b.c1, and for the factors of
+  // t_i their pair sums x0 + x1, x1 + x2, x0 + x2 (KiA for a's, KiB for b's)
+  SA0, SA1, SA2, SB0, SB1, SB2,
+  K0A01, K0A12, K0A02, K0B01, K0B12, K0B02,
+  K1A01, K1A12, K1A02, K1B01, K1B12, K1B02,
+  K2A01, K2A12, K2A02, K2B01, K2B12, K2B02,
+  // t_i's products v0, v1, v2, m01, m12, m02
+  P00, P01, P02, P03, P04, P05,
+  P10, P11, P12, P13, P14, P15,
+  P20, P21, P22, P23, P24, P25,
+  kSlots,
+  // t_i's coefficients reuse the operands' slots
+  T00 = SA0, T01, T02, T10, T11, T12, T20, T21, T22,
+};
+static_assert(kSlots <= 128, "slot indices are 7 bits");
+
+#define FP12_PAIRS(k, x0, x1, x2, y0, y1, y2)                                        \
+  LIN(K##k##A01, LT(x0, 1), LT(x1, 1)), LIN(K##k##A12, LT(x1, 1), LT(x2, 1)),        \
+      LIN(K##k##A02, LT(x0, 1), LT(x2, 1)), LIN(K##k##B01, LT(y0, 1), LT(y1, 1)),    \
+      LIN(K##k##B12, LT(y1, 1), LT(y2, 1)), LIN(K##k##B02, LT(y0, 1), LT(y2, 1))
+#define FP12_PRODUCTS(k, x0, x1, x2, y0, y1, y2)                                     \
+  MUL(P##k##0, x0, y0), MUL(P##k##1, x1, y1), MUL(P##k##2, x2, y2),                  \
+      MUL(P##k##3, K##k##A01, K##k##B01), MUL(P##k##4, K##k##A12, K##k##B12),        \
+      MUL(P##k##5, K##k##A02, K##k##B02)
+#define FP12_COEFFS(k)                                                                \
+  LIN(T##k##0, LT(P##k##0, 1), LX(P##k##4, 1), LX(P##k##1, -1), LX(P##k##2, -1)),    \
+      LIN(T##k##1, LT(P##k##3, 1), LT(P##k##0, -1), LT(P##k##1, -1), LX(P##k##2, 1)), \
+      LIN(T##k##2, LT(P##k##5, 1), LT(P##k##0, -1), LT(P##k##2, -1), LT(P##k##1, 1))
+
+#define FP12_MUL_STEPS 4
+#define FP12_MUL_TABLE                                                                \
+  {{LIN(SA0, LT(FA0, 1), LT(FA3, 1)), LIN(SA1, LT(FA1, 1), LT(FA4, 1)),               \
+    LIN(SA2, LT(FA2, 1), LT(FA5, 1)), LIN(SB0, LT(FB0, 1), LT(FB3, 1)),               \
+    LIN(SB1, LT(FB1, 1), LT(FB4, 1)), LIN(SB2, LT(FB2, 1), LT(FB5, 1)),               \
+    FP12_PAIRS(0, FA0, FA1, FA2, FB0, FB1, FB2), FP12_PAIRS(1, FA3, FA4, FA5, FB3, FB4, FB5), \
+    LIN(K2A01, LT(FA0, 1), LT(FA3, 1), LT(FA1, 1), LT(FA4, 1)),                       \
+    LIN(K2A12, LT(FA1, 1), LT(FA4, 1), LT(FA2, 1), LT(FA5, 1)),                       \
+    LIN(K2A02, LT(FA0, 1), LT(FA3, 1), LT(FA2, 1), LT(FA5, 1)),                       \
+    LIN(K2B01, LT(FB0, 1), LT(FB3, 1), LT(FB1, 1), LT(FB4, 1)),                       \
+    LIN(K2B12, LT(FB1, 1), LT(FB4, 1), LT(FB2, 1), LT(FB5, 1)),                       \
+    LIN(K2B02, LT(FB0, 1), LT(FB3, 1), LT(FB2, 1), LT(FB5, 1))},                      \
+   {FP12_PRODUCTS(0, FA0, FA1, FA2, FB0, FB1, FB2),                                   \
+    FP12_PRODUCTS(1, FA3, FA4, FA5, FB3, FB4, FB5),                                   \
+    FP12_PRODUCTS(2, SA0, SA1, SA2, SB0, SB1, SB2)},                                  \
+   {FP12_COEFFS(0), FP12_COEFFS(1), FP12_COEFFS(2)},                                  \
+   {LIN(FA0, LT(T00, 1), LX(T12, 1)), LIN(FA1, LT(T01, 1), LT(T10, 1)),               \
+    LIN(FA2, LT(T02, 1), LT(T11, 1)), LIN(FA3, LT(T20, 1), LT(T00, -1), LT(T10, -1)), \
+    LIN(FA4, LT(T21, 1), LT(T01, -1), LT(T11, -1)),                                   \
+    LIN(FA5, LT(T22, 1), LT(T02, -1), LT(T12, -1))}}
+
+#ifdef __CUDACC__
+__device__ const Op kMulDev[FP12_MUL_STEPS][kFp12Width] = FP12_MUL_TABLE;
+#endif
+static const Op kMulHost[FP12_MUL_STEPS][kFp12Width] = FP12_MUL_TABLE;
+
+// FA <- FA * FB on the crew's slots (all loaded, Montgomery).
+LANES_HD void mul_crew(const Crew& c) {
+#ifdef __CUDA_ARCH__
+  run_steps(c, kMulDev, FP12_MUL_STEPS);
+#else
+  run_steps(c, kMulHost, FP12_MUL_STEPS);
+#endif
+}
+
+}  // namespace fq12
+
+// ---------------------------------------------------------------------------
+// G1: [k] P, then affine, on Fp slots
+// ---------------------------------------------------------------------------
+
+// The threads that share a G1 lane: as Crew, with Fp slots and no scratch
+// (an Fp product is one thread's).
+struct FpCrew {
+  Fp* s;
+  int t;
+  int threads;
+  unsigned mask;
+};
+
+// The sum of terms [0, count) of a term list on Fp slots (LT: no xi); a
+// zero coefficient ends it.
+LANES_HD Fp fp_terms(const Fp* s, const uint16_t* terms, int count) {
+  Fp acc = fp381::zero();
+  for (int k = 0; k < count; ++k) {
+    const int coeff = static_cast<int8_t>(terms[k] >> 8);
+    if (coeff == 0) break;
+    const Fp x = small_multiple(s[terms[k] & 0x7f], coeff < 0 ? -coeff : coeff);
+    acc = k == 0 && coeff > 0 ? x : coeff < 0 ? fp381::sub(acc, x) : fp381::add(acc, x);
+  }
+  return acc;
+}
+
+// One Fp op: its inputs are read before its output is written.
+LANES_HD void fp_op(Fp* s, const Op& op) {
+  const bool product = op.kind == kFpMul;
+  const int split = product ? op.pad0 : kTerms;
+  const Fp x = fp_terms(s, op.arg, split);
+  s[op.out] = product ? fp381::mul(x, fp_terms(s, op.arg + split, kTerms - split)) : x;
+}
+
+// Steps [0, count) of a table of W-wide steps of Fp ops: thread t of the
+// crew runs ops t, t + threads, ... of each row, then the crew syncs. On the
+// host the ops run in turn.
+template <int W>
+LANES_HD void run_fp_steps(const FpCrew& c, const Op (*steps)[W], int count) {
+#ifdef __CUDA_ARCH__
+  const int first = c.t;
+  const int stride = c.threads;
+#else
+  const int first = 0;
+  const int stride = 1;
+#endif
+  TOWER_ROLLED
+  for (int k = 0; k < count; ++k) {
+    for (int t = first; t < W; t += stride) {
+      if (steps[k][t].kind != kNone) fp_op(c.s, steps[k][t]);
+    }
+    crew_sync(c);
+  }
+}
+
+// R^3 mod p: a plain inverse of a Montgomery value aR, times R^3 by one
+// Montgomery product, is the Montgomery value of a^-1
+#define FP381_R3_LIMBS                                                    \
+  0xd94ca1e0u, 0xed48ac6bu, 0x03a7adf8u, 0x315f831eu, 0x615e29ddu,        \
+      0x9a53352au, 0x921e1761u, 0x34c04e5eu, 0x65724728u, 0x2512d435u,    \
+      0x91755d4du, 0x0aa63460u
+
+// Raw 12-limb helpers of the inverse
+LANES_HD bool limbs_are_one(const uint32_t* a) {
+  uint32_t rest = a[0] ^ 1u;
+  FP381_UNROLL
+  for (int i = 1; i < fp381::kLimbs; ++i) rest |= a[i];
+  return rest == 0;
+}
+
+LANES_HD void shift_right_one(uint32_t* a) {
+  FP381_UNROLL
+  for (int i = 0; i < fp381::kLimbs - 1; ++i) a[i] = (a[i] >> 1) | (a[i + 1] << 31);
+  a[fp381::kLimbs - 1] >>= 1;
+}
+
+// a - b into d; the borrow out
+LANES_HD uint32_t limbs_sub(const uint32_t* a, const uint32_t* b, uint32_t* d) {
+  uint64_t borrow = 0;
+  FP381_UNROLL
+  for (int i = 0; i < fp381::kLimbs; ++i) {
+    const uint64_t diff = static_cast<uint64_t>(a[i]) - b[i] - borrow;
+    d[i] = static_cast<uint32_t>(diff);
+    borrow = (diff >> 32) & 1;
+  }
+  return static_cast<uint32_t>(borrow);
+}
+
+// x / 2 mod p for x in [0, p): (x + p) / 2 when x is odd (x + p < 2^382)
+LANES_HD void half_mod(Fp& x) {
+  const uint32_t p[fp381::kLimbs] = {FP381_P_LIMBS};
+  const uint32_t mask = (x.v[0] & 1u) ? 0xffffffffu : 0u;
+  uint64_t carry = 0;
+  FP381_UNROLL
+  for (int i = 0; i < fp381::kLimbs; ++i) {
+    const uint64_t sum = static_cast<uint64_t>(x.v[i]) + (p[i] & mask) + carry;
+    x.v[i] = static_cast<uint32_t>(sum);
+    carry = sum >> 32;
+  }
+  shift_right_one(x.v);
+}
+
+// a^-1 in Montgomery form for a Montgomery a (0 for 0): the binary extended
+// Euclid on the plain value (Guide to Elliptic Curve Cryptography, Alg.
+// 2.22; x1 a = u and x2 a = v mod p throughout), then one product by R^3.
+// Its halvings (534 on average, at most 762) and subtractions (267) are
+// shifts and 12-limb subtractions, against the Fermat chain's 380 dependent
+// squarings; it runs in variable time, on public data only (public keys, and
+// blinders drawn after the sets are fixed).
+LANES_HD Fp mont_inverse(const Fp& a) {
+  if (fp381::is_zero(a)) return a;
+  Fp u = a, v, x1 = fp381::zero(), x2 = fp381::zero();
+  const uint32_t p[fp381::kLimbs] = {FP381_P_LIMBS};
+  FP381_UNROLL
+  for (int i = 0; i < fp381::kLimbs; ++i) v.v[i] = p[i];
+  x1.v[0] = 1;
+  while (!limbs_are_one(u.v) && !limbs_are_one(v.v)) {
+    while (!(u.v[0] & 1u)) {
+      shift_right_one(u.v);
+      half_mod(x1);
+    }
+    while (!(v.v[0] & 1u)) {
+      shift_right_one(v.v);
+      half_mod(x2);
+    }
+    Fp d;
+    if (!limbs_sub(u.v, v.v, d.v)) {  // u >= v
+      u = d;
+      x1 = fp381::sub(x1, x2);
+    } else {
+      limbs_sub(v.v, u.v, v.v);
+      x2 = fp381::sub(x2, x1);
+    }
+  }
+  const uint32_t r3[fp381::kLimbs] = {FP381_R3_LIMBS};
+  Fp r3_fp;
+  FP381_UNROLL
+  for (int i = 0; i < fp381::kLimbs; ++i) r3_fp.v[i] = r3[i];
+  return fp381::mul(limbs_are_one(u.v) ? x1 : x2, r3_fp);
+}
+
+constexpr int kG1Width = 8;  // the widest step of the G1 tables
+
+// As fq12: the slot names repeat the G2 and Miller schedules'.
+namespace g1 {
+
+enum Slot : int {
+  PX, PY,      // P, affine; the affine result lands here
+  X1, Y1, Z1,  // the accumulator
+  // the doubling: a = x^2, b = y^2, yz = y z, c = b^2, xb2 = (x + b)^2,
+  // esq = (3a)^2, em = 3a (d - x3)
+  DA, DB, DYZ, DC, DXB2, DESQ, DEM,
+  // the mixed addition: zz = z^2, yz = yp z, u2 = xp zz, s2 = yz zz,
+  // h = u2 - x, r = 2 (s2 - y), then hh = h^2, rr = r^2, zh = z h, rx = r x,
+  // rh = r h, yh = y h, j = h hh, v = x hh, and rx hh, r rr, rh hh, yh hh
+  AZZ, AYZ, AU2, AS2, AH, AR, AHH, ARR, AZH, ARX, ARH, AYH,
+  AJ, AV, ARXH, ARRR, ARHH, AYHH,
+  // the affine conversion: z^-1, z^-2, y z^-1
+  ZI, ZI2, YZI,
+  kSlots,
+};
+static_assert(kSlots <= 128, "slot indices are 7 bits");
+
+// dbl-2009-l: x3 = e^2 - 2d, y3 = e (d - x3) - 8c, z3 = 2 y z with e = 3a,
+// d = 2 ((x + b)^2 - a - c); taken as x3 = esq - 4 xb2 + 4a + 4c and d - x3 =
+// 6 xb2 - 6a - 6c - esq. Infinity (z = 0) stays infinity.
+#define G1_DBL_STEPS 4
+#define G1_DBL                                                                        \
+  {FMUL(DA, 1, LT(X1, 1), LT(X1, 1)), FMUL(DB, 1, LT(Y1, 1), LT(Y1, 1)),              \
+   FMUL(DYZ, 1, LT(Y1, 1), LT(Z1, 1))},                                               \
+  {FMUL(DC, 1, LT(DB, 1), LT(DB, 1)),                                                 \
+   FMUL(DXB2, 2, LT(X1, 1), LT(DB, 1), LT(X1, 1), LT(DB, 1)),                         \
+   FMUL(DESQ, 1, LT(DA, 3), LT(DA, 3)), FLIN(Z1, LT(DYZ, 2))},                        \
+  {FMUL(DEM, 1, LT(DA, 3), LT(DXB2, 6), LT(DA, -6), LT(DC, -6), LT(DESQ, -1)),        \
+   FLIN(X1, LT(DESQ, 1), LT(DXB2, -4), LT(DA, 4), LT(DC, 4))},                        \
+  {FLIN(Y1, LT(DEM, 1), LT(DC, -8))}
+
+// madd-2007-bl (add-2007-bl at z2 = 1): with i = 4hh, j = h i, v = x i,
+// x3 = r^2 - j - 2v, y3 = r (v - x3) - 2 y j, z3 = 2 z h; taken as x3 = rr -
+// 4 AJ - 8 AV and y3 = 12 (rx hh) - r rr + 4 (rh hh) - 8 (yh hh), so the
+// products after h and r are two steps deep. The head ends with h and r,
+// which choose the rest.
+#define G1_H LT(AU2, 1), LT(X1, -1)
+#define G1_R LT(AS2, 2), LT(Y1, -2)
+#define G1_HEAD_STEPS 3
+#define G1_HEAD                                                                       \
+  {FMUL(AZZ, 1, LT(Z1, 1), LT(Z1, 1)), FMUL(AYZ, 1, LT(PY, 1), LT(Z1, 1))},           \
+  {FMUL(AU2, 1, LT(PX, 1), LT(AZZ, 1)), FMUL(AS2, 1, LT(AYZ, 1), LT(AZZ, 1))},        \
+  {FMUL(AHH, 2, G1_H, G1_H), FMUL(ARR, 2, G1_R, G1_R), FMUL(AZH, 1, LT(Z1, 1), G1_H), \
+   FMUL(ARX, 2, G1_R, LT(X1, 1)), FMUL(ARH, 2, G1_R, G1_H), FMUL(AYH, 1, LT(Y1, 1), G1_H), \
+   FLIN(AH, G1_H), FLIN(AR, G1_R)}
+
+#define G1_TAIL_STEPS 2
+#define G1_TAIL                                                                       \
+  {FMUL(AJ, 1, LT(AH, 1), LT(AHH, 1)), FMUL(AV, 1, LT(X1, 1), LT(AHH, 1)),            \
+   FMUL(ARXH, 1, LT(ARX, 1), LT(AHH, 1)), FMUL(ARRR, 1, LT(AR, 1), LT(ARR, 1)),       \
+   FMUL(ARHH, 1, LT(ARH, 1), LT(AHH, 1)), FMUL(AYHH, 1, LT(AYH, 1), LT(AHH, 1)),      \
+   FLIN(Z1, LT(AZH, 2))},                                                             \
+  {FLIN(X1, LT(ARR, 1), LT(AJ, -4), LT(AV, -8)),                                      \
+   FLIN(Y1, LT(ARXH, 12), LT(ARRR, -1), LT(ARHH, 4), LT(AYHH, -8))}
+
+// x = X z^-2, y = (Y z^-1) z^-2 into PX, PY, after ZI = z^-1
+#define G1_AFFINE_STEPS 2
+#define G1_AFFINE                                                                     \
+  {FMUL(ZI2, 1, LT(ZI, 1), LT(ZI, 1)), FMUL(YZI, 1, LT(Y1, 1), LT(ZI, 1))},           \
+  {FMUL(PX, 1, LT(X1, 1), LT(ZI2, 1)), FMUL(PY, 1, LT(YZI, 1), LT(ZI2, 1))}
+
+enum G1Range : int {
+  kG1Dbl = 0,
+  kG1Head = kG1Dbl + G1_DBL_STEPS,
+  kG1Tail = kG1Head + G1_HEAD_STEPS,
+  kG1Affine = kG1Tail + G1_TAIL_STEPS,
+  kG1Steps = kG1Affine + G1_AFFINE_STEPS,
+};
+
+#define G1_TABLE {G1_DBL, G1_HEAD, G1_TAIL, G1_AFFINE}
+
+#ifdef __CUDACC__
+__device__ const Op kG1Dev[kG1Steps][kG1Width] = G1_TABLE;
+#endif
+static const Op kG1Host[kG1Steps][kG1Width] = G1_TABLE;
+
+LANES_HD const Op (*g1_table())[kG1Width] {
+#ifdef __CUDA_ARCH__
+  return kG1Dev;
+#else
+  return kG1Host;
+#endif
+}
+
+// The accumulator <- P (z = 1), or infinity (all zero); then a sync.
+LANES_HD void crew_set_accumulator(const FpCrew& c, bool to_p) {
+#ifdef __CUDA_ARCH__
+  for (int i = c.t; i < 3; i += c.threads)
+#else
+  for (int i = 0; i < 3; ++i)
+#endif
+    c.s[X1 + i] = !to_p ? fp381::zero() : i < 2 ? c.s[PX + i] : fp381::one_mont();
+  crew_sync(c);
+}
+
+// PX, PY <- [k] P, affine (all zero for infinity), for P = (PX, PY) with
+// z = 1, as tower::g1_mul and the affine conversion (tower::fp_inv): the
+// top bit's addition to infinity gives P; at a set bit an accumulator at
+// infinity becomes P, else the mixed addition, whose h = 0 gives the
+// doubling (r = 0) or infinity. Each Jacobian value is a rescaling of
+// tower::g1_mul's (the mixed addition's doubled h and r), so every choice
+// is the same and the affine result the same limb for limb. Every flag is
+// read after a sync, by every thread of the crew, and the crew syncs again
+// before it writes.
+LANES_HD void mul_affine_crew(const FpCrew& c, const Scalar& k) {
+  enum Phase { kNextBit, kAdd, kAfterHead, kInvert, kDone };
+  int bit = 4 * 32;
+  do --bit;
+  while (bit >= 0 && !scalar_bit(k, bit));
+  crew_set_accumulator(c, bit >= 0);
+  int phase = kNextBit;
+  int first = 0, count = 0;
+  TOWER_ROLLED
+  for (;;) {
+    if (phase == kNextBit) {
+      if (--bit < 0) {
+        phase = kInvert;
+        continue;
+      }
+      first = kG1Dbl;
+      count = G1_DBL_STEPS;
+      phase = scalar_bit(k, bit) ? kAdd : kNextBit;
+    } else if (phase == kAdd) {
+      const bool p_inf = fp381::is_zero(c.s[Z1]);
+      crew_sync(c);
+      if (p_inf) {
+        crew_set_accumulator(c, true);
+        phase = kNextBit;
+        continue;
+      }
+      first = kG1Head;
+      count = G1_HEAD_STEPS;
+      phase = kAfterHead;
+    } else if (phase == kAfterHead) {
+      const bool h0 = fp381::is_zero(c.s[AH]), r0 = fp381::is_zero(c.s[AR]);
+      crew_sync(c);
+      if (h0 && !r0) {
+        crew_set_accumulator(c, false);
+        phase = kNextBit;
+        continue;
+      }
+      first = h0 ? kG1Dbl : kG1Tail;
+      count = h0 ? G1_DBL_STEPS : G1_TAIL_STEPS;
+      phase = kNextBit;
+    } else if (phase == kInvert) {
+      if (c.t == 0) c.s[ZI] = mont_inverse(c.s[Z1]);
+      crew_sync(c);
+      first = kG1Affine;
+      count = G1_AFFINE_STEPS;
+      phase = kDone;
+    } else {
+      return;
+    }
+    run_fp_steps(c, g1_table() + first, count);
+  }
+}
+
+}  // namespace g1
+
+// ---------------------------------------------------------------------------
 // Host drivers (the CPU tests): one lane's crew, its threads in turn
 // ---------------------------------------------------------------------------
 
@@ -583,6 +997,33 @@ inline tower::G2Jac g2_add_host(const tower::G2Jac& p, const tower::G2Jac& q) {
   g2_crew(Crew{s, scratch, 0, 1, 0}, false, Scalar{});
   return tower::G2Jac{s[X1], s[Y1], s[Z1]};
 }
+
+// [k] P for an affine P = (x, y) (z = 1), affine: xy[0], xy[1] (all zero
+// for infinity), as tower::g1_mul and the affine conversion
+inline void g1_mul_affine_host(const Fp& x, const Fp& y, const uint32_t* k, Fp* xy) {
+  Fp s[g1::kSlots];
+  for (auto& v : s) v = fp381::zero();
+  s[g1::PX] = x;
+  s[g1::PY] = y;
+  g1::mul_affine_crew(FpCrew{s, 0, 1, 0}, Scalar{k[0], k[1], k[2], k[3]});
+  xy[0] = s[g1::PX];
+  xy[1] = s[g1::PY];
+}
+
+// a * b: tower::fp12_mul
+inline tower::Fp12 fp12_mul_host(const tower::Fp12& a, const tower::Fp12& b) {
+  Fp2 s[fq12::kSlots];
+  for (auto& v : s) v = tower::fp2_zero();
+  const Fp2 in[12] = {a.c0.a0, a.c0.a1, a.c0.a2, a.c1.a0, a.c1.a1, a.c1.a2,
+                      b.c0.a0, b.c0.a1, b.c0.a2, b.c1.a0, b.c1.a1, b.c1.a2};
+  for (int i = 0; i < 12; ++i) s[fq12::FA0 + i] = in[i];
+  Fp scratch[3 * kFp12Products];
+  fq12::mul_crew(Crew{s, scratch, 0, 1, 0});
+  tower::Fp12 r;
+  r.c0 = tower::Fp6{s[fq12::FA0], s[fq12::FA1], s[fq12::FA2]};
+  r.c1 = tower::Fp6{s[fq12::FA3], s[fq12::FA4], s[fq12::FA5]};
+  return r;
+}
 #endif
 
 }  // namespace lanes
@@ -602,3 +1043,16 @@ inline tower::G2Jac g2_add_host(const tower::G2Jac& p, const tower::G2Jac& q) {
 #undef G2_HEAD
 #undef G2_TAIL
 #undef G2_TABLE
+#undef FMUL
+#undef FLIN
+#undef FP12_PAIRS
+#undef FP12_PRODUCTS
+#undef FP12_COEFFS
+#undef FP12_MUL_TABLE
+#undef G1_DBL
+#undef G1_H
+#undef G1_R
+#undef G1_HEAD
+#undef G1_TAIL
+#undef G1_AFFINE
+#undef G1_TABLE

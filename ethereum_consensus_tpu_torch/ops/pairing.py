@@ -7,13 +7,16 @@ The O(N) group work of ``verify_signature_sets``' random linear
 combination runs as four kernels:
 
   - ``g1_mul_affine``: [r_i] pk_i for the 128-bit blinders, MSB first,
-    then affine through one Fermat inversion per lane (a thread a lane);
+    then affine through one inversion per lane (a warp a lane, its Fp
+    products spread over the warp's threads, the inversion a binary
+    extended Euclid);
   - ``g2_mul_sum``: sum_i [r_i] sig_i as one Jacobian G2 point (a lanes
     pass, a warp a lane, writes each [r_i] sig_i; fold launches pair
     neighbours inside 64-lane blocks, then the block partials);
   - ``miller_loop``: f_{|x|,Q_i}(P_i), conjugated, per lane (a warp a
     lane, its Fp2 products spread over the warp's threads);
-  - ``fp12_product``: the product of the Miller values (a thread a value).
+  - ``fp12_product``: the product of the Miller values (a warp a
+    product of two values, 32 values a block, then the block partials).
 
 The sum S is taken first, so the extra pair e(-G, S) rides as lane n of
 the one Miller launch and into the product (the reference runs it through
@@ -43,9 +46,9 @@ fq2.py, fq12.py) with the same formulas, so the two agree limb for limb;
 the dispatcher takes the plain version for CPU tensors only and, for CUDA
 tensors, launches the kernel or raises. ``launch_counts`` counts each
 kernel's grid launches (a wrapper adds them where it launches, nowhere
-else): one per call, and one more per fold level beyond 64 values
-(``fp12_product``) or per fold level at all (``g2_mul_sum``, whose lanes
-pass is the first launch). ``g2_sum_points`` (the sum of Jacobian
+else): one per call, and one more per fold level beyond a block's values
+(``fp12_product``: 32 in the u64 build, 64 in the mxu build) or per fold
+level at all (``g2_mul_sum``, whose lanes pass is the first launch). ``g2_sum_points`` (the sum of Jacobian
 points, which the mesh twin's per-shard partials take) runs
 ``g2_mul_sum``'s fold kernel alone and counts under its name.
 
@@ -107,8 +110,11 @@ BLS_X_ABS = 0xD201000000010000
 # the bits below the top bit of |x|, MSB first: the Miller schedule
 _X_BITS = [int(b) for b in bin(BLS_X_ABS)[3:]]
 SCALAR_WORDS = 4
-# values per block of the fold kernels (csrc/pairing.cu kTreeThreads)
+# points per block of the G2 fold (csrc/pairing.cu kTreeThreads)
 TREE_THREADS = 64
+# values per block of the u64 Fq12 fold (kFp12FoldValues; the mxu build's 64
+# leave fewer partials)
+FP12_FOLD_VALUES = 32
 
 KERNELS = ("g1_mul_affine", "g2_mul_sum", "miller_loop", "fp12_product")
 # Kernel launches since the counts were last set to 0: the u64 kernels under
@@ -299,11 +305,12 @@ def _launch(kernel: str, fn_name: str, *args) -> None:
     launch_counts[kernel + "_mxu" if name == "pairing_mxu" else kernel] += rc
 
 
-def _fold_work(count: int) -> int:
-    """Items that the kernels' fold writes between its levels."""
+def _fold_work(count: int, per_block: int = TREE_THREADS) -> int:
+    """Items that a fold of ``per_block`` items a block writes between its
+    levels."""
     total = 0
     while count > 1:
-        count = -(-count // TREE_THREADS)
+        count = -(-count // per_block)
         if count > 1:
             total += count
     return total
@@ -531,7 +538,8 @@ def fp12_product_plain(fs: torch.Tensor) -> torch.Tensor:
 
 def fp12_product_cuda(fs: torch.Tensor) -> torch.Tensor:
     n = _check("fp12_product", {"fs": (fs, (2, 3, 2, 12))})
-    work = torch.empty((max(_fold_work(n), 1), 2, 3, 2, 12), dtype=torch.int32, device=fs.device)
+    work = torch.empty((max(_fold_work(n, FP12_FOLD_VALUES), 1), 2, 3, 2, 12), dtype=torch.int32,
+                       device=fs.device)
     out = torch.empty((2, 3, 2, 12), dtype=torch.int32, device=fs.device)
     _launch("fp12_product", "fp12_product_launch", fs, n, work, out)
     return out

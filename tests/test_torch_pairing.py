@@ -387,6 +387,16 @@ def test_launchers_refuse_what_the_kernels_do_not_take(batch, port):
         pairing.batch_verify_device(batch["pk"], batch["h"][:2], batch["sig"], batch["scalars"])
 
 
+def test_fold_work_holds_every_level_of_either_build():
+    """The Fq12 fold's work rows at the u64 build's 32 values a block (17
+    partials at the window's 529) cover the mxu build's 64 (9)."""
+    assert pairing._fold_work(529, pairing.FP12_FOLD_VALUES) == 17
+    assert pairing._fold_work(529) == 9
+    assert pairing._fold_work(1024, pairing.FP12_FOLD_VALUES) == 32
+    for n in (1, 2, 33, 64, 65, 529, 1 << 12):
+        assert pairing._fold_work(n, pairing.FP12_FOLD_VALUES) >= pairing._fold_work(n)
+
+
 @pytest.mark.parametrize("value, want", [(None, 512), ("off", None), ("host", None),
                                          ("7", 7), ("0", None), ("x", ValueError)])
 def test_pairing_threshold_from_the_environment(monkeypatch, value, want):

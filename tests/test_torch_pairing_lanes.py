@@ -1,6 +1,6 @@
-"""The crews of csrc/pairing_lanes.h (the u64 build's Miller loop and G2
-blinder sum in csrc/pairing.cu) emulated on the host, against the tower,
-the native library, the port's plain versions and the reference.
+"""The crews of csrc/pairing_lanes.h (the u64 build's four pairing kernels
+in csrc/pairing.cu) emulated on the host, against the tower, the native
+library, the port's plain versions and the reference.
 
 g++ builds the header with a shim. Its host driver runs each crew's
 threads one after another inside every step of the schedule, which is the
@@ -18,7 +18,16 @@ JAX's CPU at each lane count:
     64-point blocks, then the block partials) against the plain
     g2_sum_points and the reference's g2_sum_points;
   - the fold's special cases: infinity lanes, a pair P == Q (the doubling
-    branch, with equal and with rescaled coordinates) and P == -Q.
+    branch, with equal and with rescaled coordinates) and P == -Q;
+  - [k] P in G1, affine, at the same counts against tower::g1_mul with
+    tower::fp_inv, the plain g1_mul_affine and the reference's
+    g1_mul_batched with _g1_jacobian_to_affine; a zero blinder, a point at
+    infinity and both among other lanes; the crew's inverse (a binary
+    extended Euclid) against Python's on the edges of the field;
+  - the Fq12 product crew, and its fold (the kernel's pairing: 32 values a
+    block, then the block partials) at the same counts and at odd counts
+    past one block, against tower::fp12_mul in the same order, the plain
+    fp12_product, the reference's fp12_product and Python's Fq12.
 
 The kernels themselves run only where a CUDA card is present
 (tests/test_torch_pairing.py, chip_smoke.py's pairing phase).
@@ -42,6 +51,7 @@ from ethereum_consensus_tpu.native import bls as ref_native  # noqa: E402
 from ethereum_consensus_tpu.ops import fql as ref_fql  # noqa: E402
 from ethereum_consensus_tpu.ops import pairing as ref_pairing  # noqa: E402
 from ethereum_consensus_tpu_torch import convert  # noqa: E402
+from ethereum_consensus_tpu_torch.crypto.fields import Fq, Fq2, Fq6, Fq12  # noqa: E402
 from ethereum_consensus_tpu_torch.ops import fq, pairing  # noqa: E402
 from torch_threads import one_torch_thread  # noqa: E402,F401 (autouse fixture)
 
@@ -49,6 +59,9 @@ CSRC = Path(pairing.__file__).resolve().parents[1] / "csrc"
 P = fq.P_INT
 LANE_COUNTS = (1, 2, 3, 64)
 EDGE_BLINDERS = (1, 1 << 127, (1 << 128) - 1)
+# Fq12 values of the product's fold: the lane counts, and odd counts past
+# one block of 32
+FP12_COUNTS = LANE_COUNTS + (33, 97)
 
 _SHIM = r"""
 #include <vector>
@@ -66,12 +79,53 @@ static void st12(uint32_t* p, const Fp12& a) {
 static G2Jac ldj(const uint32_t* p) { return G2Jac{ld2(p), ld2(p + 24), ld2(p + 48)}; }
 static void stj(uint32_t* p, const G2Jac& a) { st2(p, a.x); st2(p + 24, a.y); st2(p + 48, a.z); }
 static G2Jac affine(const uint32_t* p) { return G2Jac{ld2(p), ld2(p + 24), fp2_one()}; }
+static Fp12 ld12(const uint32_t* p) {
+  return Fp12{Fp6{ld2(p), ld2(p + 24), ld2(p + 48)}, Fp6{ld2(p + 72), ld2(p + 96), ld2(p + 120)}};
+}
 
 // the first dependent step of each table (-1: none)
 extern "C" void check_steps_h(int* out) {
   out[0] = lanes::check_steps(lanes::kMillerDblHost, MILLER_DBL_STEPS, lanes::kMillerSlots);
   out[1] = lanes::check_steps(lanes::kMillerDblAddHost, MILLER_DBL_ADD_STEPS, lanes::kMillerSlots);
   out[2] = lanes::check_steps(lanes::kG2Host, lanes::kG2Steps, lanes::kG2Slots);
+  out[3] = lanes::check_steps(lanes::fq12::kMulHost, FP12_MUL_STEPS, lanes::fq12::kSlots);
+  out[4] = lanes::check_steps(lanes::g1::kG1Host, lanes::g1::kG1Steps, lanes::g1::kSlots);
+}
+// [k] P, affine: the crew, and the tower with its Fermat inversion
+extern "C" void g1_mul_lanes_h(const uint32_t* pt, const uint32_t* k, uint32_t* o) {
+  Fp xy[2];
+  lanes::g1_mul_affine_host(ld(pt), ld(pt + 12), k, xy);
+  st(o, xy[0]);
+  st(o + 12, xy[1]);
+}
+extern "C" void g1_mul_tower_h(const uint32_t* pt, const uint32_t* k, uint32_t* o) {
+  const G1Jac acc = g1_mul(G1Jac{ld(pt), ld(pt + 12), fp381::one_mont()}, k);
+  const Fp zi = fp_inv(acc.z), zi2 = fp381::sqr(zi);
+  st(o, fp381::mul(acc.x, zi2));
+  st(o + 12, fp381::mul(acc.y, fp381::mul(zi2, zi)));
+}
+extern "C" void fp_inverse_h(const uint32_t* a, uint32_t* o) { st(o, lanes::mont_inverse(ld(a))); }
+// the Fq12 product's fold over n values, 32 a block: at strides 1, 2, ...,
+// 16 each value at a multiple of twice the stride takes the product with
+// the value one stride on, where that one lies before n; then the block
+// partials the same way until one is left. `crew`: the crews' product,
+// else the tower's.
+extern "C" void fp12_fold_h(const uint32_t* values, int64_t n, int crew, uint32_t* o) {
+  std::vector<Fp12> v;
+  for (int64_t i = 0; i < n; ++i) v.push_back(ld12(values + 144 * i));
+  do {
+    std::vector<Fp12> partials;
+    for (std::size_t b = 0; b < v.size(); b += 32) {
+      Fp12 s[32];
+      for (std::size_t t = 0; b + t < v.size() && t < 32; ++t) s[t] = v[b + t];
+      for (std::size_t stride = 1; stride < 32; stride <<= 1)
+        for (std::size_t t = 0; b + t + stride < v.size() && t < 32; t += 2 * stride)
+          s[t] = crew ? lanes::fp12_mul_host(s[t], s[t + stride]) : fp12_mul(s[t], s[t + stride]);
+      partials.push_back(s[0]);
+    }
+    v = partials;
+  } while (v.size() > 1);
+  st12(o, v[0]);
 }
 extern "C" void miller_lanes_h(const uint32_t* g1, const uint32_t* g2, uint32_t* o) {
   st12(o, lanes::miller_loop_host(ld(g1), ld(g1 + 12), ld2(g2), ld2(g2 + 24)));
@@ -125,11 +179,15 @@ def lib(tmp_path_factory):
                     f"-I{CSRC}", str(shim), "-o", str(lib_path)], check=True)
     lib = ctypes.CDLL(str(lib_path))
     for name in ("miller_lanes_h", "miller_tower_h", "g2_mul_lanes_h", "g2_mul_tower_h",
-                 "g2_add_lanes_h", "g2_add_tower_h"):
+                 "g2_add_lanes_h", "g2_add_tower_h", "g1_mul_lanes_h", "g1_mul_tower_h"):
         getattr(lib, name).argtypes = [ctypes.c_void_p] * 3
         getattr(lib, name).restype = None
     lib.g2_fold_lanes_h.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
     lib.g2_fold_lanes_h.restype = None
+    lib.fp12_fold_h.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    lib.fp12_fold_h.restype = None
+    lib.fp_inverse_h.argtypes = [ctypes.c_void_p] * 2
+    lib.fp_inverse_h.restype = None
     lib.check_steps_h.argtypes = [ctypes.c_void_p]
     lib.check_steps_h.restype = None
     return lib
@@ -191,9 +249,9 @@ def test_step_tables_are_independent(lib):
     """No op of a step writes a slot that another op of the step (or the
     same op) reads, and no two write one slot: the emulation's order of the
     threads cannot change a step's result."""
-    out = np.zeros(3, dtype=np.int32)
+    out = np.zeros(5, dtype=np.int32)
     lib.check_steps_h(out.ctypes.data)
-    assert out.tolist() == [-1, -1, -1]
+    assert out.tolist() == [-1] * 5
 
 
 @pytest.mark.parametrize("n", LANE_COUNTS)
@@ -286,3 +344,124 @@ def test_g2_fold_special_cases_match_tower_plain_and_reference(lib, jacobian_lan
     assert total == convert.lv_to_ints(np.asarray(ref_pairing.g2_sum_points(_ref_jac(ints)).arr))
     if case == "negated":
         assert total == inf
+
+
+# ---------------------------------------------------------------------------
+# G1: [k] P, affine
+# ---------------------------------------------------------------------------
+
+
+def _g1_crews(lib, raws: list, blinders: list) -> list:
+    """Each lane through the crew, held against the tower's lane; the
+    canonical affine ints of all lanes."""
+    xy = pairing.g1_affine_from_raw(raws, "cpu")
+    pts = _words(torch.stack(xy, dim=1)).reshape(len(raws), 24)
+    words = _words(pairing.scalar_words(blinders, "cpu")).reshape(len(raws), 4)
+    got = []
+    for i in range(len(raws)):
+        crew = _call(lib.g1_mul_lanes_h, pts[i], words[i], out_words=24)
+        assert crew == _call(lib.g1_mul_tower_h, pts[i], words[i], out_words=24)
+        got += crew
+    return got
+
+
+def _g1_plain(raws: list, blinders: list) -> list:
+    x, y = pairing.g1_mul_batched(pairing.g1_affine_from_raw(raws, "cpu"), blinders)
+    return fq.to_ints(torch.stack([x, y], dim=1))
+
+
+def _g1_reference(raws: list, blinders: list) -> list:
+    blinded = ref_pairing.g1_mul_batched(ref_pairing._g1_jac_from_affine_raws(raws), blinders)
+    xp, yp = ref_pairing._g1_jacobian_to_affine(blinded.arr)
+    return convert.lv_to_ints(np.stack([np.asarray(xp), np.asarray(yp)], axis=1))
+
+
+@pytest.mark.parametrize("n", LANE_COUNTS)
+def test_g1_crews_match_tower_plain_and_reference(lib, n):
+    lanes = _lanes(n, seed=290 + n)
+    got = _g1_crews(lib, lanes["g1"], lanes["blinders"])
+    assert got == _g1_plain(lanes["g1"], lanes["blinders"])
+    assert got == _g1_reference(lanes["g1"], lanes["blinders"])
+
+
+INFINITY_G1 = b"\x00" * 96
+# (0, 2) lies on y^2 = x^3 + 4 and has order 3 (outside the r-torsion): the
+# mixed addition meets h = 0, at [2]P = -P (r != 0, infinity) and at
+# [4]P = P (r = 0, the doubling)
+ORDER_THREE_G1 = b"\x00" * 48 + (2).to_bytes(48, "big")
+
+
+@pytest.mark.parametrize("case", ["zero_blinder", "infinity_point", "among_other_lanes",
+                                  "blinder_one", "blinder_max", "order_three_cancels",
+                                  "order_three_doubles"])
+def test_g1_crew_edge_cases_match_tower_plain_and_reference(lib, case):
+    """A zero blinder or a point at infinity (all zero) gives (0, 0): z = 0
+    at the end, whose inverse is 0 (the plain version inverts every lane's
+    z in one batch, a zero among nonzero ones). Blinder 1 (the batch's
+    first) runs no doubling, 2^128 - 1 every addition; the order-3 point
+    takes the addition's h = 0 branches."""
+    lanes = _lanes(3, seed=17)
+    raws, blinders, zero_lanes = {
+        "zero_blinder": ([lanes["g1"][0]], [0], [0]),
+        "infinity_point": ([INFINITY_G1], [lanes["blinders"][2]], [0]),
+        "among_other_lanes": ([lanes["g1"][0], lanes["g1"][1], INFINITY_G1, lanes["g1"][2]],
+                              [lanes["blinders"][2], 0, 5, 1], [1, 2]),
+        "blinder_one": ([lanes["g1"][1]], [1], []),
+        "blinder_max": ([lanes["g1"][2], lanes["g1"][0]], [(1 << 128) - 1, 1], []),
+        "order_three_cancels": ([ORDER_THREE_G1, ORDER_THREE_G1], [3, 6], [0, 1]),
+        "order_three_doubles": ([ORDER_THREE_G1, ORDER_THREE_G1], [5, 7], []),
+    }[case]
+    got = _g1_crews(lib, raws, blinders)
+    assert got == _g1_plain(raws, blinders)
+    assert got == _g1_reference(raws, blinders)
+    assert [i for i in range(len(raws)) if got[2 * i : 2 * i + 2] == [0, 0]] == zero_lanes
+    if case == "blinder_one":
+        assert got == fq.to_ints(torch.stack(pairing.g1_affine_from_raw(raws, "cpu"), dim=1))
+    if case == "order_three_doubles":  # [5]P = [2]P = -P and [7]P = P
+        x, y = int.from_bytes(ORDER_THREE_G1[:48], "big"), 2
+        assert got == [x, P - y, x, y]
+
+
+@pytest.mark.parametrize("value", [0, 1, 2, P - 1, (P + 1) // 2, 1 << 380, 0x1234567890ABCDEF])
+def test_crew_inverse_matches_python(lib, value):
+    """The binary extended Euclid, on Montgomery values in and out: 0 for 0."""
+    a = _words(fq.from_ints([value]))
+    out = np.zeros(12, dtype=np.uint32)
+    lib.fp_inverse_h(a.ctypes.data, out.ctypes.data)
+    assert fq.to_ints(torch.from_numpy(out.view(np.int32))) == [pow(value, P - 2, P)]
+
+
+# ---------------------------------------------------------------------------
+# The Fq12 product
+# ---------------------------------------------------------------------------
+
+
+def _fq12(ints: list) -> Fq12:
+    f2 = [Fq2(Fq(ints[2 * i]), Fq(ints[2 * i + 1])) for i in range(6)]
+    return Fq12(Fq6(*f2[:3]), Fq6(*f2[3:]))
+
+
+def _fq12_ints(value: Fq12) -> list:
+    return [c for c6 in (value.c0, value.c1) for c2 in (c6.c0, c6.c1, c6.c2)
+            for c in (c2.c0.n, c2.c1.n)]
+
+
+@pytest.mark.parametrize("n", FP12_COUNTS)
+def test_fp12_crew_fold_matches_tower_plain_reference_and_python(lib, n):
+    rng = np.random.default_rng(490 + n)
+    ints = [int.from_bytes(rng.bytes(48), "big") % P for _ in range(12 * n)]
+    values = _words(fq.from_ints(ints))
+    got = []
+    for crew in (1, 0):
+        out = np.zeros(144, dtype=np.uint32)
+        lib.fp12_fold_h(values.ctypes.data, n, crew, out.ctypes.data)
+        got.append(fq.to_ints(torch.from_numpy(out.view(np.int32))))
+    assert got[0] == got[1]
+    assert got[0] == fq.to_ints(pairing.fp12_product_plain(
+        fq.from_ints(ints).reshape(n, 2, 3, 2, 12)))
+    cols = np.stack([ref_fql.to_mont_cols(v) for v in ints]).reshape(n, 2, 3, 2, 24)
+    assert got[0] == convert.lv_to_ints(np.asarray(ref_pairing.fp12_product(jnp.asarray(cols))))
+    want = _fq12(ints[:12])
+    for i in range(1, n):
+        want = want * _fq12(ints[12 * i : 12 * (i + 1)])
+    assert got[0] == _fq12_ints(want)
