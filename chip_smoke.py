@@ -18,15 +18,19 @@ Phases, each of which exits non-zero when it fails:
                 keys of slot 0's 64 committees and of the slot-2 proposer are
                 made real (SecretKey(i + 1)); serialized once.
   5. shuffle  — the committee-shuffle kernel against its plain version, 90
-                rounds, count in {1, 255, 256, 257, 2^15, 2^20}, bit-exact, a
-                sample against the spec's compute_shuffled_index.
-  6. g1       — the G1 set-sum kernel against its plain version, limb for
-                limb: the edge sets (infinity lane, doubling, P + -P, only
-                infinity, empty, ragged), one set of 2^15 keys, and the
-                block's 66 sets of 32,770 keys; some sums against the native
-                aggregation. Its mxu build (fq8.set_multiplier("mxu")) limb
-                for limb against the u64 kernel on the edge and block sets and
-                against the plain version under mxu on the edge sets.
+                rounds, count in {1, 255, 256, 257, 2^15, 2^20} and 2^21 + 5
+                (a row larger than one SM's shared memory), bit-exact, a
+                sample against the spec's compute_shuffled_index; CUDA-event
+                times at 2^15, 2^20 and 2^21 + 5; ptxas' lines of the kernel.
+  6. g1       — the G1 set-sum kernel (two grid launches: the lanes' chains,
+                then the fold) against its plain version, limb for limb: the
+                edge sets (infinity lane, doubling, P + -P, only infinity,
+                empty, ragged), one set of 2^15 keys, and the block's 66 sets
+                of 32,770 keys; some sums against the native aggregation;
+                CUDA-event times at each shape, ptxas' lines of both kernels.
+                Its mxu build (fq8.set_multiplier("mxu")) limb for limb
+                against the u64 kernel on the edge and block sets and against
+                the plain version under mxu on the edge sets.
   7. htr      — the multi-level merkle kernel (B2) against its plain version
                 on the card and the host merkleizer, bit-exact, at 2^20
                 leaves without and with the limit 2^40, at 2^20 - 3, 1, 3
@@ -109,10 +113,11 @@ Phases, each of which exits non-zero when it fails:
                 all three, the same blame for a copy with one aggregate's
                 signature replaced by its neighbour's, and B6 and each B7
                 kernel launched on the device route, their mxu builds and
-                none of the u64 ones on the mxu route (a B7 count is one per
-                grid launch, the folds' further launches included; the
-                Miller loop once, the extra pair its lane 528); then B6
-                alone at the window's 528 sets.
+                none of the u64 ones on the mxu route (a count is one per
+                grid launch: B6 twice, its chains and its fold; the B7
+                folds' further launches included; the Miller loop once, the
+                extra pair its lane 528); then B6 alone at the window's 528
+                sets, against its plain version and its mxu build.
  16. mesh     — the ECT_MESH route (parallel/, the reference's production
                 mesh switch) at ECT_MESH=1: the altair phase's block applied
                 cold through Executor.apply_block after ops.install(device=
@@ -149,8 +154,10 @@ Phases, each of which exits non-zero when it fails:
                 with a 2^13-validator minimal altair block built here (16
                 aggregates, a full sync aggregate), every stage checked and
                 the block's device-routed root equal to the host root.
-Then the run's wall time, one JSON line per kernel (``{"kernels": [...]}``)
-and, last, the ``{"ok": true, "device": ...}`` line.
+Around every CUDA-event timing the card's SM clock and active throttle
+reasons are printed (``nvidia-smi``). Then the run's wall time, one JSON
+line per kernel (``{"kernels": [...]}``) and, last, the
+``{"ok": true, "device": ...}`` line.
 
 Imports only the port, torch, numpy and the standard library.
 """
@@ -222,7 +229,12 @@ SWEEPS_BYTES_PER_VALIDATOR = 24
 KERNEL_CHECK_NS = (1, 1000, 1024, 1025, 1 << 22)
 KERNEL_TIME_LOG2 = range(17, 23)  # the routed levels of the 2^20 cold walk
 SHUFFLE_CHECK_COUNTS = (1, 255, 256, 257, 1 << 15, 1 << 20)
+# beside them: a count whose row (256 KB) is larger than an SM's shared memory
+SHUFFLE_WIDE_COUNT = (1 << 21) + 5
+SHUFFLE_MAIN_COUNT = 1 << 20  # the main path's: the registry's
 SHUFFLE_ROUNDS = 90
+# grid launches of one B6 call (u64): the lanes' chains, then the fold
+G1_SUM_LAUNCHES = 2
 SWEEPS_CHECK_NS = (1, 255, 256, 257, 1 << 17, 1 << 20)
 HTR_LOG2_LEAVES = 20
 VALIDATORS = 1 << 20
@@ -238,13 +250,30 @@ def _random_words(n: int, gen: torch.Generator) -> torch.Tensor:
                          device="cuda", generator=gen)
 
 
+_CLOCK_FIELDS = ["clocks_event_reasons.active", "clocks_throttle_reasons.active"]
+
+
+def _clocks() -> str:
+    """The card's SM clock and active throttle reasons (a bit mask, 0 for
+    none), as nvidia-smi gives them, under whichever of the field's two
+    names the installed nvidia-smi knows."""
+    while _CLOCK_FIELDS:
+        r = subprocess.run(["nvidia-smi", f"--query-gpu=clocks.sm,{_CLOCK_FIELDS[0]}",
+                            "--format=csv,noheader"], capture_output=True, text=True)
+        if r.returncode == 0:
+            return r.stdout.strip().splitlines()[0]
+        _CLOCK_FIELDS.pop(0)
+    return "not read"
+
+
 def _cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     """Median milliseconds of one call of ``fn`` on the card, from CUDA
     events. Each call is enqueued behind a spin kernel, so the host's time
     to launch it opens no gap between the start event and the kernel (a
     kernel of a few microseconds would otherwise time the host), and behind
     a write of twice the L2 cache, so it reads its inputs from device
-    memory."""
+    memory. The SM clock and throttle reasons are printed before and after."""
+    before = _clocks()
     for _ in range(warmup):
         fn()
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -260,6 +289,7 @@ def _cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    print(f"  clocks (MHz, throttle reasons) before: {before}; after: {_clocks()}")
     return statistics.median(times)
 
 
@@ -526,6 +556,33 @@ def _setup_state(registry: dict):
     return registry["state"].copy()
 
 
+def _ptxas_lines(library: str, name: str) -> list:
+    """ptxas' registers, frame, spills and shared memory of every kernel of
+    a library whose (mangled) name holds ``name``: each template
+    instantiation on its own line."""
+    import re
+
+    from ethereum_consensus_tpu_torch import _kernels
+
+    out, current = [], None
+    for line in _kernels.build_log(library).splitlines():
+        match = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if match:
+            current = match.group(1) if name in match.group(1) else None
+            continue
+        if current:
+            for key, pattern in (("stack_frame", r"(\d+) bytes stack frame"),
+                                 ("spill_stores", r"(\d+) bytes spill stores"),
+                                 ("registers", r"Used (\d+) registers"),
+                                 ("smem", r"(\d+) bytes smem")):
+                found = re.search(pattern, line)
+                if found:
+                    if not out or out[-1]["kernel"] != current:
+                        out.append({"kernel": current})
+                    out[-1][key] = int(found.group(1))
+    return out
+
+
 def phase_shuffle(seed: bytes) -> dict:
     from ethereum_consensus_tpu_torch.config import Context
     from ethereum_consensus_tpu_torch.models.phase0 import helpers as h
@@ -534,8 +591,8 @@ def phase_shuffle(seed: bytes) -> dict:
     ctx = Context.for_mainnet()
     assert ctx.SHUFFLE_ROUND_COUNT == SHUFFLE_ROUNDS
     rng = np.random.default_rng(90)
-    checks, timings = [], []
-    for count in SHUFFLE_CHECK_COUNTS:
+    checks, timings, main = [], [], None
+    for count in (*SHUFFLE_CHECK_COUNTS, SHUFFLE_WIDE_COUNT):
         pivots, sources = (
             torch.from_numpy(t).cuda() for t in shuffle.shuffle_sources(count, seed, SHUFFLE_ROUNDS)
         )
@@ -559,13 +616,17 @@ def phase_shuffle(seed: bytes) -> dict:
         if err != 0 or not spec_ok:
             sys.exit(f"chip_smoke: shuffle kernel disagrees at count={count}")
         checks.append({"count": count, "max_abs_err": err})
-    # the last count checked is the main path's, 2^20
-    plain_ms = _cuda_ms(lambda: shuffle.shuffle_plain(pivots, sources, count), reps=3, warmup=1)
-    print(f"shuffle plain count={count}: {plain_ms:.3f} ms")
-    at_main = timings[-1]
+        if count == SHUFFLE_MAIN_COUNT:
+            main = (pivots, sources)
+    plain_ms = _cuda_ms(lambda: shuffle.shuffle_plain(*main, SHUFFLE_MAIN_COUNT), reps=3,
+                        warmup=1)
+    print(f"shuffle plain count={SHUFFLE_MAIN_COUNT}: {plain_ms:.3f} ms")
+    ptxas = _ptxas_lines("shuffle", "shuffle_kernel")
+    print(f"shuffle ptxas: {ptxas}; SASS instructions {_sass_instructions('shuffle')}")
+    at_main = next(t for t in timings if t["count"] == SHUFFLE_MAIN_COUNT)
     return {"checks": checks, "timings": timings, "ms": at_main["ms"], "plain_ms": plain_ms,
             "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
-            "max_abs_err": max(c["max_abs_err"] for c in checks)}
+            "max_abs_err": max(c["max_abs_err"] for c in checks), "ptxas": ptxas}
 
 
 def _neg_raw(raw: bytes) -> bytes:
@@ -639,11 +700,14 @@ def phase_g1(committees: list, proposer: int) -> dict:
                         "bound_ms": bound, "bound_by": bound_by, "plain_once_s": plain_s}
     plain_ms = _cuda_ms(lambda: g1.g1_sum_sets_plain(points_d, offsets_d), reps=3, warmup=1)
     print(f"g1 plain, block shape: {plain_ms:.3f} ms")
+    ptxas = _ptxas_lines("g1_sum", "g1_sum_chains_kernel") + _ptxas_lines("g1_sum",
+                                                                          "g1_sum_fold_kernel")
+    print(f"g1 ptxas: {ptxas}; SASS instructions {_sass_instructions('g1_sum')}")
     main = checks["block"]
     return {"checks": checks, "ms": main["ms"], "plain_ms": plain_ms,
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
-            "mxu": _g1_mxu(outputs, main)}
+            "mxu": _g1_mxu(outputs, main), "ptxas": ptxas}
 
 
 def _g1_mxu(outputs: dict, main: dict) -> dict:
@@ -2140,7 +2204,7 @@ def phase_altair(registry: dict) -> dict:
                  "host and device paths")
     if literal["engine"][:2] != (0, 1):
         sys.exit("chip_smoke: the literal route did not run the literal stages")
-    want_device = {"fused_epoch": 1, "g1_sum_sets": 1}
+    want_device = {"fused_epoch": 1, "g1_sum_sets": G1_SUM_LAUNCHES}
     want_literal = {"flag_deltas": 3, "inactivity_updates": 1, "inactivity_penalties": 1,
                     "effective_balance": 1}
     if any(device["launches"][k] != v for k, v in want_device.items()) or \
@@ -2658,9 +2722,17 @@ def _verify_route(sets: list, installed: bool, multiplier: str = "u64") -> dict:
     parts: dict = {}
     try:
         with contextlib.ExitStack() as stack:
+            # B6's part of the device route: aggregate_pubkey_sets_device's
+            # host marshalling (sets_to_csr), its call of the wrapper (the
+            # offsets check waits for the upload), and the affine conversion
+            # (waits for the kernel, then one inversion a set); the upload is
+            # what the aggregation's wall leaves
             for module, name, key in (
                     (native_bls, "batch_verify_raw", "native_batch"),
                     (g1, "aggregate_pubkey_sets_device", "g1_aggregation"),
+                    (g1, "sets_to_csr", "g1_sets_to_csr"),
+                    (g1, "g1_sum_sets", "g1_sum_sets_call"),
+                    (g1, "jacobian_to_affine", "g1_jacobian_to_affine"),
                     (native_bls, "hash_to_g2_compressed", "hash_to_g2"),
                     (pairing, "batch_verify_device", "batch_verify_device"),
                     (pairing, "finalize_verdict", "finalize_verdict"),
@@ -2696,19 +2768,30 @@ def _verify_route(sets: list, installed: bool, multiplier: str = "u64") -> dict:
 
 def _window_g1_sum(sets: list) -> dict:
     """B6 (the u64 build) alone at the window's shape: the device route's
-    set sums, one launch over the window's sets; CUDA-event ms beside the
-    bound of these keys."""
-    from ethereum_consensus_tpu_torch.ops import g1
+    set sums, its two launches over the window's sets, limb for limb against
+    the plain version and the mxu build; CUDA-event ms beside the bound of
+    these keys."""
+    from ethereum_consensus_tpu_torch.ops import fq8, g1
 
     raw_sets = [[pk.raw_uncompressed() for pk in s.public_keys] for s in sets]
     points, offsets = g1.sets_to_csr(raw_sets)
     points_d, offsets_d = points.cuda(), offsets.cuda()
+    got = g1.g1_sum_sets(points_d, offsets_d)
+    errs = {"vs plain": _max_err(got, g1.g1_sum_sets_plain(points_d, offsets_d))}
+    fq8.set_multiplier("mxu")
+    try:
+        errs["mxu vs u64"] = _max_err(g1.g1_sum_sets(points_d, offsets_d), got)
+    finally:
+        fq8.set_multiplier("u64")
     ms = _cuda_ms(lambda: g1._launch(points_d, offsets_d, len(sets)), reps=5)
     keys = sum(len(s) for s in raw_sets)
     bound, bound_by = g1_bound_ms([sum(1 for r in s if any(r)) for s in raw_sets], keys)
     print(f"window g1_sum_sets (u64) alone: {ms:.4f} ms at {len(sets)} sets, {keys} keys "
-          f"(bound {bound:.4f} ms by {bound_by})")
-    return {"ms": ms, "sets": len(sets), "keys": keys, "bound_ms": bound, "bound_by": bound_by}
+          f"(bound {bound:.4f} ms by {bound_by}); max_abs_err {errs}")
+    if any(errs.values()):
+        sys.exit(f"chip_smoke: the window's G1 set sums disagree: {errs}")
+    return {"ms": ms, "sets": len(sets), "keys": keys, "bound_ms": bound, "bound_by": bound_by,
+            "max_abs_err": errs}
 
 
 def phase_window(registry: dict) -> dict:
@@ -2784,9 +2867,10 @@ def phase_window(registry: dict) -> dict:
     # pair (lane 528); the G2 lanes, then two folds that take them to 9 block
     # partials, then to one; the Fq12 product's two folds (u64: 17 blocks of
     # 32 values, then one; mxu: 9 blocks of 64, then one)
-    want = {"g1_sum_sets": 1, "g1_mul_affine": 1, "g2_mul_sum": 3, "miller_loop": 1,
-            "fp12_product": 2}
+    want = {"g1_sum_sets": G1_SUM_LAUNCHES, "g1_mul_affine": 1, "g2_mul_sum": 3,
+            "miller_loop": 1, "fp12_product": 2}
     want_mxu = {f"{k}_mxu": v for k, v in want.items()}
+    want_mxu["g1_sum_sets_mxu"] = 1  # the mxu build folds in its one launch
     if (any(device["launches"][k] != v for k, v in want.items())
             or any(mxu["launches"][k] != v for k, v in want_mxu.items())
             or any(host["launches"][k] or host["launches"][m] or device["launches"][m]

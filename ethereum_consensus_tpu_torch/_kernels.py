@@ -35,7 +35,7 @@ NVCC_FLAGS = [
 # library name -> (sources, {C function: (argtypes, restype)}[, extra nvcc flags])
 _G1_SUM_FUNCTIONS = {
     "g1_sum_sets_launch": (
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int64, ctypes.c_void_p],
         ctypes.c_int,
     ),
@@ -175,7 +175,8 @@ _LIBRARIES = {
             ),
         },
     ),
-    "g1_sum": (("g1_sum.cu", "fp381_core.h"), _G1_SUM_FUNCTIONS),
+    "g1_sum": (("g1_sum.cu", "g1_sum_lanes.h", "pairing_lanes.h", "fp_tower.h", "fp381_core.h"),
+               _G1_SUM_FUNCTIONS),
     "g1_sum_mxu": (("g1_sum.cu", "fp381_core.h", "fp_mma.h"), _G1_SUM_FUNCTIONS, _MXU),
     "pairing": (("pairing.cu", "pairing_lanes.h", "fp_tower.h", "fp381_core.h"),
                 _PAIRING_FUNCTIONS),

@@ -3,8 +3,9 @@ plain version.
 
 The data-parallel piece of ``fast_aggregate_verify`` and of batched
 signature-set verification (crypto/bls.rs:114) is the sum of each set's
-G1 public keys. The kernel (``csrc/g1_sum.cu``) sums S ragged sets in one
-launch, one block per set.
+G1 public keys. The kernel (``csrc/g1_sum.cu``) sums S ragged sets in two
+grid launches: the 128 lanes of every set, a crew of 4 threads a lane and
+4 blocks a set, then a fold block a set.
 
 Layout at the tensor boundary:
   - points ``(K, 2, 12)`` int32: canonical affine x and y of every key of
@@ -20,7 +21,7 @@ Two paths with identical Jacobian output:
   - ``g1_sum_sets_cuda``: the kernel;
   - ``g1_sum_sets_plain``: int64 tensor limbs (16 bits each, so that limb
     products fit), the same formulas and the same order of additions as
-    the kernel's 128 threads and its shared-memory fold.
+    the kernel's 128 lanes and its fold.
 ``g1_sum_sets`` takes the plain version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises. Under the "mxu" multiplier
 (``fq8.set_multiplier``, ``EC_PAIRING_MULT``) the plain version's products
@@ -54,8 +55,11 @@ __all__ = [
     "sets_to_csr",
 ]
 
-# threads per block of the kernel: the plain version folds the same lanes
+# lanes a set of the kernel: the plain version folds the same lanes
 THREADS = 128
+# int32 words of the u64 build's scratch a set: its 128 lanes' sums, 3 x 12
+# limbs each
+SCRATCH_WORDS_PER_SET = THREADS * 36
 
 # Kernel launches since the counts were last set to 0 (``g1_sum_sets_cuda``
 # adds one per launch and nowhere else): the u64 build's, and the mxu
@@ -240,22 +244,25 @@ def _library() -> str:
 def _launch(points: torch.Tensor, offsets: torch.Tensor, n_sets: int) -> torch.Tensor:
     """The launch alone, on inputs ``g1_sum_sets_cuda`` has checked (the
     offsets check waits for the card, so kernel timings call this
-    directly): the u64 build, or the mxu build under "mxu"."""
+    directly): the u64 build's two grid launches (the lanes' chains, then
+    the fold), with their scratch, or the mxu build's one under "mxu"."""
     global launch_count, launch_count_mxu
     name = _library()
     mxu = name == "g1_sum_mxu"
     lib = _kernels.load(name)
     out = torch.empty((n_sets, 3, 12), dtype=torch.int32, device=points.device)
+    scratch = None if mxu else torch.empty((n_sets * SCRATCH_WORDS_PER_SET,), dtype=torch.int32,
+                                           device=points.device)
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream(points.device).cuda_stream
-        rc = lib.g1_sum_sets_launch(points.data_ptr(), offsets.data_ptr(),
-                                    out.data_ptr(), n_sets, stream)
+        rc = lib.g1_sum_sets_launch(points.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+                                    None if mxu else scratch.data_ptr(), n_sets, stream)
     if rc != 0:
         raise RuntimeError(f"g1_sum_sets kernel launch failed: CUDA error {rc}")
     if mxu:
         launch_count_mxu += 1
     else:
-        launch_count += 1
+        launch_count += 2
     return out
 
 

@@ -5,7 +5,8 @@ Reference parity: the optimized whole-list shuffle behind the reference's
 per-round pivot and source-byte material is small and data-independent,
 so it is a host precompute (``shuffling.shuffle_sources``: SHUFFLE_ROUND_COUNT
 x ceil(count/256) SHA-256 calls); the per-index permutation runs on the
-card, one thread per index.
+card, the half of each round's row that the round reads staged in each
+SM's shared memory.
 
 Two paths, bit-identical to models.phase0.helpers.compute_shuffled_index:
   - ``shuffle_cuda``: the Hopper kernel in ``csrc/shuffle.cu``;
@@ -84,14 +85,20 @@ def shuffle_cuda(pivots: torch.Tensor, sources: torch.Tensor, count: int) -> tor
 
 def _launch(pivots: torch.Tensor, sources: torch.Tensor, count: int) -> torch.Tensor:
     """The launch alone, on inputs ``shuffle_cuda`` has checked (the pivot
-    check waits for the card, so kernel timings call this directly)."""
+    check waits for the card, so kernel timings call this directly). The
+    kernel copies 16-byte pieces of rows from 16-byte aligned addresses, so
+    longer rows are cut to the ones the count reads, and an unaligned table
+    is copied."""
     global launch_count
     lib = _kernels.load("shuffle")
+    row_bytes = 32 * ((count + 255) // 256)
+    if sources.shape[1] != row_bytes or sources.data_ptr() % 16:
+        sources = sources[:, :row_bytes].clone()
     out = torch.empty((count,), dtype=torch.int64, device=pivots.device)
     with torch.cuda.device(pivots.device):
         stream = torch.cuda.current_stream(pivots.device).cuda_stream
         rc = lib.shuffle_launch(
-            pivots.data_ptr(), sources.data_ptr(), sources.shape[1],
+            pivots.data_ptr(), sources.data_ptr(), row_bytes,
             pivots.shape[0], count, out.data_ptr(), stream,
         )
     if rc != 0:

@@ -7,9 +7,12 @@ reference's native aggregation and its device program
 are compared as bytes. The edge cases are an infinity lane, a key repeated
 in a set (doubling), P with -P (infinity), a set of infinity lanes only,
 an empty set, and ragged widths. The kernel's field and point header is
-built here with g++ and held against Python integers, the native point
-addition, and the plain version limb for limb; the kernel itself runs only
-where a CUDA card is present.
+built here with g++ and held against Python integers and the native point
+addition; its schedule (csrc/g1_sum_lanes.h: a lane a crew of 4 threads on
+tables of independent Fp steps; the chains 32 lanes a block, then a fold
+block of 64 crews a set) runs on the host and is held against the plain
+version limb for limb, also with chain blocks whose lanes straddle two
+sets. The kernel itself runs only where a CUDA card is present.
 """
 
 import ctypes
@@ -143,6 +146,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(keys):
 
 _HOST_SHIM = r"""
 #include "fp381_core.h"
+#include "g1_sum_lanes.h"
 using namespace fp381;
 
 static Fp load(const uint32_t* p) { Fp r; for (int i = 0; i < kLimbs; ++i) r.v[i] = p[i]; return r; }
@@ -162,25 +166,16 @@ extern "C" void g1_add_affine(const uint32_t* p, const uint32_t* q, uint32_t* o)
                       g1_from_affine(load(q), load(q + kLimbs))));
 }
 
-// The kernel's schedule on the host: per set, 128 lanes add their strided
-// share of the points, then the lanes fold pairwise.
-extern "C" void g1_sum_sets_host(const uint32_t* pts, const int64_t* offsets,
-                                 int64_t n_sets, uint32_t* out) {
-  const int T = 128;
-  static G1Jac lane[128];
-  for (int64_t s = 0; s < n_sets; ++s) {
-    for (int t = 0; t < T; ++t) {
-      G1Jac acc = g1_infinity();
-      for (int64_t k = offsets[s] + t; k < offsets[s + 1]; k += T) {
-        acc = g1_add(acc, g1_from_affine(load(pts + 24 * k), load(pts + 24 * k + 12)));
-      }
-      lane[t] = acc;
-    }
-    for (int stride = T / 2; stride > 0; stride >>= 1) {
-      for (int t = 0; t < stride; ++t) lane[t] = g1_add(lane[t], lane[t + stride]);
-    }
-    store_jac(out + 36 * s, lane[0]);
-  }
+// The kernels' schedule on the host (g1_sum_lanes.h): chain_lanes lanes a
+// chain block, a block's crews and a crew's ops in turn.
+extern "C" void g1_sum_sets_host(const uint32_t* pts, const int64_t* offsets, int64_t n_sets,
+                                 int chain_lanes, uint32_t* out) {
+  g1sum::sum_sets_host(pts, offsets, n_sets, chain_lanes, out);
+}
+
+// The first step of the schedule's table whose ops are not independent, or -1
+extern "C" int check_steps_h() {
+  return lanes::check_steps(g1sum::kTableHost, g1sum::kSteps, g1sum::kSlots);
 }
 """
 
@@ -203,8 +198,9 @@ def core_lib(tmp_path_factory):
         getattr(lib, name).argtypes = [ctypes.c_void_p] * 3
         getattr(lib, name).restype = None
     lib.g1_sum_sets_host.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                                     ctypes.c_void_p]
+                                     ctypes.c_int, ctypes.c_void_p]
     lib.g1_sum_sets_host.restype = None
+    lib.check_steps_h.restype = ctypes.c_int
     return lib
 
 
@@ -254,15 +250,54 @@ def test_point_header_matches_native_addition(core_lib, keys):
         assert got == [((INF if inf else raw), inf)]
 
 
-def test_kernel_schedule_on_host_matches_plain_limb_for_limb(core_lib, keys):
-    big = [keys[i % 24] for i in range(260)]
-    sets = _edge_sets(keys) + [big, big[:128] + [_neg(keys[0])]]
+# lanes a chain block of the kernel (csrc/g1_sum_lanes.h kChainLanes)
+CHAIN_LANES = 32
+
+
+def _host_schedule(lib, sets, chain_lanes=CHAIN_LANES) -> "tuple[np.ndarray, np.ndarray]":
+    """The schedule's (S, 3, 12) sums on the host, and the plain version's."""
     points, offsets = port_g1.sets_to_csr(sets)
     out = np.zeros((len(sets), 3, 12), dtype=np.uint32)
     pts = np.ascontiguousarray(points.numpy())
     offs = np.ascontiguousarray(offsets.numpy())
-    core_lib.g1_sum_sets_host(pts.ctypes.data, offs.ctypes.data, len(sets), out.ctypes.data)
-    plain = port_g1.g1_sum_sets_plain(points, offsets).numpy().view(np.uint32)
+    lib.g1_sum_sets_host(pts.ctypes.data, offs.ctypes.data, len(sets), chain_lanes,
+                         out.ctypes.data)
+    return out, port_g1.g1_sum_sets_plain(points, offsets).numpy().view(np.uint32)
+
+
+def test_schedule_table_is_independent(core_lib):
+    """No op of a step writes a slot that another op of the step (or the
+    same op) reads, and no two write one slot: the host's order of a crew's
+    threads cannot change a step's result."""
+    assert core_lib.check_steps_h() == -1
+
+
+def test_kernel_schedule_on_host_matches_plain_limb_for_limb(core_lib, keys):
+    big = [keys[i % 24] for i in range(260)]
+    sets = _edge_sets(keys) + [big, big[:128] + [_neg(keys[0])]]
+    out, plain = _host_schedule(core_lib, sets)
+    assert (out == plain).all()
+
+
+@pytest.mark.parametrize("size", [1, 127, 128, 129, 300, 1000])
+def test_kernel_schedule_on_host_at_set_sizes(core_lib, keys, size):
+    """One set of `size` keys beside the edge sets: lanes with no key, one
+    key, and up to eight, the repeated keys giving equal partial sums (the
+    doubling) inside the chains and the fold."""
+    sets = _edge_sets(keys) + [[keys[i % 24] for i in range(size)]]
+    out, plain = _host_schedule(core_lib, sets)
+    assert (out == plain).all()
+
+
+@pytest.mark.parametrize("chain_lanes", [48, 80])
+def test_kernel_schedule_with_two_sets_in_a_chain_block(core_lib, keys, chain_lanes):
+    """Chain blocks whose lanes straddle sets (48 or 80 lanes a block, where
+    the kernel takes 32, a divisor of a set's 128): each lane still finds
+    its set, so the sums do not change."""
+    a = [keys[i % 24] for i in range(300)]
+    b = [keys[(5 * i + 3) % 24] for i in range(129)] + [_neg(keys[3])]
+    sets = [a, keys[:3], b]
+    out, plain = _host_schedule(core_lib, sets, chain_lanes)
     assert (out == plain).all()
 
 
