@@ -34,11 +34,14 @@ Phases, each of which exits non-zero when it fails:
   7. htr      — the multi-level merkle kernel (B2) against its plain version
                 on the card and the host merkleizer, bit-exact, at 2^20
                 leaves without and with the limit 2^40, at 2^20 - 3, 1, 3
-                and 2^17 + 1 leaves, and from start_level 3; its CUDA-event
-                time at 2^20 leaves and limit 2^40 (at most 4 launches)
-                beside the per-level B1 chain it replaced; then the device
-                merkleizer on 2^20 random chunks against the host
-                merkleizer, its wall split into byte conversion, upload,
+                and 2^17 + 1 leaves, from start_level 3, and at 2^15 leaves
+                and limit 2^40 (two launches at most); its CUDA-event times at
+                2^20 and 2^15 leaves, limit 2^40, each beside its bound and
+                its latency floor (the tree's 40 dependent messages at one
+                thread's clock64 latency of a message), the first beside the
+                per-level B1 chain it replaced; ptxas' lines of the kernel;
+                then the device merkleizer on 2^20 random chunks against the
+                host merkleizer, its wall split into byte conversion, upload,
                 kernels and the root's way back.
   8. slice    — process_slots to slot 3 with the CUDA hasher installed and
                 without it must give identical bytes and roots, and the
@@ -749,8 +752,13 @@ def _g1_mxu(outputs: dict, main: dict) -> dict:
 # levels above the chunk layer (the sharded merkleizer's top tree)
 MERKLE_CHECK_SHAPES = ((1 << 20, None, 0), (1 << 20, 2**40, 0), ((1 << 20) - 3, None, 0),
                        (1, None, 0), (3, None, 0), ((1 << 17) + 1, None, 0),
-                       (1 << 17, 2**37, 3))
-MERKLE_MAX_LAUNCHES = 4  # at 2^20 leaves and limit 2^40
+                       (1 << 17, 2**37, 3), (1 << 15, 2**40, 0))
+# grid launches of one B2 call up to 2^22 nodes: the blocks, then the tail's
+# one block (one launch alone up to 2^8 nodes)
+MERKLE_MAX_LAUNCHES = 2
+# (log2 leaves, depth) of the timed B2 calls: the registry at its limit, and
+# the mesh route's threshold (parallel/runtime.py DEFAULT_MERKLE_MIN_CHUNKS)
+MERKLE_TIMED = ((20, 40), (15, 40))
 
 
 def _b1_chain_root(words: torch.Tensor, zero_words: torch.Tensor, depth: int) -> torch.Tensor:
@@ -780,10 +788,44 @@ def merkle_bound_ms(leaves: int, depth: int) -> tuple[float, str]:
     return _bound(messages * SHA256_OPS_PER_MESSAGE, 32 * leaves + 32)
 
 
+def _sm_clock_hz() -> float:
+    """The SM clock nvidia-smi reads now, or the boost clock if it gives
+    none."""
+    try:
+        return 1e6 * float(_clocks().split()[0])
+    except (ValueError, IndexError):
+        return BOOST_CLOCK_HZ
+
+
+def merkle_message_cycles() -> float:
+    """One thread's clock64 cycles a dependent message, the median of five
+    runs of 40 levels of the zero chain (merkle_latency_launch: the tail's
+    code path on one thread)."""
+    from ethereum_consensus_tpu_torch import _kernels
+    from ethereum_consensus_tpu_torch.ops import merkle
+
+    lib = _kernels.load("merkle")
+    zero = merkle.zero_hash_words("cuda")
+    cycles = torch.zeros(1, dtype=torch.int64, device="cuda")
+    root = torch.empty(8, dtype=torch.int32, device="cuda")
+    readings = []
+    for _ in range(5):
+        rc = lib.merkle_latency_launch(zero.data_ptr(), 40, cycles.data_ptr(), root.data_ptr(),
+                                       torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            sys.exit(f"chip_smoke: the merkle latency launch failed: CUDA error {rc}")
+        torch.cuda.synchronize()
+        readings.append(int(cycles.item()))
+    if not torch.equal(root, zero[40]):
+        sys.exit("chip_smoke: the merkle latency chain does not end at the zero word of level 40")
+    return statistics.median(readings) / 40
+
+
 def phase_htr(log2_leaves: int) -> dict:
     """B2 (csrc/merkle.cu) against its plain version on the card and the
-    host merkleizer, bit-exact, on MERKLE_CHECK_SHAPES; its CUDA-event time
-    at 2^20 leaves and limit 2^40 beside the per-level B1 chain it replaces;
+    host merkleizer, bit-exact, on MERKLE_CHECK_SHAPES; its CUDA-event times
+    at MERKLE_TIMED beside their bounds and latency floors, and at 2^20
+    leaves and limit 2^40 beside the per-level B1 chain it replaces;
     then ops.merkleize_chunks_device on 2^20 random chunks against the host
     merkleizer, its wall split into byte conversion, upload, kernels and the
     root's way back."""
@@ -818,16 +860,35 @@ def phase_htr(log2_leaves: int) -> dict:
     if any(not 0 < count <= MERKLE_MAX_LAUNCHES for count in launches_at.values()):
         sys.exit(f"chip_smoke: B2's launches are off: {launches_at}")
 
+    # the latency floor: every level waits for the one below, so a tree of
+    # depth d takes at least d dependent messages on one thread
+    message_cycles = merkle_message_cycles()
+    clock_hz = _sm_clock_hz()
+    print(f"htr B2 latency: one thread's dependent message {message_cycles:.1f} clock64 cycles "
+          f"at {clock_hz / 1e6:.0f} MHz, {1e6 * message_cycles / clock_hz:.4f} us")
+    timed = {}
+    for log2, depth in MERKLE_TIMED:
+        leaves = 1 << log2
+        words = convert.words_from_chunks(rng.bytes(32 * leaves), "cuda")
+        ms = _cuda_ms(lambda: merkle.reduce_levels_cuda(words, zero, depth), reps=20)
+        bound, bound_by = merkle_bound_ms(leaves, depth)
+        floor = 1e3 * depth * message_cycles / clock_hz
+        timed[log2] = {"ms": ms, "bound_ms": bound, "bound_by": bound_by,
+                       "latency_floor_ms": floor}
+        print(f"htr B2 2^{log2} leaves at limit 2^{depth}: {ms:.4f} ms (bound {bound:.4f} ms by "
+              f"{bound_by}; latency floor {floor:.4f} ms: {depth} dependent messages)")
     n = 1 << log2_leaves
     chunks = rng.bytes(32 * n)
     words = convert.words_from_chunks(chunks, "cuda")
-    ms = _cuda_ms(lambda: merkle.reduce_levels_cuda(words, zero, 40), reps=20)
+    ms, bound, bound_by = (timed[log2_leaves][k] for k in ("ms", "bound_ms", "bound_by"))
     b1_ms = _cuda_ms(lambda: _b1_chain_root(words, zero, 40), reps=10)
     plain_ms = _cuda_ms(lambda: merkle.reduce_levels_plain(words, zero, 40), reps=3, warmup=1)
-    bound, bound_by = merkle_bound_ms(n, 40)
-    print(f"htr B2 2^{log2_leaves} leaves at limit 2^40: {ms:.4f} ms (bound {bound:.4f} ms by "
-          f"{bound_by}); the per-level B1 chain it replaces {b1_ms:.4f} ms; plain "
-          f"{plain_ms:.3f} ms; SASS instructions {_sass_instructions('merkle')}")
+    ptxas = _ptxas_lines("merkle", "merkle_tree_kernel")
+    print(f"htr B2 2^{log2_leaves} leaves at limit 2^40: the per-level B1 chain it replaces "
+          f"{b1_ms:.4f} ms; plain {plain_ms:.3f} ms; SASS instructions "
+          f"{_sass_instructions('merkle')}; ptxas {ptxas}")
+    if any(line.get("spill_stores") or line.get("stack_frame") for line in ptxas):
+        print("htr B2: ptxas gives the kernel a frame or spills")
 
     merkle.launch_count = sha256.launch_count = 0
     times = []
@@ -869,7 +930,8 @@ def phase_htr(log2_leaves: int) -> dict:
             "host_s": host_s, "launches": launch_counts["merkle_levels"],
             "launch_counts": launch_counts, "wall_split_s": split,
             "launches_by_shape": launches_at, "ms": ms, "b1_chain_ms": b1_ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err}
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err,
+            "timed": timed, "message_cycles": message_cycles, "ptxas": ptxas}
 
 
 def phase_slice(data: bytes, ctx, slots: int) -> dict:
@@ -1523,6 +1585,8 @@ ALTAIR_TOTAL_ACTIVE = (1 << 20) * 32 * ALTAIR_INCREMENT
 ALTAIR_BIAS, ALTAIR_RECOVERY, ALTAIR_QUOTIENT = 4, 16, 3 * 2**24
 ALTAIR_WEIGHTS, ALTAIR_WD, ALTAIR_BRF = (14, 26, 14), 64, 64
 ALTAIR_CHECK_NS = SWEEPS_CHECK_NS
+# the flag deltas also past their co-resident grid, where a warp takes more than one chunk
+FLAG_WIDE_N = (1 << 21) + 5
 # Integer operations, counted as SWEEPS_OPS_PER_VALIDATOR is: a 64-bit add,
 # subtraction, compare or select is 2, a 64 x 64 -> 64 product 3, and a
 # division by a value fixed for the whole sweep a Barrett reduction with a
@@ -1636,9 +1700,32 @@ def _sweep_timing(name: str, launch, plain, n: int, divisions: int, ops_per: int
             "divisions": divisions}
 
 
+def _flag_sample_ok(eff, participating, got, sample: list, lanes: tuple, flag: int,
+                    leaking: bool) -> bool:
+    """The sampled lanes of a flag-delta call ``got`` against Python
+    integers: the masked sum, the sweep's scalars, then each lane. ``lanes``
+    holds the sampled (eff, participating, eligible) as Python values."""
+    from ethereum_consensus_tpu_torch.ops import sweeps
+
+    m = (1 << 64) - 1
+    total = sum(v & m for v in eff[participating].cpu().tolist()) & m
+    brpi = ALTAIR_INCREMENT * ALTAIR_BRF // sweeps.isqrt_u64(ALTAIR_TOTAL_ACTIVE)
+    incr = total // ALTAIR_INCREMENT
+    divisor = ALTAIR_TOTAL_ACTIVE // ALTAIR_INCREMENT * ALTAIR_WD
+    w = ALTAIR_WEIGHTS[flag]
+    ok = True
+    for e, p, el, r, pe in zip(*lanes, _u64_lanes(got[0], sample), _u64_lanes(got[1], sample)):
+        base = (e // ALTAIR_INCREMENT) * brpi & m
+        want_r = (base * w * incr & m) // divisor if p and el and not leaking else 0
+        want_p = (base * w & m) // ALTAIR_WD if flag != 2 and el and not p else 0
+        ok &= (r, pe) == (want_r, want_p)
+    return ok
+
+
 def phase_altair_sweeps() -> dict:
     """B3 and the three B5-altair kernels against their plain versions on
-    the card, bit-exact, for n in ALTAIR_CHECK_NS; samples against Python
+    the card, bit-exact, for n in ALTAIR_CHECK_NS, and the flag deltas at
+    FLAG_WIDE_N, contiguous and one validator in; samples against Python
     integers; CUDA-event times at 2^20."""
     from ethereum_consensus_tpu_torch.ops import epoch, sweeps
 
@@ -1668,18 +1755,8 @@ def phase_altair_sweeps() -> dict:
                 want = sweeps.flag_deltas_plain(c["eff"], c["participating"], c["eligible"], *args)
                 errs["flag_deltas"] = max(errs["flag_deltas"], err(got[0], want[0]),
                                           err(got[1], want[1]))
-                # Python integers: the sum, the scalars, every sampled lane
-                total = sum(v & m for v in c["eff"][c["participating"]].cpu().tolist()) & m
-                brpi = ALTAIR_INCREMENT * ALTAIR_BRF // sweeps.isqrt_u64(ALTAIR_TOTAL_ACTIVE)
-                incr = total // ALTAIR_INCREMENT
-                divisor = ALTAIR_TOTAL_ACTIVE // ALTAIR_INCREMENT * ALTAIR_WD
-                w = ALTAIR_WEIGHTS[flag]
-                r_h, p_h = _u64_lanes(got[0], sample), _u64_lanes(got[1], sample)
-                for e, p, el, r, pe in zip(eff_h, part_h, elig_h, r_h, p_h):
-                    base = (e // ALTAIR_INCREMENT) * brpi & m
-                    want_r = (base * w * incr & m) // divisor if p and el and not leaking else 0
-                    want_p = (base * w & m) // ALTAIR_WD if flag != 2 and el and not p else 0
-                    checks_ok &= (r, pe) == (want_r, want_p)
+                checks_ok &= _flag_sample_ok(c["eff"], c["participating"], got, sample,
+                                             (eff_h, part_h, elig_h), flag, leaking)
             got = sweeps.inactivity_updates(c["scores"], c["participating"], c["eligible"],
                                             ALTAIR_BIAS, ALTAIR_RECOVERY, leaking)
             torch.cuda.synchronize()
@@ -1726,6 +1803,33 @@ def phase_altair_sweeps() -> dict:
         if any(errs.values()) or not checks_ok:
             sys.exit(f"chip_smoke: an altair sweep kernel disagrees at n={n}")
 
+    # Past the co-resident grid (4 blocks an SM of 2,048 validators: about
+    # 1.08M on an H100) a warp of the flag deltas takes more than one chunk
+    # and reads its later chunks again; a view one validator in takes the
+    # one-validator path, as an unaligned column does at any n.
+    wide = _altair_columns(FLAG_WIDE_N, gen)
+    for offset in (0, 1):
+        cols = [wide[k][offset:] for k in ("eff", "participating", "eligible")]
+        n = FLAG_WIDE_N - offset
+        sample = sorted({0, n - 1, *rng.integers(0, n, 48).tolist()})
+        lanes = (_u64_lanes(cols[0], sample), cols[1][sample].tolist(), cols[2][sample].tolist())
+        checks_ok = True
+        for leaking in (False, True):
+            for flag in range(3):
+                args = (ALTAIR_TOTAL_ACTIVE, ALTAIR_WEIGHTS[flag], ALTAIR_INCREMENT, ALTAIR_BRF,
+                        ALTAIR_WD, leaking, flag == 2)
+                got = sweeps.flag_deltas(*cols, *args)
+                torch.cuda.synchronize()
+                want = sweeps.flag_deltas_plain(*cols, *args)
+                errs["flag_deltas"] = max(errs["flag_deltas"], err(got[0], want[0]),
+                                          err(got[1], want[1]))
+                checks_ok &= _flag_sample_ok(cols[0], cols[1], got, sample, lanes, flag, leaking)
+        print(f"altair_sweeps flag deltas n={n} (offset {offset}): max_abs_err vs plain {errs}, "
+              f"Python sample ok {checks_ok}")
+        if any(errs.values()) or not checks_ok:
+            sys.exit(f"chip_smoke: the flag-delta kernel disagrees at n={n}, offset {offset}")
+    del wide, cols
+
     # the last n checked is the main path's, 2^20
     n = ALTAIR_CHECK_NS[-1]
     part, elig = c["participating"], c["eligible"]
@@ -1767,8 +1871,10 @@ def phase_altair_sweeps() -> dict:
         "fused_epoch", lambda: epoch._launch(tuple(columns), words),
         lambda: epoch.fused_epoch_plain(*columns, *scalars),
         n, fused_divisions, FUSED_OPS, FUSED_BYTES)
+    timings["flag_deltas"]["ptxas"] = _ptxas_lines("altair_sweeps", "flag_deltas_kernel")
     print(f"altair_sweeps: SASS instructions altair_sweeps {_sass_instructions('altair_sweeps')}, "
-          f"fused_epoch {_sass_instructions('fused_epoch')}")
+          f"fused_epoch {_sass_instructions('fused_epoch')}; ptxas flag deltas "
+          f"{timings['flag_deltas']['ptxas']}")
     return {name: {**t, "max_abs_err": errs[name]} for name, t in timings.items()}
 
 
@@ -3148,6 +3254,31 @@ def _twin_times(cols: dict, kwargs: dict, chunks: bytes, pk, h, sig, scalars) ->
     return out
 
 
+def _b2_histogram(calls: list) -> dict:
+    """The (nodes, depth, start_level) of the B2 calls one cold mesh apply
+    made, each shape's count, and its CUDA-event time on the first captured
+    input: the apply's B2 time as the sum of count x time."""
+    from ethereum_consensus_tpu_torch.ops import merkle
+
+    first, counts = {}, {}
+    for (nodes, zero, depth, *rest), kwargs in calls:
+        start = rest[0] if rest else kwargs.get("start_level", 0)
+        shape = (nodes.shape[1], depth, start)
+        counts[shape] = counts.get(shape, 0) + 1
+        first.setdefault(shape, (nodes, zero))
+    rows = []
+    for shape, count in sorted(counts.items(), key=lambda kv: -kv[1]):
+        nodes, zero = first[shape]
+        ms = _cuda_ms(lambda: merkle.reduce_levels_cuda(nodes, zero, shape[1], shape[2]), reps=10)
+        rows.append({"n": shape[0], "depth": shape[1], "start_level": shape[2], "calls": count,
+                     "ms": ms})
+    total = sum(r["calls"] * r["ms"] for r in rows)
+    print(f"mesh altair: B2's {sum(counts.values())} calls by (n, depth, start_level): "
+          f"{[(r['n'], r['depth'], r['start_level'], r['calls'], round(r['ms'], 4)) for r in rows]}"
+          f"; the apply's B2 time from these timed shapes {total:.4f} ms")
+    return {"shapes": rows, "b2_ms": total}
+
+
 def phase_mesh(altair: dict, window: dict) -> dict:
     """The ECT_MESH route (parallel/): the altair phase's block applied cold
     through Executor.apply_block with ECT_MESH=1 and ops.install(device=
@@ -3161,6 +3292,7 @@ def phase_mesh(altair: dict, window: dict) -> dict:
     from ethereum_consensus_tpu_torch import ops
     from ethereum_consensus_tpu_torch.models import epoch_vector
     from ethereum_consensus_tpu_torch.models.altair import build
+    from ethereum_consensus_tpu_torch.ops import merkle
     from ethereum_consensus_tpu_torch.parallel import chip_mesh, virtual_mesh
     from ethereum_consensus_tpu_torch.parallel import merkle as pmerkle
     from ethereum_consensus_tpu_torch.parallel import pairing as ppairing
@@ -3170,12 +3302,13 @@ def phase_mesh(altair: dict, window: dict) -> dict:
 
     ctx, good = altair["ctx"], altair["good"]
     state_type = build(ctx.preset).BeaconState
-    engaged, merkle_calls, fused_calls, batches = [], [], [], []
+    engaged, merkle_calls, fused_calls, batches, b2_calls = [], [], [], [], []
     with _mesh_env("1"), contextlib.ExitStack() as stack:
         stack.enter_context(_patched(runtime, "_engage", lambda fn: lambda kind: (
             engaged.append(kind), fn(kind))[1]))
         stack.enter_context(_patched(pmerkle, "sharded_merkleize_chunks",
                                      _capture(merkle_calls)))
+        stack.enter_context(_patched(merkle, "reduce_levels_cuda", _capture(b2_calls)))
         stack.enter_context(_patched(MeshEpochSweeps, "fused", _capture(fused_calls)))
         stack.enter_context(_patched(ppairing, "batch_verify_sharded", _capture(batches)))
         ops.uninstall()
@@ -3193,6 +3326,7 @@ def phase_mesh(altair: dict, window: dict) -> dict:
         _zero_launch_counts()
         seconds, parts, post = _apply_altair(state, good, ctx, timers, events)
         launches = _launch_counts()
+        apply_b2_calls = list(b2_calls)
         passes = fused_mesh.value() - before
         ops.uninstall()
         digest = hashlib.sha256(state_type.serialize(post)).hexdigest()
@@ -3240,6 +3374,8 @@ def phase_mesh(altair: dict, window: dict) -> dict:
                                                "miller_loop", "fp12_product")) == 0:
             sys.exit(f"chip_smoke: the ECT_MESH window's launches are off: {route['launches']}")
 
+    b2_shapes = _b2_histogram(apply_b2_calls)
+
     # the function level, on the inputs the main path gave the twins
     meshes = {"1": chip_mesh(1), str(MESH_VIRTUAL_SHARDS): virtual_mesh(MESH_VIRTUAL_SHARDS)}
     host_root = merkleize_chunks(registry_roots, 2**40)
@@ -3286,7 +3422,7 @@ def phase_mesh(altair: dict, window: dict) -> dict:
                                              "kernel_ms_inside", "idle_share")}
             | {"blame_s": blame["s"], "engaged": window_kinds},
             "sweeps": {k: sweeps_out[k] for k in ("meshes", "launches")},
-            "pairing": pairing_out["meshes"], "twins_ms": twins,
+            "b2_shapes": b2_shapes, "pairing": pairing_out["meshes"], "twins_ms": twins,
             "timings": sweeps_out["timings"], "refused": refused}
 
 

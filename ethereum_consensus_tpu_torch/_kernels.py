@@ -86,6 +86,11 @@ _LIBRARIES = {
                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
                 ctypes.c_int,
             ),
+            "merkle_latency_launch": (
+                [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_void_p],
+                ctypes.c_int,
+            ),
         },
     ),
     "shuffle": (
@@ -110,13 +115,13 @@ _LIBRARIES = {
         },
     ),
     "altair_sweeps": (
-        ("altair_sweeps.cu", "altair_core.h"),
+        ("altair_sweeps.cu", "altair_core.h", "udiv64_core.h"),
         {
             "flag_deltas_launch": (
                 [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                  ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint64,
                  ctypes.c_uint64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+                 ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
                 ctypes.c_int,
             ),
             "inactivity_updates_launch": (
@@ -133,7 +138,7 @@ _LIBRARIES = {
         },
     ),
     "fused_epoch": (
-        ("fused_epoch.cu", "altair_core.h"),
+        ("fused_epoch.cu", "altair_core.h", "udiv64_core.h"),
         {
             "fused_epoch_launch": (
                 [ctypes.c_void_p] * 7 + [ctypes.c_int64] + [ctypes.c_uint64] * 10
@@ -157,7 +162,8 @@ _LIBRARIES = {
         },
     ),
     "chain_step": (
-        ("chain_step.cu", "chain_step_core.h", "altair_core.h", "sweeps_core.h"),
+        ("chain_step.cu", "chain_step_core.h", "altair_core.h", "udiv64_core.h",
+         "sweeps_core.h"),
         {
             "chain_step_shard_launch": (
                 [ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_uint64] * 4

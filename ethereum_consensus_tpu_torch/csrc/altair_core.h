@@ -16,6 +16,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "udiv64_core.h"
+
 #ifdef __CUDACC__
 #define ALTAIR_HD __host__ __device__ __forceinline__
 #else
@@ -58,7 +60,10 @@ ALTAIR_HD uint64_t inactivity_update(uint64_t score, bool participating,
 
 // The scalars of one flag's deltas (ops/sweeps.py:79-94): the base reward
 // per increment from the total active balance, the flag's participating
-// increments, and the divisor of its rewards.
+// increments, and the divisor of its rewards. With flag_delta below, the
+// reference's arithmetic with its divisions as written: the form that the
+// CPU tests hold the kernel's lane (flag_base_reward, flag_penalty,
+// flag_reward) against.
 struct FlagScalars {
   uint64_t brpi;
   uint64_t unslashed_increments;
@@ -94,6 +99,58 @@ ALTAIR_HD void flag_delta(uint64_t eff, bool participating, bool eligible,
                  ? base_reward * weight / weight_denominator
                  : 0;
 }
+
+// What the flag-delta kernel's lanes share, made once a call on the host:
+// the base reward per increment and its three fixed divisors made ready
+// for udiv64_core::divide (the increment, the reward divisor, the weight
+// denominator). The participating increments wait for the masked sum; they
+// are divide(sum, increment).
+struct FlagSweep {
+  uint64_t brpi;
+  udiv64_core::UDiv64 increment;
+  udiv64_core::UDiv64 reward_divisor;
+  udiv64_core::UDiv64 weight_denominator;
+};
+
+// flag_scalars' sum-free part; every divisor must be nonzero (the launcher
+// refuses the inputs otherwise).
+ALTAIR_HD FlagSweep flag_sweep(uint64_t total_active, uint64_t increment,
+                               uint64_t base_reward_factor,
+                               uint64_t weight_denominator) {
+  FlagSweep s;
+  s.brpi = increment * base_reward_factor / isqrt_u64(total_active);
+  s.increment = udiv64_core::prepare(increment);
+  s.reward_divisor =
+      udiv64_core::prepare((total_active / increment) * weight_denominator);
+  s.weight_denominator = udiv64_core::prepare(weight_denominator);
+  return s;
+}
+
+// flag_delta on the sweep's reciprocals, in three parts: the base reward,
+// the penalty (which needs no sum) and the reward; each division a
+// multiply-high, and only where its lane needs it.
+ALTAIR_HD uint64_t flag_base_reward(uint64_t eff, const FlagSweep& s) {
+  return udiv64_core::divide(eff, s.increment) * s.brpi;
+}
+
+ALTAIR_HD uint64_t flag_penalty(uint64_t base_reward, bool participating,
+                                bool eligible, const FlagSweep& s,
+                                uint64_t weight, bool is_head) {
+  return (!is_head && eligible && !participating)
+             ? udiv64_core::divide(base_reward * weight, s.weight_denominator)
+             : 0;
+}
+
+ALTAIR_HD uint64_t flag_reward(uint64_t base_reward, bool participating,
+                               bool eligible, const FlagSweep& s,
+                               uint64_t unslashed_increments, uint64_t weight,
+                               bool leaking) {
+  return (participating && eligible && !leaking)
+             ? udiv64_core::divide(base_reward * weight * unslashed_increments,
+                                   s.reward_divisor)
+             : 0;
+}
+
 
 // The inactivity penalty of one validator (ops/sweeps.py:191).
 ALTAIR_HD uint64_t inactivity_penalty(uint64_t eff, uint64_t score,

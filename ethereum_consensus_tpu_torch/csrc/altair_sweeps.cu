@@ -9,24 +9,32 @@
 // Inputs and outputs are unsigned 64-bit words (int64 tensors carry the bit
 // patterns) and one-byte booleans, all (n,), contiguous on one device.
 //
-// Design: one thread per validator, unsigned long long throughout, loads
-// and stores coalesced. Flag deltas need the masked sum of the effective
-// balances before any lane can finish, so they take two launches: a
-// grid-stride reduction (warp shuffles, one 64-bit atomicAdd per block into
-// a word the launcher zeroes; addition mod 2^64 is associative, so the sum
-// does not depend on the order), then the element pass, where thread 0 of
-// each block derives the scalars (isqrt, base reward per increment,
-// increments, divisor) into shared memory.
+// Design: one thread per validator for the inactivity sweeps, unsigned long
+// long throughout, loads and stores coalesced. The flag deltas' rewards need
+// the masked sum of the effective balances, their penalties do not: one
+// cooperative launch, its grid no larger than the blocks that fit on the
+// card at once. Phase 1 reads the columns once (grid-stride over warp chunks
+// of 256 validators, 16-byte loads of the balances, two flag bytes a load),
+// writes every penalty, and sums its block's share into one word of the
+// call's scratch; each thread keeps its first chunk's base rewards and flags
+// in registers. A grid sync; then every block adds the partial sums
+// (addition mod 2^64 is associative, so every block has the same total) and
+// writes the rewards, from the registers (a chunk past the first, or past
+// the vector path, is read again). Stores go as 16-byte vectors. The
+// sweep's scalars (isqrt, base reward per increment, reward divisor) and the
+// reciprocals of its three fixed divisors (udiv64_core.h) are made once a
+// call by the launcher on the host; a block makes the participating
+// increments from the sum with one multiply-high.
 //
-// What bounds them on an H100: bytes, narrowly. Flag deltas move 26 bytes a
-// validator (8 + 1 + 1 in, two words out) plus the reduction's 9 again, 35
-// bytes in all, 37 MB at 2^20, about 11 us at 3.35 TB/s; inactivity
-// updates 18 bytes, penalties 25. The divisions by values fixed for the
-// sweep (the increment, the reward divisor, the weight denominator, the
-// penalty denominator) compile to software 64-bit divisions of a few dozen
-// integer operations each; chip_smoke.py counts them against the
-// dispatch rate and reports whichever bound is larger.
+// What bounds them on an H100: bytes. Flag deltas move 26 bytes a validator
+// (8 + 1 + 1 in, two words out), 27 MB at 2^20, about 8 us at 3.35 TB/s;
+// inactivity updates 18 bytes, penalties 25. Every division by a value
+// fixed for the sweep in the flag deltas is a multiply-high by a reciprocal
+// and a correction, about 17 integer operations; the inactivity penalties'
+// division by its denominator is still a software 64-bit division, which
+// chip_smoke.py counts as one of those too.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -35,7 +43,12 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kReduceBlocks = 1056;  // 8 per SM of an H100
+constexpr int kWarps = kThreads / 32;
+// A warp's chunk of the flag deltas: step j, lane t takes validators
+// 64 j + 2 t and 64 j + 2 t + 1 (one 16-byte load of balances, one 2-byte
+// load of each flag column), so each load of the warp is contiguous.
+constexpr int kChunkSteps = 4;
+constexpr int kChunk = kChunkSteps * 64;
 
 __device__ __forceinline__ uint64_t warp_sum(uint64_t v) {
   for (int offset = 16; offset > 0; offset >>= 1) {
@@ -44,51 +57,165 @@ __device__ __forceinline__ uint64_t warp_sum(uint64_t v) {
   return v;
 }
 
-// out[0] += sum of eff[i] where participating[i], mod 2^64.
-__global__ void __launch_bounds__(kThreads)
-    masked_sum_kernel(const uint64_t* __restrict__ eff,
-                      const bool* __restrict__ participating, int64_t n,
-                      unsigned long long* __restrict__ out) {
-  __shared__ uint64_t warp_sums[kThreads / 32];
-  uint64_t acc = 0;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       i < n; i += static_cast<int64_t>(gridDim.x) * kThreads) {
-    if (participating[i]) acc += eff[i];
-  }
-  acc = warp_sum(acc);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = acc;
+// The block's sum of v, mod 2^64, to every thread.
+__device__ __forceinline__ uint64_t block_sum(uint64_t v, uint64_t* warp_sums) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = v;
   __syncthreads();
-  if (threadIdx.x < 32) {
-    acc = threadIdx.x < kThreads / 32 ? warp_sums[threadIdx.x] : 0;
-    acc = warp_sum(acc);
-    if (threadIdx.x == 0 && acc != 0) {
-      atomicAdd(out, static_cast<unsigned long long>(acc));
+  v = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) v += warp_sums[w];
+  __syncthreads();  // warp_sums is free again
+  return v;
+}
+
+// The flag-delta columns: (n,) words and flags in, (n,) words out. `chunks`
+// whole warp chunks take the vector path (0 where a column is not aligned
+// for it); the rest go one validator a thread.
+struct FlagColumns {
+  const uint64_t* eff;
+  const bool* participating;
+  const bool* eligible;
+  int64_t n;
+  int64_t chunks;
+  uint64_t* rewards;
+  uint64_t* penalties;
+};
+
+__device__ __forceinline__ int64_t global_warp() {
+  return static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+}
+
+// What a thread keeps of its first warp chunk between the two phases: the
+// base rewards of its 8 validators and their flags (bit 2v participating,
+// bit 2v + 1 eligible), so that the second phase reads nothing again.
+struct Kept {
+  uint64_t base[2 * kChunkSteps];
+  unsigned flags;
+  bool valid;
+};
+
+// Phase 1: this block's share of the masked sum into partials[blockIdx.x],
+// and every penalty (a penalty needs no sum). Each thread keeps its first
+// chunk in `kept`.
+__device__ __forceinline__ void sums_and_penalties(const FlagColumns& c,
+                                                   const altair_core::FlagSweep& s,
+                                                   uint64_t weight, bool is_head,
+                                                   uint64_t* partials, uint64_t* warp_sums,
+                                                   Kept& kept) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
+  uint64_t acc = 0;
+  kept.flags = 0;
+  kept.valid = false;
+  for (int64_t k = global_warp(); k < c.chunks; k += warps) {
+    const bool keep = !kept.valid;
+#pragma unroll
+    for (int j = 0; j < kChunkSteps; ++j) {
+      const int64_t i = k * kChunk + 64 * j + 2 * lane;
+      const ulonglong2 e = *reinterpret_cast<const ulonglong2*>(c.eff + i);
+      const unsigned p = *reinterpret_cast<const unsigned short*>(c.participating + i);
+      const unsigned q = *reinterpret_cast<const unsigned short*>(c.eligible + i);
+      uint64_t penalty[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint64_t eff = h ? e.y : e.x;
+        const bool part = (p >> (8 * h)) & 0xff;
+        const bool elig = (q >> (8 * h)) & 0xff;
+        const uint64_t base = altair_core::flag_base_reward(eff, s);
+        acc += part ? eff : 0;
+        penalty[h] = altair_core::flag_penalty(base, part, elig, s, weight, is_head);
+        if (keep) {
+          kept.base[2 * j + h] = base;
+          kept.flags |= (part ? 1u : 0u) << (2 * (2 * j + h));
+          kept.flags |= (elig ? 2u : 0u) << (2 * (2 * j + h));
+        }
+      }
+      *reinterpret_cast<ulonglong2*>(c.penalties + i) = make_ulonglong2(penalty[0], penalty[1]);
     }
+    kept.valid = true;
+  }
+  const int64_t threads = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = c.chunks * kChunk + static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       i < c.n; i += threads) {
+    const uint64_t base = altair_core::flag_base_reward(c.eff[i], s);
+    acc += c.participating[i] ? c.eff[i] : 0;
+    c.penalties[i] =
+        altair_core::flag_penalty(base, c.participating[i], c.eligible[i], s, weight, is_head);
+  }
+  acc = block_sum(acc, warp_sums);
+  if (threadIdx.x == 0) partials[blockIdx.x] = acc;
+}
+
+// The sum of the `count` partial sums (written by other blocks before a grid
+// sync or an earlier launch: read past L1), to every thread.
+__device__ __forceinline__ uint64_t gathered_sum(const uint64_t* partials, int count,
+                                                 uint64_t* warp_sums) {
+  uint64_t acc = 0;
+  for (int b = threadIdx.x; b < count; b += kThreads) {
+    acc += __ldcg(reinterpret_cast<const unsigned long long*>(partials) + b);
+  }
+  return block_sum(acc, warp_sums);
+}
+
+// Phase 2: every reward, the first chunk of each thread from `kept`, any
+// other read again.
+__device__ __forceinline__ void rewards_pass(const FlagColumns& c, const altair_core::FlagSweep& s,
+                                             uint64_t increments, uint64_t weight, bool leaking,
+                                             const Kept& kept) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
+  for (int64_t k = global_warp(); k < c.chunks; k += warps) {
+    const bool from_kept = kept.valid && k == global_warp();
+#pragma unroll
+    for (int j = 0; j < kChunkSteps; ++j) {
+      const int64_t i = k * kChunk + 64 * j + 2 * lane;
+      uint64_t base[2];
+      unsigned flags;
+      if (from_kept) {
+        base[0] = kept.base[2 * j];
+        base[1] = kept.base[2 * j + 1];
+        flags = kept.flags >> (4 * j);
+      } else {
+        const ulonglong2 e = *reinterpret_cast<const ulonglong2*>(c.eff + i);
+        const unsigned p = *reinterpret_cast<const unsigned short*>(c.participating + i);
+        const unsigned q = *reinterpret_cast<const unsigned short*>(c.eligible + i);
+        base[0] = altair_core::flag_base_reward(e.x, s);
+        base[1] = altair_core::flag_base_reward(e.y, s);
+        flags = ((p & 0xff) ? 1u : 0u) | ((q & 0xff) ? 2u : 0u) | ((p >> 8) ? 4u : 0u) |
+                ((q >> 8) ? 8u : 0u);
+      }
+      uint64_t reward[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        reward[h] = altair_core::flag_reward(base[h], (flags >> (2 * h)) & 1,
+                                             (flags >> (2 * h + 1)) & 1, s, increments, weight,
+                                             leaking);
+      }
+      *reinterpret_cast<ulonglong2*>(c.rewards + i) = make_ulonglong2(reward[0], reward[1]);
+    }
+  }
+  const int64_t threads = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = c.chunks * kChunk + static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       i < c.n; i += threads) {
+    const uint64_t base = altair_core::flag_base_reward(c.eff[i], s);
+    c.rewards[i] = altair_core::flag_reward(base, c.participating[i], c.eligible[i], s,
+                                            increments, weight, leaking);
   }
 }
 
+// One flag's deltas in one cooperative launch: the partial sums into
+// `partials` (a word a block) and the penalties, a grid sync, then the total
+// in every block and the rewards.
 __global__ void __launch_bounds__(kThreads)
-    flag_deltas_kernel(const uint64_t* __restrict__ eff,
-                       const bool* __restrict__ participating,
-                       const bool* __restrict__ eligible, int64_t n,
-                       const unsigned long long* __restrict__ participating_sum,
-                       uint64_t total_active, uint64_t weight,
-                       uint64_t increment, uint64_t base_reward_factor,
-                       uint64_t weight_denominator, bool leaking, bool is_head,
-                       uint64_t* __restrict__ rewards,
-                       uint64_t* __restrict__ penalties) {
-  __shared__ altair_core::FlagScalars scalars;
-  if (threadIdx.x == 0) {
-    scalars = altair_core::flag_scalars(total_active, *participating_sum,
-                                        increment, base_reward_factor,
-                                        weight_denominator);
-  }
-  __syncthreads();
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n) return;
-  altair_core::flag_delta(eff[i], participating[i], eligible[i], scalars,
-                          weight, increment, weight_denominator, leaking,
-                          is_head, &rewards[i], &penalties[i]);
+    flag_deltas_kernel(FlagColumns c, altair_core::FlagSweep s, uint64_t weight, int leaking,
+                       int is_head, uint64_t* __restrict__ partials) {
+  __shared__ uint64_t warp_sums[kWarps];
+  Kept kept;
+  sums_and_penalties(c, s, weight, is_head != 0, partials, warp_sums, kept);
+  cooperative_groups::this_grid().sync();
+  const uint64_t total = gathered_sum(partials, gridDim.x, warp_sums);
+  rewards_pass(c, s, udiv64_core::divide(total, s.increment), weight, leaking != 0, kept);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -120,9 +247,37 @@ unsigned grid_for(int64_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
 
-unsigned reduce_grid_for(int64_t n) {
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  return static_cast<unsigned>(blocks < kReduceBlocks ? blocks : kReduceBlocks);
+bool aligned(const void* p, uintptr_t bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+// The flag-delta blocks that fit on the current device at once (cached a
+// device): the cooperative launch's largest grid.
+int co_resident_blocks() {
+  static int cached[64];
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device < 0 || device >= 64) return 0;
+  if (cached[device] == 0) {
+    int per_sm = 0, sms = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flag_deltas_kernel, kThreads, 0) !=
+            cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) {
+      return 0;
+    }
+    cached[device] = per_sm * sms;
+  }
+  return cached[device];
+}
+
+// The flag-delta columns as the kernels take them: the vector path where
+// the balances and outputs are 16-byte aligned and the flags 2-byte.
+FlagColumns flag_columns(const void* eff, const void* participating, const void* eligible,
+                         int64_t n, void* rewards, void* penalties) {
+  const bool vector = aligned(eff, 16) && aligned(rewards, 16) && aligned(penalties, 16) &&
+                      aligned(participating, 2) && aligned(eligible, 2);
+  return {static_cast<const uint64_t*>(eff), static_cast<const bool*>(participating),
+          static_cast<const bool*>(eligible), n, vector ? n / kChunk : 0,
+          static_cast<uint64_t*>(rewards), static_cast<uint64_t*>(penalties)};
 }
 
 }  // namespace
@@ -131,7 +286,8 @@ unsigned reduce_grid_for(int64_t n) {
 // launches on `stream` and returns cudaGetLastError() (0 = launched); n == 0
 // launches nothing. A zero divisor is refused (cudaErrorInvalidValue).
 
-// sum_scratch: one 64-bit word of device memory, zeroed here on the stream.
+// sum_scratch: scratch_words 64-bit words of device memory, a partial sum
+// a block (the grid is cut to fit them); no zeroing needed.
 extern "C" int flag_deltas_launch(const void* eff, const void* participating,
                                   const void* eligible, int64_t n,
                                   uint64_t total_active, uint64_t weight,
@@ -139,29 +295,26 @@ extern "C" int flag_deltas_launch(const void* eff, const void* participating,
                                   uint64_t base_reward_factor,
                                   uint64_t weight_denominator, int leaking,
                                   int is_head, void* sum_scratch,
-                                  void* rewards, void* penalties,
-                                  void* stream) {
-  if (n < 0 || increment == 0 || weight_denominator == 0 || total_active == 0 ||
-      (total_active / increment) * weight_denominator == 0) {
+                                  int64_t scratch_words, void* rewards,
+                                  void* penalties, void* stream) {
+  if (n < 0 || scratch_words < 1 || increment == 0 || weight_denominator == 0 ||
+      total_active == 0 || (total_active / increment) * weight_denominator == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t rc = cudaMemsetAsync(sum_scratch, 0, sizeof(uint64_t), s);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  masked_sum_kernel<<<reduce_grid_for(n), kThreads, 0, s>>>(
-      static_cast<const uint64_t*>(eff), static_cast<const bool*>(participating),
-      n, static_cast<unsigned long long*>(sum_scratch));
-  rc = cudaGetLastError();
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  flag_deltas_kernel<<<grid_for(n), kThreads, 0, s>>>(
-      static_cast<const uint64_t*>(eff), static_cast<const bool*>(participating),
-      static_cast<const bool*>(eligible), n,
-      static_cast<const unsigned long long*>(sum_scratch), total_active, weight,
-      increment, base_reward_factor, weight_denominator, leaking != 0,
-      is_head != 0, static_cast<uint64_t*>(rewards),
-      static_cast<uint64_t*>(penalties));
-  return static_cast<int>(cudaGetLastError());
+  FlagColumns c = flag_columns(eff, participating, eligible, n, rewards, penalties);
+  altair_core::FlagSweep sweep = altair_core::flag_sweep(
+      total_active, increment, base_reward_factor, weight_denominator);
+  const int64_t fit = co_resident_blocks();
+  if (fit <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  int64_t grid = (n + 8 * kThreads - 1) / (8 * kThreads);  // about 8 validators a thread
+  grid = grid < fit ? grid : fit;
+  grid = grid < scratch_words ? grid : scratch_words;
+  uint64_t* partials = static_cast<uint64_t*>(sum_scratch);
+  void* args[] = {&c, &sweep, &weight, &leaking, &is_head, &partials};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(flag_deltas_kernel), dim3(static_cast<unsigned>(grid)),
+      dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int inactivity_updates_launch(const void* scores,

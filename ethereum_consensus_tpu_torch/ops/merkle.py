@@ -8,9 +8,9 @@ subtree — identical semantics to ssz/merkle.py's host merkleizer.
 
 Two paths, bit-identical:
   - ``reduce_levels_cuda``: the Hopper kernel in ``csrc/merkle.cu`` — each
-    block reduces a 512-node subtree in shared memory, launches repeat on
-    the roots until one block holds the rest, and that block chains the
-    zero siblings to the depth (2^20 leaves at limit 2^40: 3 launches);
+    block reduces 2^8 to 2^11 nodes level by level in shared memory, then a
+    launch of one block reduces the block roots and chains the zero
+    siblings to the depth (two launches up to 2^22 nodes, one up to 2^8);
   - ``reduce_levels_plain``: one ``sha256_64b_plain`` call per level, odd
     levels padded with the level's zero word, then the zero chain.
 ``reduce_levels`` takes the plain version for a CPU tensor only; for a CUDA
@@ -43,8 +43,11 @@ __all__ = [
 ]
 
 _MAX_DEPTH = 64
-# nodes of one block's subtree (csrc/merkle_core.h kLeaves)
-BLOCK_LEAVES = 512
+# the kernel's schedule (csrc/merkle_core.h): log2 of a block's nodes, the
+# blocks that fill the card, the most block roots the tail takes
+BLOCK_LOG2 = (8, 11)
+FILL_BLOCKS = 512
+TAIL_NODES = 1 << BLOCK_LOG2[1]
 
 # Grid launches since the count was last set to 0 (``reduce_levels_cuda``
 # adds those of its call, and nowhere else).
@@ -93,14 +96,27 @@ def reduce_levels_plain(
     return nodes[:, 0]
 
 
+def _block_log2(n: int) -> int:
+    """log2 of the nodes each block of a launch over n takes (merkle_core.h
+    block_log2)."""
+    b = BLOCK_LOG2[0]
+    while b < BLOCK_LOG2[1] and -(-n >> b) > FILL_BLOCKS:
+        b += 1
+    return b
+
+
 def _work_nodes(n: int) -> int:
-    """Nodes the launches write before the last one (merkle_core.h
-    work_nodes): the roots of every launch over more than a block."""
+    """Nodes of the kernel's scratch (merkle_core.h work_nodes): the block
+    roots of every launch of more than one block."""
     total = 0
-    while n > BLOCK_LEAVES:
-        n = -(-n // BLOCK_LEAVES)
-        total += n
-    return total
+    while True:
+        blocks = -(-n >> _block_log2(n))
+        if blocks == 1:
+            return total
+        total += blocks
+        if blocks <= TAIL_NODES:
+            return total
+        n = blocks
 
 
 def reduce_levels_cuda(

@@ -60,14 +60,18 @@ __all__ = [
 ]
 
 # Kernel launches since the counts were last set to 0, one count per kernel:
-# each ``_launch_*`` adds one to its own where it launches (flag deltas'
-# reduction and element pass count as one launch of that kernel).
+# each ``_launch_*`` adds one to its own where it launches (the flag deltas'
+# sum and element pass are one cooperative launch).
 launch_counts = {
     "effective_balance": 0,
     "flag_deltas": 0,
     "inactivity_updates": 0,
     "inactivity_penalties": 0,
 }
+
+# partial sums of the flag-delta kernel: one a block of its cooperative
+# launch, whose grid the launcher cuts to this many
+FLAG_DELTAS_SCRATCH_WORDS = 4096
 
 _MASK64 = (1 << 64) - 1
 _SIGN = -(1 << 63)  # the sign bit as an int64 value
@@ -278,9 +282,10 @@ def _check_cuda(name: str, columns: tuple) -> None:
 
 def _flag_scalars(total_active: int, participating_sum: int, increment: int,
                   base_reward_factor: int, weight_denominator: int) -> tuple:
-    """(brpi, unslashed_increments, reward_divisor) as the kernel's thread 0
-    derives them (altair_core.h flag_scalars), in u64; raises on a zero
-    divisor, which the kernel refuses too."""
+    """(brpi, unslashed_increments, reward_divisor) as the reference derives
+    them (altair_core.h flag_scalars; the kernel's launcher makes the same
+    from altair_core.h flag_sweep), in u64; raises on a zero divisor, which
+    the launcher refuses too."""
     root = isqrt_u64(total_active)
     divisor = ((total_active // increment if increment else 0) * weight_denominator) & _MASK64
     if increment == 0 or weight_denominator == 0 or root == 0 or divisor == 0:
@@ -342,13 +347,14 @@ def _launch_flag_deltas(eff, participating, eligible, scalars: tuple):
     lib = _kernels.load("altair_sweeps")
     rewards = torch.empty_like(eff)
     penalties = torch.empty_like(eff)
-    scratch = torch.empty(1, dtype=torch.int64, device=eff.device)
+    # a partial sum a block of the cooperative launch (its grid is cut to fit)
+    scratch = torch.empty(FLAG_DELTAS_SCRATCH_WORDS, dtype=torch.int64, device=eff.device)
     with torch.cuda.device(eff.device):
         stream = torch.cuda.current_stream(eff.device).cuda_stream
         rc = lib.flag_deltas_launch(
             eff.data_ptr(), participating.data_ptr(), eligible.data_ptr(),
-            eff.shape[0], *scalars, scratch.data_ptr(), rewards.data_ptr(),
-            penalties.data_ptr(), stream,
+            eff.shape[0], *scalars, scratch.data_ptr(), FLAG_DELTAS_SCRATCH_WORDS,
+            rewards.data_ptr(), penalties.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"flag-deltas kernel launch failed: CUDA error {rc}")

@@ -336,6 +336,28 @@ extern "C" void flag_deltas_host(const uint64_t* eff, const bool* part, const bo
   }
 }
 
+// The kernel's lane in its two phases: the scalars and reciprocals made
+// once (flag_sweep); the base rewards, the penalties and the masked sum; the
+// increments from the sum by one multiply-high; the rewards.
+extern "C" void flag_lanes_host(const uint64_t* eff, const bool* part, const bool* elig,
+                                int64_t n, uint64_t total_active, uint64_t weight,
+                                uint64_t increment, uint64_t factor, uint64_t wd,
+                                int leaking, int is_head, uint64_t* rewards,
+                                uint64_t* penalties) {
+  const altair_core::FlagSweep s = altair_core::flag_sweep(total_active, increment, factor, wd);
+  uint64_t sum = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    const uint64_t base = altair_core::flag_base_reward(eff[i], s);
+    sum += part[i] ? eff[i] : 0;
+    penalties[i] = altair_core::flag_penalty(base, part[i], elig[i], s, weight, is_head != 0);
+  }
+  const uint64_t increments = udiv64_core::divide(sum, s.increment);
+  for (int64_t i = 0; i < n; ++i) {
+    rewards[i] = altair_core::flag_reward(altair_core::flag_base_reward(eff[i], s), part[i],
+                                          elig[i], s, increments, weight, leaking != 0);
+  }
+}
+
 extern "C" void inactivity_updates_host(const uint64_t* scores, const bool* part,
                                         const bool* elig, int64_t n, uint64_t bias,
                                         uint64_t recovery, int leaking, uint64_t* out) {
@@ -392,7 +414,7 @@ extern "C" uint64_t fused_host(const uint64_t* balances, const uint64_t* eff,
 _P, _I64, _U64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64
 
 
-@pytest.fixture(scope="module")
+@pytest.fixture(scope="session")
 def core(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++")
@@ -409,6 +431,8 @@ def core(tmp_path_factory):
     lib.isqrt_host.argtypes, lib.isqrt_host.restype = [_U64], _U64
     lib.flag_deltas_host.argtypes = [_P, _P, _P, _I64] + [_U64] * 5 + [ctypes.c_int] * 2 + [_P, _P]
     lib.flag_deltas_host.restype = None
+    lib.flag_lanes_host.argtypes = lib.flag_deltas_host.argtypes
+    lib.flag_lanes_host.restype = None
     lib.inactivity_updates_host.argtypes = [_P, _P, _P, _I64, _U64, _U64, ctypes.c_int, _P]
     lib.inactivity_updates_host.restype = None
     lib.inactivity_penalties_host.argtypes = [_P, _P, _P, _I64, _U64, _P]
@@ -462,6 +486,59 @@ def test_header_sweeps_match_reference(core, n):
     want = ref_sweeps._inactivity_penalties(jnp.asarray(eff), jnp.asarray(scores),
                                             jnp.asarray(not_target), bias=4, quotient=50331648)
     assert np.array_equal(out, _u64(want))
+
+
+def _flag_outputs(fn, eff, part, elig, total: int, weight: int, leaking: bool,
+                  is_head: bool) -> tuple:
+    n = eff.shape[0]
+    rewards, penalties = np.zeros(n, np.uint64), np.zeros(n, np.uint64)
+    fn(_ptr(eff), _ptr(part), _ptr(elig), n, total, weight, INC, 64, 64, int(leaking),
+       int(is_head), _ptr(rewards), _ptr(penalties))
+    return rewards, penalties
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_header_flag_lane_on_reciprocals_matches_reference(core, n):
+    """The kernel's lane (flag_sweep, then flag_base_reward, flag_penalty
+    and flag_reward: every division a multiply-high) against the lane with
+    the reference's divisions
+    (flag_scalars, flag_delta) and the reference, both leak settings and all
+    three flags, with products past 2^64."""
+    ctx = RefContext.for_mainnet()
+    for leaking in (False, True):
+        packed = _packed(n, seed=700 + n, wide=True)
+        eff = np.ascontiguousarray(packed["effective_balance"])
+        elig = np.ascontiguousarray(packed["eligible"])
+        for flag_index in range(3):
+            part = np.ascontiguousarray(port_sweeps._participating(packed, flag_index))
+            args = (eff, part, elig, 64 * INC + 12345, WEIGHTS[flag_index], leaking,
+                    flag_index == 2)
+            got = _flag_outputs(core.flag_lanes_host, *args)
+            divided = _flag_outputs(core.flag_deltas_host, *args)
+            want = ref_sweeps.flag_deltas_device(packed, flag_index, 64 * INC + 12345, ctx,
+                                                 leaking)
+            for g, d, w in zip(got, divided, want):
+                assert np.array_equal(g, d) and np.array_equal(g, _u64(w)), (n, flag_index)
+
+
+def test_header_flag_lane_products_wrap_like_reference(core):
+    """test_flag_deltas_products_wrap_like_reference's columns (balances at
+    and above 2^62, products past 2^64) through the kernel's lane."""
+    rng = np.random.default_rng(3)
+    n = 4099
+    eff = rng.integers(1 << 62, TOP, n, dtype=np.uint64, endpoint=False)
+    part = rng.random(n) < 0.5
+    elig = rng.random(n) < 0.9
+    got = _flag_outputs(core.flag_lanes_host, eff, part, elig, INC, 26, False, False)
+    divided = _flag_outputs(core.flag_deltas_host, eff, part, elig, INC, 26, False, False)
+    want = ref_sweeps._flag_deltas(
+        jnp.asarray(eff), jnp.asarray(part), jnp.asarray(elig), jnp.uint64(INC),
+        jnp.uint64(26), flag_index=1, increment=INC, base_reward_factor=64,
+        weight_denominator=64, is_leaking=False,
+    )
+    for g, d, w in zip(got, divided, want):
+        assert np.array_equal(g, d) and np.array_equal(g, _u64(w))
+    assert got[0].any() and got[1].any()
 
 
 @pytest.mark.parametrize("n", SIZES)

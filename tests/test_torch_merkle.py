@@ -3,9 +3,11 @@
 On the CPU the port's ``merkleize_chunks_device(device="cpu")`` runs every
 level through the plain SHA-256; the reference's runs through its XLA
 kernel. Roots are bytes, so the comparison is exact. The multi-level merkle
-kernel (B2, csrc/merkle.cu) cannot run here: its block reduction and its
-launches, emulated on the host in ``csrc/merkle_core.h``, are built with g++
-and held against the reference's ``reduce_levels`` and a hashlib tree.
+kernel (B2, csrc/merkle.cu) cannot run here: its schedule, run on the host
+by ``csrc/merkle_core.h`` (each block's levels with its threads in turn,
+the blocks in turn, then the tail's one-block launch), is built with g++
+and held against the reference's ``reduce_levels`` and a hashlib tree, at
+the schedule's seams too.
 """
 
 import ctypes
@@ -64,8 +66,8 @@ def test_merkleize_device_on_card(monkeypatch):
     monkeypatch.setattr(port_merkle, "launch_count", 0)
     got = port_merkle.merkleize_chunks_device(chunks, 2**40, device="cuda")
     assert got == merkleize_chunks(chunks, 2**40)
-    # B2: 5,000 leaves in 10 blocks, then one block over their roots that
-    # chains the zero siblings to depth 40; no per-level B1 launch
+    # B2: 5,000 leaves in 20 blocks of 256, then one block over their roots
+    # that chains the zero siblings to depth 40; no per-level B1 launch
     assert (port_merkle.launch_count, port_sha.launch_count) == (2, 0)
 
 
@@ -162,7 +164,7 @@ extern "C" int64_t merkle_work_nodes(int64_t n) { return merkle_core::work_nodes
 """
 
 
-@pytest.fixture(scope="module")
+@pytest.fixture(scope="session")
 def merkle_core_host(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++")
@@ -204,13 +206,56 @@ def test_kernel_header_host_build_matches_reference(merkle_core_host, count, dep
     leaves = np.random.default_rng(count + depth).bytes(32 * count)
     got, launches = merkle_core_host(leaves, depth, start_level)
     assert got == _hashlib_root(leaves, depth, start_level)
-    assert launches == (1 if count <= port_merkle.BLOCK_LEAVES else 2)
+    zero = jnp.asarray(ref_merkle.zero_hash_words())
+    ref = ref_merkle.reduce_levels(jnp.asarray(_words(leaves)), zero, depth, start_level)
+    assert got == _root_bytes(ref)
+    assert launches == (1 if count <= 256 else 2)
+
+
+# (count, depth, start_level) at the schedule's seams: four leaves (two
+# pairs); one block's 2^8 leaves and one more or fewer (the tail
+# alone, or two blocks and the tail over their roots); a block past the last
+# live node (257: its one leaf chained up its block's levels, then the
+# tail); 2^17, the most leaves in blocks of 2^8, and one more (blocks of
+# 2^9); blocks of 2^10 and 2^11, where a thread takes two or four pairs, the
+# last block one leaf short or one leaf alone; the zero chain to the table's
+# last row (depth 64), from the leaf layer, from level 10 and with leaves
+# three levels up; more leaves than the depth holds (the reference reduces
+# them to one)
+SEAM_CASES = [
+    (4, 2, 0), (255, 8, 0), (256, 8, 0), (257, 9, 0), (257, 40, 0),
+    (1 << 17, 17, 0), ((1 << 17) + 1, 40, 0), ((1 << 18) + 1023, 40, 0),
+    ((1 << 18) + 1025, 40, 0), ((1 << 19) + 2047, 40, 0), ((1 << 19) + 2049, 40, 0),
+    (1, 64, 0), (1, 64, 10), (3, 64, 3), (1025, 64, 3), (5, 4, 3),
+]
+
+
+@pytest.mark.parametrize("count,depth,start_level", SEAM_CASES)
+def test_kernel_header_host_build_at_the_schedule_seams(merkle_core_host, count, depth,
+                                                        start_level):
+    leaves = np.random.default_rng(count + depth + 1).bytes(32 * count)
+    got, launches = merkle_core_host(leaves, depth, start_level)
+    if count > 1 << 16:  # the host merkleizer is quicker than hashlib from Python
+        assert start_level == 0 and got == merkleize_chunks(leaves, 2**depth)
+    else:
+        assert got == _hashlib_root(leaves, depth, start_level)
+    assert launches == (1 if count <= 256 else 2)
 
 
 def test_kernel_header_host_build_at_registry_scale(merkle_core_host):
-    """2^20 leaves at the registry limit 2^40: three launches (2,048 blocks,
-    4, then one that chains the zero siblings), the host merkleizer's root."""
+    """2^20 leaves at the registry limit 2^40: two launches (512 blocks of
+    2^11, then the tail over their roots and the zero chain), the host
+    merkleizer's root."""
     leaves = np.random.default_rng(20).bytes(32 << 20)
+    got, launches = merkle_core_host(leaves, 40)
+    assert launches == 2
+    assert got == merkleize_chunks(leaves, 2**40)
+
+
+def test_kernel_header_host_build_past_one_tail(merkle_core_host):
+    """2^22 + 2^11 + 1 leaves: 2,050 block roots, more than the tail takes,
+    so a second block launch (9 blocks of 2^8) comes before the tail."""
+    leaves = np.random.default_rng(21).bytes(32 * ((1 << 22) + 2049))
     got, launches = merkle_core_host(leaves, 40)
     assert launches == 3
     assert got == merkleize_chunks(leaves, 2**40)
