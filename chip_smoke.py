@@ -71,8 +71,12 @@ Phases, each of which exits non-zero when it fails:
                 against their plain versions, bit-exact, for n in {1, 255,
                 256, 257, 2^17, 2^20} (mixed flags, slashed and ineligible
                 lanes, scores near the thresholds, words at and above 2^63
-                whose products wrap), samples against Python integers;
-                CUDA-event times at 2^20.
+                whose products wrap), samples against Python integers; the
+                flag deltas and B3 (its census too) also at 2^21 + 5,
+                contiguous and one validator in; CUDA-event times at 2^20;
+                ptxas' registers, frame and spills of B3, its apply entries
+                and K3 (a frame or a spill fails the run) and their SASS
+                instructions.
  13. altair   — the registry to slot 32 under phase0 rules, the sync
                 committee's keys made real, upgrade_to_altair (altair at
                 epoch 1), slots to 95 under altair rules, a scramble of a
@@ -1324,6 +1328,29 @@ def _sass_instructions(name: str) -> "int | None":
                and "*/" in line and line.strip()[2:6].strip("0123456789abcdef") == "")
 
 
+def _sass_kernel_instructions(name: str, kernels: tuple) -> "dict | None":
+    """Instructions in the SASS of each kernel of a built library whose
+    (mangled) name holds one of ``kernels``, or None without cuobjdump."""
+    from ethereum_consensus_tpu_torch import _kernels
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", _kernels._paths(name)[0]], check=True,
+                          capture_output=True, text=True).stdout
+    out, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            function = line.split("Function :")[1].strip()
+            current = function if any(k in function for k in kernels) else None
+            if current:
+                out[current] = 0
+        elif current and line.strip().startswith("/*") and "*/" in line and \
+                line.strip()[2:6].strip("0123456789abcdef") == "":
+            out[current] += 1
+    return out
+
+
 def inject_full_epoch_pendings(state, ctx, epoch: int) -> int:
     """Full-participation pending attestations for every (slot, committee)
     of ``epoch`` that the state's slot has included, unsigned (epoch
@@ -1724,9 +1751,10 @@ def _flag_sample_ok(eff, participating, got, sample: list, lanes: tuple, flag: i
 
 def phase_altair_sweeps() -> dict:
     """B3 and the three B5-altair kernels against their plain versions on
-    the card, bit-exact, for n in ALTAIR_CHECK_NS, and the flag deltas at
-    FLAG_WIDE_N, contiguous and one validator in; samples against Python
-    integers; CUDA-event times at 2^20."""
+    the card, bit-exact, for n in ALTAIR_CHECK_NS, and the flag deltas and
+    B3 at FLAG_WIDE_N, contiguous and one validator in; samples against
+    Python integers; CUDA-event times at 2^20; ptxas' lines of B3, its
+    apply entries and K3."""
     from ethereum_consensus_tpu_torch.ops import epoch, sweeps
 
     m = (1 << 64) - 1
@@ -1828,6 +1856,24 @@ def phase_altair_sweeps() -> dict:
               f"Python sample ok {checks_ok}")
         if any(errs.values()) or not checks_ok:
             sys.exit(f"chip_smoke: the flag-delta kernel disagrees at n={n}, offset {offset}")
+    # B3 past its co-resident grid too (a warp takes several chunks and
+    # reads all but its first again), and one validator in (every column
+    # unaligned: one validator a thread), the census included
+    for offset in (0, 1):
+        cols = [wide[k][offset:] for k in ("balances", "eff", "prev_part", "slashed",
+                                           "active_prev", "eligible", "scores")]
+        census = {}
+        for leaking in (False, True):
+            got = epoch.fused_epoch(*cols, *_fused_scalars(leaking))
+            torch.cuda.synchronize()
+            want = epoch.fused_epoch_plain(*cols, *_fused_scalars(leaking))
+            errs["fused_epoch"] = max(errs["fused_epoch"], err(got[0], want[0]),
+                                      err(got[1], want[1]), abs(got[2] - want[2]))
+            census[f"leaking={leaking}"] = (got[2], want[2])
+        print(f"altair_sweeps fused epoch n={FLAG_WIDE_N - offset} (offset {offset}): max_abs_err "
+              f"vs plain {errs['fused_epoch']}, census (kernel, plain) {census}")
+        if errs["fused_epoch"]:
+            sys.exit(f"chip_smoke: the fused epoch kernel disagrees at n={FLAG_WIDE_N - offset}")
     del wide, cols
 
     # the last n checked is the main path's, 2^20
@@ -1875,6 +1921,17 @@ def phase_altair_sweeps() -> dict:
     print(f"altair_sweeps: SASS instructions altair_sweeps {_sass_instructions('altair_sweeps')}, "
           f"fused_epoch {_sass_instructions('fused_epoch')}; ptxas flag deltas "
           f"{timings['flag_deltas']['ptxas']}")
+    # B3, its apply entries and K3: registers, frame and spills; SASS a kernel
+    passes = (_ptxas_lines("fused_epoch", "fused_epoch_kernel")
+              + _ptxas_lines("fused_epoch", "apply_kernel") + _ptxas_lines("chain_step",
+                                                                            "apply_kernel"))
+    timings["fused_epoch"]["ptxas"] = passes
+    print(f"altair_sweeps: ptxas of B3, its apply entries and K3 {passes}; SASS instructions "
+          f"{_sass_kernel_instructions('fused_epoch', ('fused_epoch_kernel', 'apply_kernel'))} "
+          f"{_sass_kernel_instructions('chain_step', ('apply_kernel',))}")
+    if len(passes) != 4 or any(line.get("spill_stores") or line.get("stack_frame")
+                               for line in passes):
+        sys.exit("chip_smoke: ptxas gives B3, an apply entry or K3 a frame or spills")
     return {name: {**t, "max_abs_err": errs[name]} for name, t in timings.items()}
 
 
@@ -3129,7 +3186,7 @@ def _mesh_sweeps(cols: dict, kwargs: dict, meshes: dict) -> dict:
     # the launches alone, as the altair_sweeps phase times B3: the census
     # is not read back inside the timed call
     sums_list = sums.tolist()
-    scratch = epoch._sums_scratch(sums_list, "cuda")
+    census = torch.empty(1, dtype=torch.int64, device="cuda")
     words = epoch._scalars(*scalars)
     rwords = words[:4] + words[6:]
     timings = {
@@ -3138,12 +3195,13 @@ def _mesh_sweeps(cols: dict, kwargs: dict, meshes: dict) -> dict:
                             _bound(n * FLAG_SUMS_OPS, n * FLAG_SUMS_BYTES + 24)),
         "fused_epoch_apply": (
             lambda: epoch._launch_apply("fused_epoch_apply_launch", "fused_epoch_apply",
-                                        tuple(dev), words, scratch, True),
+                                        tuple(dev), sums_list, words, census, True),
             lambda: epoch.fused_epoch_apply_plain(*dev, sums_list, *scalars),
             _bound(n * FUSED_OPS + divisions * DIV64_OPS, n * FUSED_BYTES)),
         "rewards_apply": (
             lambda: epoch._launch_apply("rewards_apply_launch", "rewards_apply",
-                                        (*dev[:6], post_scores), rwords, scratch, False),
+                                        (*dev[:6], post_scores), sums_list, rwords, census,
+                                        False),
             lambda: epoch.rewards_apply_plain(*dev[:6], post_scores, sums_list, *rscalars),
             _bound(n * REWARDS_OPS + divisions * DIV64_OPS, n * REWARDS_BYTES)),
     }

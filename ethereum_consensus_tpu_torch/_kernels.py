@@ -138,11 +138,12 @@ _LIBRARIES = {
         },
     ),
     "fused_epoch": (
-        ("fused_epoch.cu", "altair_core.h", "udiv64_core.h"),
+        ("fused_epoch.cu", "epoch_pass.h", "altair_core.h", "udiv64_core.h"),
         {
             "fused_epoch_launch": (
                 [ctypes.c_void_p] * 7 + [ctypes.c_int64] + [ctypes.c_uint64] * 10
-                + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4,
+                + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int64]
+                + [ctypes.c_void_p] * 3,
                 ctypes.c_int,
             ),
             "fused_flag_sums_launch": (
@@ -150,20 +151,20 @@ _LIBRARIES = {
                 ctypes.c_int,
             ),
             "fused_epoch_apply_launch": (
-                [ctypes.c_void_p] * 7 + [ctypes.c_int64] + [ctypes.c_uint64] * 10
+                [ctypes.c_void_p] * 7 + [ctypes.c_int64] + [ctypes.c_uint64] * 13
                 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4,
                 ctypes.c_int,
             ),
             "rewards_apply_launch": (
-                [ctypes.c_void_p] * 7 + [ctypes.c_int64] + [ctypes.c_uint64] * 8
+                [ctypes.c_void_p] * 7 + [ctypes.c_int64] + [ctypes.c_uint64] * 11
                 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3,
                 ctypes.c_int,
             ),
         },
     ),
     "chain_step": (
-        ("chain_step.cu", "chain_step_core.h", "altair_core.h", "udiv64_core.h",
-         "sweeps_core.h"),
+        ("chain_step.cu", "chain_step_core.h", "epoch_pass.h", "altair_core.h",
+         "udiv64_core.h", "sweeps_core.h"),
         {
             "chain_step_shard_launch": (
                 [ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_uint64] * 4

@@ -2,10 +2,10 @@
 // __host__ __device__ functions.
 //
 // The arithmetic of the Hopper kernels in altair_sweeps.cu (flag deltas,
-// inactivity updates, inactivity penalties) and fused_epoch.cu (the fused
-// epoch kernel). The header is plain C++ outside nvcc, so g++ builds the same
-// functions for the CPU tests that hold them against the reference package's
-// programs.
+// inactivity updates, inactivity penalties), fused_epoch.cu (the fused
+// epoch kernel) and chain_step.cu (the epoch step's element pass). The
+// header is plain C++ outside nvcc, so g++ builds the same functions for the
+// CPU tests that hold them against the reference package's programs.
 //
 // All arithmetic is unsigned 64-bit and wraps as the reference's jnp.uint64
 // programs do: the literal route has no lane guard, so a product past 2^64
@@ -235,6 +235,146 @@ ALTAIR_HD int fused_epoch_lane(const FusedScalars& s, uint64_t balance,
   *new_score = score_out;
   return rewards_lane(s, balance, eff, part, slashed, active_prev, eligible,
                       score_out, new_balance);
+}
+
+// What the lanes of the fused epoch kernel and the epoch step share, made
+// once a call on the host (fused_sweep): FusedScalars with its four fixed
+// divisors (the increment, the reward divisor, the weight denominator, the
+// penalty denominator) made ready for udiv64_core::divide. With the lane
+// below, fused_epoch_lane and rewards_lane with every division a
+// multiply-high; the lanes above, with the divisions as written, are the
+// form the CPU tests hold these against.
+struct FusedSweep {
+  uint64_t increment;
+  uint64_t brpi;
+  uint64_t bias;
+  uint64_t recovery_rate;
+  uint64_t weights[3];
+  uint64_t unslashed_increments[3];
+  udiv64_core::UDiv64 by_increment;
+  udiv64_core::UDiv64 by_divisor;
+  udiv64_core::UDiv64 by_weight_denominator;
+  udiv64_core::UDiv64 by_denominator;
+  bool leaking;
+  int head_flag_index;
+  int target_flag_index;
+};
+
+// The scalars' reciprocals; every divisor must be nonzero (the launchers
+// refuse the inputs otherwise). The unslashed increments are copied: the
+// epoch step's (no floor) or those fused_flag_increments made; the fused
+// kernel makes its own from the grid's sums (floored_increments).
+ALTAIR_HD FusedSweep fused_sweep(const FusedScalars& s) {
+  FusedSweep out;
+  out.increment = s.increment;
+  out.brpi = s.brpi;
+  out.bias = s.bias;
+  out.recovery_rate = s.recovery_rate;
+  for (int f = 0; f < 3; ++f) {
+    out.weights[f] = s.weights[f];
+    out.unslashed_increments[f] = s.unslashed_increments[f];
+  }
+  out.by_increment = udiv64_core::prepare(s.increment);
+  out.by_divisor = udiv64_core::prepare(s.divisor);
+  out.by_weight_denominator = udiv64_core::prepare(s.weight_denominator);
+  out.by_denominator = udiv64_core::prepare(s.denominator);
+  out.leaking = s.leaking;
+  out.head_flag_index = s.head_flag_index;
+  out.target_flag_index = s.target_flag_index;
+  return out;
+}
+
+// fused_flag_increments for one flag: max(increment, sum) / increment.
+ALTAIR_HD uint64_t floored_increments(const FusedSweep& s, uint64_t sum) {
+  return udiv64_core::divide(umax(s.increment, sum), s.by_increment);
+}
+
+// A validator's four flags as the lane reads them: bit f (0..2) its
+// participation flag f if it is unslashed and was active in the previous
+// epoch, bit 3 eligible.
+ALTAIR_HD unsigned lane_flags(uint8_t part, bool slashed, bool active_prev, bool eligible) {
+  return ((active_prev && !slashed) ? (part & 7u) : 0u) | (eligible ? 8u : 0u);
+}
+
+ALTAIR_HD bool flags_participating(const FusedSweep& s, unsigned flags) {
+  return (flags >> s.target_flag_index) & 1;
+}
+
+// The inactivity update on the lane's flags.
+ALTAIR_HD uint64_t sweep_update(const FusedSweep& s, uint64_t score, unsigned flags) {
+  return inactivity_update(score, flags_participating(s, flags), flags & 8u, s.bias,
+                           s.recovery_rate, s.leaking);
+}
+
+ALTAIR_HD uint64_t sweep_base_reward(const FusedSweep& s, uint64_t eff) {
+  return udiv64_core::divide(eff, s.by_increment) * s.brpi;
+}
+
+// The inactivity penalty off `score` (the POST-update score).
+ALTAIR_HD uint64_t sweep_inactivity_penalty(const FusedSweep& s, uint64_t eff, uint64_t score,
+                                            unsigned flags) {
+  return ((flags & 8u) && !flags_participating(s, flags))
+             ? udiv64_core::divide(eff * score, s.by_denominator)
+             : 0;
+}
+
+// The four pairs applied in sequence with zero saturation between them,
+// from the base reward and the inactivity penalty: the part of the lane
+// that needs the flag sums, each flag's unslashed increments in
+// `increments`. A validator earns a flag's reward or pays its penalty, never
+// both, so each flag takes one division: the reward's numerator
+// base_reward * (weight * increments) by the reward divisor (the products
+// wrap mod 2^64 as base_reward * weight * increments does), or the
+// penalty's base_reward * weight by the weight denominator. Returns the
+// number of adds that wrapped.
+ALTAIR_HD int sweep_apply(const FusedSweep& s, const uint64_t (&increments)[3], uint64_t balance,
+                          uint64_t base_reward, uint64_t inactivity_penalty, unsigned flags,
+                          uint64_t* new_balance) {
+  const bool eligible = flags & 8u;
+  int wrapped = 0;
+  uint64_t bal = balance;
+  for (int f = 0; f < 3; ++f) {
+    const bool unslashed = (flags >> f) & 1;
+    const uint64_t w = s.weights[f];
+    const uint64_t quotient = udiv64_core::divide(
+        base_reward * (unslashed ? w * increments[f] : w),
+        unslashed ? s.by_divisor : s.by_weight_denominator);
+    const uint64_t reward = (!s.leaking && eligible && unslashed) ? quotient : 0;
+    const uint64_t penalty = (f != s.head_flag_index && eligible && !unslashed) ? quotient : 0;
+    const uint64_t raised = bal + reward;
+    wrapped += raised < bal;
+    bal = raised >= penalty ? raised - penalty : 0;
+  }
+  bal = bal >= inactivity_penalty ? bal - inactivity_penalty : 0;  // the pair's reward is 0
+  *new_balance = bal;
+  return wrapped;
+}
+
+// sweep_apply on the sweep's own increments.
+ALTAIR_HD int sweep_apply(const FusedSweep& s, uint64_t balance, uint64_t base_reward,
+                          uint64_t inactivity_penalty, unsigned flags, uint64_t* new_balance) {
+  return sweep_apply(s, s.unslashed_increments, balance, base_reward, inactivity_penalty, flags,
+                     new_balance);
+}
+
+// rewards_lane on the sweep's reciprocals.
+ALTAIR_HD int rewards_lane(const FusedSweep& s, uint64_t balance, uint64_t eff, uint8_t part,
+                           bool slashed, bool active_prev, bool eligible, uint64_t score,
+                           uint64_t* new_balance) {
+  const unsigned flags = lane_flags(part, slashed, active_prev, eligible);
+  return sweep_apply(s, balance, sweep_base_reward(s, eff),
+                     sweep_inactivity_penalty(s, eff, score, flags), flags, new_balance);
+}
+
+// fused_epoch_lane on the sweep's reciprocals.
+ALTAIR_HD int fused_epoch_lane(const FusedSweep& s, uint64_t balance, uint64_t eff,
+                               uint8_t part, bool slashed, bool active_prev, bool eligible,
+                               uint64_t score, uint64_t* new_score, uint64_t* new_balance) {
+  const unsigned flags = lane_flags(part, slashed, active_prev, eligible);
+  const uint64_t score_out = sweep_update(s, score, flags);
+  *new_score = score_out;
+  return sweep_apply(s, balance, sweep_base_reward(s, eff),
+                     sweep_inactivity_penalty(s, eff, score_out, flags), flags, new_balance);
 }
 
 }  // namespace altair_core

@@ -17,10 +17,16 @@
 //   epoch_step_sums_launch  one grid-stride pass: the three flag sums over
 //     the unslashed validators active in the previous epoch and the
 //     effective balance active in the current epoch, four words mod 2^64.
-//   epoch_step_apply_launch  the element pass, a thread per validator:
-//     altair_core.h's fused_epoch_lane on the scalars that
-//     chain_step_core.h's epoch_step_scalars makes from the summed words
-//     (the launcher makes them on the host).
+//   epoch_step_apply_launch  the element pass: epoch_pass.h's apply_kernel
+//     (warp chunks of 256 validators, one launch a chunk a warp, 4 blocks an
+//     SM at 64 registers; each lane's two validators a step read 16 bytes of
+//     each word column and 2 of each byte column, and written 16 bytes of
+//     each output), running altair_core.h's lane on reciprocals over the
+//     scalars that chain_step_core.h's epoch_step_scalars makes from the
+//     summed words; the launcher makes the scalars and the reciprocals of
+//     their four fixed divisors (udiv64_core.h) once on the host, so a lane
+//     divides by multiply-highs alone, one a flag (a validator earns a flag's
+//     reward or pays its penalty, never both).
 //
 // Inputs: unsigned 64-bit words (int64 tensors carry the bit patterns),
 // participation flags as bytes, booleans as one byte; all contiguous on the
@@ -32,16 +38,17 @@
 // two chunk words): 33 bytes, 34.6 MB at 2^20 validators, about 10.3 us at
 // 3.35 TB/s; the sums read 12 bytes a validator (a word, four flags), about
 // 3.8 us at 2^20; the element pass reads 28 and writes 16, about 13.8 us.
-// The integer work is a few dozen operations a validator (the hysteresis
-// remainder and the element pass's divisions by values fixed for the epoch
-// are software routines of a few dozen each), below the byte time at the
-// dispatch rate. Simple designs: plain 8-byte loads, one thread per chunk or
-// validator, no shared-memory staging.
+// The integer work is a few dozen operations a validator for the first two
+// (the hysteresis remainder is a software division) and about a hundred for
+// the element pass, with up to five multiply-high divisions of about 17
+// each, below the byte time at the dispatch rate. The first two are simple designs: plain
+// 8-byte loads, one thread per chunk or validator.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "chain_step_core.h"
+#include "epoch_pass.h"
 
 namespace {
 
@@ -126,24 +133,6 @@ __global__ void __launch_bounds__(kThreads)
   block_sum_into<4>(acc, sums);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    epoch_step_apply_kernel(altair_core::FusedScalars s,
-                            const uint64_t* __restrict__ balances,
-                            const uint64_t* __restrict__ eff,
-                            const uint8_t* __restrict__ part,
-                            const bool* __restrict__ slashed,
-                            const bool* __restrict__ active_prev,
-                            const bool* __restrict__ eligible,
-                            const uint64_t* __restrict__ scores, int64_t n,
-                            uint64_t* __restrict__ out_scores,
-                            uint64_t* __restrict__ out_balances) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n) return;
-  // the wrap census of the fused epoch kernel has no counterpart in the step
-  altair_core::fused_epoch_lane(s, balances[i], eff[i], part[i], slashed[i], active_prev[i],
-                                eligible[i], scores[i], &out_scores[i], &out_balances[i]);
-}
-
 }  // namespace
 
 // balances, effective, new_effective: (n,) 64-bit words; active: (n,)
@@ -219,13 +208,13 @@ extern "C" int epoch_step_apply_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return 0;
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  epoch_step_apply_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      scalars, static_cast<const uint64_t*>(balances), static_cast<const uint64_t*>(eff),
-      static_cast<const uint8_t*>(part), static_cast<const bool*>(slashed),
-      static_cast<const bool*>(active_prev), static_cast<const bool*>(eligible),
-      static_cast<const uint64_t*>(scores), n, static_cast<uint64_t*>(out_scores),
-      static_cast<uint64_t*>(out_balances));
+  // the wrap census of the fused epoch kernel has no counterpart in the step
+  const epoch_pass::Columns columns = epoch_pass::make_columns(
+      balances, eff, part, slashed, active_prev, eligible, scores, n, out_scores,
+      out_balances);
+  epoch_pass::apply_kernel<true, false>
+      <<<static_cast<unsigned>(epoch_pass::blocks_for(n)), epoch_pass::kThreads, 0,
+         static_cast<cudaStream_t>(stream)>>>(columns, altair_core::fused_sweep(scalars),
+                                              nullptr);
   return static_cast<int>(cudaGetLastError());
 }

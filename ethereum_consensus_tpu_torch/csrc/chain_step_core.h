@@ -17,7 +17,8 @@
 // sums (three participation flags over the unslashed validators active in
 // the previous epoch, and the effective balances active in the current one),
 // and the per-epoch scalars made from the summed words. The element pass is
-// altair_core.h's fused_epoch_lane on those scalars: the step floors
+// altair_core.h's fused_epoch_lane on those scalars (the kernel runs it on
+// their reciprocals, altair_core::fused_sweep of them): the step floors
 // nothing but the total (max(total, increment)), where the fused epoch
 // kernel floors each flag sum at one increment too, so its scalars differ on
 // a flag sum below one increment (a sum that wrapped mod 2^64, or no

@@ -21,11 +21,12 @@ tensors it launches the kernel or raises.
 The reference's mesh twins (parallel/epoch.py :88 ``_fused_sharded``, the
 same kernel with its sums wrapped in ``psum``, and :132
 ``_rewards_sharded``, the rewards alone off the post-update scores) need
-the kernel's two launches apart: every shard's flag sums, added across the
+the kernel's two halves apart: every shard's flag sums, added across the
 shards mod 2^64, before any shard applies them. ``fused_flag_sums`` is the
-first launch alone (three words out), ``fused_epoch_apply`` the second on
-given sums, and ``rewards_apply`` the second without the inactivity
-update; each has its plain version and its count in ``launch_counts``.
+first half alone (three words out), ``fused_epoch_apply`` the pass on
+given sums, and ``rewards_apply`` that pass without the inactivity update;
+each is one launch, has its plain version and its count in
+``launch_counts``.
 """
 
 from __future__ import annotations
@@ -55,9 +56,11 @@ __all__ = [
 ]
 
 # Kernel launches since the count was last set to 0 (``_launch`` adds one
-# per launch, the reduction and the element pass together, and nowhere
-# else).
+# per launch of the cooperative kernel, and nowhere else).
 launch_count = 0
+# The fused kernel's scratch: the three flag sums, the census, then three
+# partial sums a block of its grid (the launcher cuts the grid to fit).
+FUSED_SCRATCH_WORDS = 4 + 3 * 2048
 # The split entries' launches, one count each, added where they launch.
 launch_counts = {"fused_flag_sums": 0, "fused_epoch_apply": 0, "rewards_apply": 0}
 
@@ -211,19 +214,20 @@ def fused_epoch_cuda(balances, eff, prev_part, slashed, active_prev, eligible, s
 
 def _launch(columns: tuple, words: tuple):
     """The launch alone, on inputs ``fused_epoch_cuda`` has checked; returns
-    (new_scores, new_balances, scratch), scratch holding the three flag sums
-    and the wrap census."""
+    (new_scores, new_balances, scratch), scratch[0..3] holding the three flag
+    sums and the wrap census."""
     global launch_count
     lib = _kernels.load("fused_epoch")
     balances = columns[0]
     new_scores = torch.empty_like(balances)
     new_balances = torch.empty_like(balances)
-    scratch = torch.empty(4, dtype=torch.int64, device=balances.device)
+    scratch = torch.empty(FUSED_SCRATCH_WORDS, dtype=torch.int64, device=balances.device)
     with torch.cuda.device(balances.device):
         stream = torch.cuda.current_stream(balances.device).cuda_stream
         rc = lib.fused_epoch_launch(
             *(t.data_ptr() for t in columns), balances.shape[0], *words,
-            scratch.data_ptr(), new_scores.data_ptr(), new_balances.data_ptr(), stream,
+            scratch.data_ptr(), FUSED_SCRATCH_WORDS, new_scores.data_ptr(),
+            new_balances.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused epoch kernel launch failed: CUDA error {rc}")
@@ -296,18 +300,12 @@ def fused_epoch_apply_plain(balances, eff, prev_part, slashed, active_prev, elig
                         _flag_increments(_sum_words(sums), words[0]), words, True)
 
 
-def _sums_scratch(sums, device) -> torch.Tensor:
-    """The element pass's four device words: the three flag sums, then the
-    census (zeroed by the launcher)."""
-    return torch.tensor([_as_int64(v) for v in _sum_words(sums)] + [0],
-                        dtype=torch.int64).to(device)
-
-
-def _launch_apply(fn_name: str, count: str, columns: tuple, words: tuple,
-                  scratch: torch.Tensor, out_scores: bool):
-    """Launch ``fn_name`` (the element pass) on checked inputs and the
-    ``_sums_scratch`` words; returns (new_scores or None, new_balances), the
-    census left in scratch[3]."""
+def _launch_apply(fn_name: str, count: str, columns: tuple, sums: list, words: tuple,
+                  census: torch.Tensor, out_scores: bool):
+    """Launch ``fn_name`` (the element pass) on checked inputs, the three
+    flag sums as u64 words (the launcher makes the increments) and a device
+    word for the census (zeroed by the launcher); returns (new_scores or
+    None, new_balances)."""
     lib = _kernels.load("fused_epoch")
     balances = columns[0]
     new_scores = torch.empty_like(balances) if out_scores else None
@@ -316,8 +314,8 @@ def _launch_apply(fn_name: str, count: str, columns: tuple, words: tuple,
     with torch.cuda.device(balances.device):
         stream = torch.cuda.current_stream(balances.device).cuda_stream
         rc = getattr(lib, fn_name)(
-            *(t.data_ptr() for t in columns), balances.shape[0], *words,
-            scratch.data_ptr(), *(t.data_ptr() for t in outs), stream,
+            *(t.data_ptr() for t in columns), balances.shape[0], *_sum_words(sums), *words,
+            census.data_ptr(), *(t.data_ptr() for t in outs), stream,
         )
     if rc != 0:
         raise RuntimeError(f"{count} kernel launch failed: CUDA error {rc}")
@@ -338,10 +336,10 @@ def fused_epoch_apply_cuda(balances, eff, prev_part, slashed, active_prev, eligi
     words = _scalars(increment, brpi, active_increments, denominator, bias,
                      recovery_rate, weights, weight_denominator, leaking,
                      head_flag_index, target_flag_index)
-    scratch = _sums_scratch(sums, balances.device)
+    census = torch.empty(1, dtype=torch.int64, device=balances.device)
     new_scores, new_balances = _launch_apply("fused_epoch_apply_launch", "fused_epoch_apply",
-                                             columns, words, scratch, True)
-    return new_scores, new_balances, int(scratch[3])
+                                             columns, sums, words, census, True)
+    return new_scores, new_balances, int(census[0])
 
 
 def fused_epoch_apply(*args, **kwargs):
@@ -381,10 +379,10 @@ def rewards_apply_cuda(balances, eff, prev_part, slashed, active_prev, eligible,
                      weight_denominator, leaking, head_flag_index, target_flag_index)
     # the launcher takes no bias or recovery rate: the lane updates no score
     words = words[:4] + words[6:]
-    scratch = _sums_scratch(sums, balances.device)
-    _, new_balances = _launch_apply("rewards_apply_launch", "rewards_apply", columns, words,
-                                    scratch, False)
-    return new_balances, int(scratch[3])
+    census = torch.empty(1, dtype=torch.int64, device=balances.device)
+    _, new_balances = _launch_apply("rewards_apply_launch", "rewards_apply", columns, sums,
+                                    words, census, False)
+    return new_balances, int(census[0])
 
 
 def rewards_apply(*args, **kwargs):

@@ -318,6 +318,7 @@ def test_wrappers_refuse_bad_inputs():
 
 _HOST_SHIM = r"""
 #include "altair_core.h"
+#include "epoch_pass.h"
 // The kernels' per-validator arithmetic over whole columns, on the host.
 extern "C" uint64_t isqrt_host(uint64_t x) { return altair_core::isqrt_u64(x); }
 
@@ -375,37 +376,81 @@ extern "C" void inactivity_penalties_host(const uint64_t* eff, const uint64_t* s
   }
 }
 
-extern "C" uint64_t fused_host(const uint64_t* balances, const uint64_t* eff,
+// The fused pass's scalars from ten words (increment, brpi, active
+// increments, penalty denominator, bias, recovery rate, three weights,
+// weight denominator) and the flags; the increments wait for the sums.
+static altair_core::FusedScalars fused_scalars(const uint64_t* w, int leaking, int head,
+                                               int target) {
+  altair_core::FusedScalars s;
+  s.increment = w[0];
+  s.brpi = w[1];
+  s.divisor = w[2] * w[9];
+  s.denominator = w[3];
+  s.bias = w[4];
+  s.recovery_rate = w[5];
+  for (int f = 0; f < 3; ++f) {
+    s.weights[f] = w[6 + f];
+    s.unslashed_increments[f] = 0;
+  }
+  s.weight_denominator = w[9];
+  s.leaking = leaking != 0;
+  s.head_flag_index = head;
+  s.target_flag_index = target;
+  return s;
+}
+
+// The fused pass over whole columns in one of three forms: 0, the lane with
+// the divisions as written (fused_flag_increments, fused_epoch_lane on
+// FusedScalars); 1, the lane on reciprocals (fused_sweep, floored_increments,
+// fused_epoch_lane on FusedSweep); 2, the kernel's schedule
+// (epoch_pass::fused_pass_host on the grid its launcher picks for `fit`
+// co-resident blocks, the columns `vector` or not; visits counted). With
+// `update` 0 (forms 0 and 1) the rewards lane alone off the given scores.
+// sums receives the three flag sums; returns the wrap census.
+extern "C" uint64_t fused_host(int form, const uint64_t* balances, const uint64_t* eff,
                                const uint8_t* part, const bool* slashed, const bool* active,
                                const bool* elig, const uint64_t* scores, int64_t n,
-                               uint64_t increment, uint64_t brpi, uint64_t active_increments,
-                               uint64_t denominator, int leaking, uint64_t* out_scores,
-                               uint64_t* out_balances) {
-  altair_core::FusedScalars s;
-  s.increment = increment;
-  s.brpi = brpi;
-  s.divisor = active_increments * 64;
-  s.denominator = denominator;
-  s.bias = 4;
-  s.recovery_rate = 16;
-  s.weights[0] = 14;
-  s.weights[1] = 26;
-  s.weights[2] = 14;
-  s.weight_denominator = 64;
-  s.leaking = leaking != 0;
-  s.head_flag_index = 2;
-  s.target_flag_index = 1;
-  uint64_t sums[3] = {0, 0, 0};
+                               const uint64_t* words, int leaking, int head, int target,
+                               int update, int64_t fit, int vector, uint64_t* out_scores,
+                               uint64_t* out_balances, uint64_t* sums, uint8_t* visits) {
+  altair_core::FusedScalars s = fused_scalars(words, leaking, head, target);
+  if (form == 2) {
+    const epoch_pass::Columns c{balances, eff, part,
+                                reinterpret_cast<const uint8_t*>(slashed),
+                                reinterpret_cast<const uint8_t*>(active),
+                                reinterpret_cast<const uint8_t*>(elig), scores, n,
+                                epoch_pass::chunk_count(n, vector != 0), out_scores,
+                                out_balances};
+    const int64_t grid = epoch_pass::fused_grid(n, fit, 2048);
+    return epoch_pass::fused_pass_host(c, altair_core::fused_sweep(s), grid, sums, visits);
+  }
+  for (int f = 0; f < 3; ++f) sums[f] = 0;
   for (int64_t i = 0; i < n; ++i) {
     if (!active[i] || slashed[i]) continue;
     for (int f = 0; f < 3; ++f) sums[f] += ((part[i] >> f) & 1) ? eff[i] : 0;
   }
   altair_core::fused_flag_increments(&s, sums);
+  const altair_core::FusedSweep sweep = altair_core::fused_sweep(s);
   uint64_t wrapped = 0;
   for (int64_t i = 0; i < n; ++i) {
-    wrapped += altair_core::fused_epoch_lane(s, balances[i], eff[i], part[i], slashed[i],
-                                             active[i], elig[i], scores[i], &out_scores[i],
-                                             &out_balances[i]);
+    if (update == 0) {
+      out_scores[i] = scores[i];
+      wrapped += form == 0 ? altair_core::rewards_lane(s, balances[i], eff[i], part[i],
+                                                       slashed[i], active[i], elig[i],
+                                                       scores[i], &out_balances[i])
+                           : altair_core::rewards_lane(sweep, balances[i], eff[i], part[i],
+                                                       slashed[i], active[i], elig[i],
+                                                       scores[i], &out_balances[i]);
+    } else {
+      wrapped += form == 0 ? altair_core::fused_epoch_lane(s, balances[i], eff[i], part[i],
+                                                           slashed[i], active[i], elig[i],
+                                                           scores[i], &out_scores[i],
+                                                           &out_balances[i])
+                           : altair_core::fused_epoch_lane(sweep, balances[i], eff[i],
+                                                           part[i], slashed[i], active[i],
+                                                           elig[i], scores[i], &out_scores[i],
+                                                           &out_balances[i]);
+    }
   }
   return wrapped;
 }
@@ -437,7 +482,8 @@ def core(tmp_path_factory):
     lib.inactivity_updates_host.restype = None
     lib.inactivity_penalties_host.argtypes = [_P, _P, _P, _I64, _U64, _P]
     lib.inactivity_penalties_host.restype = None
-    lib.fused_host.argtypes = [_P] * 7 + [_I64] + [_U64] * 4 + [ctypes.c_int, _P, _P]
+    lib.fused_host.argtypes = ([ctypes.c_int] + [_P] * 7 + [_I64, _P] + [ctypes.c_int] * 4
+                               + [_I64, ctypes.c_int] + [_P] * 4)
     lib.fused_host.restype = _U64
     return lib
 
@@ -541,26 +587,151 @@ def test_header_flag_lane_products_wrap_like_reference(core):
     assert got[0].any() and got[1].any()
 
 
+FUSED_FORMS = {"divided": 0, "reciprocals": 1, "schedule": 2}
+# The scalar words of the fused pass (increment, brpi, active increments,
+# penalty denominator, bias, recovery rate, three weights, weight
+# denominator) with each of its four divisors at 1, at powers of two, and
+# above 2^63 (the reward divisor, active increments x weight denominator,
+# wraps there).
+EDGE_SCALARS = {
+    "mainnet": (INC, 907, 1 << 15, 4 * 3 * 10**7, 4, 16, *WEIGHTS, 64),
+    "divisors_one": (1, 3, 1, 1, 4, 16, *WEIGHTS, 1),
+    "powers_of_two": (1 << 30, 1025, 1 << 20, 1 << 26, 4, 16, *WEIGHTS, 64),
+    "above_2_63": ((1 << 63) + 12345, (1 << 40) + 3, (1 << 62) + 5, TOP - 59, 4, 16, *WEIGHTS,
+                   3),
+}
+COLUMN_NAMES = ("balances", "eff", "prev_part", "slashed", "active_prev", "eligible", "scores")
+
+
+def _fused_words(k: dict) -> tuple:
+    increment, brpi, active_increments, denominator = _fused_scalars(k)
+    return (increment, brpi, active_increments, denominator, 4, 16, *WEIGHTS, 64)
+
+
+def _reference_fused(columns: list, words: tuple, leaking: bool) -> tuple:
+    """The reference's fused_epoch_kernel under numpy (head flag 2, target
+    flag 1): (new scores, new balances, wrapped)."""
+    with np.errstate(over="ignore"):
+        return ref_epoch_vector.fused_epoch_kernel(
+            np, *columns, *(np.uint64(w) for w in words[:4]), words[4], words[5],
+            tuple(words[6:9]), words[9], leaking, 2, 1)
+
+
+def _run_fused(core, form: int, columns: list, words: tuple, leaking: bool, update: bool = True,
+               fit: int = 528, vector: bool = True) -> dict:
+    """fused_host in one form: the outputs, the flag sums, the census and
+    (the schedule) each validator's visits."""
+    n = len(columns[0])
+    out_scores, out_balances = np.zeros(n, np.uint64), np.zeros(n, np.uint64)
+    sums, visits = np.zeros(3, np.uint64), np.zeros(n, np.uint8)
+    word_arr = _u64(words)
+    wrapped = core.fused_host(form, *(_ptr(c) for c in columns), n, _ptr(word_arr), int(leaking),
+                              2, 1, int(update), fit, int(vector), _ptr(out_scores),
+                              _ptr(out_balances), _ptr(sums), _ptr(visits))
+    return {"scores": out_scores, "balances": out_balances, "sums": sums, "wrapped": wrapped,
+            "visits": visits}
+
+
+def _flag_sums(columns: list) -> list:
+    eff, part, slashed, active = columns[1], columns[2], columns[3], columns[4]
+    unslashed = active & ~slashed
+    return [sum(int(v) for v in eff[unslashed & ((part >> f) & 1).astype(bool)]) % TOP
+            for f in range(3)]
+
+
+@pytest.mark.parametrize("form", FUSED_FORMS)
 @pytest.mark.parametrize("n", SIZES)
 @pytest.mark.parametrize("wrap", [False, True])
-def test_header_fused_matches_reference(core, n, wrap):
+def test_header_fused_matches_reference(core, n, wrap, form):
+    """The division-as-written lane, the lane on reciprocals and the
+    kernel's schedule run on the host, against the reference."""
     for leaking in (False, True):
         k = _fused_inputs(n, seed=500 + n, wrap=wrap)
-        increment, brpi, active_increments, denominator = _fused_scalars(k)
-        columns = [np.ascontiguousarray(k[c]) for c in ("balances", "eff", "prev_part",
-                                                         "slashed", "active_prev",
-                                                         "eligible", "scores")]
-        out_scores, out_balances = np.zeros(n, np.uint64), np.zeros(n, np.uint64)
-        wrapped = core.fused_host(*(_ptr(c) for c in columns), n, increment, brpi,
-                                  active_increments, denominator, int(leaking),
-                                  _ptr(out_scores), _ptr(out_balances))
-        want = ref_epoch_vector.fused_epoch_kernel(
-            np, *columns, np.uint64(increment), np.uint64(brpi),
-            np.uint64(active_increments), np.uint64(denominator), 4, 16, WEIGHTS, 64,
-            leaking, 2, 1,
-        )
-        assert np.array_equal(out_scores, want[0]) and np.array_equal(out_balances, want[1])
-        assert wrapped == int(want[2])
+        words = _fused_words(k)
+        columns = [np.ascontiguousarray(k[c]) for c in COLUMN_NAMES]
+        got = _run_fused(core, FUSED_FORMS[form], columns, words, leaking)
+        want = _reference_fused(columns, words, leaking)
+        assert np.array_equal(got["scores"], want[0]) and np.array_equal(got["balances"], want[1])
+        assert got["wrapped"] == int(want[2])
+        assert got["sums"].tolist() == _flag_sums(columns)
+
+
+def _edge_sum_columns(n: int, seed: int, increment: int, case: str) -> list:
+    """_fused_inputs with balances that wrap, effective balances across the
+    whole u64 range on a third of the rows (their reward products pass
+    2^64), and flag 0's sum at an edge: "zero" (no participant), "below"
+    (one participant, below one increment) or "wrapped" (past 2^64, to 5)."""
+    k = _fused_inputs(n, seed, wrap=True)
+    rng = np.random.default_rng(seed + 1)
+    k["eff"] = np.where(rng.integers(0, 3, n) == 0,
+                        rng.integers(0, TOP, n, dtype=np.uint64, endpoint=False), k["eff"])
+    k["prev_part"] &= np.uint8(6)
+    k["active_prev"][0], k["slashed"][0], k["eligible"][0] = True, False, True
+    if case == "below":
+        k["prev_part"][0] |= np.uint8(1)
+        k["eff"][0] = np.uint64((increment - 1) // 3)
+    elif case == "wrapped":
+        unslashed = k["active_prev"] & ~k["slashed"]
+        k["prev_part"][1:] |= (rng.integers(0, 2, n - 1) * (unslashed[1:])).astype(np.uint8)
+        k["prev_part"][0] |= np.uint8(1)
+        k["eff"][0] = 0
+        columns = [k[c] for c in COLUMN_NAMES]
+        k["eff"][0] = np.uint64((5 - _flag_sums(columns)[0]) % TOP)
+    return [np.ascontiguousarray(k[c]) for c in COLUMN_NAMES]
+
+
+@pytest.mark.parametrize("form", FUSED_FORMS)
+@pytest.mark.parametrize("scalars", EDGE_SCALARS)
+def test_header_fused_forms_on_edge_scalars(core, scalars, form):
+    """Each form against the reference with every divisor at 1, at powers of
+    two and above 2^63, products past 2^64, both leak states, and a flag
+    sum of 0, below one increment and wrapped; the rewards lane alone
+    (forms on lanes) off the reference's new scores gives its balances."""
+    words = EDGE_SCALARS[scalars]
+    for case in ("zero", "below", "wrapped"):
+        columns = _edge_sum_columns(4099, 41, words[0], case)
+        sums = _flag_sums(columns)
+        assert sums[0] == {"zero": 0, "below": (words[0] - 1) // 3, "wrapped": 5}[case]
+        for leaking in (False, True):
+            want = _reference_fused(columns, words, leaking)
+            got = _run_fused(core, FUSED_FORMS[form], columns, words, leaking)
+            assert np.array_equal(got["scores"], want[0]), (case, leaking)
+            assert np.array_equal(got["balances"], want[1]), (case, leaking)
+            assert got["wrapped"] == int(want[2]) and got["sums"].tolist() == sums
+            if form != "schedule":
+                rewards = _run_fused(core, FUSED_FORMS[form], [*columns[:6], want[0]], words,
+                                     leaking, update=False)
+                assert np.array_equal(rewards["balances"], want[1])
+                assert rewards["wrapped"] == int(want[2])
+            if not leaking and scalars == "mainnet":
+                assert got["wrapped"] > 0
+
+
+# A block's chunks, and the co-resident grids of one H100 at 4 and 3 blocks
+# an SM and of a grid of 3 blocks, on which a warp takes several chunks.
+SCHEDULE_SIZES = [0, 1, 255, 256, 257, 2047, 2048, 2049, (1 << 16) + 3, (1 << 21) + 5]
+SCHEDULE_GRIDS = [(528, True), (396, True), (3, True), (3, False)]
+
+
+@pytest.mark.parametrize("n", SCHEDULE_SIZES)
+def test_header_fused_schedule_covers_each_validator_once(core, n):
+    """The kernel's partition into blocks, warps and chunks, run on the
+    host: phase 1 and phase 2 each visit every validator once, on the
+    vector path and one validator a thread, and the outputs, sums and
+    census equal the reference's."""
+    k = _fused_inputs(n, seed=900 + n % 1000, wrap=True)
+    words = _fused_words(k)
+    columns = [np.ascontiguousarray(k[c]) for c in COLUMN_NAMES]
+    want = _reference_fused(columns, words, False)
+    sums = _flag_sums(columns)
+    for fit, vector in SCHEDULE_GRIDS:
+        got = _run_fused(core, FUSED_FORMS["schedule"], columns, words, False, fit=fit,
+                         vector=vector)
+        assert np.all(got["visits"] == 17), (fit, vector)
+        assert np.array_equal(got["scores"], want[0]) and np.array_equal(got["balances"], want[1])
+        assert got["wrapped"] == int(want[2]) and got["sums"].tolist() == sums
+    if n >= 2049:
+        assert int(want[2]) > 0
 
 
 @pytest.mark.parametrize("n", [1, 255, 256, 257, 1 << 17])

@@ -289,23 +289,42 @@ extern "C" uint64_t chain_host(const uint64_t* balances, const uint64_t* effecti
   return total;
 }
 
-extern "C" void epoch_host(const uint64_t* balances, const uint64_t* eff, const uint8_t* part,
-                           const bool* slashed, const bool* active_prev,
+// The epoch step over whole columns: the four sums, the scalars
+// (epoch_step_scalars on consts: increment, base reward factor, bias,
+// recovery rate, inactivity quotient, three weights, weight denominator),
+// then the element pass with the divisions as written (form 0) or on the
+// reciprocals the launcher makes (form 1, K3's lane). increments receives
+// the step's unslashed increments, floored the fused kernel's
+// (floored_increments) for the same sums.
+extern "C" void epoch_host(int form, const uint64_t* balances, const uint64_t* eff,
+                           const uint8_t* part, const bool* slashed, const bool* active_prev,
                            const bool* active_cur, const bool* eligible,
-                           const uint64_t* scores, int64_t n, int leaking,
-                           uint64_t* out_scores, uint64_t* out_balances,
-                           uint64_t* total_active) {
+                           const uint64_t* scores, int64_t n, const uint64_t* consts,
+                           int leaking, uint64_t* out_scores, uint64_t* out_balances,
+                           uint64_t* total_active, uint64_t* increments, uint64_t* floored) {
   uint64_t sums[4] = {0, 0, 0, 0};
   for (int64_t i = 0; i < n; ++i) {
     chain_step_core::epoch_sums_lane(eff[i], part[i], slashed[i], active_prev[i],
                                      active_cur[i], sums);
   }
   const chain_step_core::EpochConstants c{
-      1000000000ull, 64, 4, 16, 3ull << 24, {14, 26, 14}, 64, leaking != 0, 2, 1};
+      consts[0], consts[1], consts[2], consts[3], consts[4], {consts[5], consts[6], consts[7]},
+      consts[8], leaking != 0, 2, 1};
   const altair_core::FusedScalars s = chain_step_core::epoch_step_scalars(c, sums, total_active);
+  const altair_core::FusedSweep sweep = altair_core::fused_sweep(s);
+  for (int f = 0; f < 3; ++f) {
+    increments[f] = sweep.unslashed_increments[f];
+    floored[f] = altair_core::floored_increments(sweep, sums[f]);
+  }
   for (int64_t i = 0; i < n; ++i) {
-    altair_core::fused_epoch_lane(s, balances[i], eff[i], part[i], slashed[i], active_prev[i],
-                                  eligible[i], scores[i], &out_scores[i], &out_balances[i]);
+    if (form == 0) {
+      altair_core::fused_epoch_lane(s, balances[i], eff[i], part[i], slashed[i], active_prev[i],
+                                    eligible[i], scores[i], &out_scores[i], &out_balances[i]);
+    } else {
+      altair_core::fused_epoch_lane(sweep, balances[i], eff[i], part[i], slashed[i],
+                                    active_prev[i], eligible[i], scores[i], &out_scores[i],
+                                    &out_balances[i]);
+    }
   }
 }
 """
@@ -329,7 +348,7 @@ def core(tmp_path_factory):
     lib = ctypes.CDLL(str(lib_path))
     lib.chain_host.argtypes = [_P, _P, _P, _I64] + [_U64] * 4 + [_P, _P]
     lib.chain_host.restype = _U64
-    lib.epoch_host.argtypes = [_P] * 8 + [_I64, ctypes.c_int] + [_P] * 3
+    lib.epoch_host.argtypes = [ctypes.c_int] + [_P] * 8 + [_I64, _P, ctypes.c_int] + [_P] * 5
     lib.epoch_host.restype = None
     return lib
 
@@ -354,17 +373,75 @@ def test_header_chain_lane_matches_reference(reference, core, n):
     assert words.T.reshape(-1)[:2 * n].tolist() == want["words"]
 
 
-@pytest.mark.parametrize("label", [k for k, v in EPOCH_CASES.items() if v[2] is False or
-                                   not v[0]])
-def test_header_epoch_lanes_match_reference(reference, core, label):
-    edges, leaking, _ = EPOCH_CASES[label]
-    cols = [np.ascontiguousarray(c) for c in epoch_columns(edges)]
+MAINNET_CONSTS = (INC, 64, 4, 16, 3 * 2**24, 14, 26, 14, 64)
+STEP_FORMS = {"divided": 0, "reciprocals": 1}
+
+
+def _run_epoch_host(core, form: int, cols: list, consts: tuple, leaking: bool) -> dict:
     n = len(cols[0])
     out_scores, out_balances = np.zeros(n, np.uint64), np.zeros(n, np.uint64)
-    total = np.zeros(1, np.uint64)
-    core.epoch_host(*(_ptr(c) for c in cols), n, int(leaking), _ptr(out_scores),
-                    _ptr(out_balances), _ptr(total))
+    total, increments, floored = np.zeros(1, np.uint64), np.zeros(3, np.uint64), np.zeros(3,
+                                                                                          np.uint64)
+    consts_arr = _u64(consts)
+    core.epoch_host(form, *(_ptr(c) for c in cols), n, _ptr(consts_arr), int(leaking),
+                    _ptr(out_scores), _ptr(out_balances), _ptr(total), _ptr(increments),
+                    _ptr(floored))
+    return {"scores": out_scores, "balances": out_balances, "total": int(total[0]),
+            "increments": increments.tolist(), "floored": floored.tolist()}
+
+
+@pytest.mark.parametrize("form", STEP_FORMS)
+@pytest.mark.parametrize("label", [k for k, v in EPOCH_CASES.items() if v[2] is False or
+                                   not v[0]])
+def test_header_epoch_lanes_match_reference(reference, core, label, form):
+    """K3's scalars and lane (the divisions as written, and on the
+    reciprocals K3's launcher makes) against the reference's step."""
+    edges, leaking, _ = EPOCH_CASES[label]
+    cols = [np.ascontiguousarray(c) for c in epoch_columns(edges)]
+    got = _run_epoch_host(core, STEP_FORMS[form], cols, MAINNET_CONSTS, leaking)
     want = reference["epoch"][label]
-    assert np.array_equal(out_balances, _u64(want["balances"]))
-    assert np.array_equal(out_scores, _u64(want["scores"]))
-    assert int(total[0]) == want["total"]
+    assert np.array_equal(got["balances"], _u64(want["balances"]))
+    assert np.array_equal(got["scores"], _u64(want["scores"]))
+    assert got["total"] == want["total"]
+
+
+def test_header_step_and_fused_increments_part_below_one_increment(core):
+    """The edge rows' flag 0 sum wraps to 5, below one increment: the step's
+    scalars (K3's, no floor) give 0 increments, the fused kernel's floor
+    (floored_increments) 1; at or above one increment they agree."""
+    cols = [np.ascontiguousarray(c) for c in epoch_columns(True)]
+    got = _run_epoch_host(core, 1, cols, MAINNET_CONSTS, False)
+    assert got["increments"][0] == 0 and got["floored"][0] == 1
+    assert got["increments"][1:] == got["floored"][1:] and min(got["increments"][1:]) > 0
+
+
+# The step's constants (increment, base reward factor, bias, recovery rate,
+# inactivity quotient, three weights, weight denominator) with its divisors
+# (the increment, the reward divisor, the weight denominator, bias x
+# quotient) at 1, at powers of two and above 2^63.
+STEP_EDGE_CONSTS = {
+    "divisors_one": (1, 64, 1, 16, 1, 14, 26, 14, 1),
+    "powers_of_two": (1 << 30, 64, 4, 16, 1 << 24, 14, 26, 14, 64),
+    "above_2_63": ((1 << 63) + 9, 1 << 20, 3, 16, (1 << 62) + 1, 14, 26, 14, 3),
+}
+
+
+@pytest.mark.parametrize("consts", STEP_EDGE_CONSTS)
+def test_header_epoch_lane_on_reciprocals_matches_plain_on_edge_divisors(core, consts):
+    """K3's lane on reciprocals against the lane with the divisions as
+    written and the plain version (ops/chain_step.py), both leak states,
+    on the edge rows (flag sums past 2^64 and below one increment, products
+    past 2^64)."""
+    words = STEP_EDGE_CONSTS[consts]
+    cols = [np.ascontiguousarray(c) for c in epoch_columns(True)]
+    tensors = [torch.from_numpy(c.view(np.int64) if c.dtype == np.uint64 else c) for c in cols]
+    sums = port_ops.epoch_step_sums_plain(*tensors[1:6]).tolist()
+    for leaking in (False, True):
+        got = _run_epoch_host(core, 1, cols, words, leaking)
+        divided = _run_epoch_host(core, 0, cols, words, leaking)
+        plain_balances, plain_scores = port_ops.epoch_step_apply_plain(
+            *tensors[:5], tensors[6], tensors[7], sums, *words[:5], words[5:8], words[8],
+            leaking, 2, 1)
+        for key, plain in (("balances", plain_balances), ("scores", plain_scores)):
+            assert np.array_equal(got[key], divided[key]), (key, leaking)
+            assert np.array_equal(got[key], plain.numpy().view(np.uint64)), (key, leaking)
