@@ -77,6 +77,13 @@ Phases, each of which exits non-zero when it fails:
                 ptxas' registers, frame and spills of B3, its apply entries
                 and K3 (a frame or a spill fails the run) and their SASS
                 instructions.
+     sums     — K2 and the B9-epoch flag sums (csrc/masked_sums.h's kernel
+                at four and three sums) against their plain versions,
+                bit-exact, at 2^20, 2^18, 2^21 + 5, one validator and none
+                (seeded words over the whole u64 range: the sums wrap) and
+                on a view one row in; CUDA-event times at 2^20 and 2^18; the
+                timer's floor (an empty launch); ptxas' registers, frame and
+                spills of both builds (a frame or a spill fails the run).
  13. altair   — the registry to slot 32 under phase0 rules, the sync
                 committee's keys made real, upgrade_to_altair (altair at
                 epoch 1), slots to 95 under altair rules, a scramble of a
@@ -1933,6 +1940,78 @@ def phase_altair_sweeps() -> dict:
                                for line in passes):
         sys.exit("chip_smoke: ptxas gives B3, an apply entry or K3 a frame or spills")
     return {name: {**t, "max_abs_err": errs[name]} for name, t in timings.items()}
+
+
+# --- the masked sums: K2 and the B9-epoch flag sums -----------------------
+
+# n of the checks: the main path's registry, a 4-shard share of it, a wide
+# registry whose last 5 validators go one a thread, one validator and none;
+# then a view one row into 2^20 + 1 rows (every column off the vector path)
+SUMS_CHECK_NS = (VALIDATORS, VALIDATORS // 4, (1 << 21) + 5, 1, 0)
+SUMS_TIMED_NS = (VALIDATORS, VALIDATORS // 4)
+
+
+def _sums_columns(n: int, seed: int) -> tuple:
+    """Seeded columns on the card: effective balances over the whole u64
+    range (every sum wraps past 2^64), flags 0..7, about a tenth slashed and
+    nine tenths active in each epoch."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    eff = torch.randint(-(1 << 63), (1 << 63) - 1, (n,), generator=gen, dtype=torch.int64,
+                        device="cuda")
+    part = torch.randint(0, 8, (n,), generator=gen, dtype=torch.uint8, device="cuda")
+    slashed, active_prev, active_cur = (
+        torch.rand(n, generator=gen, device="cuda") < p for p in (0.1, 0.9, 0.9))
+    return eff, part, slashed, active_prev, active_cur
+
+
+def phase_sums() -> dict:
+    """K2 (epoch_step_sums) and the B9-epoch flag sums (fused_flag_sums),
+    csrc/masked_sums.h's kernel at four and three sums, bit-exact against
+    their plain versions at SUMS_CHECK_NS and on a view one row in;
+    CUDA-event times at 2^20 and 2^18; the timer's floor (an empty launch);
+    ptxas' registers, frame and spills of both builds (a frame or a spill
+    fails the run)."""
+    from ethereum_consensus_tpu_torch.ops import chain_step as cs
+    from ethereum_consensus_tpu_torch.ops import epoch
+
+    t0 = time.perf_counter()
+    checks, bad = {}, []
+    for n in (*SUMS_CHECK_NS, "offset"):
+        if n == "offset":
+            cols = tuple(c[1:] for c in _sums_columns(VALIDATORS + 1, seed=1))
+        else:
+            cols = _sums_columns(n, seed=n)
+        errs = {"epoch_step_sums": _words_err(cs.epoch_step_sums_cuda(*cols),
+                                              cs.epoch_step_sums_plain(*cols)),
+                "fused_flag_sums": _words_err(epoch.fused_flag_sums_cuda(*cols[:4]),
+                                              epoch.fused_flag_sums_plain(*cols[:4]))}
+        checks[str(n)] = errs
+        bad += [f"{name} at {n}" for name, err in errs.items() if err]
+    print(f"sums: max_abs_err vs plain by n {checks}")
+    timed = {}
+    for n in SUMS_TIMED_NS:
+        cols = _sums_columns(n, seed=n)
+        timed[n] = {"epoch_step_sums": _cuda_ms(lambda: cs._launch_sums(cols), reps=50,
+                                                warmup=5),
+                    "fused_flag_sums": _cuda_ms(lambda: epoch.fused_flag_sums_cuda(*cols[:4]),
+                                                reps=50, warmup=5)}
+        print(f"sums n={n}: ms {_rounded(timed[n], 4)} (bounds by bytes "
+              f"{1e3 * n * EPOCH_SUMS_BYTES / MEM_BYTES_PER_S:.4f} and "
+              f"{1e3 * n * FLAG_SUMS_BYTES / MEM_BYTES_PER_S:.4f} ms)")
+    floor = _cuda_ms(lambda: torch.cuda._sleep(0), reps=50, warmup=5)
+    print(f"sums: the timer's floor (an empty launch) {floor:.4f} ms")
+    ptxas = (_ptxas_lines("chain_step", "masked_sums_kernel")
+             + _ptxas_lines("fused_epoch", "masked_sums_kernel"))
+    print(f"sums: ptxas of K2 and the flag sums {ptxas}; SASS instructions "
+          f"{_sass_kernel_instructions('chain_step', ('masked_sums_kernel',))} "
+          f"{_sass_kernel_instructions('fused_epoch', ('masked_sums_kernel',))}")
+    if bad:
+        sys.exit(f"chip_smoke: the masked sums disagree with their plain versions: {bad}")
+    if len(ptxas) != 2 or any(line.get("spill_stores") or line.get("stack_frame")
+                              for line in ptxas):
+        sys.exit("chip_smoke: ptxas gives K2 or the flag sums a frame or spills")
+    print(f"sums phase: {time.perf_counter() - t0:.1f} s")
+    return {"checks": checks, "ms": timed, "timer_floor_ms": floor, "ptxas": ptxas}
 
 
 # --- the altair block across an altair epoch boundary ---------------------
@@ -3861,6 +3940,7 @@ def main() -> int:
     report["sweeps"] = _walled("sweeps", phase_sweeps)
     report["epoch"] = _walled("epoch", phase_epoch, registry)
     report["altair_sweeps"] = _walled("altair_sweeps", phase_altair_sweeps)
+    report["sums"] = _walled("sums", phase_sums)
     report["altair"] = _walled("altair", phase_altair, registry)
     report["window"] = _walled("window", phase_window, registry)
     report["mesh"] = _walled("mesh", phase_mesh, report["altair"], report["window"])

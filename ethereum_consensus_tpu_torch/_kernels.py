@@ -138,7 +138,7 @@ _LIBRARIES = {
         },
     ),
     "fused_epoch": (
-        ("fused_epoch.cu", "epoch_pass.h", "altair_core.h", "udiv64_core.h"),
+        ("fused_epoch.cu", "epoch_pass.h", "masked_sums.h", "altair_core.h", "udiv64_core.h"),
         {
             "fused_epoch_launch": (
                 [ctypes.c_void_p] * 7 + [ctypes.c_int64] + [ctypes.c_uint64] * 10
@@ -147,7 +147,8 @@ _LIBRARIES = {
                 ctypes.c_int,
             ),
             "fused_flag_sums_launch": (
-                [ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_void_p] * 2,
+                [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                                         ctypes.c_void_p],
                 ctypes.c_int,
             ),
             "fused_epoch_apply_launch": (
@@ -163,8 +164,8 @@ _LIBRARIES = {
         },
     ),
     "chain_step": (
-        ("chain_step.cu", "chain_step_core.h", "epoch_pass.h", "altair_core.h",
-         "udiv64_core.h", "sweeps_core.h"),
+        ("chain_step.cu", "chain_step_core.h", "epoch_pass.h", "masked_sums.h",
+         "altair_core.h", "udiv64_core.h", "sweeps_core.h"),
         {
             "chain_step_shard_launch": (
                 [ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_uint64] * 4
@@ -172,7 +173,8 @@ _LIBRARIES = {
                 ctypes.c_int,
             ),
             "epoch_step_sums_launch": (
-                [ctypes.c_void_p] * 5 + [ctypes.c_int64] + [ctypes.c_void_p] * 2,
+                [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                                         ctypes.c_void_p],
                 ctypes.c_int,
             ),
             "epoch_step_apply_launch": (

@@ -14,9 +14,13 @@
 //     reads (word w of chunk c at w * n/4 + c, so each of the eight stores of
 //     a warp is coalesced), and the sum of the active new effective balances
 //     into one device word (warp shuffles, one 64-bit atomicAdd a block).
-//   epoch_step_sums_launch  one grid-stride pass: the three flag sums over
-//     the unslashed validators active in the previous epoch and the
-//     effective balance active in the current epoch, four words mod 2^64.
+//   epoch_step_sums_launch  masked_sums.h's kernel at K = 4: the three flag
+//     sums over the unslashed validators active in the previous epoch and
+//     the effective balance active in the current epoch, four words mod
+//     2^64; a thread takes 8 consecutive validators a step (four 16-byte
+//     loads of the effective balances, one 8-byte load of each byte column),
+//     each block a contiguous range, and the blocks' partial words are added
+//     after a grid sync in the same cooperative launch.
 //   epoch_step_apply_launch  the element pass: epoch_pass.h's apply_kernel
 //     (warp chunks of 256 validators, one launch a chunk a warp, 4 blocks an
 //     SM at 64 registers; each lane's two validators a step read 16 bytes of
@@ -30,8 +34,8 @@
 //
 // Inputs: unsigned 64-bit words (int64 tensors carry the bit patterns),
 // participation flags as bytes, booleans as one byte; all contiguous on the
-// current device. Outputs are written whole; the sums' words are zeroed
-// here on the stream.
+// current device. Outputs are written whole; the chain step's total is
+// zeroed here on the stream, the epoch step's sums need no zeroing.
 //
 // What bounds them on an H100: bytes. The chain step reads 17 bytes a
 // validator (two words, a flag) and writes 16 (the new effective balance,
@@ -41,46 +45,33 @@
 // The integer work is a few dozen operations a validator for the first two
 // (the hysteresis remainder is a software division) and about a hundred for
 // the element pass, with up to five multiply-high divisions of about 17
-// each, below the byte time at the dispatch rate. The first two are simple designs: plain
-// 8-byte loads, one thread per chunk or validator.
+// each, below the byte time at the dispatch rate. The chain step is a simple design: plain
+// 8-byte loads, one thread per chunk.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "chain_step_core.h"
 #include "epoch_pass.h"
+#include "masked_sums.h"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kReduceBlocks = 1056;  // 8 per SM of an H100
 
-__device__ __forceinline__ uint64_t warp_sum(uint64_t v) {
-  for (int offset = 16; offset > 0; offset >>= 1) {
-    v += __shfl_down_sync(0xffffffffu, v, offset);
-  }
-  return v;
-}
+using masked_sums::warp_sum;
 
-// Adds the block's K partial sums (one per thread in acc) into words[0..K),
-// one atomicAdd a word a block.
-template <int K>
-__device__ __forceinline__ void block_sum_into(uint64_t (&acc)[K],
-                                               unsigned long long* words) {
-  __shared__ uint64_t warp_sums[K][kThreads / 32];
-  for (int k = 0; k < K; ++k) {
-    acc[k] = warp_sum(acc[k]);
-    if ((threadIdx.x & 31) == 0) warp_sums[k][threadIdx.x >> 5] = acc[k];
-  }
+// Adds the block's sum of acc (one per thread) into *total, one atomicAdd
+// a block.
+__device__ __forceinline__ void block_sum_into(uint64_t acc, unsigned long long* total) {
+  __shared__ uint64_t warp_sums[kThreads / 32];
+  acc = warp_sum(acc);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = acc;
   __syncthreads();
   if (threadIdx.x < 32) {
-    for (int k = 0; k < K; ++k) {
-      uint64_t v = threadIdx.x < kThreads / 32 ? warp_sums[k][threadIdx.x] : 0;
-      v = warp_sum(v);
-      if (threadIdx.x == 0 && v != 0) {
-        atomicAdd(&words[k], static_cast<unsigned long long>(v));
-      }
-    }
+    const uint64_t v = warp_sum(threadIdx.x < kThreads / 32 ? warp_sums[threadIdx.x] : 0);
+    if (threadIdx.x == 0 && v != 0) atomicAdd(total, static_cast<unsigned long long>(v));
   }
 }
 
@@ -97,7 +88,7 @@ __global__ void __launch_bounds__(kThreads)
                             uint64_t* __restrict__ new_effective,
                             uint32_t* __restrict__ words,
                             unsigned long long* __restrict__ total) {
-  uint64_t acc[1] = {0};
+  uint64_t acc = 0;
   for (int64_t c = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
        c < chunks; c += static_cast<int64_t>(gridDim.x) * kThreads) {
     const int64_t base = c * chain_step_core::kPerChunk;
@@ -110,27 +101,11 @@ __global__ void __launch_bounds__(kThreads)
     }
     uint64_t out[chain_step_core::kPerChunk];
     uint32_t w[8];
-    acc[0] += chain_step_core::chunk_lane(h, bal, eff, act, out, w);
+    acc += chain_step_core::chunk_lane(h, bal, eff, act, out, w);
     for (int k = 0; k < chain_step_core::kPerChunk; ++k) new_effective[base + k] = out[k];
     for (int r = 0; r < 8; ++r) words[r * chunks + c] = w[r];
   }
-  block_sum_into<1>(acc, total);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    epoch_step_sums_kernel(const uint64_t* __restrict__ eff,
-                           const uint8_t* __restrict__ part,
-                           const bool* __restrict__ slashed,
-                           const bool* __restrict__ active_prev,
-                           const bool* __restrict__ active_cur, int64_t n,
-                           unsigned long long* __restrict__ sums) {
-  uint64_t acc[4] = {0, 0, 0, 0};
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n;
-       i += static_cast<int64_t>(gridDim.x) * kThreads) {
-    chain_step_core::epoch_sums_lane(eff[i], part[i], slashed[i], active_prev[i],
-                                     active_cur[i], acc);
-  }
-  block_sum_into<4>(acc, sums);
+  block_sum_into(acc, total);
 }
 
 }  // namespace
@@ -161,21 +136,17 @@ extern "C" int chain_step_shard_launch(const void* balances, const void* effecti
 }
 
 // eff: (n,) 64-bit words; part: (n,) bytes; slashed, active_prev,
-// active_cur: (n,) one-byte booleans; sums: four 64-bit words, zeroed here,
-// then the three flag sums and the active-current total. Returns
-// cudaGetLastError(); n == 0 launches nothing but the zeroing.
+// active_cur: (n,) one-byte booleans. words: word_count 64-bit words, at
+// least 8: after the kernel words[0..3] hold the three flag sums and the
+// active-current total; the rest takes four partial words a block (the grid
+// is cut to fit them). One cooperative launch, also at n == 0; returns its
+// error (0 = launched).
 extern "C" int epoch_step_sums_launch(const void* eff, const void* part, const void* slashed,
                                       const void* active_prev, const void* active_cur,
-                                      int64_t n, void* sums, void* stream) {
-  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t rc = cudaMemsetAsync(sums, 0, 4 * sizeof(uint64_t), s);
-  if (rc != cudaSuccess || n == 0) return static_cast<int>(rc);
-  epoch_step_sums_kernel<<<grid_for(n), kThreads, 0, s>>>(
-      static_cast<const uint64_t*>(eff), static_cast<const uint8_t*>(part),
-      static_cast<const bool*>(slashed), static_cast<const bool*>(active_prev),
-      static_cast<const bool*>(active_cur), n, static_cast<unsigned long long*>(sums));
-  return static_cast<int>(cudaGetLastError());
+                                      int64_t n, void* words, int64_t word_count,
+                                      void* stream) {
+  return masked_sums::launch<4>(eff, part, slashed, active_prev, active_cur, n, words,
+                                word_count, stream);
 }
 
 // The element pass on the summed words (flag0, flag1, flag2, active-current

@@ -13,10 +13,10 @@
 // endian, and word 2k is the byte swap of balance k's low half, word 2k + 1
 // of its high half).
 //
-// The epoch sweep step (step.py:294-383): one validator's share of the four
-// sums (three participation flags over the unslashed validators active in
-// the previous epoch, and the effective balances active in the current one),
-// and the per-epoch scalars made from the summed words. The element pass is
+// The epoch sweep step (step.py:294-383): the per-epoch scalars made from
+// the four summed words (three participation flags over the unslashed
+// validators active in the previous epoch, and the effective balances active
+// in the current one; masked_sums.h's lane, which K2 runs). The element pass is
 // altair_core.h's fused_epoch_lane on those scalars (the kernel runs it on
 // their reciprocals, altair_core::fused_sweep of them): the step floors
 // nothing but the total (max(total, increment)), where the fused epoch
@@ -76,18 +76,6 @@ CHAIN_HD uint64_t chunk_lane(const Hysteresis& h, const uint64_t balances[kPerCh
     words[2 * k + 1] = bswap32(static_cast<uint32_t>(b >> 32));
   }
   return sum;
-}
-
-// One validator's share of the epoch step's four sums: sums[f] for flag f
-// (0..2) over the unslashed validators active in the previous epoch,
-// sums[3] over the validators active in the current epoch.
-CHAIN_HD void epoch_sums_lane(uint64_t eff, uint8_t part, bool slashed, bool active_prev,
-                              bool active_cur, uint64_t sums[4]) {
-  const bool unslashed_active = active_prev && !slashed;
-  for (int f = 0; f < 3; ++f) {
-    sums[f] += (unslashed_active && ((part >> f) & 1)) ? eff : 0;
-  }
-  sums[3] += active_cur ? eff : 0;
 }
 
 // The chain constants of the epoch step (make_epoch_sweep_step's five, and

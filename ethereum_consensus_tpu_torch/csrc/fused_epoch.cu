@@ -40,8 +40,9 @@
 //
 // The reference's mesh twins add every shard's sums before any shard
 // applies them, so the pass's halves are entries of their own too:
-// fused_flag_sums_launch (the three sums, a grid-stride reduction) and, on
-// sums the caller gives, fused_epoch_apply_launch and rewards_apply_launch
+// fused_flag_sums_launch (the three sums: masked_sums.h's kernel at K = 3,
+// one cooperative launch that adds the blocks' partial words after a grid
+// sync) and, on sums the caller gives, fused_epoch_apply_launch and rewards_apply_launch
 // (the rewards alone off post-update scores): one launch each of
 // epoch_pass.h's apply_kernel, a chunk a warp, the increments made by the
 // launcher.
@@ -61,6 +62,7 @@
 
 #include "altair_core.h"
 #include "epoch_pass.h"
+#include "masked_sums.h"
 
 namespace {
 
@@ -68,50 +70,8 @@ using epoch_pass::kChunkSteps;
 using epoch_pass::kPerLane;
 using epoch_pass::kThreads;
 using epoch_pass::kWarps;
-constexpr int kReduceBlocks = 1056;  // 8 per SM of an H100
 
-__device__ __forceinline__ uint64_t warp_sum(uint64_t v) {
-  for (int offset = 16; offset > 0; offset >>= 1) {
-    v += __shfl_down_sync(0xffffffffu, v, offset);
-  }
-  return v;
-}
-
-// sums[f] += eff[i] over the unslashed validators active in the previous
-// epoch whose flag f is set, mod 2^64.
-__global__ void __launch_bounds__(kThreads)
-    flag_sums_kernel(const uint64_t* __restrict__ eff,
-                     const uint8_t* __restrict__ prev_part,
-                     const bool* __restrict__ slashed,
-                     const bool* __restrict__ active_prev, int64_t n,
-                     unsigned long long* __restrict__ sums) {
-  __shared__ uint64_t warp_sums[3][kWarps];
-  uint64_t acc[3] = {0, 0, 0};
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       i < n; i += static_cast<int64_t>(gridDim.x) * kThreads) {
-    if (active_prev[i] && !slashed[i]) {
-      const uint8_t part = prev_part[i];
-      const uint64_t e = eff[i];
-      for (int f = 0; f < 3; ++f) {
-        if ((part >> f) & 1) acc[f] += e;
-      }
-    }
-  }
-  for (int f = 0; f < 3; ++f) {
-    acc[f] = warp_sum(acc[f]);
-    if ((threadIdx.x & 31) == 0) warp_sums[f][threadIdx.x >> 5] = acc[f];
-  }
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    for (int f = 0; f < 3; ++f) {
-      uint64_t v = threadIdx.x < kWarps ? warp_sums[f][threadIdx.x] : 0;
-      v = warp_sum(v);
-      if (threadIdx.x == 0 && v != 0) {
-        atomicAdd(&sums[f], static_cast<unsigned long long>(v));
-      }
-    }
-  }
-}
+using masked_sums::warp_sum;
 
 // The block's three sums of acc, mod 2^64, to every thread.
 __device__ __forceinline__ void block_sums(uint64_t (&acc)[3], uint64_t (*warp_sums)[kWarps]) {
@@ -283,20 +243,6 @@ bool make_scalars(uint64_t increment, uint64_t brpi, uint64_t active_increments,
   return true;
 }
 
-// The flag sums into words[0..2], which the caller zeroed.
-cudaError_t launch_flag_sums(const void* eff, const void* prev_part, const void* slashed,
-                             const void* active_prev, int64_t n,
-                             unsigned long long* words, cudaStream_t s) {
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  const unsigned reduce_blocks =
-      static_cast<unsigned>(blocks < kReduceBlocks ? blocks : kReduceBlocks);
-  flag_sums_kernel<<<reduce_blocks, kThreads, 0, s>>>(
-      static_cast<const uint64_t*>(eff), static_cast<const uint8_t*>(prev_part),
-      static_cast<const bool*>(slashed), static_cast<const bool*>(active_prev),
-      n, words);
-  return cudaGetLastError();
-}
-
 // The fused kernel's blocks that fit on the current device at once (cached
 // a device): the cooperative launch's largest grid.
 int co_resident_blocks() {
@@ -381,18 +327,16 @@ extern "C" int fused_epoch_launch(
 // shard's flag sums must be complete, and added across the shards mod 2^64
 // (the reference's psum), before any shard applies them.
 
-// The three flag sums of the (n,) columns into sums[0..2] (zeroed here).
-// Returns cudaGetLastError() (0 = launched); n == 0 launches nothing but the
-// zeroing.
+// The three flag sums of the (n,) columns into words[0..2]: words holds
+// word_count 64-bit words, at least 6; the rest takes three partial words a
+// block (the grid is cut to fit them). One cooperative launch, also at
+// n == 0; returns its error (0 = launched).
 extern "C" int fused_flag_sums_launch(const void* eff, const void* prev_part,
                                       const void* slashed, const void* active_prev,
-                                      int64_t n, void* sums, void* stream) {
-  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t rc = cudaMemsetAsync(sums, 0, 3 * sizeof(uint64_t), s);
-  if (rc != cudaSuccess || n == 0) return static_cast<int>(rc);
-  return static_cast<int>(launch_flag_sums(eff, prev_part, slashed, active_prev, n,
-                                           static_cast<unsigned long long*>(sums), s));
+                                      int64_t n, void* words, int64_t word_count,
+                                      void* stream) {
+  return masked_sums::launch<3>(eff, prev_part, slashed, active_prev, nullptr, n, words,
+                                word_count, stream);
 }
 
 // fused_epoch_launch's pass on given sums (sum0..sum2, the three flag sums

@@ -168,7 +168,8 @@ def epoch_step_sums_plain(eff, part, slashed, active_prev, active_cur) -> torch.
 
 
 def epoch_step_sums_cuda(eff, part, slashed, active_prev, active_cur) -> torch.Tensor:
-    """The four sums on the card (csrc/chain_step.cu); they stay there."""
+    """The four sums on the card (csrc/chain_step.cu: csrc/masked_sums.h's
+    kernel at four sums); they stay there."""
     columns = (eff, part, slashed, active_prev, active_cur)
     _check_sums(*columns)
     _check_cuda("epoch_step_sums_cuda", columns)
@@ -176,15 +177,8 @@ def epoch_step_sums_cuda(eff, part, slashed, active_prev, active_cur) -> torch.T
 
 
 def _launch_sums(columns: tuple) -> torch.Tensor:
-    lib = _kernels.load("chain_step")
-    eff = columns[0]
-    sums = torch.empty(4, dtype=torch.int64, device=eff.device)
-    with torch.cuda.device(eff.device):
-        stream = torch.cuda.current_stream(eff.device).cuda_stream
-        rc = lib.epoch_step_sums_launch(*(t.data_ptr() for t in columns), eff.shape[0],
-                                        sums.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"epoch step sums kernel launch failed: CUDA error {rc}")
+    """The launch alone, on checked inputs (kernel timings call this)."""
+    sums = _epoch.launch_masked_sums("chain_step", "epoch_step_sums_launch", columns, 4)
     launch_counts["epoch_step_sums"] += 1
     return sums
 

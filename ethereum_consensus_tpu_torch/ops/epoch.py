@@ -63,6 +63,9 @@ launch_count = 0
 FUSED_SCRATCH_WORDS = 4 + 3 * 2048
 # The split entries' launches, one count each, added where they launch.
 launch_counts = {"fused_flag_sums": 0, "fused_epoch_apply": 0, "rewards_apply": 0}
+# Blocks whose partial words a masked-sum call's tensor holds beside its
+# output words (csrc/masked_sums.h; the launcher cuts the grid to fit).
+MASKED_SUMS_BLOCKS = 2048
 
 
 def _scalars(increment: int, brpi: int, active_increments: int, denominator: int,
@@ -262,21 +265,32 @@ def fused_flag_sums_plain(eff, prev_part, slashed, active_prev) -> torch.Tensor:
 
 
 def fused_flag_sums_cuda(eff, prev_part, slashed, active_prev) -> torch.Tensor:
-    """The flag sums on the card (csrc/fused_epoch.cu, the fused kernel's
-    first launch); the (3,) result stays on the card."""
+    """The flag sums on the card (csrc/fused_epoch.cu: csrc/masked_sums.h's
+    kernel at three sums); the (3,) result stays on the card."""
     columns = (eff, prev_part, slashed, active_prev)
     _check_flag_columns(*columns)
     _check_cuda("fused_flag_sums_cuda", columns)
-    lib = _kernels.load("fused_epoch")
-    sums = torch.empty(3, dtype=torch.int64, device=eff.device)
-    with torch.cuda.device(eff.device):
-        stream = torch.cuda.current_stream(eff.device).cuda_stream
-        rc = lib.fused_flag_sums_launch(*(t.data_ptr() for t in columns), eff.shape[0],
-                                        sums.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"flag sums kernel launch failed: CUDA error {rc}")
+    sums = launch_masked_sums("fused_epoch", "fused_flag_sums_launch", columns, 3)
     launch_counts["fused_flag_sums"] += 1
     return sums
+
+
+def launch_masked_sums(library: str, fn_name: str, columns: tuple, k: int) -> torch.Tensor:
+    """One launch of csrc/masked_sums.h's kernel through ``fn_name`` of
+    ``library`` on checked CUDA columns (the effective balances first): the
+    k output words and the blocks' partial words in one tensor, each word of
+    which the kernel writes before it reads it (nothing is zeroed); returns
+    the view of the k words. Counting is the caller's."""
+    lib = _kernels.load(library)
+    eff = columns[0]
+    words = torch.empty(k * (1 + MASKED_SUMS_BLOCKS), dtype=torch.int64, device=eff.device)
+    with torch.cuda.device(eff.device):
+        stream = torch.cuda.current_stream(eff.device).cuda_stream
+        rc = getattr(lib, fn_name)(*(t.data_ptr() for t in columns), eff.shape[0],
+                                   words.data_ptr(), words.shape[0], stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name}: masked sums kernel launch failed: CUDA error {rc}")
+    return words[:k]
 
 
 def fused_flag_sums(eff, prev_part, slashed, active_prev) -> torch.Tensor:

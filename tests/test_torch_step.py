@@ -20,8 +20,9 @@ Roots, totals and u64 columns must be equal exactly:
   scores whose product with the effective balance passes 2^64: the checked
   step raises ``OverflowError``, the unchecked one wraps as the reference's.
 
-The kernels' arithmetic (``csrc/chain_step_core.h``) is built with g++ and
-held against the same reference outputs.
+The kernels' arithmetic (``csrc/chain_step_core.h``, and K2's lane in
+``csrc/masked_sums.h``) is built with g++ and held against the same
+reference outputs.
 """
 
 import ctypes
@@ -272,6 +273,7 @@ def test_edge_rows_part_the_step_from_the_fused_kernel():
 _HOST_SHIM = r"""
 #include <stdint.h>
 #include "chain_step_core.h"
+#include "masked_sums.h"
 
 extern "C" uint64_t chain_host(const uint64_t* balances, const uint64_t* effective,
                                const bool* active, int64_t n, uint64_t increment,
@@ -304,8 +306,7 @@ extern "C" void epoch_host(int form, const uint64_t* balances, const uint64_t* e
                            uint64_t* total_active, uint64_t* increments, uint64_t* floored) {
   uint64_t sums[4] = {0, 0, 0, 0};
   for (int64_t i = 0; i < n; ++i) {
-    chain_step_core::epoch_sums_lane(eff[i], part[i], slashed[i], active_prev[i],
-                                     active_cur[i], sums);
+    masked_sums::lane<4>(eff[i], part[i], slashed[i], active_prev[i], active_cur[i], sums);
   }
   const chain_step_core::EpochConstants c{
       consts[0], consts[1], consts[2], consts[3], consts[4], {consts[5], consts[6], consts[7]},
