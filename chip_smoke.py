@@ -1619,8 +1619,11 @@ ALTAIR_TOTAL_ACTIVE = (1 << 20) * 32 * ALTAIR_INCREMENT
 ALTAIR_BIAS, ALTAIR_RECOVERY, ALTAIR_QUOTIENT = 4, 16, 3 * 2**24
 ALTAIR_WEIGHTS, ALTAIR_WD, ALTAIR_BRF = (14, 26, 14), 64, 64
 ALTAIR_CHECK_NS = SWEEPS_CHECK_NS
-# the flag deltas also past their co-resident grid, where a warp takes more than one chunk
+# the flag deltas and the penalties also past their grids' first chunk a
+# warp, where a warp takes more than one chunk
 FLAG_WIDE_N = (1 << 21) + 5
+# the penalties also timed at a 4-shard share of the registry
+PENALTIES_QUARTER_N = 1 << 18
 # Integer operations, counted as SWEEPS_OPS_PER_VALIDATOR is: a 64-bit add,
 # subtraction, compare or select is 2, a 64 x 64 -> 64 product 3, and a
 # division by a value fixed for the whole sweep a Barrett reduction with a
@@ -1758,10 +1761,11 @@ def _flag_sample_ok(eff, participating, got, sample: list, lanes: tuple, flag: i
 
 def phase_altair_sweeps() -> dict:
     """B3 and the three B5-altair kernels against their plain versions on
-    the card, bit-exact, for n in ALTAIR_CHECK_NS, and the flag deltas and
-    B3 at FLAG_WIDE_N, contiguous and one validator in; samples against
-    Python integers; CUDA-event times at 2^20; ptxas' lines of B3, its
-    apply entries and K3."""
+    the card, bit-exact, for n in ALTAIR_CHECK_NS, and the flag deltas, the
+    inactivity penalties and B3 at FLAG_WIDE_N, contiguous and one validator
+    in; samples against Python integers; CUDA-event times at 2^20 (the
+    penalties also at 2^18); ptxas' lines of the penalties, B3, its apply
+    entries and K3 (a frame or a spill fails the run)."""
     from ethereum_consensus_tpu_torch.ops import epoch, sweeps
 
     m = (1 << 64) - 1
@@ -1859,10 +1863,20 @@ def phase_altair_sweeps() -> dict:
                 errs["flag_deltas"] = max(errs["flag_deltas"], err(got[0], want[0]),
                                           err(got[1], want[1]))
                 checks_ok &= _flag_sample_ok(cols[0], cols[1], got, sample, lanes, flag, leaking)
-        print(f"altair_sweeps flag deltas n={n} (offset {offset}): max_abs_err vs plain {errs}, "
-              f"Python sample ok {checks_ok}")
+        # the inactivity penalties past their grid's first chunk a warp, and
+        # one validator in (every column off the warp chunks: one a thread)
+        pen_cols = (wide["eff"][offset:], wide["scores"][offset:],
+                    wide["eligible"][offset:] & ~wide["participating"][offset:])
+        got = sweeps.inactivity_penalties(*pen_cols, denominator)
+        torch.cuda.synchronize()
+        errs["inactivity_penalties"] = max(
+            errs["inactivity_penalties"],
+            err(got, sweeps.inactivity_penalties_plain(*pen_cols, denominator)))
+        print(f"altair_sweeps flag deltas and penalties n={n} (offset {offset}): max_abs_err vs "
+              f"plain {errs}, Python sample ok {checks_ok}")
         if any(errs.values()) or not checks_ok:
-            sys.exit(f"chip_smoke: the flag-delta kernel disagrees at n={n}, offset {offset}")
+            sys.exit(f"chip_smoke: the flag-delta or penalty kernel disagrees at n={n}, "
+                     f"offset {offset}")
     # B3 past its co-resident grid too (a warp takes several chunks and
     # reads all but its first again), and one validator in (every column
     # unaligned: one validator a thread), the census included
@@ -1924,6 +1938,22 @@ def phase_altair_sweeps() -> dict:
         "fused_epoch", lambda: epoch._launch(tuple(columns), words),
         lambda: epoch.fused_epoch_plain(*columns, *scalars),
         n, fused_divisions, FUSED_OPS, FUSED_BYTES)
+    # the penalties at a 4-shard share of the registry too
+    quarter = _altair_columns(PENALTIES_QUARTER_N, gen)
+    quarter_cols = (quarter["eff"], quarter["scores"],
+                    quarter["eligible"] & ~quarter["participating"])
+    timings["inactivity_penalties"]["ms_quarter"] = _cuda_ms(
+        lambda: sweeps._launch_inactivity_penalties(*quarter_cols, denominator), reps=50,
+        warmup=5)
+    penalties_ptxas = _ptxas_lines("altair_sweeps", "inactivity_penalties_kernel")
+    timings["inactivity_penalties"]["ptxas"] = penalties_ptxas
+    print(f"altair_sweeps inactivity_penalties n={PENALTIES_QUARTER_N}: "
+          f"{timings['inactivity_penalties']['ms_quarter']:.4f} ms; ptxas {penalties_ptxas}; "
+          f"SASS instructions "
+          f"{_sass_kernel_instructions('altair_sweeps', ('inactivity_penalties_kernel',))}")
+    if len(penalties_ptxas) != 1 or any(line.get("spill_stores") or line.get("stack_frame")
+                                        for line in penalties_ptxas):
+        sys.exit("chip_smoke: ptxas gives the inactivity penalties a frame or spills")
     timings["flag_deltas"]["ptxas"] = _ptxas_lines("altair_sweeps", "flag_deltas_kernel")
     print(f"altair_sweeps: SASS instructions altair_sweeps {_sass_instructions('altair_sweeps')}, "
           f"fused_epoch {_sass_instructions('fused_epoch')}; ptxas flag deltas "
@@ -3567,6 +3597,9 @@ def phase_mesh(altair: dict, window: dict) -> dict:
 
 STEP_SIZES = (VALIDATORS, VALIDATORS + 5)  # the main path's registry, and an unaligned one
 STEP_VIRTUAL_SHARDS = 4
+# K1's shard sizes checked beside the main path's 2^20: a 4-shard share, a
+# registry of two waves, one SSZ chunk, none
+K1_CHECK_NS = (VALIDATORS // 4, (1 << 21) + 4, 4, 0)
 # The chain step's shard kernel (K1): the hysteresis update
 # (SWEEPS_OPS_PER_VALIDATOR), the masked add of the new effective balance (a
 # 64-bit add and a select, 4) and the two byte swaps of its chunk words (one
@@ -3708,14 +3741,36 @@ def build_dryrun_block() -> tuple:
     return state, signed(block), ctx
 
 
+def _k1_checks(hysteresis: tuple) -> dict:
+    """K1 against its plain version at K1_CHECK_NS and on a view one row in
+    (every column off the vector path), bit-exact: the largest error of
+    each."""
+    from ethereum_consensus_tpu_torch.ops import chain_step as cs
+
+    out = {}
+    for n in (*K1_CHECK_NS, "offset"):
+        rows = VALIDATORS + 4 if n == "offset" else max(n, 12)
+        cols = [_cuda_column(c) for c in _chain_columns(rows, seed=rows)]
+        cols = [c[1:VALIDATORS + 1] if n == "offset" else c[:n] for c in cols]
+        got = cs.chain_step_shard_cuda(*cols, hysteresis)
+        want = cs.chain_step_shard_plain(*cols, hysteresis)
+        torch.cuda.synchronize()
+        out[str(n)] = max(_words_err(a, b) for a, b in zip(got, want))
+    return out
+
+
 def _step_kernels(chain: tuple, cols: tuple, hysteresis: tuple, consts: tuple) -> dict:
     """K1, K2 and K3 against their plain versions on the card at 2^20,
-    bit-exact, and their CUDA-event times beside their bounds."""
+    bit-exact (K1 also at K1_CHECK_NS and one row in), and their CUDA-event
+    times beside their bounds (K1 also at 2^18); K1's ptxas lines (a frame
+    or a spill fails the run)."""
     from ethereum_consensus_tpu_torch.ops import chain_step as cs
 
     bal, eff, act = (_cuda_column(c) for c in chain)
     k1 = cs.chain_step_shard_cuda(bal, eff, act, hysteresis)
     p1 = cs.chain_step_shard_plain(bal, eff, act, hysteresis)
+    k1_checks = _k1_checks(hysteresis)
+    print(f"step chain_step_shard: max_abs_err vs plain by n {k1_checks}")
     dev = [_cuda_column(c) for c in cols]
     sum_cols = tuple(dev[1:6])
     apply_cols = (*dev[:5], dev[6], dev[7])
@@ -3724,7 +3779,8 @@ def _step_kernels(chain: tuple, cols: tuple, hysteresis: tuple, consts: tuple) -
     k3 = cs.epoch_step_apply_cuda(*apply_cols, sums, *consts)
     p3 = cs.epoch_step_apply_plain(*apply_cols, sums, *consts)
     torch.cuda.synchronize()
-    errs = {"chain_step_shard": max(_words_err(a, b) for a, b in zip(k1, p1)),
+    errs = {"chain_step_shard": max(*(_words_err(a, b) for a, b in zip(k1, p1)),
+                                    *k1_checks.values()),
             "epoch_step_sums": _words_err(k2, p2),
             "epoch_step_apply": max(_words_err(a, b) for a, b in zip(k3, p3))}
     n = bal.shape[0]
@@ -3750,7 +3806,18 @@ def _step_kernels(chain: tuple, cols: tuple, hysteresis: tuple, consts: tuple) -
                      "max_abs_err": errs[name]}
         print(f"step {name} n={n}: {ms:.4f} ms (bound {bound:.4f} ms by {bound_by}); plain "
               f"{plain_ms:.3f} ms; library: none; max_abs_err vs plain {errs[name]}")
-    print(f"step: SASS instructions chain_step {_sass_instructions('chain_step')}")
+    quarter = [_cuda_column(c) for c in _chain_columns(VALIDATORS // 4, seed=VALIDATORS // 4)]
+    out["chain_step_shard"]["ms_quarter"] = _cuda_ms(
+        lambda: cs._launch_chain(*quarter, hysteresis), reps=50, warmup=5)
+    ptxas = _ptxas_lines("chain_step", "chain_step_shard_kernel")
+    out["chain_step_shard"]["ptxas"] = ptxas
+    print(f"step chain_step_shard n={VALIDATORS // 4}: "
+          f"{out['chain_step_shard']['ms_quarter']:.4f} ms; ptxas {ptxas}; SASS instructions "
+          f"chain_step {_sass_instructions('chain_step')}, K1 "
+          f"{_sass_kernel_instructions('chain_step', ('chain_step_shard_kernel',))}")
+    if len(ptxas) != 1 or any(line.get("spill_stores") or line.get("stack_frame")
+                              for line in ptxas):
+        sys.exit("chip_smoke: ptxas gives K1 a frame or spills")
     return out
 
 

@@ -104,7 +104,7 @@ _LIBRARIES = {
         },
     ),
     "sweeps": (
-        ("sweeps.cu", "sweeps_core.h"),
+        ("sweeps.cu", "sweeps_core.h", "udiv64_core.h"),
         {
             "effective_balance_launch": (
                 [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
@@ -236,14 +236,16 @@ def build_log(name: str) -> str:
         return f.read()
 
 
-def build_all() -> float:
-    """Compile every library that is not built yet, one ``nvcc`` per source,
-    all started together. Returns the wall seconds; raises with the
-    compiler's output when any build fails."""
+def build_all(names=None) -> float:
+    """Compile every library (or those of ``names``) that is not built yet,
+    one ``nvcc`` per source, all started together. Returns the wall
+    seconds; raises with the compiler's output when any build fails."""
     t0 = time.perf_counter()
     os.makedirs(_BUILD, exist_ok=True)
     running = []
     for name, (sources, *_) in _LIBRARIES.items():
+        if names is not None and name not in names:
+            continue
         lib_path, log_path = _paths(name)
         if os.path.exists(lib_path):
             continue

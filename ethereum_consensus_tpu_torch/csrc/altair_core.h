@@ -3,9 +3,11 @@
 //
 // The arithmetic of the Hopper kernels in altair_sweeps.cu (flag deltas,
 // inactivity updates, inactivity penalties), fused_epoch.cu (the fused
-// epoch kernel) and chain_step.cu (the epoch step's element pass). The
-// header is plain C++ outside nvcc, so g++ builds the same functions for the
-// CPU tests that hold them against the reference package's programs.
+// epoch kernel) and chain_step.cu (the epoch step's element pass), and the
+// warp-chunk partition of altair_sweeps.cu with the inactivity penalties'
+// schedule run on the host (inactivity_penalties_host). The header is plain
+// C++ outside nvcc, so g++ builds the same functions for the CPU tests that
+// hold them against the reference package's programs.
 //
 // All arithmetic is unsigned 64-bit and wraps as the reference's jnp.uint64
 // programs do: the literal route has no lane guard, so a product past 2^64
@@ -157,6 +159,105 @@ ALTAIR_HD uint64_t inactivity_penalty(uint64_t eff, uint64_t score,
                                       bool not_target, uint64_t denominator) {
   return not_target ? eff * score / denominator : 0;
 }
+
+// inactivity_penalty on the denominator's reciprocal (made once a sweep by
+// udiv64_core::prepare): the wrapped product's quotient by one multiply-high.
+// The lane of the inactivity-penalties kernel and of B3's and K3's
+// (sweep_inactivity_penalty).
+ALTAIR_HD uint64_t inactivity_penalty(uint64_t eff, uint64_t score, bool not_target,
+                                      const udiv64_core::UDiv64& by_denominator) {
+  return not_target ? udiv64_core::divide(eff * score, by_denominator) : 0;
+}
+
+// The warp-chunk partition of the literal sweeps' kernels (altair_sweeps.cu:
+// the flag deltas and the inactivity penalties). Blocks of kSweepThreads; a
+// warp's chunk is kChunk consecutive validators in kChunkSteps steps: at
+// step j lane t takes validators 64 j + 2 t and 64 j + 2 t + 1 (a 16-byte
+// load of each word column, a 2-byte load of each flag column), so that
+// each of the warp's loads is contiguous. The validators past the last
+// whole chunk (all of them where a column is not aligned for the chunks)
+// go one a thread: thread t of block b takes C + b kSweepThreads + t, C
+// the chunks' validators, stepping by the grid's threads.
+constexpr int kSweepThreads = 256;
+constexpr int kSweepWarps = kSweepThreads / 32;
+constexpr int kChunkSteps = 4;
+constexpr int kChunk = kChunkSteps * 64;
+
+// The first of the two validators of `lane` at `step` of chunk `chunk`.
+ALTAIR_HD int64_t chunk_index(int64_t chunk, int step, int lane) {
+  return chunk * kChunk + 64 * step + 2 * lane;
+}
+
+// The first validator past the chunks of thread `thread` of block `block`.
+ALTAIR_HD int64_t tail_first(int64_t chunks, int64_t block, int thread) {
+  return chunks * kChunk + block * kSweepThreads + thread;
+}
+
+inline bool aligned(const void* p, uintptr_t bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+// The inactivity penalties' columns, all (n,): words, the not-target flags
+// as one byte, the penalties out. `chunks` whole warp chunks take the
+// vector path (0 where a column is not aligned for it: the words to 16
+// bytes, the flags to 2).
+struct PenaltyColumns {
+  const uint64_t* eff;
+  const uint64_t* scores;
+  const uint8_t* not_target;
+  int64_t n;
+  int64_t chunks;
+  uint64_t* out;
+};
+
+inline PenaltyColumns penalty_columns(const void* eff, const void* scores, const void* not_target,
+                                      int64_t n, void* out) {
+  const bool vector = aligned(eff, 16) && aligned(scores, 16) && aligned(out, 16) &&
+                      aligned(not_target, 2);
+  return {static_cast<const uint64_t*>(eff), static_cast<const uint64_t*>(scores),
+          static_cast<const uint8_t*>(not_target), n, vector ? n / kChunk : 0,
+          static_cast<uint64_t*>(out)};
+}
+
+// The grid of a warp chunk a warp (2,048 validators a block), at least one
+// block: the penalties' (grids of one, two and four blocks an SM measured
+// slower, tools/step_penalty_forms.py) and K1's (chain_step_core.h).
+ALTAIR_HD int64_t chunk_grid(int64_t n) {
+  const int64_t per_block = int64_t{kSweepWarps} * kChunk;
+  const int64_t grid = (n + per_block - 1) / per_block;
+  return grid > 1 ? grid : 1;
+}
+
+// Warp `warp` of block `block`, counted over the grid: its first chunk; its
+// next are the grid's warps apart.
+ALTAIR_HD int64_t warp_rank(int64_t block, int warp) { return block * kSweepWarps + warp; }
+
+#ifndef __CUDACC__
+
+// The penalties' kernel on a grid of `grid` blocks, run on the host in its
+// order: each block's threads, each thread's chunks step by step (its two
+// validators a step), then its validators past the chunks. visits, where
+// not null, counts each validator's visits.
+inline void inactivity_penalties_host(const PenaltyColumns& c,
+                                      const udiv64_core::UDiv64& by_denominator, int64_t grid,
+                                      uint8_t* visits) {
+  const auto visit = [&](int64_t i) {
+    if (visits) visits[i] = static_cast<uint8_t>(visits[i] + 1);
+    c.out[i] = inactivity_penalty(c.eff[i], c.scores[i], c.not_target[i] != 0, by_denominator);
+  };
+  for (int64_t b = 0; b < grid; ++b) {
+    for (int t = 0; t < kSweepThreads; ++t) {
+      for (int64_t k = warp_rank(b, t / 32); k < c.chunks; k += grid * kSweepWarps) {
+        for (int j = 0; j < kChunkSteps; ++j) {
+          for (int h = 0; h < 2; ++h) visit(chunk_index(k, j, t % 32) + h);
+        }
+      }
+      for (int64_t i = tail_first(c.chunks, b, t); i < c.n; i += grid * kSweepThreads) visit(i);
+    }
+  }
+}
+
+#endif  // __CUDACC__
 
 // The constants and per-epoch scalars of the fused epoch kernel
 // (epoch_vector.py:297): three flags, weights, flag sums already reduced.
@@ -313,9 +414,8 @@ ALTAIR_HD uint64_t sweep_base_reward(const FusedSweep& s, uint64_t eff) {
 // The inactivity penalty off `score` (the POST-update score).
 ALTAIR_HD uint64_t sweep_inactivity_penalty(const FusedSweep& s, uint64_t eff, uint64_t score,
                                             unsigned flags) {
-  return ((flags & 8u) && !flags_participating(s, flags))
-             ? udiv64_core::divide(eff * score, s.by_denominator)
-             : 0;
+  return inactivity_penalty(eff, score, (flags & 8u) && !flags_participating(s, flags),
+                            s.by_denominator);
 }
 
 // The four pairs applied in sequence with zero saturation between them,

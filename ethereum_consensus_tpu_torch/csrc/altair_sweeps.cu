@@ -9,8 +9,16 @@
 // Inputs and outputs are unsigned 64-bit words (int64 tensors carry the bit
 // patterns) and one-byte booleans, all (n,), contiguous on one device.
 //
-// Design: one thread per validator for the inactivity sweeps, unsigned long
-// long throughout, loads and stores coalesced. The flag deltas' rewards need
+// Design. The inactivity updates: one thread per validator, unsigned long
+// long throughout, loads and stores coalesced. The inactivity penalties: the
+// flag deltas' warp chunks (altair_core.h's partition: a lane two
+// validators a step, one 16-byte load of each word column and one 2-byte
+// load of the flags, one 16-byte store of the two penalties, the four steps'
+// loads issued before the first division; validators past the last whole
+// chunk, or all of them where a column is not aligned, one a thread), a
+// plain launch of a chunk a warp, and the wrapped product's quotient by the
+// denominator a multiply-high by its reciprocal, made once a call by the
+// launcher. The flag deltas' rewards need
 // the masked sum of the effective balances, their penalties do not: one
 // cooperative launch, its grid no larger than the blocks that fit on the
 // card at once. Phase 1 reads the columns once (grid-stride over warp chunks
@@ -29,10 +37,10 @@
 // What bounds them on an H100: bytes. Flag deltas move 26 bytes a validator
 // (8 + 1 + 1 in, two words out), 27 MB at 2^20, about 8 us at 3.35 TB/s;
 // inactivity updates 18 bytes, penalties 25. Every division by a value
-// fixed for the sweep in the flag deltas is a multiply-high by a reciprocal
-// and a correction, about 17 integer operations; the inactivity penalties'
-// division by its denominator is still a software 64-bit division, which
-// chip_smoke.py counts as one of those too.
+// fixed for the sweep (in the flag deltas and the inactivity penalties) is
+// a multiply-high by a reciprocal and a correction, about 17 integer
+// operations. The penalty grids the kernel was measured against live in
+// tools/penalty_forms.cu.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -42,13 +50,14 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-// A warp's chunk of the flag deltas: step j, lane t takes validators
-// 64 j + 2 t and 64 j + 2 t + 1 (one 16-byte load of balances, one 2-byte
-// load of each flag column), so each load of the warp is contiguous.
-constexpr int kChunkSteps = 4;
-constexpr int kChunk = kChunkSteps * 64;
+// The warp chunks of the flag deltas and the penalties (altair_core.h):
+// step j, lane t takes validators 64 j + 2 t and 64 j + 2 t + 1 (one 16-byte
+// load of each word column, one 2-byte load of each flag column), so each
+// load of the warp is contiguous.
+constexpr int kThreads = altair_core::kSweepThreads;
+constexpr int kWarps = altair_core::kSweepWarps;
+using altair_core::kChunk;
+using altair_core::kChunkSteps;
 
 __device__ __forceinline__ uint64_t warp_sum(uint64_t v) {
   for (int offset = 16; offset > 0; offset >>= 1) {
@@ -231,25 +240,46 @@ __global__ void __launch_bounds__(kThreads)
                                           leaking);
 }
 
+// The inactivity penalties: a warp's chunks (from global_warp, a grid's
+// warps apart), each step's loads issued before the first division; then
+// this thread's validators past the chunks.
 __global__ void __launch_bounds__(kThreads)
-    inactivity_penalties_kernel(const uint64_t* __restrict__ eff,
-                                const uint64_t* __restrict__ scores,
-                                const bool* __restrict__ not_target,
-                                int64_t n, uint64_t denominator,
-                                uint64_t* __restrict__ out) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n) return;
-  out[i] = altair_core::inactivity_penalty(eff[i], scores[i], not_target[i],
-                                           denominator);
+    inactivity_penalties_kernel(altair_core::PenaltyColumns c,
+                                udiv64_core::UDiv64 by_denominator) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
+  for (int64_t k = global_warp(); k < c.chunks; k += warps) {
+    ulonglong2 eff[kChunkSteps], score[kChunkSteps];
+    unsigned flags[kChunkSteps];
+#pragma unroll
+    for (int j = 0; j < kChunkSteps; ++j) {
+      const int64_t i = altair_core::chunk_index(k, j, lane);
+      eff[j] = __ldcs(reinterpret_cast<const ulonglong2*>(c.eff + i));
+      score[j] = __ldcs(reinterpret_cast<const ulonglong2*>(c.scores + i));
+      flags[j] = __ldcs(reinterpret_cast<const unsigned short*>(c.not_target + i));
+    }
+#pragma unroll
+    for (int j = 0; j < kChunkSteps; ++j) {
+      const int64_t i = altair_core::chunk_index(k, j, lane);
+      *reinterpret_cast<ulonglong2*>(c.out + i) = make_ulonglong2(
+          altair_core::inactivity_penalty(eff[j].x, score[j].x, flags[j] & 0xffu,
+                                          by_denominator),
+          altair_core::inactivity_penalty(eff[j].y, score[j].y, flags[j] >> 8, by_denominator));
+    }
+  }
+  const int64_t threads = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = altair_core::tail_first(c.chunks, blockIdx.x, threadIdx.x); i < c.n;
+       i += threads) {
+    c.out[i] = altair_core::inactivity_penalty(c.eff[i], c.scores[i], c.not_target[i] != 0,
+                                               by_denominator);
+  }
 }
 
 unsigned grid_for(int64_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
 
-bool aligned(const void* p, uintptr_t bytes) {
-  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
-}
+using altair_core::aligned;
 
 // The flag-delta blocks that fit on the current device at once (cached a
 // device): the cooperative launch's largest grid.
@@ -339,10 +369,9 @@ extern "C" int inactivity_penalties_launch(const void* eff, const void* scores,
                                            void* stream) {
   if (n < 0 || denominator == 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  inactivity_penalties_kernel<<<grid_for(n), kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(eff), static_cast<const uint64_t*>(scores),
-      static_cast<const bool*>(not_target), n, denominator,
-      static_cast<uint64_t*>(out));
+  inactivity_penalties_kernel<<<static_cast<unsigned>(altair_core::chunk_grid(n)), kThreads,
+                                0, static_cast<cudaStream_t>(stream)>>>(
+      altair_core::penalty_columns(eff, scores, not_target, n, out),
+      udiv64_core::prepare(denominator));
   return static_cast<int>(cudaGetLastError());
 }

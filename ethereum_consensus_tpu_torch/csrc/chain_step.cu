@@ -8,12 +8,20 @@
 // and all_gather) and the merkle reduction (B2, merkle.cu) run outside.
 //
 //   chain_step_shard_launch  one pass over a shard's balances, effective
-//     balances and active flags, a thread per SSZ chunk of four validators:
-//     the new effective balances (the hysteresis sweep), the balance chunk
-//     words written straight into the (8, n/4) int32 layout that merkle.cu
-//     reads (word w of chunk c at w * n/4 + c, so each of the eight stores of
-//     a warp is coalesced), and the sum of the active new effective balances
-//     into one device word (warp shuffles, one 64-bit atomicAdd a block).
+//     balances and active flags on chain_step_core.h's partition (the warp
+//     chunks of the flag deltas and the penalties: a lane two validators a
+//     step, a 16-byte load of each word column and 2 bytes of the flags, one
+//     wave of a warp chunk a warp at 2^20): the new effective balances (the
+//     hysteresis sweep, the remainder by the increment a multiply-high by its
+//     reciprocal, made once a call here), the balance chunk words written
+//     straight into the (8, n/4) int32 layout that merkle.cu reads (word w
+//     of chunk c at w * n/4 + c: a lane writes the four words of its half
+//     chunk, sixteen lanes of a warp each row's 64 contiguous bytes), and
+//     the sum of the active new effective balances: the total zeroed on the
+//     stream, then each block's sum (masked_sums::block_sum) added with one
+//     64-bit atomicAdd. That finish was 0.3-0.6 us faster at 2^20 than a
+//     cooperative launch whose block 0 adds the blocks' partial words after
+//     a grid sync, in three calls of four (tools/step_forms.cu form 3).
 //   epoch_step_sums_launch  masked_sums.h's kernel at K = 4: the three flag
 //     sums over the unslashed validators active in the previous epoch and
 //     the effective balance active in the current epoch, four words mod
@@ -43,10 +51,12 @@
 // 3.35 TB/s; the sums read 12 bytes a validator (a word, four flags), about
 // 3.8 us at 2^20; the element pass reads 28 and writes 16, about 13.8 us.
 // The integer work is a few dozen operations a validator for the first two
-// (the hysteresis remainder is a software division) and about a hundred for
-// the element pass, with up to five multiply-high divisions of about 17
-// each, below the byte time at the dispatch rate. The chain step is a simple design: plain
-// 8-byte loads, one thread per chunk.
+// (the hysteresis remainder one multiply-high) and about a hundred for the
+// element pass, with up to five multiply-high divisions of about 17 each,
+// below the byte time at the dispatch rate. The alternatives the chain step
+// was measured against (a block's range of chunks a chunk or two a thread,
+// a grid-stride partition, the grid-sync finish, the earlier two-wave
+// schedule) live in tools/step_forms.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,81 +67,81 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kReduceBlocks = 1056;  // 8 per SM of an H100
+constexpr int kThreads = masked_sums::kThreads;
+// Blocks an SM the kernel's registers must allow (64 a thread), so that
+// 2^20 validators (512 blocks of a warp chunk a warp) run in one wave.
+constexpr int kMinBlocks = masked_sums::kThreadsPerSm / kThreads;
 
-using masked_sums::warp_sum;
+using chain_step_core::kPerChunk;
 
-// Adds the block's sum of acc (one per thread) into *total, one atomicAdd
-// a block.
-__device__ __forceinline__ void block_sum_into(uint64_t acc, unsigned long long* total) {
-  __shared__ uint64_t warp_sums[kThreads / 32];
-  acc = warp_sum(acc);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = acc;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    const uint64_t v = warp_sum(threadIdx.x < kThreads / 32 ? warp_sums[threadIdx.x] : 0);
-    if (threadIdx.x == 0 && v != 0) atomicAdd(total, static_cast<unsigned long long>(v));
-  }
-}
-
-unsigned grid_for(int64_t items) {
-  const int64_t blocks = (items + kThreads - 1) / kThreads;
-  return static_cast<unsigned>(blocks < kReduceBlocks ? blocks : kReduceBlocks);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    chain_step_shard_kernel(chain_step_core::Hysteresis h,
-                            const uint64_t* __restrict__ balances,
-                            const uint64_t* __restrict__ effective,
-                            const bool* __restrict__ active, int64_t chunks,
-                            uint64_t* __restrict__ new_effective,
-                            uint32_t* __restrict__ words,
+// K1. total: one word, zeroed before the launch.
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    chain_step_shard_kernel(chain_step_core::Hysteresis h, chain_step_core::ChainColumns c,
                             unsigned long long* __restrict__ total) {
-  uint64_t acc = 0;
-  for (int64_t c = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       c < chunks; c += static_cast<int64_t>(gridDim.x) * kThreads) {
-    const int64_t base = c * chain_step_core::kPerChunk;
-    uint64_t bal[chain_step_core::kPerChunk], eff[chain_step_core::kPerChunk];
-    bool act[chain_step_core::kPerChunk];
-    for (int k = 0; k < chain_step_core::kPerChunk; ++k) {
-      bal[k] = balances[base + k];
-      eff[k] = effective[base + k];
-      act[k] = active[base + k];
+  using altair_core::kChunkSteps;
+  __shared__ uint64_t warp_sums[1][masked_sums::kWarps];
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * masked_sums::kWarps;
+  uint64_t acc[1] = {0};
+  for (int64_t k = altair_core::warp_rank(blockIdx.x, threadIdx.x >> 5); k < c.chunks;
+       k += warps) {
+    ulonglong2 bal[kChunkSteps], eff[kChunkSteps];
+    unsigned act[kChunkSteps];
+#pragma unroll
+    for (int j = 0; j < kChunkSteps; ++j) {
+      const int64_t i = altair_core::chunk_index(k, j, lane);
+      bal[j] = __ldcs(reinterpret_cast<const ulonglong2*>(c.balances + i));
+      eff[j] = __ldcs(reinterpret_cast<const ulonglong2*>(c.effective + i));
+      act[j] = __ldcs(reinterpret_cast<const unsigned short*>(c.active + i));
     }
-    uint64_t out[chain_step_core::kPerChunk];
-    uint32_t w[8];
-    acc += chain_step_core::chunk_lane(h, bal, eff, act, out, w);
-    for (int k = 0; k < chain_step_core::kPerChunk; ++k) new_effective[base + k] = out[k];
-    for (int r = 0; r < 8; ++r) words[r * chunks + c] = w[r];
+#pragma unroll
+    for (int j = 0; j < kChunkSteps; ++j) {
+      const int64_t i = altair_core::chunk_index(k, j, lane);
+      uint64_t out0, out1;
+      uint32_t lo0, hi0, lo1, hi1;
+      acc[0] += chain_step_core::validator_lane(h, bal[j].x, eff[j].x, act[j] & 0xffu, &out0,
+                                                &lo0, &hi0);
+      acc[0] += chain_step_core::validator_lane(h, bal[j].y, eff[j].y, act[j] >> 8, &out1, &lo1,
+                                                &hi1);
+      *reinterpret_cast<ulonglong2*>(c.new_effective + i) = make_ulonglong2(out0, out1);
+      chain_step_core::store_words(c, i, lo0, hi0);
+      chain_step_core::store_words(c, i + 1, lo1, hi1);
+    }
   }
-  block_sum_into(acc, total);
+  const int64_t threads = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = altair_core::tail_first(c.chunks, blockIdx.x, threadIdx.x); i < c.n;
+       i += threads) {
+    uint32_t lo, hi;
+    acc[0] += chain_step_core::validator_lane(h, c.balances[i], c.effective[i], c.active[i] != 0,
+                                              &c.new_effective[i], &lo, &hi);
+    chain_step_core::store_words(c, i, lo, hi);
+  }
+  masked_sums::block_sum<1>(acc, warp_sums);
+  if (threadIdx.x == 0 && acc[0] != 0) atomicAdd(total, static_cast<unsigned long long>(acc[0]));
 }
 
 }  // namespace
 
 // balances, effective, new_effective: (n,) 64-bit words; active: (n,)
 // one-byte booleans; words: (8, n / 4) 32-bit words; total: one 64-bit
-// word, zeroed here. n must be a multiple of 4. Launches on `stream` and
-// returns cudaGetLastError() (0 = launched); n == 0 launches nothing but
-// the zeroing.
+// word, zeroed here. n must be a multiple of 4 and the increment nonzero.
+// Launches on `stream` and returns cudaGetLastError() (0 = launched); n ==
+// 0 launches nothing but the zeroing.
 extern "C" int chain_step_shard_launch(const void* balances, const void* effective,
                                        const void* active, int64_t n, uint64_t increment,
                                        uint64_t max_effective, uint64_t down, uint64_t up,
                                        void* new_effective, void* words, void* total,
                                        void* stream) {
-  if (n < 0 || n % chain_step_core::kPerChunk != 0 || increment == 0) {
+  if (n < 0 || n % kPerChunk != 0 || increment == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t rc = cudaMemsetAsync(total, 0, sizeof(uint64_t), s);
   if (rc != cudaSuccess || n == 0) return static_cast<int>(rc);
-  const int64_t chunks = n / chain_step_core::kPerChunk;
-  const chain_step_core::Hysteresis h{increment, max_effective, down, up};
-  chain_step_shard_kernel<<<grid_for(chunks), kThreads, 0, s>>>(
-      h, static_cast<const uint64_t*>(balances), static_cast<const uint64_t*>(effective),
-      static_cast<const bool*>(active), chunks, static_cast<uint64_t*>(new_effective),
-      static_cast<uint32_t*>(words), static_cast<unsigned long long*>(total));
+  chain_step_shard_kernel<<<static_cast<unsigned>(altair_core::chunk_grid(n)), kThreads, 0, s>>>(
+      chain_step_core::hysteresis(increment, max_effective, down, up),
+      chain_step_core::chain_columns(balances, effective, active, n, new_effective, words),
+      static_cast<unsigned long long*>(total));
   return static_cast<int>(cudaGetLastError());
 }
 

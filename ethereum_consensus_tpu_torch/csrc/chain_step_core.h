@@ -6,12 +6,29 @@
 // hold them against the reference package's steps
 // (ethereum_consensus_tpu/parallel/step.py).
 //
-// The chain step (step.py:112-145) for one SSZ chunk of four validators:
-// the hysteresis update of each (sweeps_core.h), the sum of the new
-// effective balances of the active ones, and the chunk's eight big-endian
+// The chain step (step.py:112-145) for one validator: its hysteresis
+// update (sweeps_core.h, on the increment's reciprocal made once a call on
+// the host by hysteresis()), its new effective balance's share of the
+// total if it is active, and its two of its SSZ chunk's eight big-endian
 // 32-bit words (u64_to_be_words, step.py:56: SSZ packs each balance little
-// endian, and word 2k is the byte swap of balance k's low half, word 2k + 1
-// of its high half).
+// endian, and word 2k of a chunk is the byte swap of balance k's low half,
+// word 2k + 1 of its high half).
+//
+// K1's partition (chain_step.cu) is the warp-chunk partition of
+// altair_core.h, the flag deltas' and the inactivity penalties': a warp
+// takes kChunk consecutive validators, at step j lane t validators 64 j +
+// 2 t and 64 j + 2 t + 1 (a 16-byte load of each word column and 2 bytes
+// of the flags; a 16-byte store of their new effective balances; the four
+// words of their half of SSZ chunk (64 j + 2 t) / 4: rows 0..3 for an even
+// lane, 4..7 for an odd one), all four steps' loads issued before the
+// first division; the validators past the last whole warp chunk (all of
+// them where a column is not aligned: the word columns to 16 bytes, the
+// flags to 2) go one a thread. The grid: a warp chunk a warp
+// (altair_core::chunk_grid, 512 blocks at 2^20 validators: one wave at 4
+// blocks an SM). Each block adds its share of the total into the zeroed
+// total word with one atomic (addition mod 2^64: any order gives the same
+// bits). chain_step_host runs that schedule for g++ (block by block, thread
+// by thread, step by step, then the blocks' shares in block order).
 //
 // The epoch sweep step (step.py:294-383): the per-epoch scalars made from
 // the four summed words (three participation flags over the unslashed
@@ -33,6 +50,11 @@
 
 #include "altair_core.h"
 #include "sweeps_core.h"
+#include "udiv64_core.h"
+
+#ifndef __CUDACC__
+#include <vector>
+#endif
 
 #ifdef __CUDACC__
 #define CHAIN_HD __host__ __device__ __forceinline__
@@ -45,38 +67,113 @@ namespace chain_step_core {
 // Validators of one SSZ chunk of a List[uint64, N].
 constexpr int kPerChunk = 4;
 
-// The hysteresis constants: the increment, the cap, and the downward and
-// upward thresholds ((increment / quotient) * multiplier, as step.py:106-110).
+// The hysteresis constants: the increment and its reciprocal, the cap, and
+// the downward and upward thresholds ((increment / quotient) * multiplier,
+// as step.py:106-110).
 struct Hysteresis {
   uint64_t increment;
+  udiv64_core::UDiv64 by_increment;
   uint64_t max_effective;
   uint64_t down;
   uint64_t up;
 };
 
+// The constants made ready; the increment must be nonzero (the launcher
+// refuses it otherwise).
+CHAIN_HD Hysteresis hysteresis(uint64_t increment, uint64_t max_effective, uint64_t down,
+                               uint64_t up) {
+  return {increment, udiv64_core::prepare(increment), max_effective, down, up};
+}
+
 CHAIN_HD uint32_t bswap32(uint32_t x) {
   return (x >> 24) | ((x >> 8) & 0xFF00u) | ((x << 8) & 0xFF0000u) | (x << 24);
 }
 
-// One chunk through the chain step: the four new effective balances into
-// new_effective, the chunk's eight words into words, and the sum of the new
-// effective balances of the active validators (mod 2^64) returned.
-CHAIN_HD uint64_t chunk_lane(const Hysteresis& h, const uint64_t balances[kPerChunk],
-                             const uint64_t effective[kPerChunk],
-                             const bool active[kPerChunk],
-                             uint64_t new_effective[kPerChunk], uint32_t words[8]) {
-  uint64_t sum = 0;
-  for (int k = 0; k < kPerChunk; ++k) {
-    const uint64_t b = balances[k];
-    const uint64_t e = sweeps_core::effective_balance_update(
-        b, effective[k], h.increment, h.max_effective, h.down, h.up);
-    new_effective[k] = e;
-    sum += active[k] ? e : 0;
-    words[2 * k] = bswap32(static_cast<uint32_t>(b));
-    words[2 * k + 1] = bswap32(static_cast<uint32_t>(b >> 32));
-  }
-  return sum;
+// One validator through the chain step: its new effective balance and its
+// two chunk words (the byte swaps of its balance's low and high halves)
+// written, its share of the total (its new effective balance if active)
+// returned.
+CHAIN_HD uint64_t validator_lane(const Hysteresis& h, uint64_t balance, uint64_t effective,
+                                 bool active, uint64_t* new_effective, uint32_t* lo,
+                                 uint32_t* hi) {
+  const uint64_t e = sweeps_core::effective_balance_update(
+      balance, effective, h.increment, h.by_increment, h.max_effective, h.down, h.up);
+  *new_effective = e;
+  *lo = bswap32(static_cast<uint32_t>(balance));
+  *hi = bswap32(static_cast<uint32_t>(balance >> 32));
+  return active ? e : 0;
 }
+
+// K1's columns, all (n,) but words (8, n / 4): words and flags as in
+// chain_step.cu's launcher. `chunks` whole warp chunks take the vector path
+// (0 where a column is not aligned for it).
+struct ChainColumns {
+  const uint64_t* balances;
+  const uint64_t* effective;
+  const uint8_t* active;
+  int64_t n;
+  int64_t chunks;
+  uint64_t* new_effective;
+  uint32_t* words;
+};
+
+inline ChainColumns chain_columns(const void* balances, const void* effective, const void* active,
+                                  int64_t n, void* new_effective, void* words) {
+  using altair_core::aligned;
+  const bool vector = aligned(balances, 16) && aligned(effective, 16) &&
+                      aligned(new_effective, 16) && aligned(active, 2);
+  return {static_cast<const uint64_t*>(balances), static_cast<const uint64_t*>(effective),
+          static_cast<const uint8_t*>(active), n, vector ? n / altair_core::kChunk : 0,
+          static_cast<uint64_t*>(new_effective), static_cast<uint32_t*>(words)};
+}
+
+// Validator i's two words into their rows: 2 (i % 4) and 2 (i % 4) + 1 of
+// column i / 4.
+CHAIN_HD void store_words(const ChainColumns& c, int64_t i, uint32_t lo, uint32_t hi) {
+  const uint64_t v = static_cast<uint64_t>(i);
+  const uint64_t columns = static_cast<uint64_t>(c.n) / kPerChunk;
+  uint32_t* word = c.words + 2 * (v % kPerChunk) * columns + v / kPerChunk;
+  word[0] = lo;
+  word[columns] = hi;
+}
+
+#ifndef __CUDACC__
+
+// K1 on a grid of `grid` blocks, run on the host in its order: each block's
+// threads, each thread's warp chunks step by step (its two validators a
+// step), then its validators past the chunks, each through the lane into
+// the outputs and the block's share of the total; then the shares added in
+// block order. Returns the total; visits, where not null, counts each
+// validator's visits.
+inline uint64_t chain_step_host(const ChainColumns& c, const Hysteresis& h, int64_t grid,
+                                uint8_t* visits) {
+  using namespace altair_core;
+  std::vector<uint64_t> partials(static_cast<size_t>(grid), 0);
+  const auto visit = [&](int64_t b, int64_t i) {
+    if (visits) visits[i] = static_cast<uint8_t>(visits[i] + 1);
+    uint32_t lo, hi;
+    partials[static_cast<size_t>(b)] += validator_lane(
+        h, c.balances[i], c.effective[i], c.active[i] != 0, &c.new_effective[i], &lo, &hi);
+    store_words(c, i, lo, hi);
+  };
+  for (int64_t b = 0; b < grid; ++b) {
+    for (int t = 0; t < kSweepThreads; ++t) {
+      for (int64_t k = warp_rank(b, t / 32); k < c.chunks; k += grid * kSweepWarps) {
+        for (int j = 0; j < kChunkSteps; ++j) {
+          for (int half = 0; half < 2; ++half) visit(b, chunk_index(k, j, t % 32) + half);
+        }
+      }
+      for (int64_t i = tail_first(c.chunks, b, t); i < c.n; i += grid * kSweepThreads) {
+        visit(b, i);
+      }
+    }
+  }
+  uint64_t total = 0;
+  for (const uint64_t p : partials) total += p;
+  return total;
+}
+
+#endif  // __CUDACC__
 
 // The chain constants of the epoch step (make_epoch_sweep_step's five, and
 // the altair flag constants).

@@ -8,8 +8,15 @@ seeded numpy columns whose products reach [2^63, 2^64) and wrap past 2^64;
 fused epoch kernel's plain version against the reference's
 ``fused_epoch_kernel`` under numpy and its jitted twin. Exact: the results
 are integers. The kernels' shared header ``csrc/altair_core.h`` is built
-here with g++ and held against the same reference outputs; the kernels
-themselves run only where a CUDA card is present.
+here with g++ and held against the same reference outputs, the inactivity
+penalties' schedule (``altair_core::inactivity_penalties_host``: block by
+block, thread by thread, step by step, the warp chunks and the
+one-a-thread path, the quotient on the denominator's reciprocal) among
+them, at n in {0, 1, 2, 63, 64, 65, 4099, 65541}, on the launcher's grid and
+on grids smaller than the work, on columns offset by 1 to 7 rows, and at
+denominators 1, 2^26, 3 * 2^26 (altair's bias times quotient) and 2^64 - 1
+with products that wrap; the kernels themselves run only where a CUDA card
+is present.
 """
 
 import ctypes
@@ -376,6 +383,23 @@ extern "C" void inactivity_penalties_host(const uint64_t* eff, const uint64_t* s
   }
 }
 
+// The inactivity penalties' kernel schedule on the columns as they lie in
+// memory (the launcher's alignment test picks the path), the quotient on
+// the denominator's reciprocal: on `grid` blocks, or (0) the launcher's
+// grid. shape receives the grid and the whole warp chunks; visits counts
+// each validator's visits.
+extern "C" void penalties_schedule_host(const uint64_t* eff, const uint64_t* scores,
+                                        const uint8_t* not_target, int64_t n,
+                                        uint64_t denominator, int64_t grid, uint64_t* out,
+                                        uint8_t* visits, int64_t* shape) {
+  const altair_core::PenaltyColumns c =
+      altair_core::penalty_columns(eff, scores, not_target, n, out);
+  if (grid == 0) grid = altair_core::chunk_grid(n);
+  shape[0] = grid;
+  shape[1] = c.chunks;
+  altair_core::inactivity_penalties_host(c, udiv64_core::prepare(denominator), grid, visits);
+}
+
 // The fused pass's scalars from ten words (increment, brpi, active
 // increments, penalty denominator, bias, recovery rate, three weights,
 // weight denominator) and the flags; the increments wait for the sums.
@@ -482,6 +506,8 @@ def core(tmp_path_factory):
     lib.inactivity_updates_host.restype = None
     lib.inactivity_penalties_host.argtypes = [_P, _P, _P, _I64, _U64, _P]
     lib.inactivity_penalties_host.restype = None
+    lib.penalties_schedule_host.argtypes = [_P, _P, _P, _I64, _U64, _I64, _P, _P, _P]
+    lib.penalties_schedule_host.restype = None
     lib.fused_host.argtypes = ([ctypes.c_int] + [_P] * 7 + [_I64, _P] + [ctypes.c_int] * 4
                                + [_I64, ctypes.c_int] + [_P] * 4)
     lib.fused_host.restype = _U64
@@ -734,6 +760,106 @@ def test_header_fused_schedule_covers_each_validator_once(core, n):
         assert int(want[2]) > 0
 
 
+PENALTY_SIZES = [0, 1, 2, 63, 64, 65, 4099, 65541]
+# (bias, quotient) of each penalty denominator: 1, 2^26, altair's 4 * 3 * 2^24
+# and 2^64 - 1
+PENALTY_DENOMINATORS = {"one": (1, 1), "two_26": (1, 2**26), "altair": (4, 3 * 2**24),
+                        "top": (1, TOP - 1)}
+
+
+def _penalty_columns(n: int, seed: int) -> list:
+    """eff, scores, not_target: realistic effective balances and small
+    scores beside words over the whole u64 range (the products pass 2^64
+    and wrap), scores at 0 and 2^64 - 1, and row 3's product 2^64 - 1 (its
+    quotient by 2^64 - 1 is 1)."""
+    rng = np.random.default_rng(seed)
+    eff = rng.integers(0, 33, n, dtype=np.uint64) * np.uint64(INC)
+    scores = rng.integers(0, 1 << 12, n, dtype=np.uint64)
+    wide = rng.random(n) < 0.5
+    eff = np.where(wide, rng.integers(0, TOP, n, dtype=np.uint64, endpoint=False), eff)
+    scores = np.where(wide, rng.integers(0, TOP, n, dtype=np.uint64, endpoint=False), scores)
+    not_target = rng.random(n) < 0.7
+    scores[::7] = 0
+    scores[3::11] = np.uint64(TOP - 1)
+    if n > 3:
+        eff[3], not_target[3] = 1, True
+    return [eff, scores, not_target]
+
+
+def _placed(cols, offset: int) -> list:
+    """Copies of the columns starting `offset` rows past a 64-byte boundary
+    (the arrays keep their buffers alive)."""
+    out = []
+    for c in cols:
+        raw = np.zeros((len(c) + offset) * c.itemsize + 64, np.uint8)
+        start = (-raw.ctypes.data) % 64 + offset * c.itemsize
+        placed = raw[start:start + len(c) * c.itemsize].view(c.dtype)
+        placed[:] = c
+        out.append(placed)
+    return out
+
+
+def _run_penalties(core, cols, denominator: int, grid: int = 0) -> dict:
+    eff, scores, not_target = cols
+    n = len(eff)
+    out = np.zeros(n, np.uint64)
+    visits = np.zeros(max(n, 1), np.uint8)
+    shape = np.zeros(2, np.int64)
+    core.penalties_schedule_host(_ptr(eff), _ptr(scores), _ptr(not_target.view(np.uint8)), n,
+                                 denominator, grid, _ptr(out), _ptr(visits), _ptr(shape))
+    return {"out": out, "visits": visits[:n], "grid": int(shape[0]), "chunks": int(shape[1])}
+
+
+def _reference_penalties(cols, bias: int, quotient: int) -> np.ndarray:
+    return _u64(ref_sweeps._inactivity_penalties(*(jnp.asarray(c) for c in cols), bias=bias,
+                                                 quotient=quotient))
+
+
+# grid 0: the launcher's; 1 and 3: fewer blocks than the work wants
+@pytest.mark.parametrize("denominator", PENALTY_DENOMINATORS)
+@pytest.mark.parametrize("n", PENALTY_SIZES)
+def test_header_penalties_schedule_matches_reference(core, n, denominator):
+    """The inactivity penalties' partition run on the host (whole warp
+    chunks, then one a thread) against the reference's
+    _inactivity_penalties, every validator visited once."""
+    bias, quotient = PENALTY_DENOMINATORS[denominator]
+    cols = _placed(_penalty_columns(n, seed=300 + n), 0)
+    want = _reference_penalties(cols, bias, quotient)
+    for grid in (0, 1, 3):
+        got = _run_penalties(core, cols, bias * quotient, grid)
+        assert got["chunks"] == n // 256
+        assert np.array_equal(got["out"], want) and np.all(got["visits"] == 1), grid
+    if n >= 4099:
+        products = [int(e) * int(s) for e, s, t in zip(*cols) if t]
+        assert max(products) >= TOP and (want != 0).any()
+
+
+@pytest.mark.parametrize("offset", range(1, 8))
+def test_header_penalties_offset_columns(core, offset):
+    """Columns offset by 1..7 rows: the words 16-byte aligned and the flags
+    2-byte aligned only at even offsets, so the validators go one a thread
+    at odd offsets, on the launcher's grid and on one block."""
+    n = 65541
+    bias, quotient = PENALTY_DENOMINATORS["altair"]
+    cols = _placed(_penalty_columns(n, seed=400), offset)
+    want = _reference_penalties(cols, bias, quotient)
+    for grid in (0, 1):
+        got = _run_penalties(core, cols, bias * quotient, grid)
+        assert got["chunks"] == (n // 256 if offset % 2 == 0 else 0)
+        assert np.array_equal(got["out"], want) and np.all(got["visits"] == 1)
+
+
+def test_header_penalties_grid(core):
+    """The launcher's grid: a chunk a warp (2,048 validators a block: 512
+    blocks at 2^20, 128 at 2^18), the validators past the chunks in the
+    last block, one block for fewer validators or none."""
+    def grid(n):
+        return _run_penalties(core, _placed(_penalty_columns(n, seed=1), 0), 7)
+    assert grid(1 << 20)["grid"] == 512
+    assert grid(1 << 18)["grid"] == 128 and grid(2049)["grid"] == 2
+    assert grid(300)["grid"] == grid(1)["grid"] == grid(0)["grid"] == 1
+
+
 @pytest.mark.parametrize("n", [1, 255, 256, 257, 1 << 17])
 def test_kernels_match_plain_on_card(cuda, n):
     packed = _packed(n, seed=n, wide=True)
@@ -752,6 +878,11 @@ def test_kernels_match_plain_on_card(cuda, n):
                                                                        16, False))
     got = port_sweeps.inactivity_penalties(eff.to(cuda), scores.to(cuda), elig.to(cuda), 4 * 7)
     assert torch.equal(got.cpu(), port_sweeps.inactivity_penalties_plain(eff, scores, elig, 4 * 7))
+    # one row in: every column off the warp chunks
+    got = port_sweeps.inactivity_penalties(eff[1:].to(cuda), scores[1:].to(cuda),
+                                           elig[1:].to(cuda), 4 * 3 * 2**24)
+    assert torch.equal(got.cpu(), port_sweeps.inactivity_penalties_plain(
+        eff[1:], scores[1:], elig[1:], 4 * 3 * 2**24))
     k = _fused_inputs(n, seed=n, wrap=True)
     scalars = (*_fused_scalars(k), 4, 16, WEIGHTS, 64, False, 2, 1)
     columns = [k[c] for c in ("balances", "eff", "prev_part", "slashed", "active_prev",

@@ -22,7 +22,14 @@ Roots, totals and u64 columns must be equal exactly:
 
 The kernels' arithmetic (``csrc/chain_step_core.h``, and K2's lane in
 ``csrc/masked_sums.h``) is built with g++ and held against the same
-reference outputs.
+reference outputs; so is K1's schedule (``chain_step_core::chain_step_host``:
+block by block, thread by thread, step by step, then the finish in block
+order), at n in {0, 4, 8, 12, 4100, 65540}, on the launcher's grid and on
+grids smaller than the work, on columns offset by 1 to 7 rows (the
+one-a-thread path), and on edge rows (balances at 0, at each threshold and
+one either side, at 2^63 and 2^64 - 1) at increments 1, 2, 2^32, 2^63, 10^9
+and 2^64 - 1, the hysteresis remainder on the increment's reciprocal; and
+the reciprocal hysteresis form against the divided one on seeded rows.
 """
 
 import ctypes
@@ -64,6 +71,38 @@ import numpy as np
 M64 = (1 << 64) - 1
 INC = 10**9
 EPOCH_N = 12 * 684  # the shards' rows: divisible by 1, 3 and 4
+# K1's schedule: one shard's rows (a multiple of 4)
+SCHEDULE_SIZES = (0, 4, 8, 12, 4100, 65540)
+# increment -> the cap of the edge rows' chain step (hysteresis quotient 4,
+# multipliers 1 and 5)
+EDGE_INCREMENTS = {1: 32, 2: 64, 2**32: 2**37, 2**63: M64, INC: 32 * INC, M64: M64}
+
+
+def schedule_columns(n):
+    # chain_columns' rows, edge rows included where n reaches them
+    return tuple(c[:n] for c in chain_columns(max(n, 12), 100 + n))
+
+
+def thresholds(increment):
+    quarter = increment // 4
+    return quarter, quarter * 5 & M64
+
+
+def edge_chain_columns(increment):
+    # balances at 0, 2^63, 2^64 - 1 and at each threshold of a few
+    # effective balances and one either side (the compares wrap near 2^64)
+    down, up = thresholds(increment)
+    cap = EDGE_INCREMENTS[increment]
+    rows = []
+    for e in (0, increment, 3 * increment & M64, cap, 2**63, M64):
+        for b in (0, 2**63, M64, e - down - 1, e - down, e - down + 1, e + up - 1, e + up,
+                  e + up + 1):
+            rows.append((b & M64, e))
+    rows += [(M64, M64)] * (-len(rows) % 4)
+    balances = np.array([b for b, _ in rows], dtype=np.uint64)
+    eff = np.array([e for _, e in rows], dtype=np.uint64)
+    active = np.arange(len(rows)) % 3 != 1
+    return balances, eff, active
 
 
 def chain_columns(n, seed):
@@ -114,7 +153,7 @@ def epoch_columns(edges):
         eff[31] = np.uint64((M64 - _masked_sum(eff, active_cur)) & M64)
     return balances, eff, part, slashed, active_prev, active_cur, eligible, scores
 """
-exec(INPUTS)  # chain_columns, epoch_columns, M64, INC  # noqa: S102
+exec(INPUTS)  # chain_columns, epoch_columns, edge_chain_columns, M64, INC, ...  # noqa: S102
 
 REFERENCE = INPUTS + r"""
 import json
@@ -138,6 +177,21 @@ for n in CHAIN_SIZES:
         "new_eff": [int(v) for v in np.asarray(new_eff)], "total": int(total),
         "root": np.asarray(root).astype(">u4").tobytes().hex(),
         "words": np.asarray(u64_to_be_words(jnp.asarray(bal))).astype(np.uint32).tolist()}
+out["schedule"] = {}
+for n in SCHEDULE_SIZES:
+    bal, eff, act = schedule_columns(n)
+    new_eff, total, _ = run_chain_step(step, mesh, bal, eff, act, zero)
+    out["schedule"][str(n)] = {
+        "new_eff": [int(v) for v in np.asarray(new_eff)], "total": int(total),
+        "words": np.asarray(u64_to_be_words(jnp.asarray(bal))).astype(np.uint32).tolist()}
+out["edges"] = {}
+for increment, cap in EDGE_INCREMENTS.items():
+    edge_step = make_chain_step(mesh, effective_balance_increment=increment,
+                                max_effective_balance=cap)
+    bal, eff, act = edge_chain_columns(increment)
+    new_eff, total, _ = run_chain_step(edge_step, mesh, bal, eff, act, zero)
+    out["edges"][str(increment)] = {"new_eff": [int(v) for v in np.asarray(new_eff)],
+                                    "total": int(total)}
 ctx = Context.for_mainnet()
 for label, (edges, leaking, checked) in EPOCH_CASES.items():
     sweep = make_epoch_sweep_step(mesh, ctx, is_leaking=leaking, check_score_bound=checked)
@@ -279,16 +333,52 @@ extern "C" uint64_t chain_host(const uint64_t* balances, const uint64_t* effecti
                                const bool* active, int64_t n, uint64_t increment,
                                uint64_t max_effective, uint64_t down, uint64_t up,
                                uint64_t* new_effective, uint32_t* words) {
-  const chain_step_core::Hysteresis h{increment, max_effective, down, up};
+  const chain_step_core::Hysteresis h =
+      chain_step_core::hysteresis(increment, max_effective, down, up);
   const int64_t chunks = n / 4;
   uint64_t total = 0;
-  for (int64_t c = 0; c < chunks; ++c) {
-    uint32_t w[8];
-    total += chain_step_core::chunk_lane(h, balances + 4 * c, effective + 4 * c, active + 4 * c,
-                                         new_effective + 4 * c, w);
-    for (int r = 0; r < 8; ++r) words[r * chunks + c] = w[r];
+  for (int64_t i = 0; i < n; ++i) {
+    uint32_t lo, hi;
+    total += chain_step_core::validator_lane(h, balances[i], effective[i], active[i],
+                                             &new_effective[i], &lo, &hi);
+    words[2 * (i % 4) * chunks + i / 4] = lo;
+    words[(2 * (i % 4) + 1) * chunks + i / 4] = hi;
   }
   return total;
+}
+
+// K1's schedule on the columns as they lie in memory (the launcher's
+// alignment test picks the path): on `grid` blocks, or (0) the launcher's
+// grid. shape receives the grid and the whole warp chunks; visits counts
+// each validator's visits. Returns the total.
+extern "C" uint64_t chain_schedule_host(const uint64_t* balances, const uint64_t* effective,
+                                        const uint8_t* active, int64_t n, uint64_t increment,
+                                        uint64_t max_effective, uint64_t down, uint64_t up,
+                                        int64_t grid, uint64_t* new_effective, uint32_t* words,
+                                        uint8_t* visits, int64_t* shape) {
+  const chain_step_core::ChainColumns c =
+      chain_step_core::chain_columns(balances, effective, active, n, new_effective, words);
+  if (grid == 0) grid = altair_core::chunk_grid(n);
+  shape[0] = grid;
+  shape[1] = c.chunks;
+  return chain_step_core::chain_step_host(
+      c, chain_step_core::hysteresis(increment, max_effective, down, up), grid, visits);
+}
+
+// The hysteresis update in its two forms over (n,) rows: the divided
+// remainder (sweeps.cu) into divided, on the increment's reciprocal
+// (chain_step.cu) into reciprocal.
+extern "C" void hysteresis_forms_host(const uint64_t* balances, const uint64_t* effective,
+                                      int64_t n, uint64_t increment, uint64_t max_effective,
+                                      uint64_t down, uint64_t up, uint64_t* divided,
+                                      uint64_t* reciprocal) {
+  const udiv64_core::UDiv64 by_increment = udiv64_core::prepare(increment);
+  for (int64_t i = 0; i < n; ++i) {
+    divided[i] = sweeps_core::effective_balance_update(balances[i], effective[i], increment,
+                                                       max_effective, down, up);
+    reciprocal[i] = sweeps_core::effective_balance_update(
+        balances[i], effective[i], increment, by_increment, max_effective, down, up);
+  }
 }
 
 // The epoch step over whole columns: the four sums, the scalars
@@ -349,6 +439,10 @@ def core(tmp_path_factory):
     lib = ctypes.CDLL(str(lib_path))
     lib.chain_host.argtypes = [_P, _P, _P, _I64] + [_U64] * 4 + [_P, _P]
     lib.chain_host.restype = _U64
+    lib.chain_schedule_host.argtypes = [_P, _P, _P, _I64] + [_U64] * 4 + [_I64] + [_P] * 4
+    lib.chain_schedule_host.restype = _U64
+    lib.hysteresis_forms_host.argtypes = [_P, _P, _I64] + [_U64] * 4 + [_P, _P]
+    lib.hysteresis_forms_host.restype = None
     lib.epoch_host.argtypes = [ctypes.c_int] + [_P] * 8 + [_I64, _P, ctypes.c_int] + [_P] * 5
     lib.epoch_host.restype = None
     return lib
@@ -367,11 +461,133 @@ def test_header_chain_lane_matches_reference(reference, core, n):
         col[:n] = c
     new_eff = np.zeros(padded, np.uint64)
     words = np.zeros((8, padded // 4), np.uint32)
-    total = core.chain_host(*(_ptr(c) for c in cols), padded, INC, 32 * INC, INC // 4,
-                            5 * INC // 4, _ptr(new_eff), _ptr(words))
+    total = core.chain_host(*(_ptr(c) for c in cols), padded, *MAINNET_HYSTERESIS,
+                            _ptr(new_eff), _ptr(words))
     want = reference["chain"][str(n)]
     assert np.array_equal(new_eff[:n], _u64(want["new_eff"])) and total == want["total"]
     assert words.T.reshape(-1)[:2 * n].tolist() == want["words"]
+
+
+def _placed(cols, offset: int) -> list:
+    """Copies of the columns starting `offset` rows past a 64-byte boundary
+    (the arrays keep their buffers alive)."""
+    out = []
+    for c in cols:
+        raw = np.zeros((len(c) + offset) * c.itemsize + 64, np.uint8)
+        start = (-raw.ctypes.data) % 64 + offset * c.itemsize
+        placed = raw[start:start + len(c) * c.itemsize].view(c.dtype)
+        placed[:] = c
+        out.append(placed)
+    return out
+
+
+def _run_schedule(core, cols, hysteresis: tuple, grid: int = 0) -> dict:
+    bal, eff, act = cols
+    n = len(bal)
+    new_eff = np.zeros(n, np.uint64)
+    words = np.zeros((8, n // 4), np.uint32)
+    visits = np.zeros(max(n, 1), np.uint8)
+    shape = np.zeros(2, np.int64)
+    total = core.chain_schedule_host(_ptr(bal), _ptr(eff), _ptr(act.view(np.uint8)), n,
+                                     *hysteresis, grid, _ptr(new_eff), _ptr(words),
+                                     _ptr(visits), _ptr(shape))
+    return {"new_eff": new_eff, "words": words, "total": int(total), "visits": visits[:n],
+            "grid": int(shape[0]), "chunks": int(shape[1])}
+
+
+def _hysteresis(increment: int, cap: int) -> tuple:
+    return (increment, cap, *thresholds(increment))
+
+
+MAINNET_HYSTERESIS = _hysteresis(INC, 32 * INC)
+
+
+# grid 0: the launcher's; 1 and 3: fewer blocks than the work wants
+@pytest.mark.parametrize("grid", [0, 1, 3])
+@pytest.mark.parametrize("n", SCHEDULE_SIZES)
+def test_header_chain_schedule_matches_reference(reference, core, n, grid):
+    """K1's partition run on the host (whole warp chunks, then one a
+    thread) against the reference's chain step: new effective balances, the
+    (8, n/4) words and the total, every validator visited once."""
+    cols = _placed(schedule_columns(n), 0)
+    got = _run_schedule(core, cols, MAINNET_HYSTERESIS, grid)
+    want = reference["schedule"][str(n)]
+    assert got["chunks"] == n // 256
+    assert np.array_equal(got["new_eff"], _u64(want["new_eff"])) and got["total"] == want["total"]
+    assert got["words"].T.reshape(-1).tolist() == want["words"]
+    assert np.all(got["visits"] == 1)
+
+
+@pytest.mark.parametrize("offset", range(1, 8))
+def test_header_chain_schedule_offset_columns(reference, core, offset):
+    """Columns offset by 1..7 rows: the word columns 16-byte aligned and
+    the flags 2-byte aligned only at even offsets, so the validators go one
+    a thread at odd offsets, on the launcher's grid and on one block."""
+    n = 65540
+    cols = _placed(schedule_columns(n), offset)
+    want = reference["schedule"][str(n)]
+    for grid in (0, 1):
+        got = _run_schedule(core, cols, MAINNET_HYSTERESIS, grid)
+        assert got["chunks"] == (n // 256 if offset % 2 == 0 else 0)
+        assert np.array_equal(got["new_eff"], _u64(want["new_eff"]))
+        assert got["total"] == want["total"] and np.all(got["visits"] == 1)
+        assert got["words"].T.reshape(-1).tolist() == want["words"]
+
+
+@pytest.mark.parametrize("increment", EDGE_INCREMENTS)
+def test_header_chain_schedule_on_edge_increments(reference, core, increment):
+    """Balances at 0, at each threshold and one either side, at 2^63 and
+    2^64 - 1, at increments whose reciprocals take each of the division's
+    paths (1, powers of two, 10^9, 2^64 - 1), against the reference's chain
+    step at the same constants."""
+    cols = _placed(edge_chain_columns(increment), 0)
+    want = reference["edges"][str(increment)]
+    for grid in (0, 1):
+        got = _run_schedule(core, cols, _hysteresis(increment, EDGE_INCREMENTS[increment]), grid)
+        assert np.array_equal(got["new_eff"], _u64(want["new_eff"]))
+        assert got["total"] == want["total"]
+    moved = _u64(want["new_eff"]) != cols[1]
+    assert moved.any() and not moved.all()
+
+
+def test_header_chain_grid(core):
+    """The launcher's grid: a warp chunk a warp (512 blocks at 2^20, one
+    wave at 4 blocks an SM; 128 at 2^18; 1,025 at 2^21 + 4), the same off
+    the vector path, one block for no validators."""
+    def grid(n, offset=0):
+        cols = _placed((np.zeros(n, np.uint64), np.zeros(n, np.uint64), np.zeros(n, bool)),
+                       offset)
+        return _run_schedule(core, cols, MAINNET_HYSTERESIS)
+    assert grid(1 << 20)["grid"] == 512 and grid(1 << 18)["grid"] == 128
+    assert grid((1 << 21) + 4)["grid"] == 1025
+    unaligned = grid(1 << 20, offset=1)
+    assert unaligned["grid"] == 512 and unaligned["chunks"] == 0
+    assert grid(0)["grid"] == 1
+
+
+# increments: each edge increment, and seeded ones over the whole u64 range
+HYSTERESIS_FORM_INCREMENTS = (*EDGE_INCREMENTS, 3, 10**9 + 7, 2**63 + 1, 12345678901234567)
+
+
+@pytest.mark.parametrize("increment", HYSTERESIS_FORM_INCREMENTS)
+def test_header_hysteresis_reciprocal_form_matches_divided(core, increment):
+    """sweeps_core.h's update on the increment's reciprocal (K1's) against
+    the divided form (B5-hysteresis's) on seeded rows over the whole u64
+    range, balances near multiples of the increment among them."""
+    rng = np.random.default_rng(increment % 2**32)
+    n = 1 << 14
+    balances = rng.integers(0, M64, n, dtype=np.uint64, endpoint=True)
+    multiples = rng.integers(0, M64 // increment + 1, n, dtype=np.uint64) * np.uint64(increment)
+    near = multiples + rng.integers(-2, 3, n).astype(np.uint64)
+    balances = np.where(rng.random(n) < 0.5, balances, near)
+    eff = np.where(rng.random(n) < 0.5, rng.integers(0, M64, n, dtype=np.uint64, endpoint=True),
+                   balances + rng.integers(-3, 3, n).astype(np.uint64) * np.uint64(increment))
+    divided, reciprocal = np.zeros(n, np.uint64), np.zeros(n, np.uint64)
+    cap = int(rng.integers(0, M64, dtype=np.uint64, endpoint=True))
+    core.hysteresis_forms_host(_ptr(balances), _ptr(eff), n, increment, cap,
+                               *thresholds(increment), _ptr(divided), _ptr(reciprocal))
+    assert np.array_equal(divided, reciprocal)
+    assert (divided != eff).any()
 
 
 MAINNET_CONSTS = (INC, 64, 4, 16, 3 * 2**24, 14, 26, 14, 64)
