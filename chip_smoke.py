@@ -307,6 +307,17 @@ def _cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def _yardsticks(nbytes: int) -> tuple:
+    """Milliseconds of a PyTorch copy of ``nbytes`` bytes (half read, half
+    written: the bytes a sweep moves) and of an empty launch, both on
+    ``_cuda_ms``: what a byte-bound kernel of those bytes is held to."""
+    src = torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    copy_ms = _cuda_ms(lambda: dst.copy_(src), reps=50, warmup=5)
+    empty_ms = _cuda_ms(lambda: torch.cuda._sleep(0), reps=50, warmup=5)
+    return copy_ms, empty_ms
+
+
 def _int_ops_ms(ops: float) -> float:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return 1e3 * ops / (sms * DISPATCH_LANES_PER_SM * BOOST_CLOCK_HZ)
@@ -1311,13 +1322,16 @@ def phase_sweeps() -> dict:
     # the last n checked is the main path's, 2^20
     ms = _cuda_ms(lambda: sweeps._launch(bal, eff, scalars), reps=50, warmup=5)
     bound, bound_by = sweeps_bound_ms(n)
+    copy_ms, empty_ms = _yardsticks(n * SWEEPS_BYTES_PER_VALIDATOR)
     plain_ms = _cuda_ms(lambda: sweeps.effective_balance_updates_plain(bal, eff, ctx),
                         reps=5, warmup=1)
-    print(f"sweeps n=2^20: {ms:.4f} ms (bound {bound:.4f} ms by {bound_by}); "
-          f"plain {plain_ms:.3f} ms; library: none; SASS instructions "
+    print(f"sweeps n=2^20: {ms:.4f} ms (bound {bound:.4f} ms by {bound_by}); a copy of its "
+          f"{SWEEPS_BYTES_PER_VALIDATOR} bytes a validator {copy_ms:.4f} ms, an empty launch "
+          f"{empty_ms:.4f} ms; plain {plain_ms:.3f} ms; library: none; SASS instructions "
           f"{_sass_instructions('sweeps')}")
     return {"checks": checks, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "max_abs_err": max(c["max_abs_err"] for c in checks)}
+            "bound_by": bound_by, "copy_ms": copy_ms, "empty_ms": empty_ms,
+            "max_abs_err": max(c["max_abs_err"] for c in checks)}
 
 
 def _sass_instructions(name: str) -> "int | None":
@@ -1923,6 +1937,10 @@ def phase_altair_sweeps() -> dict:
                                                       denominator),
             n, int(not_target.sum()), INACTIVITY_PENALTIES_OPS, INACTIVITY_PENALTIES_BYTES),
     }
+    copy_ms, empty_ms = _yardsticks(n * INACTIVITY_UPDATES_BYTES)
+    timings["inactivity_updates"].update(copy_ms=copy_ms, empty_ms=empty_ms)
+    print(f"altair_sweeps inactivity_updates n=2^20: a copy of its {INACTIVITY_UPDATES_BYTES} "
+          f"bytes a validator {copy_ms:.4f} ms, an empty launch {empty_ms:.4f} ms")
     scalars = _fused_scalars(False)
     columns = [c[k] for k in ("balances", "eff", "prev_part", "slashed", "active_prev",
                               "eligible", "scores")]
@@ -2049,15 +2067,32 @@ def phase_sums() -> dict:
 ALTAIR_FORK_EPOCH = 1  # as tests/chain_utils.py:719 sets it
 ALTAIR_PRE_SLOT = 95  # the last slot of epoch 2
 ALTAIR_BLOCK_SLOT = 96  # the first slot of epoch 3: the block crosses the boundary
+# The capella cell: bellatrix and capella both from epoch 2, so the altair
+# state at slot 64 upgrades twice and runs capella's rules to slot 95. One
+# validator in CAPELLA_ETH1_SHARE withdraws to an execution address, and the
+# sweep starts CAPELLA_SWEEP_BACK validators before the registry's end, so a
+# full payload of withdrawals takes it past the end; the block also changes
+# CAPELLA_BLS_CHANGES validators' credentials (mainnet's
+# MAX_BLS_TO_EXECUTION_CHANGES). The tampered block changes one withdrawal.
+CAPELLA_FORK_EPOCH = 2
+CAPELLA_ETH1_SHARE = 512
+CAPELLA_SWEEP_BACK = 4096
+CAPELLA_BLS_CHANGES = 16
+CAPELLA_TAMPERED_WITHDRAWAL = 5
 
 
-def _realize_keys(state, indices) -> int:
-    """Give ``indices`` their real keys SecretKey(i + 1); returns how many."""
+def _realize_keys(state, indices, known: "dict | None" = None) -> int:
+    """Give ``indices`` their real keys SecretKey(i + 1), taken from
+    ``known`` (index -> key bytes) where it holds them and added to it;
+    returns how many."""
     from ethereum_consensus_tpu_torch.crypto import bls
 
     indices = set(indices)
+    known = {} if known is None else known
     for i in indices:
-        state.validators[i].public_key = bls.SecretKey(i + 1).public_key().to_bytes()
+        if i not in known:
+            known[i] = bls.SecretKey(i + 1).public_key().to_bytes()
+        state.validators[i].public_key = known[i]
     state.__dict__.pop("_pubkey_index_cache", None)
     return len(indices)
 
@@ -2136,25 +2171,27 @@ def scramble_altair(state, ctx, seed: int) -> dict:
             "scored": int((scores > 0).sum()), "target_missed": missed, "entrants": 256}
 
 
-def _altair_block(scratch, ctx, slot: int, attestations: list):
-    """A block at ``slot`` on ``scratch`` (a state processed to ``slot``, the
+def _altair_block(scratch, ctx, slot: int, attestations: list, fork=None, **body):
+    """A block of ``fork`` (a models package of the altair family, altair by
+    default) at ``slot`` on ``scratch`` (a state processed to ``slot``, the
     proposer's and the sync committee's keys real) carrying
-    ``attestations`` and a full sync aggregate over the previous slot's
-    block root: one signature under the sum of the members' secret keys
-    (duplicates counted), the same point as aggregating their signatures.
-    Runs process_block on ``scratch`` for the state root. Returns the block
-    and ``signed(message)``, which signs a message as the proposer."""
+    ``attestations``, a full sync aggregate over the previous slot's block
+    root (one signature under the sum of the members' secret keys,
+    duplicates counted: the same point as aggregating their signatures) and
+    ``body``'s further fields. Runs process_block on ``scratch`` for the
+    state root. Returns the block and ``signed(message)``, which signs a
+    message as the proposer."""
     from ethereum_consensus_tpu_torch.crypto import bls
     from ethereum_consensus_tpu_torch.crypto.fields import R
     from ethereum_consensus_tpu_torch.domains import DomainType
-    from ethereum_consensus_tpu_torch.models.altair import block_processing, build
-    from ethereum_consensus_tpu_torch.models.altair import helpers as h
+    from ethereum_consensus_tpu_torch.models import altair
     from ethereum_consensus_tpu_torch.models.phase0.containers import BeaconBlockHeader
     from ethereum_consensus_tpu_torch.primitives import Root
     from ethereum_consensus_tpu_torch.signing import compute_signing_root
     from ethereum_consensus_tpu_torch.ssz import uint64
 
-    ns = build(ctx.preset)
+    fork = fork or altair
+    ns, h, block_processing = fork.build(ctx.preset), fork.helpers, fork.block_processing
     proposer = h.get_beacon_proposer_index(scratch, ctx)
     epoch = slot // int(ctx.SLOTS_PER_EPOCH)
     previous = slot - 1
@@ -2178,7 +2215,7 @@ def _altair_block(scratch, ctx, slot: int, attestations: list):
         body=ns.BeaconBlockBody(
             randao_reveal=proposer_key.sign(randao_root).to_bytes(),
             eth1_data=scratch.eth1_data.copy(), attestations=attestations,
-            sync_aggregate=sync_aggregate,
+            sync_aggregate=sync_aggregate, **body,
         ),
     )
     block_processing.process_block(scratch, block, ctx)
@@ -2207,22 +2244,39 @@ def _aggregate(ns, data, committee: list, domain) -> object:
     )
 
 
-def make_altair_block(state, ctx, committees: list):
-    """A signed block at ALTAIR_BLOCK_SLOT on ``state`` (at slot 95, the
-    committees' and the proposer's keys real) carrying one aggregate per
-    slot-95 committee and a full sync aggregate over slot 95's block root.
-    The state root comes from a host run on a scratch copy, which verifies
-    every signature inline. Returns the block and a copy whose
-    sync-aggregate signature is replaced by the block's own signature,
-    re-signed."""
-    from ethereum_consensus_tpu_torch.domains import DomainType
-    from ethereum_consensus_tpu_torch.models.altair import build
-    from ethereum_consensus_tpu_torch.models.altair import helpers as h
-    from ethereum_consensus_tpu_torch.models.altair import slot_processing
-
-    ns = build(ctx.preset)
+def _cross_for_block(state, ctx, fork, known: dict):
+    """``state`` (at slot 95) crossed once, on a scratch copy, to
+    ALTAIR_BLOCK_SLOT for the block built there. The slot-96 proposer
+    depends on the post-boundary effective balances, not on keys, so it is
+    read off the crossing; its key is then made real on both states and the
+    one root of the pre-state that the crossing recorded (slot 95's state
+    root) is taken again: no later root of the boundary reads a key, so the
+    scratch is then what a crossing with the real key gives. Returns the
+    scratch and the proposer."""
     scratch = state.copy()
-    slot_processing.process_slots(scratch, ALTAIR_BLOCK_SLOT, ctx)
+    fork.slot_processing.process_slots(scratch, ALTAIR_BLOCK_SLOT, ctx)
+    proposer = fork.helpers.get_beacon_proposer_index(scratch, ctx)
+    if state.validators[proposer].slashed:
+        sys.exit("chip_smoke: the scramble slashed the slot-96 proposer")
+    for s in (state, scratch):
+        _realize_keys(s, [proposer], known)
+    limit = len(scratch.state_roots)
+    scratch.state_roots[(ALTAIR_BLOCK_SLOT - 1) % limit] = type(state).hash_tree_root(state)
+    return scratch, proposer
+
+
+def make_altair_block(scratch, ctx, committees: list, fork=None, **body):
+    """A signed block at ALTAIR_BLOCK_SLOT on ``scratch`` (a state crossed to
+    that slot, the committees' and the proposer's keys real) carrying one
+    aggregate per slot-95 committee, a full sync aggregate over slot 95's
+    block root and ``body``'s further fields. The state root comes from a
+    host run on ``scratch``, which verifies every signature inline. Returns
+    the block and ``signed(message)``."""
+    from ethereum_consensus_tpu_torch.domains import DomainType
+    from ethereum_consensus_tpu_torch.models import altair
+
+    fork = fork or altair
+    ns, h = fork.build(ctx.preset), fork.helpers
     epoch = ALTAIR_BLOCK_SLOT // int(ctx.SLOTS_PER_EPOCH)
     att_slot = ALTAIR_BLOCK_SLOT - 1
     head_root = h.get_block_root_at_slot(scratch, att_slot)
@@ -2234,21 +2288,37 @@ def make_altair_block(state, ctx, committees: list):
                                           target=target.copy()),
                    committee, attester_domain)
         for index, committee in enumerate(committees)]
-    block, signed = _altair_block(scratch, ctx, ALTAIR_BLOCK_SLOT, attestations)
-    good = signed(block)
-    tampered = block.copy()
-    tampered.body.sync_aggregate.sync_committee_signature = bytes(good.signature)
-    return good, signed(tampered)
+    return _altair_block(scratch, ctx, ALTAIR_BLOCK_SLOT, attestations, fork, **body)
+
+
+def _committees_at_pre_slot(state, ctx, fork) -> list:
+    """Slot 95's beacon committees."""
+    h = fork.helpers
+    per_slot = h.get_committee_count_per_slot(state, ALTAIR_PRE_SLOT // int(ctx.SLOTS_PER_EPOCH),
+                                              ctx)
+    return [h.get_beacon_committee(state, ALTAIR_PRE_SLOT, index, ctx)
+            for index in range(per_slot)]
+
+
+def _registry_before(state) -> dict:
+    """The columns the boundary changes, to count its changes by."""
+    n = len(state.validators)
+    return {"balances": np.fromiter(state.balances, np.uint64, n),
+            "scores": np.fromiter(state.inactivity_scores, np.uint64, n),
+            "effective": _effective_balances(state)}
 
 
 def build_altair_pre_state(registry: dict) -> dict:
     """The registry to slot 32 under phase0 rules, the sync committee's keys
-    made real and the upgrade to altair, slots to 95 under altair rules
-    (the 63 -> 64 boundary on the host route), the scramble, then the keys
-    of slot 95's committees and of the slot-96 proposer made real, and the
-    block. Returns the pre-state's bytes and the block."""
+    made real and the upgrade to altair, slots to 64 under altair rules
+    (the 63 -> 64 boundary on the host route), where the capella cell's
+    set-up upgrades it (``build_capella_pre_state``); then slots to 95, the
+    scramble, the keys of slot 95's committees and of the slot-96 proposer
+    made real, and the block, built on the one crossing. Returns the
+    pre-state's bytes and the block, and the capella cell's."""
     from ethereum_consensus_tpu_torch import ops
     from ethereum_consensus_tpu_torch.config import Context
+    from ethereum_consensus_tpu_torch.models import altair
     from ethereum_consensus_tpu_torch.models.altair import helpers as ah
     from ethereum_consensus_tpu_torch.models.altair import slot_processing as aslots
     from ethereum_consensus_tpu_torch.models.altair import upgrade_to_altair
@@ -2264,68 +2334,212 @@ def build_altair_pre_state(registry: dict) -> dict:
     pslots.process_slots(phase0_state, fork_slot, ctx)
     to_fork_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    sync_keys = _realize_keys(phase0_state, ah.get_next_sync_committee_indices(phase0_state, ctx))
+    known: dict = {}
+    sync_keys = _realize_keys(phase0_state, ah.get_next_sync_committee_indices(phase0_state, ctx),
+                              known)
     state = upgrade_to_altair(phase0_state, ctx)
     del phase0_state
     gc.collect()
     upgrade_s = time.perf_counter() - t0
     t0 = time.perf_counter()
+    aslots.process_slots(state, CAPELLA_FORK_EPOCH * int(ctx.SLOTS_PER_EPOCH), ctx)
+    to_capella_fork_s = time.perf_counter() - t0
+    # the upgrades copy every field, so the altair state goes on as it was
+    capella = build_capella_pre_state(state, known)
+    t0 = time.perf_counter()
     aslots.process_slots(state, ALTAIR_PRE_SLOT, ctx)
     to_pre_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     scrambled = scramble_altair(state, ctx, seed=4)
-    epoch = ALTAIR_PRE_SLOT // int(ctx.SLOTS_PER_EPOCH)
-    per_slot = ah.get_committee_count_per_slot(state, epoch, ctx)
-    committees = [ah.get_beacon_committee(state, ALTAIR_PRE_SLOT, index, ctx)
-                  for index in range(per_slot)]
-    committee_keys = _realize_keys(state, [i for c in committees for i in c])
+    committees = _committees_at_pre_slot(state, ctx, altair)
+    committee_keys = _realize_keys(state, [i for c in committees for i in c], known)
     scramble_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    # the proposer of slot 96 depends on the post-boundary effective
-    # balances, not on keys: find it on a scratch crossing, then make its key
-    # real and build the block on a second one
-    scratch = state.copy()
-    aslots.process_slots(scratch, ALTAIR_BLOCK_SLOT, ctx)
-    proposer = ah.get_beacon_proposer_index(scratch, ctx)
+    scratch, proposer = _cross_for_block(state, ctx, altair, known)
+    block, signed = make_altair_block(scratch, ctx, committees)
     del scratch
-    if state.validators[proposer].slashed:
-        sys.exit("chip_smoke: the scramble slashed the slot-96 proposer")
-    _realize_keys(state, [proposer])
-    good, tampered = make_altair_block(state, ctx, committees)
+    good = signed(block)
+    tampered = block.copy()
+    tampered.body.sync_aggregate.sync_committee_signature = bytes(good.signature)
+    tampered = signed(tampered)
     block_s = time.perf_counter() - t0
     n = len(state.validators)
-    before = {
-        "balances": np.fromiter(state.balances, np.uint64, n),
-        "scores": np.fromiter(state.inactivity_scores, np.uint64, n),
-        "effective": _effective_balances(state),
-    }
+    before = _registry_before(state)
     t0 = time.perf_counter()
     pre = type(state).serialize(state)
     serialize_s = time.perf_counter() - t0
     del state
     gc.collect()
     print(f"altair: {n} validators; slots 0..{fork_slot} {to_fork_s:.1f} s; {sync_keys} sync "
-          f"committee keys and the upgrade {upgrade_s:.1f} s; slots to {ALTAIR_PRE_SLOT} "
-          f"{to_pre_s:.1f} s; scramble {scrambled} and {committee_keys} committee keys "
-          f"{scramble_s:.1f} s; two scratch crossings and the block {block_s:.1f} s; "
-          f"serialize ({len(pre)} bytes) {serialize_s:.1f} s")
+          f"committee keys and the upgrade {upgrade_s:.1f} s; slots to "
+          f"{CAPELLA_FORK_EPOCH * int(ctx.SLOTS_PER_EPOCH)} {to_capella_fork_s:.1f} s and on to "
+          f"{ALTAIR_PRE_SLOT} {to_pre_s:.1f} s; scramble {scrambled} and {committee_keys} "
+          f"committee keys {scramble_s:.1f} s; one scratch crossing and the block "
+          f"{block_s:.1f} s; serialize ({len(pre)} bytes) {serialize_s:.1f} s")
     return {"pre": pre, "ctx": ctx, "good": good, "tampered": tampered, "n": n,
-            "before": before, "scrambled": scrambled, "proposer": proposer,
-            "setup_s": {"to_fork": to_fork_s, "upgrade": upgrade_s, "to_pre": to_pre_s,
+            "before": before, "scrambled": scrambled, "proposer": proposer, "capella": capella,
+            "setup_s": {"to_fork": to_fork_s, "upgrade": upgrade_s,
+                        "to_capella_fork": to_capella_fork_s, "to_pre": to_pre_s,
                         "scramble_and_keys": scramble_s, "block": block_s,
                         "serialize": serialize_s}}
 
 
-def _apply_altair(state, signed_block, ctx, timers: list, events: "list | None"):
-    """Cold Executor.apply_block with host timers on ``timers`` ((module,
-    name, key) triples) and CUDA events on each kernel launch; returns
-    (seconds, parts, executor state)."""
+def _withdrawal_address(index: int) -> bytes:
+    return hashlib.sha256(b"execution-address" + index.to_bytes(8, "little")).digest()[:20]
+
+
+def _capella_credentials(state, ctx, rng) -> tuple:
+    """A seeded share of validators (one in CAPELLA_ETH1_SHARE) turned to
+    0x01 credentials with a balance above 32 ETH: partial withdrawals,
+    sparse enough that the sweep from its cursor, CAPELLA_SWEEP_BACK before
+    the registry's end, walks past the end to find MAX_WITHDRAWALS_PER_PAYLOAD
+    of them; and CAPELLA_BLS_CHANGES unslashed 0x00 validators whose
+    credentials are pointed at withdrawal keys the set-up makes. Returns
+    (the 0x01 indices, [(index, withdrawal key)])."""
+    from ethereum_consensus_tpu_torch.crypto import bls
+    from ethereum_consensus_tpu_torch.crypto.fields import R
+
+    n = len(state.validators)
+    picks = rng.permutation(n).tolist()
+    eth1 = picks[:n // CAPELLA_ETH1_SHARE]
+    cap = int(ctx.MAX_EFFECTIVE_BALANCE)
+    for i in eth1:
+        state.validators[i].withdrawal_credentials = (b"\x01" + b"\x00" * 11
+                                                      + _withdrawal_address(i))
+        state.balances[i] = cap + int(rng.integers(10**8, 2 * 10**9))
+    changes = []
+    for i in picks[n // CAPELLA_ETH1_SHARE:]:
+        if len(changes) == CAPELLA_BLS_CHANGES:
+            break
+        if state.validators[i].slashed:
+            continue
+        seed = hashlib.sha256(b"withdrawal-key" + i.to_bytes(8, "little")).digest()
+        key = bls.SecretKey(int.from_bytes(seed, "big") % (R - 1) + 1)
+        state.validators[i].withdrawal_credentials = (
+            b"\x00" + hashlib.sha256(key.public_key().to_bytes()).digest()[1:])
+        changes.append((i, key))
+    state.next_withdrawal_validator_index = n - CAPELLA_SWEEP_BACK
+    return eth1, changes
+
+
+def _bls_changes(state, ctx, changes: list) -> list:
+    """Each (index, withdrawal key) of ``changes`` as a signed change of the
+    validator's credentials to an execution address."""
+    from ethereum_consensus_tpu_torch.domains import DomainType
+    from ethereum_consensus_tpu_torch.models import capella
+    from ethereum_consensus_tpu_torch.signing import compute_signing_root
+
+    ns = capella.build(ctx.preset)
+    domain = capella.helpers.compute_domain(DomainType.BLS_TO_EXECUTION_CHANGE, None,
+                                            bytes(state.genesis_validators_root), ctx)
+    out = []
+    for index, key in changes:
+        message = ns.BlsToExecutionChange(validator_index=index,
+                                          from_bls_public_key=key.public_key().to_bytes(),
+                                          to_execution_address=_withdrawal_address(index))
+        root = compute_signing_root(ns.BlsToExecutionChange, message, domain)
+        out.append(ns.SignedBlsToExecutionChange(message=message,
+                                                 signature=key.sign(root).to_bytes()))
+    return out
+
+
+def build_capella_pre_state(state, known: dict) -> dict:
+    """The capella cell's pre-state from the altair set-up's ``state`` at the
+    fork slot 64: upgraded to bellatrix and to capella (both at epoch 2),
+    the payload header of a post-merge chain, slots to 95 under capella
+    rules, the altair cell's scramble under another seed, the credentials
+    of ``_capella_credentials``, the keys of slot 95's committees and of the
+    slot-96 proposer made real (kept in ``known``, which the altair cell's
+    set-up goes on with), and a signed capella block at slot 96 with the expected
+    withdrawals, 64 aggregates, a full sync aggregate and the changes.
+    Returns the pre-state's bytes, the block and a copy with one withdrawal
+    changed, re-signed."""
+    from ethereum_consensus_tpu_torch.config import Context
+    from ethereum_consensus_tpu_torch.models import capella
+    from ethereum_consensus_tpu_torch.models.bellatrix import upgrade_to_bellatrix
+
+    t0 = time.perf_counter()
+    ctx = Context.for_mainnet()
+    ctx.altair_fork_epoch = ALTAIR_FORK_EPOCH
+    ctx.bellatrix_fork_epoch = ctx.capella_fork_epoch = CAPELLA_FORK_EPOCH
+    state = capella.upgrade_to_capella(upgrade_to_bellatrix(state, ctx), ctx)
+    gc.collect()
+    ns = capella.build(ctx.preset)
+    last_slot = CAPELLA_FORK_EPOCH * int(ctx.SLOTS_PER_EPOCH) - 1
+    state.latest_execution_payload_header = ns.ExecutionPayloadHeader(
+        parent_hash=hashlib.sha256(b"execution-block-%d" % (last_slot - 1)).digest(),
+        block_hash=hashlib.sha256(b"execution-block-%d" % last_slot).digest(),
+        block_number=last_slot, gas_limit=30_000_000, gas_used=15_000_000,
+        timestamp=capella.helpers.compute_timestamp_at_slot(state, last_slot, ctx),
+        base_fee_per_gas=7)
+    upgrade_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    capella.slot_processing.process_slots(state, ALTAIR_PRE_SLOT, ctx)
+    to_pre_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scrambled = scramble_altair(state, ctx, seed=5)
+    eth1, changes = _capella_credentials(state, ctx, np.random.default_rng(7))
+    committees = _committees_at_pre_slot(state, ctx, capella)
+    committee_keys = _realize_keys(state, [i for c in committees for i in c], known)
+    scramble_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scratch, proposer = _cross_for_block(state, ctx, capella, known)
+    header = scratch.latest_execution_payload_header
+    withdrawals = capella.block_processing.get_expected_withdrawals(scratch, ctx)
+    payload = ns.ExecutionPayload(
+        parent_hash=header.block_hash, fee_recipient=_withdrawal_address(proposer),
+        state_root=hashlib.sha256(b"execution-state-%d" % ALTAIR_BLOCK_SLOT).digest(),
+        receipts_root=hashlib.sha256(b"execution-receipts-%d" % ALTAIR_BLOCK_SLOT).digest(),
+        prev_randao=capella.helpers.get_randao_mix(
+            scratch, ALTAIR_BLOCK_SLOT // int(ctx.SLOTS_PER_EPOCH)),
+        block_number=header.block_number + 1, gas_limit=header.gas_limit, gas_used=14_000_000,
+        timestamp=capella.helpers.compute_timestamp_at_slot(scratch, ALTAIR_BLOCK_SLOT, ctx),
+        base_fee_per_gas=header.base_fee_per_gas,
+        block_hash=hashlib.sha256(b"execution-block-%d" % ALTAIR_BLOCK_SLOT).digest(),
+        withdrawals=withdrawals)
+    if len(withdrawals) != int(ctx.MAX_WITHDRAWALS_PER_PAYLOAD) or \
+            withdrawals[-1].validator_index >= state.next_withdrawal_validator_index:
+        sys.exit(f"chip_smoke: the capella sweep found {len(withdrawals)} withdrawals, not a "
+                 "full payload past the registry's end")
+    block, signed = make_altair_block(scratch, ctx, committees, capella, execution_payload=payload,
+                                      bls_to_execution_changes=_bls_changes(state, ctx, changes))
+    del scratch
+    tampered = block.copy()
+    tampered.body.execution_payload.withdrawals[CAPELLA_TAMPERED_WITHDRAWAL].amount += 1
+    block_s = time.perf_counter() - t0
+    n = len(state.validators)
+    before = _registry_before(state)
+    t0 = time.perf_counter()
+    pre = type(state).serialize(state)
+    serialize_s = time.perf_counter() - t0
+    del state
+    gc.collect()
+    sweep = [int(w.validator_index) for w in withdrawals]
+    print(f"capella: {n} validators; upgrades at slot "
+          f"{CAPELLA_FORK_EPOCH * int(ctx.SLOTS_PER_EPOCH)} {upgrade_s:.1f} "
+          f"s; slots to {ALTAIR_PRE_SLOT} {to_pre_s:.1f} s; scramble {scrambled}, {len(eth1)} "
+          f"0x01 validators, {len(changes)} withdrawal keys and {committee_keys} committee keys "
+          f"{scramble_s:.1f} s; one scratch crossing and the block {block_s:.1f} s (withdrawals "
+          f"of validators {sweep[0]}..{sweep[-1]}, sweep from {n - CAPELLA_SWEEP_BACK}); "
+          f"serialize ({len(pre)} bytes) {serialize_s:.1f} s")
+    return {"pre": pre, "ctx": ctx, "good": signed(block), "tampered": signed(tampered),
+            "n": n, "before": before, "scrambled": scrambled, "proposer": proposer,
+            "withdrawals": sweep, "changes": [i for i, _ in changes],
+            "setup_s": {"upgrades": upgrade_s, "to_pre": to_pre_s,
+                        "scramble_and_keys": scramble_s, "block": block_s,
+                        "serialize": serialize_s}}
+
+
+def _apply_altair(state, signed_block, ctx, timers: list, events: "list | None", fork=None):
+    """Cold Executor.apply_block of a block of ``fork`` (altair by default)
+    with host timers on ``timers`` ((module, name, key) triples) and CUDA
+    events on each kernel launch; returns (seconds, parts, executor state)."""
     from ethereum_consensus_tpu_torch.crypto import bls
     from ethereum_consensus_tpu_torch.executor import Executor
-    from ethereum_consensus_tpu_torch.models import transition
-    from ethereum_consensus_tpu_torch.models.altair import state_transition
+    from ethereum_consensus_tpu_torch.models import altair, transition
     from ethereum_consensus_tpu_torch.ops import epoch, g1, merkle, sha256, shuffle, sweeps
 
+    state_transition = (fork or altair).state_transition
     parts: dict = {}
     with contextlib.ExitStack() as stack:
         for module, name, key in [(transition, "process_slot_generic", "slot_root"),
@@ -2359,29 +2573,22 @@ def _apply_altair(state, signed_block, ctx, timers: list, events: "list | None")
     return seconds, parts, executor.state.data
 
 
-def phase_altair(registry: dict) -> dict:
-    """The slice's main path: one signed altair block at the first slot of
-    epoch 3 on a 2^20-validator mainnet altair state, through
-    Executor.apply_block on the host path (the columnar engine, staged host
-    kernels), after ops.install(device="cuda") (the engine with B3), and on
-    the literal device route (ECT_EPOCH_VECTOR=off: the literal stages with
-    the B5 kernels); identical bytes and roots on all three."""
+# launches of the literal stages' sweep kernels (none on the engine's routes)
+LITERAL_SWEEPS = {"flag_deltas": 3, "inactivity_updates": 1, "inactivity_penalties": 1,
+                  "effective_balance": 1}
+
+
+def _cell_routes(cell: str, setup: dict, routes: dict, fork) -> dict:
+    """Each route of ``routes`` (name -> (installed, literal, timers)) on the
+    cell's pre-state read anew from SSZ: the cold apply of its block through
+    Executor.apply_block with its buckets, the launch counts from 0, the
+    engine's passes and declines, the tampered block on a copy (not on the
+    literal route); every route's post-state bytes and root must agree."""
     from ethereum_consensus_tpu_torch import ops
-    from ethereum_consensus_tpu_torch.models import epoch_vector
-    from ethereum_consensus_tpu_torch.models.altair import build
-    from ethereum_consensus_tpu_torch.models.altair import epoch_processing as aep
-    from ethereum_consensus_tpu_torch.ops import epoch as ops_epoch
-    from ethereum_consensus_tpu_torch.ops import sweeps
     from ethereum_consensus_tpu_torch.telemetry import metrics
 
-    setup = build_altair_pre_state(registry)
     pre, ctx, good, tampered = setup["pre"], setup["ctx"], setup["good"], setup["tampered"]
-    state_type = build(ctx.preset).BeaconState
-    n_keys = sum(len(a.aggregation_bits) for a in good.message.body.attestations) + 2
-    n_keys += len(good.message.body.sync_aggregate.sync_committee_bits)
-    print(f"altair: block at slot {ALTAIR_BLOCK_SLOT}: {len(good.message.body.attestations)} "
-          f"attestations, a full sync aggregate; {n_keys} keys in the signature batch")
-
+    state_type = fork.build(ctx.preset).BeaconState
     engaged = metrics.counter("epoch_vector.epochs")
     disabled = metrics.counter("epoch_vector.fallback.disabled")
 
@@ -2389,30 +2596,13 @@ def phase_altair(registry: dict) -> dict:
         return sum(metrics.counter(k).value() for k in metrics.registered()
                    if k.startswith("epoch_vector.fused_fallback."))
 
-    engine_stages = [(epoch_vector, name, name.strip("_")) for name in (
-        "_sync", "_justification_altair", "_inactivity_and_rewards", "_registry_updates",
-        "_slashings", "_effective_balance_updates", "_commit")]
-    literal_stages = [(aep, name, name) for name in (
-        "process_justification_and_finalization", "process_inactivity_updates",
-        "process_rewards_and_penalties", "process_registry_updates", "process_slashings",
-        "process_effective_balance_updates")] + [
-        (sweeps, "pack_registry", "pack"),
-        (sweeps, "flag_deltas_device", "kernel_call"),
-        (sweeps, "inactivity_updates_device", "kernel_call"),
-        (sweeps, "inactivity_penalties_device", "kernel_call"),
-        (sweeps, "effective_balance_updates_device", "kernel_call")]
-    routes = {
-        "host": (False, False, engine_stages),
-        "device": (True, False, engine_stages + [(ops_epoch, "fused_epoch_device", "fused_call")]),
-        "literal": (True, True, literal_stages),
-    }
     results, digest, root = {}, None, None
     for name, (installed, literal, timers) in routes.items():
         ops.uninstall()  # clears the shuffle cache: each route shuffles anew
         gc.collect()
         t0 = time.perf_counter()
         state = state_type.deserialize(pre)
-        reject_state = state.copy()
+        reject_state = state.copy() if not literal else None
         read_s = time.perf_counter() - t0
         if literal:
             os.environ["ECT_EPOCH_VECTOR"] = "off"
@@ -2422,11 +2612,11 @@ def phase_altair(registry: dict) -> dict:
             events: list = [] if installed else None
             counts = (engaged.value(), disabled.value(), fused_fallbacks())
             _zero_launch_counts()
-            seconds, parts, post = _apply_altair(state, good, ctx, timers, events)
+            seconds, parts, post = _apply_altair(state, good, ctx, timers, events, fork)
             launches = _launch_counts()
             moved = (engaged.value() - counts[0], disabled.value() - counts[1],
                      fused_fallbacks() - counts[2])
-            error = _rejection(reject_state, tampered, ctx) if name != "literal" else None
+            error = _rejection(reject_state, tampered, ctx) if not literal else None
         finally:
             os.environ.pop("ECT_EPOCH_VECTOR", None)
             ops.uninstall()
@@ -2451,12 +2641,12 @@ def phase_altair(registry: dict) -> dict:
             "effective": int((_effective_balances(post)[:n]
                               != setup["before"]["effective"]).sum()),
         }
-        print(f"altair {name}: read {read_s:.1f} s; apply {seconds:.3f} s {_rounded(parts)}; "
+        print(f"{cell} {name}: read {read_s:.1f} s; apply {seconds:.3f} s {_rounded(parts)}; "
               f"columnar passes {moved[0]}, engine disabled {moved[1]}, fused declines "
               f"{moved[2]}; launches {launches}"
               + (f"; kernel ms inside {_rounded(kernel_ms, 4)}; idle share {idle:.6f}"
                  if installed else ""))
-        print(f"altair {name}: post-state sha256 {this_digest}, root {this_root.hex()}; "
+        print(f"{cell} {name}: post-state sha256 {this_digest}, root {this_root.hex()}; "
               f"changed {changed}" + (f"; tampered block: {error!r}" if error else ""))
         results[name] = {"read_s": read_s, "apply_s": seconds, "parts_s": parts,
                          "launches": launches, "kernel_ms_inside": kernel_ms, "idle_share": idle,
@@ -2464,36 +2654,109 @@ def phase_altair(registry: dict) -> dict:
         if digest is None:
             digest, root = this_digest, this_root
         elif (this_digest, this_root) != (digest, root):
-            sys.exit(f"chip_smoke: the altair block's post-state on the {name} route differs")
+            sys.exit(f"chip_smoke: the {cell} block's post-state on the {name} route differs")
         if min(changed.values()) == 0:
-            sys.exit(f"chip_smoke: the altair boundary changed nothing on the {name} route")
+            sys.exit(f"chip_smoke: the {cell} boundary changed nothing on the {name} route")
         del state, reject_state, post, data
         gc.collect()
 
-    host, device, literal = results["host"], results["device"], results["literal"]
+    host, device = results["host"], results["device"]
     if host["engine"] != (1, 0, 0) or device["engine"] != (1, 0, 0):
-        sys.exit("chip_smoke: the columnar engine did not engage without declines on the "
-                 "host and device paths")
-    if literal["engine"][:2] != (0, 1):
-        sys.exit("chip_smoke: the literal route did not run the literal stages")
+        sys.exit(f"chip_smoke: the columnar engine did not engage without declines on the "
+                 f"{cell} host and device paths")
     want_device = {"fused_epoch": 1, "g1_sum_sets": G1_SUM_LAUNCHES}
-    want_literal = {"flag_deltas": 3, "inactivity_updates": 1, "inactivity_penalties": 1,
-                    "effective_balance": 1}
     if any(device["launches"][k] != v for k, v in want_device.items()) or \
             device["launches"]["sha256_64b"] == 0 or any(device["launches"][k] for k in
-                                                         want_literal):
-        sys.exit(f"chip_smoke: the device path's launches are off: {device['launches']}")
-    if any(literal["launches"][k] != v for k, v in want_literal.items()) or \
+                                                         LITERAL_SWEEPS):
+        sys.exit(f"chip_smoke: the {cell} device path's launches are off: {device['launches']}")
+    if any(host["launches"].values()):
+        sys.exit(f"chip_smoke: the {cell} host path launched a kernel: {host['launches']}")
+    if host["rejection"] != device["rejection"]:
+        sys.exit(f"chip_smoke: the {cell} tampered block was not rejected alike on both paths")
+    return {"routes": results, "root": root.hex(), "sha256": digest}
+
+
+def phase_altair(registry: dict) -> dict:
+    """The slice's main paths, each block at the first slot of epoch 3 on a
+    2^20-validator mainnet state, through Executor.apply_block: one signed
+    altair block on the host path (the columnar engine, staged host
+    kernels), after ops.install(device="cuda") (the engine with B3), and on
+    the literal device route (ECT_EPOCH_VECTOR=off: the literal stages with
+    the B5 kernels); then one signed capella block (after the upgrades to
+    bellatrix and capella, the boundary under capella rules, withdrawals
+    and BLS-to-execution changes) on the host and device paths. Identical
+    bytes and roots on every route of a cell."""
+    from ethereum_consensus_tpu_torch.models import altair, capella, epoch_vector
+    from ethereum_consensus_tpu_torch.models.altair import epoch_processing as aep
+    from ethereum_consensus_tpu_torch.ops import epoch as ops_epoch
+    from ethereum_consensus_tpu_torch.ops import sweeps
+
+    setup = build_altair_pre_state(registry)
+    good = setup["good"]
+    n_keys = sum(len(a.aggregation_bits) for a in good.message.body.attestations) + 2
+    n_keys += len(good.message.body.sync_aggregate.sync_committee_bits)
+    print(f"altair: block at slot {ALTAIR_BLOCK_SLOT}: {len(good.message.body.attestations)} "
+          f"attestations, a full sync aggregate; {n_keys} keys in the signature batch")
+
+    engine_stages = [(epoch_vector, name, name.strip("_")) for name in (
+        "_sync", "_justification_altair", "_inactivity_and_rewards", "_registry_updates",
+        "_slashings", "_effective_balance_updates", "_commit")]
+    literal_stages = [(aep, name, name) for name in (
+        "process_justification_and_finalization", "process_inactivity_updates",
+        "process_rewards_and_penalties", "process_registry_updates", "process_slashings",
+        "process_effective_balance_updates")] + [
+        (sweeps, "pack_registry", "pack"),
+        (sweeps, "flag_deltas_device", "kernel_call"),
+        (sweeps, "inactivity_updates_device", "kernel_call"),
+        (sweeps, "inactivity_penalties_device", "kernel_call"),
+        (sweeps, "effective_balance_updates_device", "kernel_call")]
+    fused_call = (ops_epoch, "fused_epoch_device", "fused_call")
+    cell = _cell_routes("altair", setup, {
+        "host": (False, False, engine_stages),
+        "device": (True, False, engine_stages + [fused_call]),
+        "literal": (True, True, literal_stages),
+    }, altair)
+    host, device, literal = (cell["routes"][k] for k in ("host", "device", "literal"))
+    if literal["engine"][:2] != (0, 1):
+        sys.exit("chip_smoke: the literal route did not run the literal stages")
+    if any(literal["launches"][k] != v for k, v in LITERAL_SWEEPS.items()) or \
             literal["launches"]["fused_epoch"]:
         sys.exit(f"chip_smoke: the literal route's launches are off: {literal['launches']}")
-    if host["rejection"] != device["rejection"] or \
-            not (host["rejection"] or "").startswith("InvalidSyncAggregate"):
-        sys.exit("chip_smoke: the tampered block was not rejected alike on both paths")
-    return {"validators": setup["n"], "state_bytes": len(pre), "setup_s": setup["setup_s"],
-            "scrambled": setup["scrambled"], "keys": n_keys, "routes": results,
-            "root": root.hex(), "sha256": digest,
+    if not (host["rejection"] or "").startswith("InvalidSyncAggregate"):
+        sys.exit("chip_smoke: the altair tampered block was not refused for its sync aggregate")
+
+    capella_setup = setup["capella"]
+    block = capella_setup["good"].message
+    print(f"capella: block at slot {ALTAIR_BLOCK_SLOT}: {len(block.body.attestations)} "
+          f"attestations, a full sync aggregate, "
+          f"{len(block.body.execution_payload.withdrawals)} withdrawals, "
+          f"{len(block.body.bls_to_execution_changes)} BLS-to-execution changes; "
+          f"{n_keys + len(block.body.bls_to_execution_changes)} keys in the signature batch")
+    capella_stages = engine_stages + [
+        (capella.block_processing, "_sweep_hits_vectorized", "withdrawal_sweep"),
+        (capella.block_processing, "_get_expected_withdrawals_loop", "withdrawal_loop"),
+        (capella.epoch_processing, "process_historical_summaries_update", "summaries")]
+    capella_cell = _cell_routes("capella", capella_setup, {
+        "host": (False, False, capella_stages),
+        "device": (True, False, capella_stages + [fused_call]),
+    }, capella)
+    capella_host = capella_cell["routes"]["host"]
+    if not (capella_host["rejection"] or "").startswith("InvalidWithdrawals"):
+        sys.exit("chip_smoke: the capella tampered block was not refused for its withdrawals")
+    for route in capella_cell["routes"].values():
+        if "withdrawal_sweep" not in route["parts_s"] or "withdrawal_loop" in route["parts_s"]:
+            sys.exit("chip_smoke: the capella withdrawals did not come from the registry's "
+                     "columns")
+    return {"validators": setup["n"], "state_bytes": len(setup["pre"]),
+            "setup_s": setup["setup_s"], "scrambled": setup["scrambled"], "keys": n_keys,
+            "routes": cell["routes"], "root": cell["root"], "sha256": cell["sha256"],
+            "capella": {"validators": capella_setup["n"],
+                        "state_bytes": len(capella_setup["pre"]),
+                        "setup_s": capella_setup["setup_s"],
+                        "withdrawals": capella_setup["withdrawals"],
+                        "changes": capella_setup["changes"], **capella_cell},
             # for the mesh phase, which applies the same block on ECT_MESH=1
-            "pre": pre, "ctx": ctx, "good": good, "before": setup["before"]}
+            "pre": setup["pre"], "ctx": setup["ctx"], "good": good, "before": setup["before"]}
 
 
 # --- the batched pairing (B7) and the verification window --------------------
@@ -4019,6 +4282,7 @@ def main() -> int:
     paths = {"block": report["block"]["launches"], "epoch": report["epoch"]["launches"],
              "altair": altair_routes["device"]["launches"],
              "altair_literal": altair_routes["literal"]["launches"],
+             "capella": report["altair"]["capella"]["routes"]["device"]["launches"],
              "window": report["window"]["routes"]["device"]["launches"],
              "mxu": report["mxu"]["launches"],
              "window_mxu": report["window"]["routes"]["device_mxu"]["launches"],

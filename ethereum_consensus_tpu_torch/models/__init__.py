@@ -1,7 +1,7 @@
-"""Per-fork spec modules: phase0 and altair (slot, block and epoch
-processing, the phase0 → altair upgrade), with the columnar epoch engine
-(``epoch_vector``), its registry columns and the altair block-scoped
-attestation fast path (``ops_vector``) and the committee masks
-(``committees``)."""
+"""Per-fork spec modules: phase0, altair, bellatrix and capella (slot, block
+and epoch processing, the upgrades between them), with the columnar epoch
+engine (``epoch_vector``), its registry columns, the altair-family
+block-scoped attestation fast path and the withdrawals columns
+(``ops_vector``) and the committee masks (``committees``)."""
 
-from . import altair, phase0  # noqa: F401
+from . import altair, bellatrix, capella, phase0  # noqa: F401

@@ -1,5 +1,5 @@
 """Columnar-primary epoch transition engine (the phase0 and altair
-families).
+families: phase0, altair, bellatrix and capella).
 
 The ownership inversion this module implements: for the epoch hot path
 the ``RegistryColumns`` arrays are the AUTHORITATIVE store of validator
@@ -62,9 +62,9 @@ Telemetry: ``epoch_vector.epochs`` counts engaged passes,
 ``epoch_vector.fused.mesh`` every sharded fused pass.
 
 Reference parity: ethereum_consensus_tpu/models/epoch_vector.py, the
-phase0 and altair rows. Left out until the slices that need them: the
-later forks' rows and stages (electra's pending deposits and
-consolidations, capella's historical summaries),
+phase0, altair, bellatrix and capella rows. Left out until the slices that
+need them: deneb's and electra's rows and stages (the activation-churn
+variants, electra's pending deposits and consolidations),
 ``jitted_kernels`` / ``kernel_cache_census`` (the port calls
 ``ops/epoch.py`` directly), and the trace spans and routing journal
 (telemetry slice).
@@ -190,16 +190,27 @@ def apply_delta_pairs_kernel(xp, balances, pairs):
 # the working set
 # ---------------------------------------------------------------------------
 
-# Per-fork knobs of the stages below; the later forks' rows (and the knobs
-# only they read) return with their slices.
+# Per-fork knobs of the stages below; deneb's and electra's rows (and the
+# activation knob only they read) return with their slices.
 # family: "phase0" (pending-attestation rewards) | "altair" (flag rewards)
 # quot: the fork's inactivity-penalty quotient attribute
 # slash_mult: the fork's proportional slashing multiplier attribute
+# historical: "roots" | "summaries"
 _FORK_CFG = {
     "phase0": dict(family="phase0", quot=None,
-                   slash_mult="PROPORTIONAL_SLASHING_MULTIPLIER"),
+                   slash_mult="PROPORTIONAL_SLASHING_MULTIPLIER",
+                   historical="roots"),
     "altair": dict(family="altair", quot="INACTIVITY_PENALTY_QUOTIENT_ALTAIR",
-                   slash_mult="PROPORTIONAL_SLASHING_MULTIPLIER_ALTAIR"),
+                   slash_mult="PROPORTIONAL_SLASHING_MULTIPLIER_ALTAIR",
+                   historical="roots"),
+    "bellatrix": dict(family="altair",
+                      quot="INACTIVITY_PENALTY_QUOTIENT_BELLATRIX",
+                      slash_mult="PROPORTIONAL_SLASHING_MULTIPLIER_BELLATRIX",
+                      historical="roots"),
+    "capella": dict(family="altair",
+                    quot="INACTIVITY_PENALTY_QUOTIENT_BELLATRIX",
+                    slash_mult="PROPORTIONAL_SLASHING_MULTIPLIER_BELLATRIX",
+                    historical="summaries"),
 }
 
 _TIMELY_TARGET_FLAG_INDEX = 1  # altair constants; checked at engine entry
@@ -1099,7 +1110,6 @@ def process_epoch_columnar(state, context, fork: str) -> bool:
         ec.mesh = _mesh_runtime.epoch_sweeps(n, family=family)
     from .phase0.epoch_processing import (
         process_eth1_data_reset,
-        process_historical_roots_update,
         process_randao_mixes_reset,
         process_slashings_reset,
     )
@@ -1121,7 +1131,14 @@ def process_epoch_columnar(state, context, fork: str) -> bool:
         return True
     process_slashings_reset(state, context)
     process_randao_mixes_reset(state, context)
-    process_historical_roots_update(state, context)
+    if ec.cfg["historical"] == "roots":
+        from .phase0.epoch_processing import process_historical_roots_update
+
+        process_historical_roots_update(state, context)
+    else:
+        from .capella.epoch_processing import process_historical_summaries_update
+
+        process_historical_summaries_update(state, context)
     if family == "phase0":
         from .committees import drop_masks_memo
 

@@ -24,15 +24,17 @@ altair family.
   of per-call ``np.fromiter`` walks; ``effective_balance_update_hits``
   vectorizes the hysteresis sweep; ``adopt_list_column`` is the columnar
   epoch engine's commit (models/epoch_vector.py) and
-  ``install_zero_column`` its participation rotation.
+  ``install_zero_column`` its participation rotation;
+  ``withdrawal_columns`` feeds capella's withdrawals sweep
+  (``models/capella/block_processing.py``).
 
 Contract for every array this module hands out: READ-ONLY views
 (``writeable=False``); consumers copy before mutating.
 
 Reference parity: ethereum_consensus_tpu/models/ops_vector.py. Left out
-with the forks that need them: ``withdrawal_columns`` (capella), the
-electra compounding cap of ``effective_balance_update_hits``, and the
-serving plane's ``registry_snapshot`` / ``gather_rows``. The memory-observatory and trace
+with the forks that need them: the electra compounding cap of
+``effective_balance_update_hits``, and the serving plane's
+``registry_snapshot`` / ``gather_rows``. The memory-observatory and trace
 seams are cut (telemetry slice). Every decline counts in
 ``ops_vector.fallback.{reason}``.
 """
@@ -51,6 +53,7 @@ __all__ = [
     "columns_for",
     "effective_balance_update_hits",
     "fallback",
+    "withdrawal_columns",
     "install_zero_column",
     "pack_registry_cached",
     "process_attestations_batch",
@@ -566,7 +569,7 @@ def process_attestations_batch(state, attestations, context,
 
 
 # ---------------------------------------------------------------------------
-# columnar epoch-boundary helpers
+# columnar epoch-boundary / withdrawal helpers
 # ---------------------------------------------------------------------------
 
 
@@ -606,3 +609,27 @@ def effective_balance_update_hits(state, context):
     hit = update & (candidate != eff)
     idxs = np.nonzero(hit)[0]
     return [(int(i), int(candidate[i])) for i in idxs.tolist()]
+
+
+def withdrawal_columns(state) -> "dict | None":
+    """Read-only columns for the capella withdrawals sweep:
+    withdrawal_prefix (first credentials byte), withdrawable_epoch,
+    effective_balance, balances. None = scalar fallback (counted)."""
+    cols = columns_for(state)
+    if cols is None:
+        fallback("columns_unavailable")
+        return None
+    vc = cols.validator_columns(state)
+    balances = cols.list_column(state, "balances")
+    if vc is None or balances is None:
+        fallback("columns_unavailable")
+        return None
+    if balances.shape[0] != vc["withdrawable_epoch"].shape[0]:
+        fallback("length_mismatch")
+        return None
+    return {
+        "withdrawal_prefix": vc["withdrawal_prefix"],
+        "withdrawable_epoch": vc["withdrawable_epoch"],
+        "effective_balance": vc["effective_balance"],
+        "balances": balances,
+    }

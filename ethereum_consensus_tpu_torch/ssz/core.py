@@ -16,6 +16,10 @@ byte types as 0x-hex.
 
 from __future__ import annotations
 
+import functools
+import struct
+from itertools import starmap
+from operator import attrgetter
 from typing import Any
 
 from .hash import hash_level
@@ -353,8 +357,113 @@ def _bytes_from_hex(obj: str) -> bytes:
 # ---------------------------------------------------------------------------
 
 
+# struct codes of the uints a fixed-size collection packs in one call
+_UINT_CODES = {1: "B", 2: "H", 4: "I", 8: "Q"}
+
+
+@functools.lru_cache(maxsize=None)
+def _bulk_plan(elem: SSZType):
+    """How a collection of ``elem`` values packs and unpacks in bulk: with
+    one ``struct`` call (a uint of 1–8 bytes), by slicing (a byte vector),
+    or a ``struct`` row an element (a container of such uints, booleans and
+    byte vectors): ``(kind, code, keys, fields)``, or None for every other
+    element type (the per-element path). The bulk paths give the
+    per-element path's values and bytes; on input that path would refuse
+    they step aside, so it raises its own errors."""
+    if isinstance(elem, _UintType) and elem.byte_length in _UINT_CODES:
+        return ("uint", _UINT_CODES[elem.byte_length], None, None)
+    if isinstance(elem, ByteVector):
+        return ("bytes", elem.length, None, None)
+    if not (isinstance(elem, type) and issubclass(elem, Container)
+            and elem.__init__ is Container.__init__ and elem.__ssz_fields__):
+        return None
+    codes = []
+    for typ in elem.__ssz_fields__.values():
+        if isinstance(typ, _UintType) and typ.byte_length in _UINT_CODES:
+            codes.append(_UINT_CODES[typ.byte_length])
+        elif isinstance(typ, _BooleanType):
+            codes.append("B")
+        elif isinstance(typ, ByteVector):
+            codes.append(f"{typ.length}s")
+        else:
+            return None
+    return ("row", struct.Struct("<" + "".join(codes)), tuple(elem.__ssz_fields__),
+            tuple(elem.__ssz_fields__.values()))
+
+
+def _column_ok(typ: SSZType, column: tuple) -> bool:
+    """Every value of a row field is one the field's serialize takes as it
+    is: exact ints in range, booleans, bytes of the vector's length."""
+    if not column:
+        return True
+    kinds = set(map(type, column))
+    if isinstance(typ, _UintType):
+        return kinds == {int} and min(column) >= 0 and max(column) <= typ.max
+    if isinstance(typ, _BooleanType):
+        return kinds <= {bool, int} and set(column) <= {0, 1}
+    return kinds == {bytes} and set(map(len, column)) == {typ.length}
+
+
+def _serialize_bulk(elem: SSZType, values: list) -> "bytes | None":
+    plan = _bulk_plan(elem)
+    if plan is None:
+        return None
+    kind, code, keys, fields = plan
+    if kind == "bytes":
+        return b"".join(values) if _column_ok(elem, tuple(values)) else None
+    if kind == "uint":
+        if not values:
+            return b""
+        if set(map(type, values)) != {int} or min(values) < 0 or max(values) > elem.max:
+            return None
+        return struct.pack(f"<{len(values)}{code}", *values)
+    try:
+        rows = list(map(attrgetter(*keys), values))
+    except AttributeError:
+        return None
+    if len(keys) == 1:
+        rows = [(v,) for v in rows]
+    columns = tuple(zip(*rows)) if rows else ((),) * len(keys)
+    if not all(_column_ok(typ, column) for typ, column in zip(fields, columns)):
+        return None
+    return b"".join(starmap(code.pack, rows))
+
+
+def _deserialize_bulk(elem: SSZType, data: bytes, n: int) -> "list | None":
+    plan = _bulk_plan(elem)
+    if plan is None:
+        return None
+    kind, code, keys, fields = plan
+    if kind == "uint":
+        return list(struct.unpack(f"<{n}{code}", data))
+    if kind == "bytes":
+        data = bytes(data)
+        return [data[i : i + code] for i in range(0, n * code, code)]
+    if not n:
+        return []
+    rows = code.iter_unpack(data)
+    flags = [i for i, typ in enumerate(fields) if isinstance(typ, _BooleanType)]
+    if flags:
+        columns = list(zip(*rows))
+        for i in flags:
+            if max(columns[i]) > 1:
+                return None
+            columns[i] = map(bool, columns[i])
+        rows = zip(*columns)
+    new = object.__new__
+    out = []
+    for row in rows:
+        obj = new(elem)
+        obj.__dict__.update(zip(keys, row))
+        out.append(obj)
+    return out
+
+
 def _serialize_homogeneous(elem: SSZType, values: list) -> bytes:
     if elem.is_fixed_size():
+        packed = _serialize_bulk(elem, values)
+        if packed is not None:
+            return packed
         return b"".join(elem.serialize(v) for v in values)
     parts = [elem.serialize(v) for v in values]
     offset = OFFSET_SIZE * len(parts)
@@ -383,6 +492,9 @@ def _deserialize_homogeneous(elem: SSZType, data: bytes, count: int | None) -> l
                     f"byte length {len(data)} not a multiple of element size {size}"
                 )
             n = len(data) // size
+        values = _deserialize_bulk(elem, data, n)
+        if values is not None:
+            return values
         return [elem.deserialize(data[i * size : (i + 1) * size]) for i in range(n)]
 
     # variable-size elements: offset table

@@ -1,7 +1,8 @@
 """Fork-polymorphic chain types (the reference's generated src/types/ layer).
 
-The port carries phase0 and altair: ``FORK_SEQUENCE`` is ``(phase0,
-altair)``, and a container of a later fork raises ``UnknownForkError``.
+The port carries phase0 through capella: ``FORK_SEQUENCE`` is ``(phase0,
+altair, bellatrix, capella)``, and a container of a later fork raises
+``UnknownForkError``.
 
 Reference parity: ethereum-consensus/src/types/ (13,272 LoC generated by
 spec-gen's type_generator.rs): one wrapper per chain object spanning every
@@ -23,7 +24,7 @@ from __future__ import annotations
 
 from .error import UnknownForkError
 from .fork import Fork
-from .models import altair, phase0
+from .models import altair, bellatrix, capella, phase0
 
 __all__ = [
     "FORK_SEQUENCE",
@@ -33,9 +34,14 @@ __all__ = [
     "SignedBeaconBlock",
 ]
 
-FORK_SEQUENCE = (Fork.PHASE0, Fork.ALTAIR)
+FORK_SEQUENCE = (Fork.PHASE0, Fork.ALTAIR, Fork.BELLATRIX, Fork.CAPELLA)
 
-FORK_MODULES = {Fork.PHASE0: phase0, Fork.ALTAIR: altair}
+FORK_MODULES = {
+    Fork.PHASE0: phase0,
+    Fork.ALTAIR: altair,
+    Fork.BELLATRIX: bellatrix,
+    Fork.CAPELLA: capella,
+}
 
 
 def fork_module(fork: Fork):

@@ -1,17 +1,9 @@
 """The port's altair fork against the reference package.
 
 Every comparison hands the reference's SSZ bytes to the port and requires
-identical post-state bytes and roots. Four routes of the port:
-
-* ``columnar`` — the columnar engine forced on at toy sizes, staged host
-  kernels;
-* ``literal`` — the literal stage list (``ECT_EPOCH_VECTOR=off``);
-* ``device_fused`` — ``ops.install(device="cpu", ...)`` with the sweeps,
-  shuffle and hasher thresholds lowered (the G1 aggregation's only in the
-  rejection test): the engine stays columnar and runs inactivity and
-  rewards through the fused epoch kernel's plain version;
-* ``device_literal`` — the same install with the engine off: the literal
-  stages reach the plain versions of the three altair sweep kernels.
+identical post-state bytes and roots, on the four routes of
+``torch_routes.py`` (the G1 aggregation's threshold lowered only in the
+rejection test).
 
 Cases: the phase0 → altair upgrade through ``Executor`` (the first altair
 block on the upgrade slot); a signed altair chain across three epoch
@@ -38,83 +30,14 @@ from ethereum_consensus_tpu_torch import ops
 from ethereum_consensus_tpu_torch.config import Context
 from ethereum_consensus_tpu_torch.fork import Fork
 from ethereum_consensus_tpu_torch.models import altair as port_altair
-from ethereum_consensus_tpu_torch.models import epoch_vector, ops_vector
+from ethereum_consensus_tpu_torch.models import epoch_vector
 from ethereum_consensus_tpu_torch.models.altair import slot_processing as port_slots
 from ethereum_consensus_tpu_torch.models.phase0 import containers as port_phase0
 from ethereum_consensus_tpu_torch.ops import epoch as port_epoch
-from ethereum_consensus_tpu_torch.ops import sweeps
-from ethereum_consensus_tpu_torch.ssz import hash as port_hash
-from ethereum_consensus_tpu_torch.telemetry import metrics
+from torch_routes import ROUTES, check_kernels, identity, route  # noqa: F401 (fixture)
 from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 N_BLOCKS = 25  # slots 1..25 at 8 slots an epoch: boundaries into epochs 1, 2, 3
-ROUTES = ["columnar", "literal", "device_fused", "device_literal"]
-SWEEP_PLAINS = ("flag_deltas_plain", "inactivity_updates_plain", "inactivity_penalties_plain")
-
-
-class _Route:
-    """The counter that must advance once per boundary on a route, and the
-    calls of the kernels' plain versions seen on it."""
-
-    def __init__(self, name: str, counter: str):
-        self.name = name
-        self.counter = metrics.counter(counter)
-        self.plain_calls: dict = {}
-
-    def fused_fallbacks(self) -> int:
-        return sum(metrics.counter(n).value() for n in metrics.registered()
-                   if n.startswith("epoch_vector.fused_fallback."))
-
-
-@pytest.fixture
-def route(request, monkeypatch):
-    """Put the port on one route."""
-    ops.uninstall()
-    monkeypatch.setattr(epoch_vector, "EPOCH_VECTOR_MIN_VALIDATORS", 0)
-    monkeypatch.setattr(ops_vector, "BATCH_MIN_VALIDATORS", 0)
-    name = request.param
-    if name in ("literal", "device_literal"):
-        monkeypatch.setenv("ECT_EPOCH_VECTOR", "off")
-    if name.startswith("device"):
-        monkeypatch.setattr(port_hash, "DEVICE_MIN_NODES", 256)
-        monkeypatch.setattr(port_hash, "_device_hasher", None)
-        # the G1 aggregation keeps its host threshold here: its plain
-        # version costs about a second a block; the rejection test below
-        # lowers it
-        ops.install(device="cpu", sweeps_min_n=1, shuffle_min_n=1)
-    counter = {
-        "columnar": "epoch_vector.epochs",
-        "literal": "epoch_vector.fallback.disabled",
-        "device_fused": "epoch_vector.fused.device",
-        "device_literal": "epoch_vector.fallback.disabled",
-    }[name]
-    r = _Route(name, counter)
-    for fn_name in SWEEP_PLAINS + ("fused_epoch_plain",):
-        module = port_epoch if fn_name == "fused_epoch_plain" else sweeps
-        plain = getattr(module, fn_name)
-
-        def counting(*args, _plain=plain, _name=fn_name, **kwargs):
-            r.plain_calls[_name] = r.plain_calls.get(_name, 0) + 1
-            return _plain(*args, **kwargs)
-
-        monkeypatch.setattr(module, fn_name, counting)
-    yield r
-    ops.uninstall()
-
-
-def _check_kernels(route: _Route, boundaries: int) -> None:
-    """Each route reached the plain versions it should, and only those."""
-    calls = route.plain_calls
-    if route.name == "device_fused":
-        assert calls == {"fused_epoch_plain": boundaries}
-    elif route.name == "device_literal":
-        # the boundary into epoch 1 of a genesis state skips inactivity
-        # and rewards (current epoch == GENESIS_EPOCH)
-        assert calls.get("flag_deltas_plain", 0) == 3 * calls.get("inactivity_updates_plain", 0)
-        assert calls.get("inactivity_penalties_plain", 0) == calls.get("inactivity_updates_plain", 0)
-        assert calls.get("inactivity_updates_plain", 0) >= 1
-    else:
-        assert calls == {}
 
 
 def _port_ctx(altair_epoch: int = 0) -> Context:
@@ -125,11 +48,6 @@ def _port_ctx(altair_epoch: int = 0) -> Context:
 
 def _altair_type(name: str):
     return getattr(port_altair.build(Context.for_minimal().preset), name)
-
-
-def _identity(state, ref_bytes, ref_root) -> bool:
-    typ = type(state)
-    return typ.serialize(state) == ref_bytes and typ.hash_tree_root(state) == ref_root
 
 
 # ---------------------------------------------------------------------------
@@ -152,7 +70,7 @@ def test_upgrade_through_executor_matches_reference():
                      else phase0_ns.SignedBeaconBlock)
         port.apply_block(port_type.deserialize(type(block).serialize(block)))
         assert port.state.version() == ref.state.version()
-        assert _identity(port.state.data, ref.state.serialize(), ref.state.hash_tree_root()), \
+        assert identity(port.state.data, ref.state.serialize(), ref.state.hash_tree_root()), \
             f"block at slot {block.message.slot} differs"
     assert port.state.version() == Fork.ALTAIR
 
@@ -203,13 +121,13 @@ def test_altair_chain_matches_reference(altair_chain, route):
     before, fallbacks = route.counter.value(), route.fused_fallbacks()
     for i, data in enumerate(block_bytes):
         ex.apply_block(block_type.deserialize(data))
-        assert _identity(ex.state.data, *after[i]), f"block {i + 1} differs"
+        assert identity(ex.state.data, *after[i]), f"block {i + 1} differs"
     boundaries = N_BLOCKS // int(ctx.SLOTS_PER_EPOCH)
     # the fused kernel skips the genesis boundary like the stages it fuses
     expected = boundaries - 1 if route.name == "device_fused" else boundaries
     assert route.counter.value() - before == expected
     assert route.fused_fallbacks() == fallbacks
-    _check_kernels(route, expected)
+    check_kernels(route, expected)
 
 
 # ---------------------------------------------------------------------------
@@ -312,12 +230,12 @@ def test_scrambled_boundaries_match_reference(scrambled_boundaries, mode, route)
     for target, (pre, post, root) in enumerate(scrambled_boundaries[mode], start=1):
         state = typ.deserialize(pre)
         port_slots.process_slots(state, target * spe, ctx)
-        assert _identity(state, post, root), f"{mode}: boundary into epoch {target} differs"
+        assert identity(state, post, root), f"{mode}: boundary into epoch {target} differs"
     boundaries = len(scrambled_boundaries[mode])
     expected = boundaries - 1 if route.name == "device_fused" else boundaries
     assert route.counter.value() - before == expected
     assert route.fused_fallbacks() == fallbacks
-    _check_kernels(route, expected)
+    check_kernels(route, expected)
 
 
 # ---------------------------------------------------------------------------
@@ -338,7 +256,7 @@ def test_sync_committee_rotation_matches_reference(route):
     assert bytes(state.current_sync_committee.aggregate_public_key) == old_next
     port_state = _altair_type("BeaconState").deserialize(pre)
     port_slots.process_slots(port_state, period * spe, _port_ctx())
-    assert _identity(port_state, typ.serialize(state), typ.hash_tree_root(state))
+    assert identity(port_state, typ.serialize(state), typ.hash_tree_root(state))
 
 
 # ---------------------------------------------------------------------------

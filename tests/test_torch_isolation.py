@@ -43,7 +43,9 @@ def test_importing_the_port_loads_no_jax():
         "import sys, ethereum_consensus_tpu_torch, ethereum_consensus_tpu_torch.ops, "
         "ethereum_consensus_tpu_torch.convert, ethereum_consensus_tpu_torch.models, "
         "ethereum_consensus_tpu_torch.ops.fq, ethereum_consensus_tpu_torch.ops.fq2, "
-        "ethereum_consensus_tpu_torch.ops.fq12, ethereum_consensus_tpu_torch.ops.pairing; "
+        "ethereum_consensus_tpu_torch.ops.fq12, ethereum_consensus_tpu_torch.ops.pairing, "
+        "ethereum_consensus_tpu_torch.executor, ethereum_consensus_tpu_torch.execution_engine, "
+        "ethereum_consensus_tpu_torch.models.bellatrix, ethereum_consensus_tpu_torch.models.capella; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r}]; "
         "assert not bad, bad"

@@ -161,3 +161,116 @@ def test_device_hasher_route_keeps_state_root(monkeypatch, ref_state):
     state = convert.state_from_ssz(data, MINIMAL)
     assert type(state).hash_tree_root(state) == ref_type.hash_tree_root(ref_state)
     assert calls and min(calls) >= 256
+
+
+# ---------------------------------------------------------------------------
+# the bulk paths of fixed-size collections against the per-element path
+# ---------------------------------------------------------------------------
+
+def _per_element(elem, values):
+    """The per-element serialization: bytes, or the exception's class."""
+    try:
+        return b"".join(elem.serialize(v) for v in values)
+    except Exception as exc:  # noqa: BLE001 - the class is what is compared
+        return type(exc)
+
+
+def _validators(n: int) -> list:
+    ns = port_containers.build(MINIMAL)
+    return [ns.Validator(public_key=_b(48), withdrawal_credentials=_b(32),
+                         effective_balance=_u64(), slashed=bool(i % 3),
+                         activation_eligibility_epoch=_u64(), activation_epoch=i,
+                         exit_epoch=2**64 - 1, withdrawable_epoch=_u64())
+            for i in range(n)]
+
+
+def _uints(bits: int) -> list:
+    return [0, 1, 2**bits - 1, *(int(x) for x in _rng.integers(0, 2**min(bits, 63), 37))]
+
+
+# (element type, values) of collections the bulk paths take, and of values
+# they must hand back to the per-element path (which raises its own error)
+BULK_CASES = {
+    "uint8": (lambda ssz: ssz.uint8, lambda: _uints(8)),
+    "uint16": (lambda ssz: ssz.uint16, lambda: _uints(16)),
+    "uint32": (lambda ssz: ssz.uint32, lambda: _uints(32)),
+    "uint64": (lambda ssz: ssz.uint64, lambda: _uints(64)),
+    "uint64_empty": (lambda ssz: ssz.uint64, lambda: []),
+    "bytes32": (lambda ssz: ssz.ByteVector[32], lambda: [_b(32) for _ in range(9)]),
+    "validators": (lambda ssz: port_containers.build(MINIMAL).Validator, lambda: _validators(40)),
+    "validators_empty": (lambda ssz: port_containers.build(MINIMAL).Validator, lambda: []),
+    "uint64_bool": (lambda ssz: ssz.uint64, lambda: [1, True, 3]),
+    "uint64_negative": (lambda ssz: ssz.uint64, lambda: [1, -1]),
+    "uint8_too_big": (lambda ssz: ssz.uint8, lambda: [1, 256]),
+    "uint64_numpy": (lambda ssz: ssz.uint64, lambda: [np.uint64(5)]),
+    "bytes32_short": (lambda ssz: ssz.ByteVector[32], lambda: [_b(32), _b(31)]),
+    "bytes32_bytearray": (lambda ssz: ssz.ByteVector[32], lambda: [bytearray(_b(32))]),
+}
+
+
+def _bad_validators(change) -> list:
+    values = _validators(5)
+    change(values[3])
+    return values
+
+
+BULK_CASES.update({
+    "validator_short_key": (lambda ssz: port_containers.build(MINIMAL).Validator,
+                            lambda: _bad_validators(lambda v: setattr(v, "public_key", _b(47)))),
+    "validator_int_flag": (lambda ssz: port_containers.build(MINIMAL).Validator,
+                           lambda: _bad_validators(lambda v: setattr(v, "slashed", 1))),
+    "validator_bad_flag": (lambda ssz: port_containers.build(MINIMAL).Validator,
+                           lambda: _bad_validators(lambda v: setattr(v, "slashed", 2))),
+    "validator_big_epoch": (lambda ssz: port_containers.build(MINIMAL).Validator,
+                            lambda: _bad_validators(lambda v: setattr(v, "exit_epoch", 2**64))),
+})
+
+
+@pytest.mark.parametrize("case", sorted(BULK_CASES))
+def test_bulk_collections_match_the_per_element_path(case):
+    """Lists of fixed-size elements serialize to the per-element path's
+    bytes (or raise its error) and read back to equal values."""
+    from ethereum_consensus_tpu_torch import ssz
+
+    elem_of, values_of = BULK_CASES[case]
+    elem, values = elem_of(ssz), values_of()
+    typ = ssz.List[elem, 1024]
+    want = _per_element(elem, values)
+    if isinstance(want, type):
+        with pytest.raises(want):
+            typ.serialize(values)
+        return
+    data = typ.serialize(values)
+    assert data == want
+    back = typ.deserialize(data)
+    assert back == [bool(v) if type(v) is bool else v for v in values]
+    assert [type(v) for v in back] == [type(elem.deserialize(want[:elem.fixed_size()]))
+                                       for _ in back]
+    assert typ.hash_tree_root(back) == typ.hash_tree_root(values)
+
+
+@pytest.mark.parametrize("where", [0, 7, 39])
+def test_bulk_read_refuses_a_bad_boolean(where):
+    """A flag byte other than 0 or 1 anywhere in a container row is the
+    per-element path's DeserializeError."""
+    from ethereum_consensus_tpu_torch import ssz
+
+    elem = port_containers.build(MINIMAL).Validator
+    data = bytearray(ssz.List[elem, 1024].serialize(_validators(40)))
+    data[where * elem.fixed_size() + 48 + 32 + 8] = 2  # the slashed flag
+    with pytest.raises(ssz.DeserializeError, match="invalid boolean"):
+        ssz.List[elem, 1024].deserialize(bytes(data))
+
+
+def test_bulk_read_values_are_fresh_containers():
+    """The rows read in bulk are plain containers: no cached root, a field
+    write is seen by the next root."""
+    from ethereum_consensus_tpu_torch import ssz
+
+    elem = port_containers.build(MINIMAL).Validator
+    typ = ssz.List[elem, 1024]
+    back = typ.deserialize(typ.serialize(_validators(12)))
+    assert all("_htr_cache" not in v.__dict__ for v in back)
+    root = typ.hash_tree_root(back)
+    back[4].effective_balance += 1
+    assert typ.hash_tree_root(back) != root
