@@ -7,10 +7,18 @@ Phases, each of which exits non-zero when it fails:
   2. build    — compile every kernel in ethereum_consensus_tpu_torch/csrc
                 (one nvcc per library, all at once: the mxu builds of
                 g1_sum.cu and pairing.cu beside the u64 ones) and the two
-                native host libraries (SHA-256, BLS12-381) beside them.
+                native host libraries (SHA-256, BLS12-381) beside them, with
+                the parent forms of the mxu kernels (tools/mxu_forms.py).
      mxu      — B8 alone: the int8 tensor-core Montgomery product
                 (fq8.mont7r) over 2^20 seeded pairs, bit-exact against
-                fq.mul and the plain mont7r on the card; CUDA-event times.
+                fq.mul and the plain mont7r on the card, and at 2^15 and the
+                tile edges (1, 15, 16, 17, 2^10 + 3 products); CUDA-event
+                times at 2^20 and 2^15 in turns with the parent design
+                (tools/mxu_forms.py), an empty launch and torch._int_mm of
+                the m p GEMM as yardsticks; ptxas' lines of B8 and the mxu
+                builds beside their parents' (a frame or spill in B8, a new
+                spill or frame or a larger frame in an mxu build, or a larger
+                largest spill than its parent's, fails it).
   3. sha256   — the SHA-256 kernel against its plain PyTorch version on the
                 card, bit-exact, for N in {1, 1000, 1024, 1025, 2^22}, a
                 sample against hashlib; CUDA-event times at N = 2^17 .. 2^22.
@@ -131,7 +139,8 @@ Phases, each of which exits non-zero when it fails:
                 grid launch: B6 twice, its chains and its fold; the B7
                 folds' further launches included; the Miller loop once, the
                 extra pair its lane 528); then B6 alone at the window's 528
-                sets, against its plain version and its mxu build.
+                sets, against its plain version and its mxu build, the mxu
+                build timed in turns with its parent design.
  16. mesh     — the ECT_MESH route (parallel/, the reference's production
                 mesh switch) at ECT_MESH=1: the altair phase's block applied
                 cold through Executor.apply_block after ops.install(device=
@@ -226,8 +235,14 @@ SHUFFLE_OPS_PER_INDEX_ROUND = 12
 FP_MUL_MADS = 288
 FP_SQR_MADS = 78 + 144
 G1_MIXED_ADD_MADS = 7 * FP_MUL_MADS + 4 * FP_SQR_MADS
-# B8 alone: the products of the mxu phase, and the bytes of one product
+# B8 alone: the products of the mxu phase, and the bytes of one product;
+# the smaller batch and the tile edges it is also held at; the widths of the
+# torch._int_mm yardstick (the m p GEMM at 120 columns, which cuBLASLt has
+# refused on the H100; the kernel's 112; and 128, the next multiple of 16)
 MXU_PAIRS = 1 << 20
+MXU_SMALL_PAIRS = 1 << 15
+MXU_TILE_EDGES = (1, 15, 16, 17, (1 << 10) + 3)
+MXU_YARDSTICK_COLUMNS = (120, 112, 128)
 MONT_BYTES = 3 * 48
 # 32-bit integer operations of one validator's hysteresis update: two
 # 64-bit adds and unsigned compares (2 + 2 each) and their OR, the 64-bit
@@ -368,19 +383,30 @@ def phase_device() -> dict:
             "count": torch.cuda.device_count()}
 
 
+# the parent forms of B8 and the mxu builds (tools/mxu_forms.py), built by
+# phase_build: {library: (path, ptxas log)}
+_MXU_PARENTS: dict = {}
+
+
 def phase_build() -> dict:
     from ethereum_consensus_tpu_torch import _kernels, native
     from ethereum_consensus_tpu_torch.native import bls as native_bls
+    from tools import mxu_forms
 
     # the host libraries build with g++ beside the nvcc builds, so that no
-    # timed host path pays for a compiler
+    # timed host path pays for a compiler; the parent forms of the mxu
+    # multiplier's kernels beside them, for the phases that time the
+    # program against them
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(max_workers=3) as pool:
         host = [pool.submit(native.available), pool.submit(native_bls.available)]
+        parents = pool.submit(mxu_forms.build_parents)
         seconds = _kernels.build_all()
         host_ok = [f.result() for f in host]
+        _MXU_PARENTS.update(parents.result())
     native_s = time.perf_counter() - t0
-    print(f"build: nvcc {seconds:.3f} s; with the native host libraries {native_s:.3f} s")
+    print(f"build: nvcc {seconds:.3f} s; with the native host libraries and the mxu parent "
+          f"forms {native_s:.3f} s")
     for name in _kernels._LIBRARIES:
         for line in _kernels.build_log(name).splitlines():
             if any(word in line for word in ("entry function", "registers", "spill", "smem")):
@@ -445,20 +471,90 @@ def mont_bound_ms(n: int) -> tuple[float, str]:
     return _bound(n * FP_MUL_MADS, n * MONT_BYTES)
 
 
+def _mont_operands(n: int, gen: torch.Generator) -> tuple:
+    """n seeded pairs of (n, 12) Montgomery limbs below 2^380 < p on the
+    card, with 0, 1, p - 1 and R mod p among the first eight."""
+    from ethereum_consensus_tpu_torch.ops import fq
+
+    a, b = (torch.randint(-(2**31), 2**31, (n, 12), dtype=torch.int32, device="cuda",
+                          generator=gen) for _ in range(2))
+    a[:, 11] &= 0x0FFFFFFF  # below 2^380 < p
+    b[:, 11] &= 0x0FFFFFFF
+    if n >= 8:
+        edges = fq.from_ints([0, 1, fq.P_INT - 1, fq.R % fq.P_INT], "cuda")
+        a[:4], b[:4], b[4:8] = edges, edges.flip(0), edges
+    return a, b
+
+
+def _against_parent(library: str, fn, reps: int, warmup: int = 2) -> dict:
+    """CUDA-event ms of ``fn`` on the program's build of ``library`` and on
+    its parent form (tools/mxu_forms.py), in turns: program, parent,
+    parent, program."""
+    from tools import mxu_forms
+
+    def on_parent():
+        with mxu_forms.parent(_MXU_PARENTS, library):
+            fn()
+
+    t = mxu_forms.in_turns(fn, on_parent, reps, warmup)
+    return {"program_ms": t["program"], "parent_ms": t["parent"],
+            "ms": statistics.median(t["program"])}
+
+
+def _mxu_ptxas() -> dict:
+    """ptxas' registers, frame and spills and the SASS instructions of B8 and
+    the mxu builds, beside their parent forms': each function's largest
+    (spill stores, frame) in both; ``grown``, the functions that gain a
+    spill or a frame they did not have or keep a larger frame, and a build
+    whose largest spill exceeds its parent's largest; ``more``, every
+    function that spills more than in its parent."""
+    from ethereum_consensus_tpu_torch import _kernels
+    from tools import mxu_forms
+
+    out = {}
+    for name in mxu_forms.PARENT_LIBRARIES:
+        lines = {"program": _ptxas_lines(name, ""),
+                 "parent": _ptxas_lines(name, "", _MXU_PARENTS[name][1])}
+        table = mxu_forms.spill_table(lines)
+        grown = {k: v for k, v in table.items()
+                 if (v[0][0] and not v[1][0]) or v[0][1] > v[1][1]}
+        most = [max((v[side][0] for v in table.values()), default=0) for side in (0, 1)]
+        if most[0] > most[1]:
+            grown["largest spill"] = tuple(most)
+        more = {k: v for k, v in table.items() if v[0][0] > v[1][0]}
+        sass = {"program": _sass_instructions(name),
+                "parent": _sass_instructions(name, _MXU_PARENTS[name][0])}
+        print(f"mxu ptxas {name} (spill stores, frame) program against parent: "
+              + "; ".join(f"{k[-48:]} {v[0]} {v[1]}" for k, v in table.items())
+              + f"; SASS instructions {sass}")
+        for side, entries in lines.items():
+            for line in entries:
+                if "registers" in line:
+                    print(f"  {side} {line['kernel'][-48:]}: {line}")
+        print(f"mxu ptxas {name}: largest spill {most[0]} bytes (parent {most[1]}); functions "
+              f"that spill more than in the parent: {more}")
+        out[name] = {"lines": lines, "spills": table, "grown": grown, "more": more, "sass": sass}
+    return out
+
+
 def phase_mxu() -> dict:
     """B8 alone, its main path: fq8.mont7r over MXU_PAIRS seeded pairs of
     Montgomery values on the card (with 0, 1, p - 1 and R mod p among
     them), bit-exact against fq.mul and against the plain mont7r on the
-    card; CUDA-event ms of the kernel and of the plain version."""
+    card, and against fq.mul at 2^15 and at the tile edges (MXU_TILE_EDGES);
+    CUDA-event ms of the kernel at 2^20 and 2^15 in turns with its parent
+    design (tools/mxu_forms.cu, one warp a product), of an empty launch, of
+    torch._int_mm of the m * p GEMM over all products (the tensor-core part
+    alone, not on the path: (2^20 x 64) @ (64 x 120), at the kernel's 112
+    columns and at 128), and of the plain version; the ptxas lines and SASS
+    instructions of B8 and the five mxu builds beside their parents'. A
+    frame or a spill in B8 fails the run, and so does a function of an mxu
+    build with a spill or frame that its parent did not have or a larger
+    frame, or a build whose largest spill exceeds its parent's."""
     from ethereum_consensus_tpu_torch.ops import fq, fq8
 
     gen = torch.Generator(device="cuda").manual_seed(8)
-    a, b = (torch.randint(-(2**31), 2**31, (MXU_PAIRS, 12), dtype=torch.int32, device="cuda",
-                          generator=gen) for _ in range(2))
-    a[:, 11] &= 0x0FFFFFFF  # below 2^380 < p
-    b[:, 11] &= 0x0FFFFFFF
-    edges = fq.from_ints([0, 1, fq.P_INT - 1, fq.R % fq.P_INT], "cuda")
-    a[:4], b[:4], b[4:8] = edges, edges.flip(0), edges
+    a, b = _mont_operands(MXU_PAIRS, gen)
     _zero_launch_counts()
     got = fq8.mont7r(a, b)
     torch.cuda.synchronize()
@@ -466,17 +562,52 @@ def phase_mxu() -> dict:
     a16, b16 = fq.limbs16(a), fq.limbs16(b)
     errs = {"vs fq.mul": _max_err(got, fq.limbs32(fq.mul(a16, b16))),
             "vs plain": _max_err(got, fq.limbs32(fq8.mont7r_plain(a16, b16)))}
-    ms = _cuda_ms(lambda: fq8.mont7r_cuda(a, b), reps=10)
+    for n in (MXU_SMALL_PAIRS, *MXU_TILE_EDGES):
+        x, y = _mont_operands(n, gen)
+        errs[f"n={n} vs fq.mul"] = _max_err(fq8.mont7r(x, y),
+                                            fq.limbs32(fq.mul(fq.limbs16(x), fq.limbs16(y))))
+    small = _mont_operands(MXU_SMALL_PAIRS, gen)
+    timed = {MXU_PAIRS: _against_parent("mont_mxu", lambda: fq8.mont7r_cuda(a, b), reps=10),
+             MXU_SMALL_PAIRS: _against_parent("mont_mxu", lambda: fq8.mont7r_cuda(*small),
+                                              reps=20)}
+    empty_ms = _cuda_ms(lambda: torch.cuda._sleep(0), reps=50, warmup=5)
+    int_mm = {}
+    digits = torch.randint(0, 128, (MXU_PAIRS, 64), dtype=torch.int8, device="cuda", generator=gen)
+    for columns in MXU_YARDSTICK_COLUMNS:
+        toeplitz = torch.randint(0, 128, (columns, 64), dtype=torch.int8, device="cuda",
+                                 generator=gen).t()  # (64, columns), column-major
+        try:
+            int_mm[columns] = _cuda_ms(lambda: torch._int_mm(digits, toeplitz), reps=20)
+        except RuntimeError as e:  # a yardstick, not on the path
+            print(f"mxu: torch._int_mm at {columns} columns not measured: {e}")
+            int_mm[columns] = None
     plain_ms = _cuda_ms(lambda: fq8.mont7r_plain(a16, b16), reps=3, warmup=1)
     bound, bound_by = mont_bound_ms(MXU_PAIRS)
+    small_bound, _ = mont_bound_ms(MXU_SMALL_PAIRS)
+    ms = timed[MXU_PAIRS]["ms"]
     print(f"mxu: {MXU_PAIRS} products: max_abs_err {errs}; {ms:.4f} ms (bound {bound:.4f} ms by "
-          f"{bound_by}); plain {plain_ms:.3f} ms; launches {launches['mont_mxu']}; kernel SASS "
-          f"instructions {_sass_instructions('mont_mxu')}")
+          f"{bound_by}); plain {plain_ms:.3f} ms; launches {launches['mont_mxu']}")
+    for n, t in timed.items():
+        print(f"mxu: B8 at {n} products, program {t['program_ms']} ms, parent design "
+              f"{t['parent_ms']} ms (in turns)")
+    print(f"mxu: bound at {MXU_SMALL_PAIRS} {small_bound:.4f} ms; empty launch {empty_ms:.4f} ms; "
+          f"torch._int_mm of the m p GEMM over {MXU_PAIRS} products by columns {int_mm} ms")
+    ptxas = _mxu_ptxas()
     if any(errs.values()) or launches["mont_mxu"] != 1:
         sys.exit(f"chip_smoke: the mxu product disagrees or did not launch: {errs}, {launches}")
+    b8 = ptxas["mont_mxu"]["lines"]["program"]
+    if any(line.get("spill_stores") or line.get("stack_frame") for line in b8):
+        sys.exit(f"chip_smoke: ptxas gives B8 a frame or spills: {b8}")
+    grown = {name: v["grown"] for name, v in ptxas.items() if v["grown"]}
+    if grown:
+        sys.exit(f"chip_smoke: an mxu build has a new spill or frame, a larger frame or a larger "
+                 f"largest spill than its parent: {grown}")
     return {"pairs": MXU_PAIRS, "checks": errs, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by, "max_abs_err": max(errs.values()),
-            "launches": launches}
+            "launches": launches, "timed": timed, "small_bound_ms": small_bound,
+            "empty_ms": empty_ms, "int_mm_ms": int_mm,
+            "ptxas": {k: {"spills": v["spills"], "more": v["more"], "sass": v["sass"]}
+                      for k, v in ptxas.items()}}
 
 
 def _synthetic_pubkey(index: int) -> bytes:
@@ -581,16 +712,17 @@ def _setup_state(registry: dict):
     return registry["state"].copy()
 
 
-def _ptxas_lines(library: str, name: str) -> list:
+def _ptxas_lines(library: str, name: str, log: "str | None" = None) -> list:
     """ptxas' registers, frame, spills and shared memory of every kernel of
     a library whose (mangled) name holds ``name``: each template
-    instantiation on its own line."""
+    instantiation on its own line. From ``log`` when given, else from the
+    library's build."""
     import re
 
     from ethereum_consensus_tpu_torch import _kernels
 
     out, current = [], None
-    for line in _kernels.build_log(library).splitlines():
+    for line in (_kernels.build_log(library) if log is None else log).splitlines():
         match = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
         if match:
             current = match.group(1) if name in match.group(1) else None
@@ -754,18 +886,21 @@ def _g1_mxu(outputs: dict, main: dict) -> dict:
                                          g1.g1_sum_sets_plain(points_d, offsets_d))
         points_d, offsets_d, _ = outputs["block"]
         sets = offsets_d.shape[0] - 1
-        ms = _cuda_ms(lambda: g1._launch(points_d, offsets_d, sets), reps=10)
+        timed = _against_parent("g1_sum_mxu", lambda: g1._launch(points_d, offsets_d, sets),
+                                reps=10)
         plain_ms = _cuda_ms(lambda: g1.g1_sum_sets_plain(points_d, offsets_d), reps=3, warmup=1)
     finally:
         fq8.set_multiplier("u64")
+    ms = timed["ms"]
     print(f"g1 mxu build: max_abs_err {errs}; {ms:.4f} ms at the block's {sets} sets (u64 "
-          f"{main['ms']:.4f}; bound {main['bound_ms']:.4f} ms by {main['bound_by']}); plain "
+          f"{main['ms']:.4f}; bound {main['bound_ms']:.4f} ms by {main['bound_by']}); in turns "
+          f"with the parent design {timed['program_ms']} against {timed['parent_ms']} ms; plain "
           f"under mxu {plain_ms:.3f} ms; kernel SASS instructions "
           f"{_sass_instructions('g1_sum_mxu')}")
     if any(errs.values()):
         sys.exit(f"chip_smoke: the mxu G1 set-sum kernel disagrees: {errs}")
     return {"checks": errs, "ms": ms, "plain_ms": plain_ms, "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "max_abs_err": max(errs.values())}
+            "bound_by": main["bound_by"], "max_abs_err": max(errs.values()), "timed": timed}
 
 
 # (leaves, limit, start_level) of the htr phase's B2 checks: the registry
@@ -1334,16 +1469,16 @@ def phase_sweeps() -> dict:
             "max_abs_err": max(c["max_abs_err"] for c in checks)}
 
 
-def _sass_instructions(name: str) -> "int | None":
+def _sass_instructions(name: str, path: "str | None" = None) -> "int | None":
     """Instructions in the SASS of a built kernel library (static count,
     every path of the division routine included), or None without
-    cuobjdump."""
+    cuobjdump. From ``path`` when given, else the library's build."""
     from ethereum_consensus_tpu_torch import _kernels
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
-    sass = subprocess.run([tool, "-sass", _kernels._paths(name)[0]], check=True,
+    sass = subprocess.run([tool, "-sass", path or _kernels._paths(name)[0]], check=True,
                           capture_output=True, text=True).stdout
     return sum(1 for line in sass.splitlines() if line.strip().startswith("/*")
                and "*/" in line and line.strip()[2:6].strip("0123456789abcdef") == "")
@@ -3118,29 +3253,34 @@ def _pairing_mxu(pk, words, sig, xp, yp, xq, yq, u64_out: dict, native_f: list,
         if any(errs.values()):
             sys.exit("chip_smoke: the mxu build disagrees on the window's Miller launch")
         p3 = slice(0, plain_n)
+        # each kernel at the window's shape, in turns with its parent design
         timings = {
-            "g1_mul_affine": (_cuda_ms(lambda: pairing.g1_mul_affine_cuda(pk, words), reps=5),
-                              _timed_once(lambda: pairing.g1_mul_affine_plain(
-                                  pk[p3], words[p3]))[1]),
-            "g2_mul_sum": (_cuda_ms(lambda: pairing.g2_mul_sum_cuda(sig, words), reps=5),
-                           _timed_once(lambda: pairing.g2_mul_sum_plain(sig[p3], words[p3]))[1]),
-            "miller_loop": (_cuda_ms(lambda: pairing.miller_loop_cuda(*wide), reps=3),
-                            _timed_once(lambda: pairing.miller_loop_plain(
-                                xp[p3], yp[p3], xq[p3], yq[p3]))[1]),
-            "fp12_product": (_cuda_ms(lambda: pairing.fp12_product_cuda(f_wide), reps=10),
-                             _timed_once(lambda: pairing.fp12_product_plain(f_wide[p3]))[1]),
+            "g1_mul_affine": (_against_parent(
+                "pairing_mxu", lambda: pairing.g1_mul_affine_cuda(pk, words), reps=5),
+                _timed_once(lambda: pairing.g1_mul_affine_plain(pk[p3], words[p3]))[1]),
+            "g2_mul_sum": (_against_parent(
+                "pairing_mxu", lambda: pairing.g2_mul_sum_cuda(sig, words), reps=5),
+                _timed_once(lambda: pairing.g2_mul_sum_plain(sig[p3], words[p3]))[1]),
+            "miller_loop": (_against_parent(
+                "pairing_mxu", lambda: pairing.miller_loop_cuda(*wide), reps=3),
+                _timed_once(lambda: pairing.miller_loop_plain(xp[p3], yp[p3], xq[p3],
+                                                              yq[p3]))[1]),
+            "fp12_product": (_against_parent(
+                "pairing_mxu", lambda: pairing.fp12_product_cuda(f_wide), reps=10),
+                _timed_once(lambda: pairing.fp12_product_plain(f_wide[p3]))[1]),
         }
     finally:
         fq8.set_multiplier("u64")
     report = {}
-    for name, (ms, plain_ms) in timings.items():
-        row = u64[name]
+    for name, (timed, plain_ms) in timings.items():
+        row, ms = u64[name], timed["ms"]
         print(f"pairing {name} mxu build: {ms:.4f} ms at {row['lanes']} lanes (u64 "
-              f"{row['ms']:.4f}; bound {row['bound_ms']:.4f} ms by {row['bound_by']}); plain "
-              f"under mxu {plain_ms:.3f} ms at {plain_n} lanes")
+              f"{row['ms']:.4f}; bound {row['bound_ms']:.4f} ms by {row['bound_by']}); in turns "
+              f"with the parent design {timed['program_ms']} against {timed['parent_ms']} ms; "
+              f"plain under mxu {plain_ms:.3f} ms at {plain_n} lanes")
         report[name] = {"ms": ms, "lanes": row["lanes"], "plain_ms": plain_ms,
                         "plain_lanes": plain_n, "bound_ms": row["bound_ms"],
-                        "bound_by": row["bound_by"],
+                        "bound_by": row["bound_by"], "timed": timed,
                         "max_abs_err": max(errs[name], plain_errs[name])}
     print(f"pairing mxu build: kernel SASS instructions {_sass_instructions('pairing_mxu')}")
     return report
@@ -3316,17 +3456,20 @@ def _window_g1_sum(sets: list) -> dict:
     fq8.set_multiplier("mxu")
     try:
         errs["mxu vs u64"] = _max_err(g1.g1_sum_sets(points_d, offsets_d), got)
+        mxu = _against_parent("g1_sum_mxu", lambda: g1._launch(points_d, offsets_d, len(sets)),
+                              reps=5)
     finally:
         fq8.set_multiplier("u64")
     ms = _cuda_ms(lambda: g1._launch(points_d, offsets_d, len(sets)), reps=5)
     keys = sum(len(s) for s in raw_sets)
     bound, bound_by = g1_bound_ms([sum(1 for r in s if any(r)) for s in raw_sets], keys)
     print(f"window g1_sum_sets (u64) alone: {ms:.4f} ms at {len(sets)} sets, {keys} keys "
-          f"(bound {bound:.4f} ms by {bound_by}); max_abs_err {errs}")
+          f"(bound {bound:.4f} ms by {bound_by}); max_abs_err {errs}; its mxu build "
+          f"{mxu['program_ms']} ms against the parent design's {mxu['parent_ms']} (in turns)")
     if any(errs.values()):
         sys.exit(f"chip_smoke: the window's G1 set sums disagree: {errs}")
     return {"ms": ms, "sets": len(sets), "keys": keys, "bound_ms": bound, "bound_by": bound_by,
-            "max_abs_err": errs}
+            "max_abs_err": errs, "mxu": mxu}
 
 
 def phase_window(registry: dict) -> dict:

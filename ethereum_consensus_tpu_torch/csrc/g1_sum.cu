@@ -50,8 +50,9 @@
 //     w + 8, ... in turn; the 128 partial sums fold in the same 7 levels in
 //     shared memory, warp w taking the pairs w, w + 8, ... of each, so the
 //     sums agree limb for limb with the u64 kernel's. Lane 0 of a warp
-//     stores. Bounded by each product's byte reduction, which all 32
-//     threads repeat, and by the 16 chains a warp runs in turn.
+//     stores. Bounded by each product's chain of dependent steps (eight
+//     mma.sync steps and three carry passes split across the warp), and by
+//     the 16 chains a warp runs in turn.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

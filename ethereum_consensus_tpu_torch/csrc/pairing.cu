@@ -94,8 +94,10 @@
 // the pairs of each level in the same order, so the G2 sum agrees limb for
 // limb with the u64 kernels' (the Fq12 product's value is unique, so the
 // u64 fold's 32 values a block give the same limbs). What bounds this
-// mapping: each product's byte reduction, which all 32 threads repeat
-// (fp_mma.h); at 528 lanes it fills 528 warps, four per SM.
+// mapping: each product's chain of dependent steps (fp_mma.h: eight
+// mma.sync steps and three carry passes split across the warp, with n' and
+// p constant operands), which a warp of the lane waits on; at 528 lanes it
+// fills 528 warps, four per SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -21,8 +21,9 @@ the same name:
     ``(..., 1, 58) @ (..., 58, 115)``, their regrouping to byte weight
     (``_R7_Q``, ``_R7_S``), 48 byte rounds of Montgomery reduction
     (R = 2^384 = 2^(8·48), where the reference takes 52 for its
-    R' = 2^416; the plain version takes their 48 digits together, the
-    kernel one round at a time) and one conditional subtraction. The
+    R' = 2^416; the plain version takes their 48 digits together, as
+    the kernels take the whole reduction as products: m = (T mod 2^384)
+    n' mod 2^384, then T + m p) and one conditional subtraction. The
     output is the canonical a·b·2^-384 mod p, equal bit for bit to
     ``fq.mul``.
   - ``product_cols8``/``mont8`` (48 bytes, the outer product contracted
@@ -34,9 +35,10 @@ redundancy of the reference's lazy field, which the strict field does
 not have.
 
 On the card, ``mont7r_cuda`` runs the batched product of n operand pairs
-(csrc/mont_mxu.cu, one warp per product on ``mma.sync`` int8 tensor-core
-steps; csrc/fp_mma.h holds the arithmetic). Under ``"mxu"`` the pairing
-and set-sum wrappers launch their mxu builds (ops/pairing.py, ops/g1.py).
+(csrc/mont_mxu.cu: tiles of 16 products a warp on ``mma.sync`` int8
+tensor-core steps, the reductions GEMMs over the tile; csrc/fp_mma.h holds
+the arithmetic). Under ``"mxu"`` the pairing and set-sum wrappers launch
+their mxu builds (ops/pairing.py, ops/g1.py), one warp a product.
 """
 
 from __future__ import annotations
@@ -237,12 +239,12 @@ def _reduce8(t: torch.Tensor) -> torch.Tensor:
     conditional subtraction.
 
     Round i takes the digit m_i = t_i (-p^-1) mod 2^8, which clears byte i
-    of T + m_i p 2^(8i), and carries the column up (csrc/fp_mma.h makes
-    the rounds one by one). The digits depend only on T mod 2^384 and on
-    the digits before them, and M = sum_i m_i 2^(8i) is the one value
-    below 2^384 with T + M p = 0 mod 2^384: M = (T mod 2^384)(-p^-1) mod
-    2^384. So the plain version takes the 48 digits together, as one
-    exact product, then (T + M p) / 2^384 < 2p, parallel carry rounds, a
+    of T + m_i p 2^(8i), and carries the column up. The digits depend only
+    on T mod 2^384 and on the digits before them, and M = sum_i m_i 2^(8i)
+    is the one value below 2^384 with T + M p = 0 mod 2^384: M = (T mod
+    2^384)(-p^-1) mod 2^384. So the plain version takes the 48 digits
+    together, as one exact product (as csrc/fp_mma.h does on the tensor
+    cores), then (T + M p) / 2^384 < 2p, parallel carry rounds, a
     carry lookahead and one conditional subtraction (ops/fq.py). Byte pairs
     make 16-bit limbs below 2^37, so every column sum stays below 2^43."""
     limbs = fq._rounds(t[..., 0::2] + (t[..., 1::2] << 8), 1)[..., : 2 * fq.LIMBS]
@@ -286,9 +288,11 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> int:
 
 
 def mont7r_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """n independent products on the card (csrc/mont_mxu.cu): (N, 12) int32
-    Montgomery limbs (uint32 bit patterns), contiguous CUDA tensors ->
-    (N, 12) int32 a * b * 2^-384 mod p."""
+    """n independent products on the card (csrc/mont_mxu.cu, tiles of 16
+    products a warp on a grid that the launcher sizes to the card's SMs,
+    two blocks of 8 warps each): (N, 12) int32 Montgomery limbs (uint32 bit
+    patterns), contiguous CUDA tensors -> (N, 12) int32 a * b * 2^-384 mod
+    p."""
     n = _check(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"mont7r: the kernel needs CUDA tensors, got {a.device}")

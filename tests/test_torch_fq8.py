@@ -14,9 +14,12 @@ columns (its ``carry_norm`` adds the 25th, zero here). Checked:
     out of theirs;
   - the multiplier switch: ``EC_PAIRING_MULT`` and ``set_multiplier``;
   - ``csrc/fp_mma.h`` built with g++: the host emulation of the warp's
-    m16n8k32 fragments over 32 simulated lanes against ``fq.mul`` and the
-    plain ``mont7r``, and the tower of ``fp_tower.h`` built with the mxu
-    multiplier against the native Miller loop.
+    product (its m16n8k32 fragments, carry passes and reductions as
+    products over 32 simulated lanes) against ``fq.mul`` and the plain
+    ``mont7r``, its fragment maps, and the tower of ``fp_tower.h`` built
+    with the mxu multiplier against the native Miller loop
+    (``tests/test_torch_mxu_redc.py`` holds the reduction's edges, its
+    tables and B8's tile).
 
 The kernel itself runs only where a CUDA card is present.
 """
@@ -313,19 +316,24 @@ def test_emulated_warp_product_equals_cios_and_plain(mma_lib, operands):
 
 
 def test_fragment_maps_cover_the_toeplitz_product(mma_lib):
-    """The 32 lanes' four accumulators are the 128 columns, once each, and
-    the fragment digits sum to every column of the digit product: the
-    Toeplitz A (a's digit r + 57 - k) times the Hankel B (b's digit
-    k - 57 + 16n) at row r, column n, over the three k32 steps."""
+    """The 32 lanes' four accumulators are the 128 columns, once each, lane
+    l holding the columns 4l .. 4l + 3, and the fragment digits sum to every
+    column of the 55-digit product: the Toeplitz A (a's digit
+    alpha(r) + 13 - k) times the Hankel B (b's digit k - 13 + beta(n)) at row
+    r, column n, over the three k32 steps, and the low 56 columns (lanes 0 ..
+    13) over the first two."""
     cols = np.zeros(128, np.int32)
     a_digits = np.zeros(32 * 3 * 16, np.int32)
     b_digits = np.zeros(32 * 3 * 8, np.int32)
     mma_lib.maps_h(cols.ctypes.data, a_digits.ctypes.data, b_digits.ctypes.data)
     assert sorted(cols) == list(range(128))
-    # rebuild A and B from the lanes' fragments by the layout tables
-    a_tile, b_tile = {}, {}
+    assert list(cols) == list(range(128))  # lane-major: lane l's four columns
+    # rebuild A, B and the column of each accumulator by the layout tables
+    a_tile, b_tile, column = {}, {}, {}
     for lane in range(32):
         g, t = lane >> 2, lane & 3
+        for i in range(4):
+            column[g + 8 * (i >> 1), 2 * t + (i & 1)] = cols[4 * lane + i]
         for step in range(3):
             for i in range(16):
                 row = g + 8 * ((i >> 2) & 1)
@@ -337,10 +345,12 @@ def test_fragment_maps_cover_the_toeplitz_product(mma_lib):
     assert len(a_tile) == 16 * 96 and len(b_tile) == 96 * 8
     for r in range(16):
         for n in range(8):
-            pairs = sorted((a_tile[r, k], b_tile[k, n]) for k in range(96)
-                           if 0 <= a_tile[r, k] < 58 and 0 <= b_tile[k, n] < 58)
-            c = r + 16 * n
-            assert pairs == [(c - j, j) for j in range(max(0, c - 57), min(c, 57) + 1)][::-1]
+            c = column[r, n]
+            want = [(c - j, j) for j in range(max(0, c - 54), min(c, 54) + 1)][::-1]
+            for k_end in (96, 64) if c < 56 else (96,):
+                pairs = sorted((a_tile[r, k], b_tile[k, n]) for k in range(k_end)
+                               if 0 <= a_tile[r, k] < 55 and 0 <= b_tile[k, n] < 55)
+                assert pairs == want, (r, n, c, k_end)
 
 
 def test_tower_on_the_mxu_multiplier_matches_native(tmp_path_factory):
