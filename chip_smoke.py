@@ -8,7 +8,9 @@ Phases, each of which exits non-zero when it fails:
                 (one nvcc per library, all at once: the mxu builds of
                 g1_sum.cu and pairing.cu beside the u64 ones) and the two
                 native host libraries (SHA-256, BLS12-381) beside them, with
-                the parent forms of the mxu kernels (tools/mxu_forms.py).
+                the parent forms of the mxu kernels (tools/mxu_forms.py) and
+                of B5-hysteresis and the inactivity updates
+                (tools/sweep_forms.py).
      mxu      — B8 alone: the int8 tensor-core Montgomery product
                 (fq8.mont7r) over 2^20 seeded pairs, bit-exact against
                 fq.mul and the plain mont7r on the card, and at 2^15 and the
@@ -62,9 +64,12 @@ Phases, each of which exits non-zero when it fails:
                 on both paths.
  10. sweeps   — the effective-balance hysteresis kernel against its plain
                 version, bit-exact, for n in {1, 255, 256, 257, 2^17, 2^20}
-                (threshold crossings both ways, thresholds +-1, words at and
-                above 2^63), a sample against Python integers; CUDA-event
-                time at 2^20.
+                and one and two rows in (threshold crossings both ways,
+                thresholds +-1, words at and above 2^63), a sample against
+                Python integers; CUDA-event time at 2^20; at 2^20 and 2^18
+                in turns with its parent design (tools/sweep_forms.py) beside
+                a copy of its bytes and an empty launch, after a write and a
+                read flush; ptxas and SASS (a frame or a spill fails it).
  11. epoch    — the registry state taken to slot 64, a few thousand
                 validators scrambled (hysteresis crossings, ejections,
                 slashings at the halfway point, entrants), advanced to slot
@@ -81,10 +86,13 @@ Phases, each of which exits non-zero when it fails:
                 lanes, scores near the thresholds, words at and above 2^63
                 whose products wrap), samples against Python integers; the
                 flag deltas and B3 (its census too) also at 2^21 + 5,
-                contiguous and one validator in; CUDA-event times at 2^20;
-                ptxas' registers, frame and spills of B3, its apply entries
-                and K3 (a frame or a spill fails the run) and their SASS
-                instructions.
+                contiguous and one validator in, the inactivity updates one
+                and two rows in; CUDA-event times at 2^20; the inactivity
+                updates at 2^20 and 2^18 in turns with their parent design
+                as the sweeps phase times hysteresis; ptxas' registers,
+                frame and spills of the updates, the penalties, B3, its
+                apply entries and K3 (a frame or a spill fails the run) and
+                their SASS instructions.
      sums     — K2 and the B9-epoch flag sums (csrc/masked_sums.h's kernel
                 at four and three sums) against their plain versions,
                 bit-exact, at 2^20, 2^18, 2^21 + 5, one validator and none
@@ -386,26 +394,31 @@ def phase_device() -> dict:
 # the parent forms of B8 and the mxu builds (tools/mxu_forms.py), built by
 # phase_build: {library: (path, ptxas log)}
 _MXU_PARENTS: dict = {}
+# the parent forms of B5-hysteresis and the inactivity updates
+# (tools/sweep_forms.py), built by phase_build likewise
+_SWEEP_PARENTS: dict = {}
 
 
 def phase_build() -> dict:
     from ethereum_consensus_tpu_torch import _kernels, native
     from ethereum_consensus_tpu_torch.native import bls as native_bls
-    from tools import mxu_forms
+    from tools import mxu_forms, sweep_forms
 
     # the host libraries build with g++ beside the nvcc builds, so that no
     # timed host path pays for a compiler; the parent forms of the mxu
-    # multiplier's kernels beside them, for the phases that time the
-    # program against them
+    # multiplier's kernels and of two sweeps beside them, for the phases
+    # that time the program against them
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(max_workers=3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(max_workers=4) as pool:
         host = [pool.submit(native.available), pool.submit(native_bls.available)]
         parents = pool.submit(mxu_forms.build_parents)
+        sweep_parents = pool.submit(sweep_forms.build_parents)
         seconds = _kernels.build_all()
         host_ok = [f.result() for f in host]
         _MXU_PARENTS.update(parents.result())
+        _SWEEP_PARENTS.update(sweep_parents.result())
     native_s = time.perf_counter() - t0
-    print(f"build: nvcc {seconds:.3f} s; with the native host libraries and the mxu parent "
+    print(f"build: nvcc {seconds:.3f} s; with the native host libraries and the parent "
           f"forms {native_s:.3f} s")
     for name in _kernels._LIBRARIES:
         for line in _kernels.build_log(name).splitlines():
@@ -1454,6 +1467,16 @@ def phase_sweeps() -> dict:
         if err != 0 or not oracle_ok:
             sys.exit(f"chip_smoke: the hysteresis kernel disagrees at n={n}")
         checks.append({"n": n, "max_abs_err": err, "changed": changed})
+        # one and two rows in: every column off the warp chunks, then on them
+        for offset in (1, 2):
+            got = sweeps.effective_balance_updates(bal[offset:], eff[offset:], ctx)
+            torch.cuda.synchronize()
+            wrong = int((got != sweeps.effective_balance_updates_plain(
+                bal[offset:], eff[offset:], ctx)).sum())
+            if wrong:
+                sys.exit(f"chip_smoke: the hysteresis kernel disagrees at n={n}, "
+                         f"offset {offset}: {wrong} words")
+    print(f"sweeps: the kernel matches its plain version one and two rows in at every n")
     # the last n checked is the main path's, 2^20
     ms = _cuda_ms(lambda: sweeps._launch(bal, eff, scalars), reps=50, warmup=5)
     bound, bound_by = sweeps_bound_ms(n)
@@ -1462,11 +1485,55 @@ def phase_sweeps() -> dict:
                         reps=5, warmup=1)
     print(f"sweeps n=2^20: {ms:.4f} ms (bound {bound:.4f} ms by {bound_by}); a copy of its "
           f"{SWEEPS_BYTES_PER_VALIDATOR} bytes a validator {copy_ms:.4f} ms, an empty launch "
-          f"{empty_ms:.4f} ms; plain {plain_ms:.3f} ms; library: none; SASS instructions "
-          f"{_sass_instructions('sweeps')}")
+          f"{empty_ms:.4f} ms; plain {plain_ms:.3f} ms; library: none")
+    turns = _sweep_turns("hysteresis", sweeps_bound_ms, "effective_balance_kernel")
     return {"checks": checks, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "copy_ms": copy_ms, "empty_ms": empty_ms,
+            "bound_by": bound_by, "copy_ms": copy_ms, "empty_ms": empty_ms, "turns": turns,
             "max_abs_err": max(c["max_abs_err"] for c in checks)}
+
+
+# B5-hysteresis and the inactivity updates timed in turns with their parent
+# design at the registry's size and a 4-shard share of it
+SWEEP_TURN_NS = (VALIDATORS, VALIDATORS // 4)
+
+
+def _sweep_turns(which: str, bound_ms, kernel: str) -> dict:
+    """B5-hysteresis (``which`` "hysteresis") or the inactivity updates
+    ("updates") at SWEEP_TURN_NS in turns with its parent design
+    (tools/sweep_forms.py: kernel, parent, parent, kernel), beside a copy of
+    its bytes and an empty launch, after the write flush and after a read
+    flush; bound and share; ptxas and SASS of the kernel and the parent. A
+    disagreement with the plain version, or a frame or a spill in the
+    kernel, fails the run."""
+    from tools import sweep_forms
+
+    out = {}
+    for n in SWEEP_TURN_NS:
+        r = getattr(sweep_forms, which)(_SWEEP_PARENTS, n)
+        if any(r["errs"].values()):
+            sys.exit(f"chip_smoke: {which} or its parent disagrees at n={n}: {r['errs']}")
+        bound, bound_by = bound_ms(n)
+        for flush, t in r["ms"].items():
+            med = {k: statistics.median(v) for k, v in t.items()}
+            print(f"{which} n={n} ({flush}): kernel {t['kernel']} ms, parent {t['parent']}, a "
+                  f"copy of its bytes {t['copy']}, an empty launch {t['empty']}; medians "
+                  f"kernel {med['kernel']:.4f}, parent {med['parent']:.4f}, copy "
+                  f"{med['copy']:.4f}; the kernel {1e3 * (med['kernel'] - med['copy']):.2f} us "
+                  f"over the copy; bound {bound:.4f} ms by {bound_by}, share "
+                  f"{bound / med['kernel']:.0%}")
+        out[str(n)] = {**r, "bound_ms": bound, "bound_by": bound_by}
+    library = "sweeps" if which == "hysteresis" else "altair_sweeps"
+    ptxas = _ptxas_lines(library, kernel)
+    parent_ptxas = _ptxas_lines(library, kernel, _SWEEP_PARENTS["sweep_parents"][1])
+    sass = {"program": _sass_kernel_instructions(library, (kernel,)),
+            "parent": _sass_instructions("", _SWEEP_PARENTS["sweep_parents"][0]),
+            "library": _sass_instructions(library)}
+    print(f"{which}: ptxas {ptxas}, the parent's {parent_ptxas}; SASS instructions {sass} "
+          f"(the parent's: both parent kernels)")
+    if not ptxas or any(line.get("spill_stores") or line.get("stack_frame") for line in ptxas):
+        sys.exit(f"chip_smoke: ptxas gives {kernel} a frame or spills")
+    out.update(ptxas=ptxas, parent_ptxas=parent_ptxas, sass=sass)
+    return out
 
 
 def _sass_instructions(name: str, path: "str | None" = None) -> "int | None":
@@ -1951,6 +2018,14 @@ def phase_altair_sweeps() -> dict:
             want = sweeps.inactivity_updates_plain(c["scores"], c["participating"], c["eligible"],
                                                    ALTAIR_BIAS, ALTAIR_RECOVERY, leaking)
             errs["inactivity_updates"] = max(errs["inactivity_updates"], err(got, want))
+            # one and two rows in: every column off the warp chunks, then on them
+            for offset in (1, 2):
+                cols = [c[k][offset:] for k in ("scores", "participating", "eligible")]
+                got_off = sweeps.inactivity_updates(*cols, ALTAIR_BIAS, ALTAIR_RECOVERY, leaking)
+                torch.cuda.synchronize()
+                errs["inactivity_updates"] = max(errs["inactivity_updates"], err(
+                    got_off, sweeps.inactivity_updates_plain(*cols, ALTAIR_BIAS, ALTAIR_RECOVERY,
+                                                             leaking)))
             for s, p, el, g in zip(_u64_lanes(c["scores"], sample), part_h, elig_h,
                                    _u64_lanes(got, sample)):
                 if el:
@@ -1986,8 +2061,9 @@ def phase_altair_sweeps() -> dict:
         for e, s, nt, g in zip(eff_h, _u64_lanes(c["scores"], sample), nt_h,
                                _u64_lanes(got, sample)):
             checks_ok &= g == ((e * s & m) // denominator if nt else 0)
-        print(f"altair_sweeps n={n}: max_abs_err vs plain {errs}, Python sample ok {checks_ok} "
-              f"({wraps} wrapped adds in the sampled fused lanes)")
+        print(f"altair_sweeps n={n}: max_abs_err vs plain {errs} (the updates also one and two "
+              f"rows in), Python sample ok {checks_ok} ({wraps} wrapped adds in the sampled fused "
+              f"lanes)")
         if any(errs.values()) or not checks_ok:
             sys.exit(f"chip_smoke: an altair sweep kernel disagrees at n={n}")
 
@@ -2076,6 +2152,9 @@ def phase_altair_sweeps() -> dict:
     timings["inactivity_updates"].update(copy_ms=copy_ms, empty_ms=empty_ms)
     print(f"altair_sweeps inactivity_updates n=2^20: a copy of its {INACTIVITY_UPDATES_BYTES} "
           f"bytes a validator {copy_ms:.4f} ms, an empty launch {empty_ms:.4f} ms")
+    timings["inactivity_updates"]["turns"] = _sweep_turns(
+        "updates", lambda k: _bound(k * INACTIVITY_UPDATES_OPS, k * INACTIVITY_UPDATES_BYTES),
+        "inactivity_updates_kernel")
     scalars = _fused_scalars(False)
     columns = [c[k] for k in ("balances", "eff", "prev_part", "slashed", "active_prev",
                               "eligible", "scores")]
@@ -4221,8 +4300,7 @@ def _step_kernels(chain: tuple, cols: tuple, hysteresis: tuple, consts: tuple) -
           f"{out['chain_step_shard']['ms_quarter']:.4f} ms; ptxas {ptxas}; SASS instructions "
           f"chain_step {_sass_instructions('chain_step')}, K1 "
           f"{_sass_kernel_instructions('chain_step', ('chain_step_shard_kernel',))}")
-    if len(ptxas) != 1 or any(line.get("spill_stores") or line.get("stack_frame")
-                              for line in ptxas):
+    if not ptxas or any(line.get("spill_stores") or line.get("stack_frame") for line in ptxas):
         sys.exit("chip_smoke: ptxas gives K1 a frame or spills")
     return out
 

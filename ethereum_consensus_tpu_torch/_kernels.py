@@ -104,7 +104,7 @@ _LIBRARIES = {
         },
     ),
     "sweeps": (
-        ("sweeps.cu", "sweeps_core.h", "udiv64_core.h"),
+        ("sweeps.cu", "sweeps_core.h", "udiv64_core.h", "warp_chunks.h"),
         {
             "effective_balance_launch": (
                 [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
@@ -115,7 +115,7 @@ _LIBRARIES = {
         },
     ),
     "altair_sweeps": (
-        ("altair_sweeps.cu", "altair_core.h", "udiv64_core.h"),
+        ("altair_sweeps.cu", "altair_core.h", "udiv64_core.h", "warp_chunks.h"),
         {
             "flag_deltas_launch": (
                 [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
@@ -138,7 +138,8 @@ _LIBRARIES = {
         },
     ),
     "fused_epoch": (
-        ("fused_epoch.cu", "epoch_pass.h", "masked_sums.h", "altair_core.h", "udiv64_core.h"),
+        ("fused_epoch.cu", "epoch_pass.h", "masked_sums.h", "altair_core.h", "udiv64_core.h",
+         "warp_chunks.h"),
         {
             "fused_epoch_launch": (
                 [ctypes.c_void_p] * 7 + [ctypes.c_int64] + [ctypes.c_uint64] * 10
@@ -165,7 +166,7 @@ _LIBRARIES = {
     ),
     "chain_step": (
         ("chain_step.cu", "chain_step_core.h", "epoch_pass.h", "masked_sums.h",
-         "altair_core.h", "udiv64_core.h", "sweeps_core.h"),
+         "altair_core.h", "udiv64_core.h", "sweeps_core.h", "warp_chunks.h"),
         {
             "chain_step_shard_launch": (
                 [ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_uint64] * 4

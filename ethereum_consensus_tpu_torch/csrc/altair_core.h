@@ -4,8 +4,9 @@
 // The arithmetic of the Hopper kernels in altair_sweeps.cu (flag deltas,
 // inactivity updates, inactivity penalties), fused_epoch.cu (the fused
 // epoch kernel) and chain_step.cu (the epoch step's element pass), and the
-// warp-chunk partition of altair_sweeps.cu with the inactivity penalties'
-// schedule run on the host (inactivity_penalties_host). The header is plain
+// columns of altair_sweeps.cu's kernels on warp_chunks.h's partition, with
+// the inactivity updates' and penalties' schedules run on the host
+// (inactivity_updates_host, inactivity_penalties_host). The header is plain
 // C++ outside nvcc, so g++ builds the same functions for the CPU tests that
 // hold them against the reference package's programs.
 //
@@ -19,6 +20,7 @@
 #include <stdint.h>
 
 #include "udiv64_core.h"
+#include "warp_chunks.h"
 
 #ifdef __CUDACC__
 #define ALTAIR_HD __host__ __device__ __forceinline__
@@ -170,32 +172,17 @@ ALTAIR_HD uint64_t inactivity_penalty(uint64_t eff, uint64_t score, bool not_tar
 }
 
 // The warp-chunk partition of the literal sweeps' kernels (altair_sweeps.cu:
-// the flag deltas and the inactivity penalties). Blocks of kSweepThreads; a
-// warp's chunk is kChunk consecutive validators in kChunkSteps steps: at
-// step j lane t takes validators 64 j + 2 t and 64 j + 2 t + 1 (a 16-byte
-// load of each word column, a 2-byte load of each flag column), so that
-// each of the warp's loads is contiguous. The validators past the last
-// whole chunk (all of them where a column is not aligned for the chunks)
-// go one a thread: thread t of block b takes C + b kSweepThreads + t, C
-// the chunks' validators, stepping by the grid's threads.
-constexpr int kSweepThreads = 256;
-constexpr int kSweepWarps = kSweepThreads / 32;
-constexpr int kChunkSteps = 4;
-constexpr int kChunk = kChunkSteps * 64;
-
-// The first of the two validators of `lane` at `step` of chunk `chunk`.
-ALTAIR_HD int64_t chunk_index(int64_t chunk, int step, int lane) {
-  return chunk * kChunk + 64 * step + 2 * lane;
-}
-
-// The first validator past the chunks of thread `thread` of block `block`.
-ALTAIR_HD int64_t tail_first(int64_t chunks, int64_t block, int thread) {
-  return chunks * kChunk + block * kSweepThreads + thread;
-}
-
-inline bool aligned(const void* p, uintptr_t bytes) {
-  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
-}
+// the flag deltas, the inactivity updates and the inactivity penalties),
+// warp_chunks.h's, under the names the kernels and tests use.
+using warp_chunks::aligned;
+using warp_chunks::chunk_grid;
+using warp_chunks::chunk_index;
+using warp_chunks::kChunk;
+using warp_chunks::kChunkSteps;
+using warp_chunks::kSweepThreads;
+using warp_chunks::kSweepWarps;
+using warp_chunks::tail_first;
+using warp_chunks::warp_rank;
 
 // The inactivity penalties' columns, all (n,): words, the not-target flags
 // as one byte, the penalties out. `chunks` whole warp chunks take the
@@ -219,42 +206,58 @@ inline PenaltyColumns penalty_columns(const void* eff, const void* scores, const
           static_cast<uint64_t*>(out)};
 }
 
-// The grid of a warp chunk a warp (2,048 validators a block), at least one
-// block: the penalties' (grids of one, two and four blocks an SM measured
-// slower, tools/step_penalty_forms.py) and K1's (chain_step_core.h).
-ALTAIR_HD int64_t chunk_grid(int64_t n) {
-  const int64_t per_block = int64_t{kSweepWarps} * kChunk;
-  const int64_t grid = (n + per_block - 1) / per_block;
-  return grid > 1 ? grid : 1;
+// The inactivity updates' columns, all (n,): the scores, the participating
+// and eligible flags as one byte each, the new scores out; `chunks` as in
+// PenaltyColumns (the words 16-byte aligned, both flag columns 2-byte), of
+// kSteps steps each.
+struct UpdateColumns {
+  const uint64_t* scores;
+  const uint8_t* participating;
+  const uint8_t* eligible;
+  int64_t n;
+  int64_t chunks;
+  uint64_t* out;
+};
+
+template <int kSteps>
+inline UpdateColumns update_columns(const void* scores, const void* participating,
+                                    const void* eligible, int64_t n, void* out) {
+  const bool vector = aligned(scores, 16) && aligned(out, 16) && aligned(participating, 2) &&
+                      aligned(eligible, 2);
+  return {static_cast<const uint64_t*>(scores), static_cast<const uint8_t*>(participating),
+          static_cast<const uint8_t*>(eligible), n, vector ? n / (64 * kSteps) : 0,
+          static_cast<uint64_t*>(out)};
 }
 
-// Warp `warp` of block `block`, counted over the grid: its first chunk; its
-// next are the grid's warps apart.
-ALTAIR_HD int64_t warp_rank(int64_t block, int warp) { return block * kSweepWarps + warp; }
+// The steps of the inactivity updates' warp chunks: one (64 validators a
+// warp, 512 blocks at 2^18, 2,048 at 2^20). Four, the other sweeps' count,
+// left an SM one block of 8 warps at 2^18 (a shard of a 4-way mesh) and lost
+// to one validator a thread there; one step came level with that at 2^18,
+// with four at 2^20 and beat four at 2^21 + 5 (tools/sweep_forms.py).
+constexpr int kUpdateSteps = 1;
 
 #ifndef __CUDACC__
 
-// The penalties' kernel on a grid of `grid` blocks, run on the host in its
-// order: each block's threads, each thread's chunks step by step (its two
-// validators a step), then its validators past the chunks. visits, where
-// not null, counts each validator's visits.
+// The penalties' and the updates' kernels on a grid of `grid` blocks, run
+// on the host in their order (warp_chunks::schedule_host). visits, where not
+// null, counts each validator's visits.
 inline void inactivity_penalties_host(const PenaltyColumns& c,
                                       const udiv64_core::UDiv64& by_denominator, int64_t grid,
                                       uint8_t* visits) {
-  const auto visit = [&](int64_t i) {
+  warp_chunks::schedule_host(c.chunks, c.n, grid, [&](int64_t, int64_t i) {
     if (visits) visits[i] = static_cast<uint8_t>(visits[i] + 1);
     c.out[i] = inactivity_penalty(c.eff[i], c.scores[i], c.not_target[i] != 0, by_denominator);
-  };
-  for (int64_t b = 0; b < grid; ++b) {
-    for (int t = 0; t < kSweepThreads; ++t) {
-      for (int64_t k = warp_rank(b, t / 32); k < c.chunks; k += grid * kSweepWarps) {
-        for (int j = 0; j < kChunkSteps; ++j) {
-          for (int h = 0; h < 2; ++h) visit(chunk_index(k, j, t % 32) + h);
-        }
-      }
-      for (int64_t i = tail_first(c.chunks, b, t); i < c.n; i += grid * kSweepThreads) visit(i);
-    }
-  }
+  });
+}
+
+template <int kSteps = kUpdateSteps>
+inline void inactivity_updates_host(const UpdateColumns& c, uint64_t bias, uint64_t recovery_rate,
+                                    bool leaking, int64_t grid, uint8_t* visits) {
+  warp_chunks::schedule_host<kSteps>(c.chunks, c.n, grid, [&](int64_t, int64_t i) {
+    if (visits) visits[i] = static_cast<uint8_t>(visits[i] + 1);
+    c.out[i] = inactivity_update(c.scores[i], c.participating[i] != 0, c.eligible[i] != 0, bias,
+                                 recovery_rate, leaking);
+  });
 }
 
 #endif  // __CUDACC__

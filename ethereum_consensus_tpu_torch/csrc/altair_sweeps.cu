@@ -9,16 +9,16 @@
 // Inputs and outputs are unsigned 64-bit words (int64 tensors carry the bit
 // patterns) and one-byte booleans, all (n,), contiguous on one device.
 //
-// Design. The inactivity updates: one thread per validator, unsigned long
-// long throughout, loads and stores coalesced. The inactivity penalties: the
-// flag deltas' warp chunks (altair_core.h's partition: a lane two
-// validators a step, one 16-byte load of each word column and one 2-byte
-// load of the flags, one 16-byte store of the two penalties, the four steps'
-// loads issued before the first division; validators past the last whole
-// chunk, or all of them where a column is not aligned, one a thread), a
-// plain launch of a chunk a warp, and the wrapped product's quotient by the
-// denominator a multiply-high by its reciprocal, made once a call by the
-// launcher. The flag deltas' rewards need
+// Design. The inactivity updates and the inactivity penalties: the flag
+// deltas' warp chunks (warp_chunks.h's partition: a lane two validators a
+// step, one 16-byte streaming load of each word column and one 2-byte load
+// of each flag column, one 16-byte store of the two results, the four
+// steps' loads issued before any arithmetic; validators past the last whole
+// chunk, or all of them where a column is not aligned, one a thread) and a
+// plain launch of a chunk a warp (the updates' chunks of one step,
+// altair_core::kUpdateSteps); the penalties' wrapped product's quotient
+// by the denominator a multiply-high by its reciprocal, made once a call by
+// the launcher. The flag deltas' rewards need
 // the masked sum of the effective balances, their penalties do not: one
 // cooperative launch, its grid no larger than the blocks that fit on the
 // card at once. Phase 1 reads the columns once (grid-stride over warp chunks
@@ -40,7 +40,8 @@
 // fixed for the sweep (in the flag deltas and the inactivity penalties) is
 // a multiply-high by a reciprocal and a correction, about 17 integer
 // operations. The penalty grids the kernel was measured against live in
-// tools/penalty_forms.cu.
+// tools/penalty_forms.cu, the updates' parent (one validator a thread) in
+// tools/sweep_parent_forms.cu.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -50,7 +51,7 @@
 
 namespace {
 
-// The warp chunks of the flag deltas and the penalties (altair_core.h):
+// The warp chunks of the three sweeps (warp_chunks.h):
 // step j, lane t takes validators 64 j + 2 t and 64 j + 2 t + 1 (one 16-byte
 // load of each word column, one 2-byte load of each flag column), so each
 // load of the warp is contiguous.
@@ -227,17 +228,41 @@ __global__ void __launch_bounds__(kThreads)
   rewards_pass(c, s, udiv64_core::divide(total, s.increment), weight, leaking != 0, kept);
 }
 
+// The inactivity updates: a warp's chunks of kSteps steps (from
+// global_warp, a grid's warps apart), each step's loads issued before the
+// first update; then this thread's validators past the chunks.
+template <int kSteps>
 __global__ void __launch_bounds__(kThreads)
-    inactivity_updates_kernel(const uint64_t* __restrict__ scores,
-                              const bool* __restrict__ participating,
-                              const bool* __restrict__ eligible, int64_t n,
-                              uint64_t bias, uint64_t recovery_rate,
-                              bool leaking, uint64_t* __restrict__ out) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n) return;
-  out[i] = altair_core::inactivity_update(scores[i], participating[i],
-                                          eligible[i], bias, recovery_rate,
-                                          leaking);
+    inactivity_updates_kernel(altair_core::UpdateColumns c, uint64_t bias,
+                              uint64_t recovery_rate, bool leaking) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
+  for (int64_t k = global_warp(); k < c.chunks; k += warps) {
+    ulonglong2 score[kSteps];
+    unsigned part[kSteps], elig[kSteps];
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) {
+      const int64_t i = altair_core::chunk_index<kSteps>(k, j, lane);
+      score[j] = __ldcs(reinterpret_cast<const ulonglong2*>(c.scores + i));
+      part[j] = __ldcs(reinterpret_cast<const unsigned short*>(c.participating + i));
+      elig[j] = __ldcs(reinterpret_cast<const unsigned short*>(c.eligible + i));
+    }
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) {
+      const int64_t i = altair_core::chunk_index<kSteps>(k, j, lane);
+      *reinterpret_cast<ulonglong2*>(c.out + i) = make_ulonglong2(
+          altair_core::inactivity_update(score[j].x, part[j] & 0xffu, elig[j] & 0xffu, bias,
+                                         recovery_rate, leaking),
+          altair_core::inactivity_update(score[j].y, part[j] >> 8, elig[j] >> 8, bias,
+                                         recovery_rate, leaking));
+    }
+  }
+  const int64_t threads = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = altair_core::tail_first<kSteps>(c.chunks, blockIdx.x, threadIdx.x); i < c.n;
+       i += threads) {
+    c.out[i] = altair_core::inactivity_update(c.scores[i], c.participating[i] != 0,
+                                              c.eligible[i] != 0, bias, recovery_rate, leaking);
+  }
 }
 
 // The inactivity penalties: a warp's chunks (from global_warp, a grid's
@@ -275,11 +300,19 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-unsigned grid_for(int64_t n) {
-  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
-}
-
 using altair_core::aligned;
+
+// The inactivity updates on chunks of kSteps steps, a chunk a warp.
+template <int kSteps>
+int launch_updates(const void* scores, const void* participating, const void* eligible, int64_t n,
+                   uint64_t bias, uint64_t recovery_rate, bool leaking, void* out,
+                   cudaStream_t stream) {
+  inactivity_updates_kernel<kSteps>
+      <<<static_cast<unsigned>(altair_core::chunk_grid<kSteps>(n)), kThreads, 0, stream>>>(
+          altair_core::update_columns<kSteps>(scores, participating, eligible, n, out), bias,
+          recovery_rate, leaking);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // The flag-delta blocks that fit on the current device at once (cached a
 // device): the cooperative launch's largest grid.
@@ -354,13 +387,9 @@ extern "C" int inactivity_updates_launch(const void* scores,
                                          int leaking, void* out, void* stream) {
   if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  inactivity_updates_kernel<<<grid_for(n), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(scores),
-      static_cast<const bool*>(participating),
-      static_cast<const bool*>(eligible), n, bias, recovery_rate, leaking != 0,
-      static_cast<uint64_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return launch_updates<altair_core::kUpdateSteps>(scores, participating, eligible, n, bias,
+                                                   recovery_rate, leaking != 0, out,
+                                                   static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int inactivity_penalties_launch(const void* eff, const void* scores,

@@ -15,7 +15,7 @@
 // word 2k + 1 of its high half).
 //
 // K1's partition (chain_step.cu) is the warp-chunk partition of
-// altair_core.h, the flag deltas' and the inactivity penalties': a warp
+// warp_chunks.h, the other byte-bound sweeps': a warp
 // takes kChunk consecutive validators, at step j lane t validators 64 j +
 // 2 t and 64 j + 2 t + 1 (a 16-byte load of each word column and 2 bytes
 // of the flags; a 16-byte store of their new effective balances; the four
@@ -24,7 +24,7 @@
 // first division; the validators past the last whole warp chunk (all of
 // them where a column is not aligned: the word columns to 16 bytes, the
 // flags to 2) go one a thread. The grid: a warp chunk a warp
-// (altair_core::chunk_grid, 512 blocks at 2^20 validators: one wave at 4
+// (warp_chunks::chunk_grid, 512 blocks at 2^20 validators: one wave at 4
 // blocks an SM). Each block adds its share of the total into the zeroed
 // total word with one atomic (addition mod 2^64: any order gives the same
 // bits). chain_step_host runs that schedule for g++ (block by block, thread
@@ -51,6 +51,7 @@
 #include "altair_core.h"
 #include "sweeps_core.h"
 #include "udiv64_core.h"
+#include "warp_chunks.h"
 
 #ifndef __CUDACC__
 #include <vector>
@@ -67,23 +68,9 @@ namespace chain_step_core {
 // Validators of one SSZ chunk of a List[uint64, N].
 constexpr int kPerChunk = 4;
 
-// The hysteresis constants: the increment and its reciprocal, the cap, and
-// the downward and upward thresholds ((increment / quotient) * multiplier,
-// as step.py:106-110).
-struct Hysteresis {
-  uint64_t increment;
-  udiv64_core::UDiv64 by_increment;
-  uint64_t max_effective;
-  uint64_t down;
-  uint64_t up;
-};
-
-// The constants made ready; the increment must be nonzero (the launcher
-// refuses it otherwise).
-CHAIN_HD Hysteresis hysteresis(uint64_t increment, uint64_t max_effective, uint64_t down,
-                               uint64_t up) {
-  return {increment, udiv64_core::prepare(increment), max_effective, down, up};
-}
+// The hysteresis constants made ready (sweeps_core.h).
+using sweeps_core::Hysteresis;
+using sweeps_core::hysteresis;
 
 CHAIN_HD uint32_t bswap32(uint32_t x) {
   return (x >> 24) | ((x >> 8) & 0xFF00u) | ((x << 8) & 0xFF0000u) | (x << 24);
@@ -96,8 +83,7 @@ CHAIN_HD uint32_t bswap32(uint32_t x) {
 CHAIN_HD uint64_t validator_lane(const Hysteresis& h, uint64_t balance, uint64_t effective,
                                  bool active, uint64_t* new_effective, uint32_t* lo,
                                  uint32_t* hi) {
-  const uint64_t e = sweeps_core::effective_balance_update(
-      balance, effective, h.increment, h.by_increment, h.max_effective, h.down, h.up);
+  const uint64_t e = sweeps_core::effective_balance_update(balance, effective, h);
   *new_effective = e;
   *lo = bswap32(static_cast<uint32_t>(balance));
   *hi = bswap32(static_cast<uint32_t>(balance >> 32));
@@ -119,11 +105,11 @@ struct ChainColumns {
 
 inline ChainColumns chain_columns(const void* balances, const void* effective, const void* active,
                                   int64_t n, void* new_effective, void* words) {
-  using altair_core::aligned;
+  using warp_chunks::aligned;
   const bool vector = aligned(balances, 16) && aligned(effective, 16) &&
                       aligned(new_effective, 16) && aligned(active, 2);
   return {static_cast<const uint64_t*>(balances), static_cast<const uint64_t*>(effective),
-          static_cast<const uint8_t*>(active), n, vector ? n / altair_core::kChunk : 0,
+          static_cast<const uint8_t*>(active), n, vector ? n / warp_chunks::kChunk : 0,
           static_cast<uint64_t*>(new_effective), static_cast<uint32_t*>(words)};
 }
 
@@ -147,27 +133,14 @@ CHAIN_HD void store_words(const ChainColumns& c, int64_t i, uint32_t lo, uint32_
 // validator's visits.
 inline uint64_t chain_step_host(const ChainColumns& c, const Hysteresis& h, int64_t grid,
                                 uint8_t* visits) {
-  using namespace altair_core;
   std::vector<uint64_t> partials(static_cast<size_t>(grid), 0);
-  const auto visit = [&](int64_t b, int64_t i) {
+  warp_chunks::schedule_host(c.chunks, c.n, grid, [&](int64_t b, int64_t i) {
     if (visits) visits[i] = static_cast<uint8_t>(visits[i] + 1);
     uint32_t lo, hi;
     partials[static_cast<size_t>(b)] += validator_lane(
         h, c.balances[i], c.effective[i], c.active[i] != 0, &c.new_effective[i], &lo, &hi);
     store_words(c, i, lo, hi);
-  };
-  for (int64_t b = 0; b < grid; ++b) {
-    for (int t = 0; t < kSweepThreads; ++t) {
-      for (int64_t k = warp_rank(b, t / 32); k < c.chunks; k += grid * kSweepWarps) {
-        for (int j = 0; j < kChunkSteps; ++j) {
-          for (int half = 0; half < 2; ++half) visit(b, chunk_index(k, j, t % 32) + half);
-        }
-      }
-      for (int64_t i = tail_first(c.chunks, b, t); i < c.n; i += grid * kSweepThreads) {
-        visit(b, i);
-      }
-    }
-  }
+  });
   uint64_t total = 0;
   for (const uint64_t p : partials) total += p;
   return total;

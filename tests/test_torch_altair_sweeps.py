@@ -15,8 +15,10 @@ one-a-thread path, the quotient on the denominator's reciprocal) among
 them, at n in {0, 1, 2, 63, 64, 65, 4099, 65541}, on the launcher's grid and
 on grids smaller than the work, on columns offset by 1 to 7 rows, and at
 denominators 1, 2^26, 3 * 2^26 (altair's bias times quotient) and 2^64 - 1
-with products that wrap; the kernels themselves run only where a CUDA card
-is present.
+with products that wrap; the inactivity updates' schedule
+(``altair_core::inactivity_updates_host``) likewise at n in {0, 1, 255, 256,
+257, 4099, 65541, 2^17}, leaking and not, with scores that wrap past 2^64;
+the kernels themselves run only where a CUDA card is present.
 """
 
 import ctypes
@@ -400,6 +402,23 @@ extern "C" void penalties_schedule_host(const uint64_t* eff, const uint64_t* sco
   altair_core::inactivity_penalties_host(c, udiv64_core::prepare(denominator), grid, visits);
 }
 
+// The inactivity updates' kernel schedule on the columns as they lie in
+// memory, as penalties_schedule_host, on the launcher's chunks
+// (kUpdateSteps steps); shape gets the grid, the chunks and the steps.
+extern "C" void updates_schedule_host(const uint64_t* scores, const uint8_t* part,
+                                      const uint8_t* elig, int64_t n, uint64_t bias,
+                                      uint64_t recovery, int leaking, int64_t grid, uint64_t* out,
+                                      uint8_t* visits, int64_t* shape) {
+  constexpr int kSteps = altair_core::kUpdateSteps;
+  const altair_core::UpdateColumns c =
+      altair_core::update_columns<kSteps>(scores, part, elig, n, out);
+  if (grid == 0) grid = altair_core::chunk_grid<kSteps>(n);
+  shape[0] = grid;
+  shape[1] = c.chunks;
+  shape[2] = kSteps;
+  altair_core::inactivity_updates_host(c, bias, recovery, leaking != 0, grid, visits);
+}
+
 // The fused pass's scalars from ten words (increment, brpi, active
 // increments, penalty denominator, bias, recovery rate, three weights,
 // weight denominator) and the flags; the increments wait for the sums.
@@ -508,6 +527,9 @@ def core(tmp_path_factory):
     lib.inactivity_penalties_host.restype = None
     lib.penalties_schedule_host.argtypes = [_P, _P, _P, _I64, _U64, _I64, _P, _P, _P]
     lib.penalties_schedule_host.restype = None
+    lib.updates_schedule_host.argtypes = [_P, _P, _P, _I64, _U64, _U64, ctypes.c_int, _I64, _P,
+                                          _P, _P]
+    lib.updates_schedule_host.restype = None
     lib.fused_host.argtypes = ([ctypes.c_int] + [_P] * 7 + [_I64, _P] + [ctypes.c_int] * 4
                                + [_I64, ctypes.c_int] + [_P] * 4)
     lib.fused_host.restype = _U64
@@ -860,6 +882,93 @@ def test_header_penalties_grid(core):
     assert grid(300)["grid"] == grid(1)["grid"] == grid(0)["grid"] == 1
 
 
+UPDATE_SIZES = [0, 1, 255, 256, 257, 4099, 65541, 1 << 17]
+UPDATE_BIAS, UPDATE_RECOVERY = 4, 16
+
+
+def _update_columns(n: int, seed: int) -> list:
+    """scores, participating, eligible: scores at 0, 1, around the recovery
+    rate, far above it and near 2^64 (where adding the bias wraps), mixed
+    flags."""
+    rng = np.random.default_rng(seed)
+    kind = rng.integers(0, 5, n)
+    cases = [rng.integers(0, 3, n, dtype=np.uint64),
+             np.uint64(UPDATE_RECOVERY) + rng.integers(0, 5, n, dtype=np.uint64) - np.uint64(2),
+             rng.integers(0, 1 << 32, n, dtype=np.uint64),
+             np.uint64(TOP - 1) - rng.integers(0, 8, n, dtype=np.uint64),
+             rng.integers(0, TOP, n, dtype=np.uint64, endpoint=False)]
+    scores = np.zeros(n, np.uint64)
+    for k, case in enumerate(cases):
+        scores = np.where(kind == k, case, scores)
+    return [scores, rng.random(n) < 0.6, rng.random(n) < 0.9]
+
+
+def _run_updates(core, cols, leaking: bool, grid: int = 0) -> dict:
+    scores, part, elig = cols
+    n = len(scores)
+    out = np.zeros(n, np.uint64)
+    visits = np.zeros(max(n, 1), np.uint8)
+    shape = np.zeros(3, np.int64)
+    core.updates_schedule_host(_ptr(scores), _ptr(part.view(np.uint8)), _ptr(elig.view(np.uint8)),
+                               n, UPDATE_BIAS, UPDATE_RECOVERY, int(leaking), grid, _ptr(out),
+                               _ptr(visits), _ptr(shape))
+    return {"out": out, "visits": visits[:n], "grid": int(shape[0]), "chunks": int(shape[1]),
+            "steps": int(shape[2])}
+
+
+def _reference_updates(cols, leaking: bool) -> np.ndarray:
+    return _u64(ref_sweeps._inactivity_updates(*(jnp.asarray(c) for c in cols), bias=UPDATE_BIAS,
+                                               recovery_rate=UPDATE_RECOVERY,
+                                               is_leaking=leaking))
+
+
+# grid 0: the launcher's; 1 and 3: fewer blocks than the work wants
+@pytest.mark.parametrize("leaking", [False, True])
+@pytest.mark.parametrize("n", UPDATE_SIZES)
+def test_header_updates_schedule_matches_reference(core, n, leaking):
+    """The inactivity updates' partition run on the host (whole warp chunks
+    of one step, then one a thread) against the reference's
+    _inactivity_updates, every validator visited once."""
+    cols = _placed(_update_columns(n, seed=500 + n), 0)
+    want = _reference_updates(cols, leaking)
+    for grid in (0, 1, 3):
+        got = _run_updates(core, cols, leaking, grid)
+        assert got["chunks"] == n // 64
+        assert np.array_equal(got["out"], want) and np.all(got["visits"] == 1), grid
+    if n >= 4099:
+        # scores fall, stay, rise under a leak, and wrap past 2^64
+        assert (want < cols[0]).any() and (want == cols[0]).any()
+        assert (want > cols[0]).any() == leaking
+        assert (want[cols[0] >= np.uint64(TOP - UPDATE_BIAS)] < np.uint64(UPDATE_BIAS)).any()
+
+
+@pytest.mark.parametrize("offset", range(1, 8))
+def test_header_updates_offset_columns(core, offset):
+    """Columns offset by 1..7 rows: the scores 16-byte aligned and the flags
+    2-byte aligned only at even offsets, so the validators go one a thread at
+    odd offsets, on the launcher's grid and on one block."""
+    n = 65541
+    cols = _placed(_update_columns(n, seed=600), offset)
+    for leaking in (False, True):
+        want = _reference_updates(cols, leaking)
+        for grid in (0, 1):
+            got = _run_updates(core, cols, leaking, grid)
+            assert got["chunks"] == (n // 64 if offset % 2 == 0 else 0)
+            assert np.array_equal(got["out"], want) and np.all(got["visits"] == 1)
+
+
+def test_header_updates_grid(core):
+    """The launcher's steps and grid: one step a chunk, a chunk a warp
+    (2,048 blocks at 2^20, 512 at 2^18), one block for fewer than 513
+    validators or none."""
+    def launch(n):
+        got = _run_updates(core, _placed(_update_columns(n, seed=2), 0), False)
+        return got["steps"], got["grid"]
+    assert launch(1 << 20) == (1, 2048) and launch(1 << 18) == (1, 512)
+    assert launch(513) == (1, 2)
+    assert launch(512) == launch(300) == launch(1) == launch(0) == (1, 1)
+
+
 @pytest.mark.parametrize("n", [1, 255, 256, 257, 1 << 17])
 def test_kernels_match_plain_on_card(cuda, n):
     packed = _packed(n, seed=n, wide=True)
@@ -876,6 +985,12 @@ def test_kernels_match_plain_on_card(cuda, n):
                                          False)
     assert torch.equal(got.cpu(), port_sweeps.inactivity_updates_plain(scores, part, elig, 4,
                                                                        16, False))
+    # one and two rows in: off the warp chunks, then on them again
+    for offset in (1, 2):
+        cols = (scores.to(cuda)[offset:], part.to(cuda)[offset:], elig.to(cuda)[offset:])
+        got = port_sweeps.inactivity_updates(*cols, 4, 16, True)
+        assert torch.equal(got.cpu(), port_sweeps.inactivity_updates_plain(
+            scores[offset:], part[offset:], elig[offset:], 4, 16, True))
     got = port_sweeps.inactivity_penalties(eff.to(cuda), scores.to(cuda), elig.to(cuda), 4 * 7)
     assert torch.equal(got.cpu(), port_sweeps.inactivity_penalties_plain(eff, scores, elig, 4 * 7))
     # one row in: every column off the warp chunks

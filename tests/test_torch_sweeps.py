@@ -4,9 +4,14 @@
 held against the reference's device program ``effective_balance_updates_device``
 run on the CPU, on seeded numpy columns that hit every threshold ±1,
 balances at and above 2^63, and sums that wrap past 2^64. Exact: the
-results are integers. The kernel's per-validator header is built here with
-g++ and held against the same reference outputs; the kernel itself runs
-only where a CUDA card is present. The port's ``pack_registry`` is held
+results are integers. The kernel's header is built here with g++ and held
+against the same reference outputs: the update with the floor divided, and
+the kernel's schedule (``sweeps_core::effective_balance_host``: the warp
+chunks, then one a thread, the floor on the increment's reciprocal) at n in
+{0, 1, 255, 256, 257, 4099, 65541, 2^17} on the launcher's grid and on
+grids smaller than the work, on columns offset by 1 to 7 rows, at every
+threshold edge and at increments 1, 2, 2^32 + 1, 2^63 + 1 and 10^9; the
+kernel itself runs only where a CUDA card is present. The port's ``pack_registry`` is held
 against the reference's on a scrambled state.
 """
 
@@ -161,7 +166,8 @@ def test_wrappers_refuse_bad_inputs():
 
 _HOST_SHIM = r"""
 #include "sweeps_core.h"
-// The kernel's per-validator arithmetic over its (n,) output, on the host.
+// The kernel's per-validator arithmetic over its (n,) output, on the host:
+// the divided form.
 extern "C" void effective_balance_host(const uint64_t* balances,
                                        const uint64_t* effective, int64_t n,
                                        uint64_t increment, uint64_t max_effective,
@@ -171,34 +177,193 @@ extern "C" void effective_balance_host(const uint64_t* balances,
                                                    max_effective, down, up);
   }
 }
+
+// The kernel's schedule on the columns as they lie in memory (the
+// launcher's alignment test picks the path), the floor on the increment's
+// reciprocal: on `grid` blocks, or (0) the launcher's grid. shape receives
+// the grid and the whole warp chunks; visits counts each validator's visits.
+extern "C" void effective_balance_schedule_host(const uint64_t* balances,
+                                                const uint64_t* effective, int64_t n,
+                                                uint64_t increment, uint64_t max_effective,
+                                                uint64_t down, uint64_t up, int64_t grid,
+                                                uint64_t* out, uint8_t* visits,
+                                                int64_t* shape) {
+  const sweeps_core::BalanceColumns c = sweeps_core::balance_columns(balances, effective, n, out);
+  if (grid == 0) grid = warp_chunks::chunk_grid(n);
+  shape[0] = grid;
+  shape[1] = c.chunks;
+  sweeps_core::effective_balance_host(
+      c, sweeps_core::hysteresis(increment, max_effective, down, up), grid, visits);
+}
 """
 
+_P, _I64, _U64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64
 
-def test_kernel_header_host_build_matches_reference(tmp_path):
+
+@pytest.fixture(scope="module")
+def core(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++")
-    shim = tmp_path / "shim.cpp"
+    tmp = tmp_path_factory.mktemp("sweeps_core")
+    shim = tmp / "shim.cpp"
     shim.write_text(_HOST_SHIM)
-    lib_path = tmp_path / "libsweeps_core.so"
+    lib_path = tmp / "libsweeps_core.so"
     subprocess.run(
         ["g++", "-O2", "-std=c++17", "-Wall", "-Werror", "-shared", "-fPIC",
          f"-I{CSRC}", str(shim), "-o", str(lib_path)],
         check=True,
     )
     lib = ctypes.CDLL(str(lib_path))
-    lib.effective_balance_host.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64,
-        ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_void_p,
-    ]
+    lib.effective_balance_host.argtypes = [_P, _P, _I64] + [_U64] * 4 + [_P]
     lib.effective_balance_host.restype = None
+    lib.effective_balance_schedule_host.argtypes = [_P, _P, _I64] + [_U64] * 4 + [_I64] + [_P] * 3
+    lib.effective_balance_schedule_host.restype = None
+    return lib
+
+
+def test_kernel_header_host_build_matches_reference(core):
     scalars = port_sweeps.hysteresis_scalars(PortContext.for_mainnet())
     assert scalars == (INC, 32 * INC, DOWN, UP)
     for n in SIZES:
         bal, eff = _columns(n, seed=1000 + n)
         out = np.zeros(n, dtype=np.uint64)
-        lib.effective_balance_host(bal.ctypes.data, eff.ctypes.data, n, *scalars,
-                                   out.ctypes.data)
+        core.effective_balance_host(bal.ctypes.data, eff.ctypes.data, n, *scalars,
+                                    out.ctypes.data)
         assert np.array_equal(out, _reference(bal, eff))
+
+
+def _placed(cols, offset: int) -> list:
+    """Copies of the columns starting `offset` rows past a 64-byte boundary
+    (the arrays keep their buffers alive)."""
+    out = []
+    for c in cols:
+        raw = np.zeros((len(c) + offset) * c.itemsize + 64, np.uint8)
+        start = (-raw.ctypes.data) % 64 + offset * c.itemsize
+        placed = raw[start:start + len(c) * c.itemsize].view(c.dtype)
+        placed[:] = c
+        out.append(placed)
+    return out
+
+
+def _run_schedule(core, bal, eff, scalars: tuple, grid: int = 0) -> dict:
+    n = len(bal)
+    out = np.zeros(n, np.uint64)
+    visits = np.zeros(max(n, 1), np.uint8)
+    shape = np.zeros(2, np.int64)
+    core.effective_balance_schedule_host(bal.ctypes.data, eff.ctypes.data, n, *scalars, grid,
+                                         out.ctypes.data, visits.ctypes.data, shape.ctypes.data)
+    return {"out": out, "visits": visits[:n], "grid": int(shape[0]), "chunks": int(shape[1])}
+
+
+def _divided(core, bal, eff, scalars: tuple) -> np.ndarray:
+    out = np.zeros(len(bal), np.uint64)
+    core.effective_balance_host(bal.ctypes.data, eff.ctypes.data, len(bal), *scalars,
+                                out.ctypes.data)
+    return out
+
+
+MAINNET_SCALARS = (INC, 32 * INC, DOWN, UP)
+SCHEDULE_SIZES = [0, 1, 255, 256, 257, 4099, 65541, 1 << 17]
+
+
+# grid 0: the launcher's; 1 and 3: fewer blocks than the work wants
+@pytest.mark.parametrize("n", SCHEDULE_SIZES)
+def test_header_schedule_matches_reference(core, n):
+    """The kernel's partition run on the host (whole warp chunks, then one a
+    thread; the floor on the increment's reciprocal) against the
+    reference's _effective_balance_updates, every validator visited once."""
+    bal, eff = _placed(_columns(n, seed=2000 + n), 0)
+    want = _reference(bal, eff)
+    for grid in (0, 1, 3):
+        got = _run_schedule(core, bal, eff, MAINNET_SCALARS, grid)
+        assert got["chunks"] == n // 256
+        assert np.array_equal(got["out"], want) and np.all(got["visits"] == 1), grid
+    if n >= 4099:
+        assert (want != eff).any() and (want == eff).any()
+
+
+@pytest.mark.parametrize("offset", range(1, 8))
+def test_header_schedule_offset_columns(core, offset):
+    """Columns offset by 1..7 rows: the words 16-byte aligned only at even
+    offsets, so the validators go one a thread at odd offsets, on the
+    launcher's grid and on one block."""
+    n = 65541
+    bal, eff = _placed(_columns(n, seed=2100), offset)
+    want = _reference(bal, eff)
+    for grid in (0, 1):
+        got = _run_schedule(core, bal, eff, MAINNET_SCALARS, grid)
+        assert got["chunks"] == (n // 256 if offset % 2 == 0 else 0)
+        assert np.array_equal(got["out"], want) and np.all(got["visits"] == 1)
+
+
+def test_header_schedule_at_every_threshold_edge(core):
+    """Each threshold and the cap, exactly and one either side, and
+    balances and effective balances near 2^64 whose sums with a threshold
+    wrap, through the schedule on the vector path and one a thread."""
+    effs = [0, 1, INC - 1, INC, 16 * INC, 32 * INC, 33 * INC, (1 << 63) - 1, 1 << 63,
+            TOP - DOWN, TOP - UP, TOP - 1]
+    bal, eff = [], []
+    for e in effs:
+        for base in (e - DOWN, e + UP, e, 32 * INC, 32 * INC + UP, TOP - DOWN, TOP - UP, TOP - 1):
+            for d in (-1, 0, 1):
+                bal.append((base + d) % TOP)
+                eff.append(e)
+    bal, eff = np.array(bal, dtype=np.uint64), np.array(eff, dtype=np.uint64)
+    reps = -(-4099 // len(bal))
+    bal, eff = np.tile(bal, reps)[:4099], np.tile(eff, reps)[:4099]
+    want = _reference(bal, eff)
+    for offset in (0, 1):
+        placed = _placed([bal, eff], offset)
+        got = _run_schedule(core, *placed, MAINNET_SCALARS)
+        assert got["chunks"] == (4099 // 256 if offset == 0 else 0)
+        assert np.array_equal(got["out"], want) and np.all(got["visits"] == 1)
+    assert (want != eff).any() and (want == eff).any()
+
+
+# increment -> the cap of the edge context (hysteresis quotient 4,
+# multipliers 1 and 5): the mainnet increment, and increments whose
+# reciprocals take each of the division's shifts
+EDGE_INCREMENTS = {"mainnet": (INC, 32 * INC), "one": (1, 32), "two": (2, 64),
+                   "two_32_plus_1": ((1 << 32) + 1, TOP - 1),
+                   "two_63_plus_1": ((1 << 63) + 1, TOP - 1)}
+
+
+@pytest.mark.parametrize("increment", EDGE_INCREMENTS)
+def test_header_schedule_on_edge_increments(core, increment):
+    """The schedule's floor on the increment's reciprocal, bit-equal to the
+    divided form and to the reference, at the mainnet increment and at
+    increments 1, 2, 2^32 + 1 and 2^63 + 1, on balances over the whole u64
+    range and at each threshold of the increment."""
+    inc, cap = EDGE_INCREMENTS[increment]
+    ctx = SimpleNamespace(EFFECTIVE_BALANCE_INCREMENT=inc, MAX_EFFECTIVE_BALANCE=cap,
+                          HYSTERESIS_QUOTIENT=4, HYSTERESIS_DOWNWARD_MULTIPLIER=1,
+                          HYSTERESIS_UPWARD_MULTIPLIER=5)
+    scalars = (inc, cap, inc // 4 % TOP, 5 * (inc // 4) % TOP)
+    rng = np.random.default_rng(inc % 1000)
+    n = 4099
+    eff = rng.integers(0, TOP, n, dtype=np.uint64, endpoint=False)
+    bal = rng.integers(0, TOP, n, dtype=np.uint64, endpoint=False)
+    with np.errstate(over="ignore"):
+        near = rng.integers(-1, 2, n).astype(np.int64).view(np.uint64)
+        edges = np.where(rng.random(n) < 0.5, eff - np.uint64(scalars[2]),
+                         eff + np.uint64(scalars[3])) + near
+    bal = np.where(rng.random(n) < 0.5, edges, bal)
+    want = _reference(bal, eff, ctx)
+    got = _run_schedule(core, *_placed([bal, eff], 0), scalars)
+    assert np.array_equal(got["out"], want) and np.all(got["visits"] == 1)
+    assert np.array_equal(_divided(core, bal, eff, scalars), want)
+    assert (want != eff).any()
+
+
+def test_header_schedule_grid(core):
+    """The launcher's grid: a chunk a warp (2,048 validators a block: 512
+    blocks at 2^20, 128 at 2^18), one block for fewer than 2,049 validators
+    or none."""
+    def grid(n):
+        bal, eff = _placed(_columns(n, seed=3), 0)
+        return _run_schedule(core, bal, eff, MAINNET_SCALARS)["grid"]
+    assert grid(1 << 20) == 512 and grid(1 << 18) == 128
+    assert grid(2049) == 2 and grid(2048) == grid(300) == grid(1) == grid(0) == 1
 
 
 @pytest.mark.parametrize("n", [1, 255, 256, 257, 1 << 17])
@@ -210,6 +375,12 @@ def test_kernel_matches_plain_on_card(cuda, n):
     got = port_sweeps.effective_balance_updates(b.to(cuda), e.to(cuda), ctx)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), port_sweeps.effective_balance_updates_plain(b, e, ctx))
+    # one and two rows in: off the warp chunks, then on them again
+    for offset in (1, 2):
+        got = port_sweeps.effective_balance_updates(b.to(cuda)[offset:], e.to(cuda)[offset:], ctx)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), port_sweeps.effective_balance_updates_plain(
+            b[offset:], e[offset:], ctx))
 
 
 def _scrambled_state():
