@@ -114,7 +114,21 @@ Phases, each of which exits non-zero when it fails:
                 launches of each route checked, some balances, scores and
                 effective balances changed, and the block with its
                 sync-aggregate signature replaced rejected alike on the host
-                and device paths.
+                and device paths. Then the capella cell (the state at slot 64
+                upgraded to bellatrix and capella, capella's rules to 95, a
+                block with 16 withdrawals past the registry's end and 16
+                BLS-to-execution changes) and the deneb cell (the capella
+                state at slot 64 upgraded to deneb, deneb's rules to 95, a
+                block with six blob commitments besides capella's
+                operations), each on the host and device paths with identical
+                bytes and roots and the device path's launches checked; the
+                capella block with a changed withdrawal and the deneb block
+                with a seventh commitment rejected alike; the deneb boundary
+                activating exactly EIP-7514's cap; then the node's
+                data-availability check of the deneb block's six blob
+                sidecars on the host's native library (the inclusion proofs,
+                one KZG batch verification): true, and false with one field
+                element of a blob or one node of a proof changed.
  14. pairing  — the four batched-pairing kernels (G1 blinder
                 multiplication with the affine conversion, G2 blinder
                 multiplication with the sum, the Miller loop, the Fq12
@@ -722,7 +736,8 @@ def _setup_state(registry: dict):
     than a read. A timed path reads its state from SSZ instead: a copy
     carries the registry's wiring, so its first root would skip the walk
     that a state just read pays."""
-    return registry["state"].copy()
+    with _collector_paused():
+        return registry["state"].copy()
 
 
 def _ptxas_lines(library: str, name: str, log: "str | None" = None) -> list:
@@ -1259,6 +1274,22 @@ def _patched(module, name, wrap):
         setattr(module, name, original)
 
 
+@contextlib.contextmanager
+def _collector_paused():
+    """Automatic garbage collection off for untimed host work: with several
+    2^20-validator states on the heap, the full collections that a state's
+    reads, copies and upgrades trigger take about as long as the work
+    itself. The explicit collections stay, and timed paths run with the
+    collector as it was."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def _host_timer(bucket: dict, key: str):
     def wrap(fn):
         def timed(*args, **kwargs):
@@ -1335,6 +1366,19 @@ def _rejection(state, signed_block, ctx) -> str:
     return "accepted"
 
 
+def _rejection_in_slot(state, signed_block, ctx, fork) -> str:
+    """``_rejection`` of a block at ``state``'s own slot (a state already
+    processed to it): the fork's in-slot transition, as Executor runs it
+    for a block on its upgrade slot."""
+    transition = fork.state_transition
+    try:
+        transition.state_transition_block_in_slot(state, signed_block,
+                                                  transition.Validation.ENABLED, ctx)
+    except Exception as exc:  # noqa: BLE001 — the error is the result
+        return f"{type(exc).__name__}: {exc}"
+    return "accepted"
+
+
 def phase_block(registry: dict) -> dict:
     """The slice's main path: one signed block through Executor.apply_block,
     cold, on the host path and with the kernels installed."""
@@ -1342,16 +1386,17 @@ def phase_block(registry: dict) -> dict:
     from ethereum_consensus_tpu_torch.ops import g1, sha256, shuffle
 
     data, ctx = registry["data"], registry["ctx"]
-    t0 = time.perf_counter()
-    good, tampered = make_block(_setup_state(registry), ctx, registry["committees"],
-                                registry["proposer"])
-    make_s = time.perf_counter() - t0
-    n_keys = sum(len(a.aggregation_bits) for a in good.message.body.attestations) + 2
-    t0 = time.perf_counter()
-    host_state = convert.state_from_ssz(data, ctx.preset)
-    device_state = convert.state_from_ssz(data, ctx.preset)
-    host_reject_state, device_reject_state = host_state.copy(), device_state.copy()
-    read_s = time.perf_counter() - t0
+    with _collector_paused():
+        t0 = time.perf_counter()
+        good, tampered = make_block(_setup_state(registry), ctx, registry["committees"],
+                                    registry["proposer"])
+        make_s = time.perf_counter() - t0
+        n_keys = sum(len(a.aggregation_bits) for a in good.message.body.attestations) + 2
+        t0 = time.perf_counter()
+        host_state = convert.state_from_ssz(data, ctx.preset)
+        device_state = convert.state_from_ssz(data, ctx.preset)
+        host_reject_state, device_reject_state = host_state.copy(), device_state.copy()
+        read_s = time.perf_counter() - t0
     print(f"block: slot {BLOCK_SLOT}, {len(good.message.body.attestations)} attestations, "
           f"{n_keys} keys in the signature batch; made in {make_s:.1f} s; "
           f"pre-states read in {read_s:.1f} s")
@@ -1715,26 +1760,27 @@ def phase_epoch(registry: dict) -> dict:
     ctx = registry["ctx"]
     gc.collect()
     ops.uninstall()
-    t0 = time.perf_counter()
-    state = _setup_state(registry)
-    slot_processing.process_slots(state, EPOCH_SCRAMBLE_SLOT, ctx)
-    to_64_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    scrambled = scramble_registry(state, ctx, seed=3)
-    slot_processing.process_slots(state, EPOCH_PRE_SLOT, ctx)
-    to_95_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    pendings = {epoch: inject_full_epoch_pendings(state, ctx, epoch) for epoch in (1, 2)}
-    pre = type(state).serialize(state)
-    inject_s = time.perf_counter() - t0
-    eff_before = _effective_balances(state)
-    n = len(state.validators)
-    del state
-    gc.collect()
-    t0 = time.perf_counter()
-    host_state = convert.state_from_ssz(pre, ctx.preset)
-    device_state = convert.state_from_ssz(pre, ctx.preset)
-    read_s = time.perf_counter() - t0
+    with _collector_paused():
+        t0 = time.perf_counter()
+        state = _setup_state(registry)
+        slot_processing.process_slots(state, EPOCH_SCRAMBLE_SLOT, ctx)
+        to_64_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scrambled = scramble_registry(state, ctx, seed=3)
+        slot_processing.process_slots(state, EPOCH_PRE_SLOT, ctx)
+        to_95_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pendings = {epoch: inject_full_epoch_pendings(state, ctx, epoch) for epoch in (1, 2)}
+        pre = type(state).serialize(state)
+        inject_s = time.perf_counter() - t0
+        eff_before = _effective_balances(state)
+        n = len(state.validators)
+        del state
+        gc.collect()
+        t0 = time.perf_counter()
+        host_state = convert.state_from_ssz(pre, ctx.preset)
+        device_state = convert.state_from_ssz(pre, ctx.preset)
+        read_s = time.perf_counter() - t0
     print(f"epoch: {n} validators; slots 0..{EPOCH_SCRAMBLE_SLOT} {to_64_s:.1f} s; scramble "
           f"{scrambled} and slots to {EPOCH_PRE_SLOT} {to_95_s:.1f} s; pendings {pendings} "
           f"and serialize ({len(pre)} bytes) {inject_s:.1f} s; two reads {read_s:.1f} s")
@@ -2293,6 +2339,19 @@ CAPELLA_ETH1_SHARE = 512
 CAPELLA_SWEEP_BACK = 4096
 CAPELLA_BLS_CHANGES = 16
 CAPELLA_TAMPERED_WITHDRAWAL = 5
+# The deneb cell: deneb from epoch 2 too, so the capella cell's state at the
+# fork slot 64 upgrades once more and runs deneb's rules to slot 95; the
+# altair scramble under a seed of its own queues 128 eligible entrants, of
+# which EIP-7514 activates min(max_per_epoch_activation_churn_limit, churn
+# limit). The block carries DENEB_BLOBS blob commitments (mainnet's
+# MAX_BLOBS_PER_BLOCK) besides the capella block's withdrawals and changes,
+# the tampered block one more. The data-availability check is also run with
+# one field element of one blob changed, and with one node of one sidecar's
+# inclusion proof changed: (blob or sidecar, element or node).
+DENEB_BLOBS = 6
+DENEB_GAS_PER_BLOB = 1 << 17  # EIP-4844's GAS_PER_BLOB
+DENEB_CHANGED_ELEMENT = (2, 100)
+DENEB_CHANGED_NODE = (4, 3)
 
 
 def _realize_keys(state, indices, known: "dict | None" = None) -> int:
@@ -2515,21 +2574,28 @@ def _committees_at_pre_slot(state, ctx, fork) -> list:
 
 
 def _registry_before(state) -> dict:
-    """The columns the boundary changes, to count its changes by."""
+    """The columns the boundary changes, to count its changes by, and the
+    validators not yet activated."""
+    from ethereum_consensus_tpu_torch.primitives import FAR_FUTURE_EPOCH
+
     n = len(state.validators)
     return {"balances": np.fromiter(state.balances, np.uint64, n),
             "scores": np.fromiter(state.inactivity_scores, np.uint64, n),
-            "effective": _effective_balances(state)}
+            "effective": _effective_balances(state),
+            "pending": [i for i, v in enumerate(state.validators)
+                        if v.activation_epoch == FAR_FUTURE_EPOCH]}
 
 
 def build_altair_pre_state(registry: dict) -> dict:
     """The registry to slot 32 under phase0 rules, the sync committee's keys
     made real and the upgrade to altair, slots to 64 under altair rules
-    (the 63 -> 64 boundary on the host route), where the capella cell's
-    set-up upgrades it (``build_capella_pre_state``); then slots to 95, the
-    scramble, the keys of slot 95's committees and of the slot-96 proposer
-    made real, and the block, built on the one crossing. Returns the
-    pre-state's bytes and the block, and the capella cell's."""
+    (the 63 -> 64 boundary on the host route), where the capella and deneb
+    cells' set-ups upgrade it (``build_capella_pre_state``,
+    ``build_deneb_pre_state``); then slots to 95, the scramble, the keys of
+    slot 95's committees and of the slot-96 proposer made real, and the
+    block, built on the one crossing. Returns the pre-state's bytes, the
+    block, the tampered copy and the crossed scratch's bytes, and the
+    capella and deneb cells'."""
     from ethereum_consensus_tpu_torch import ops
     from ethereum_consensus_tpu_torch.config import Context
     from ethereum_consensus_tpu_torch.models import altair
@@ -2558,8 +2624,14 @@ def build_altair_pre_state(registry: dict) -> dict:
     t0 = time.perf_counter()
     aslots.process_slots(state, CAPELLA_FORK_EPOCH * int(ctx.SLOTS_PER_EPOCH), ctx)
     to_capella_fork_s = time.perf_counter() - t0
-    # the upgrades copy every field, so the altair state goes on as it was
-    capella = build_capella_pre_state(state, known)
+    # the upgrades copy every field, so the altair state goes on as it was,
+    # and the capella state at the fork slot as the deneb cell's starts
+    capella_fork = _capella_at_fork(state)
+    deneb_fork = _deneb_at_fork(capella_fork[0])
+    capella = build_capella_pre_state(*capella_fork, known)
+    del capella_fork
+    deneb = build_deneb_pre_state(*deneb_fork, known)
+    del deneb_fork
     t0 = time.perf_counter()
     aslots.process_slots(state, ALTAIR_PRE_SLOT, ctx)
     to_pre_s = time.perf_counter() - t0
@@ -2570,6 +2642,7 @@ def build_altair_pre_state(registry: dict) -> dict:
     scramble_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     scratch, proposer = _cross_for_block(state, ctx, altair, known)
+    reject_pre = type(scratch).serialize(scratch)
     block, signed = make_altair_block(scratch, ctx, committees)
     del scratch
     good = signed(block)
@@ -2588,10 +2661,11 @@ def build_altair_pre_state(registry: dict) -> dict:
           f"committee keys and the upgrade {upgrade_s:.1f} s; slots to "
           f"{CAPELLA_FORK_EPOCH * int(ctx.SLOTS_PER_EPOCH)} {to_capella_fork_s:.1f} s and on to "
           f"{ALTAIR_PRE_SLOT} {to_pre_s:.1f} s; scramble {scrambled} and {committee_keys} "
-          f"committee keys {scramble_s:.1f} s; one scratch crossing and the block "
+          f"committee keys {scramble_s:.1f} s; one scratch crossing, its bytes and the block "
           f"{block_s:.1f} s; serialize ({len(pre)} bytes) {serialize_s:.1f} s")
-    return {"pre": pre, "ctx": ctx, "good": good, "tampered": tampered, "n": n,
-            "before": before, "scrambled": scrambled, "proposer": proposer, "capella": capella,
+    return {"pre": pre, "ctx": ctx, "good": good, "tampered": tampered, "reject_pre": reject_pre,
+            "n": n, "before": before, "scrambled": scrambled, "proposer": proposer,
+            "capella": capella, "deneb": deneb,
             "setup_s": {"to_fork": to_fork_s, "upgrade": upgrade_s,
                         "to_capella_fork": to_capella_fork_s, "to_pre": to_pre_s,
                         "scramble_and_keys": scramble_s, "block": block_s,
@@ -2657,25 +2731,27 @@ def _bls_changes(state, ctx, changes: list) -> list:
     return out
 
 
-def build_capella_pre_state(state, known: dict) -> dict:
-    """The capella cell's pre-state from the altair set-up's ``state`` at the
-    fork slot 64: upgraded to bellatrix and to capella (both at epoch 2),
-    the payload header of a post-merge chain, slots to 95 under capella
-    rules, the altair cell's scramble under another seed, the credentials
-    of ``_capella_credentials``, the keys of slot 95's committees and of the
-    slot-96 proposer made real (kept in ``known``, which the altair cell's
-    set-up goes on with), and a signed capella block at slot 96 with the expected
-    withdrawals, 64 aggregates, a full sync aggregate and the changes.
-    Returns the pre-state's bytes, the block and a copy with one withdrawal
-    changed, re-signed."""
+def _forked_ctx(*forks: str):
+    """Mainnet's context with altair at epoch 1 and each of ``forks`` at
+    epoch 2."""
     from ethereum_consensus_tpu_torch.config import Context
+
+    ctx = Context.for_mainnet()
+    ctx.altair_fork_epoch = ALTAIR_FORK_EPOCH
+    for fork in forks:
+        setattr(ctx, f"{fork}_fork_epoch", CAPELLA_FORK_EPOCH)
+    return ctx
+
+
+def _capella_at_fork(state) -> tuple:
+    """The altair set-up's ``state`` at the fork slot 64 upgraded to
+    bellatrix and to capella (both at epoch 2), with the payload header of a
+    post-merge chain. Returns (the capella state, its context, seconds)."""
     from ethereum_consensus_tpu_torch.models import capella
     from ethereum_consensus_tpu_torch.models.bellatrix import upgrade_to_bellatrix
 
     t0 = time.perf_counter()
-    ctx = Context.for_mainnet()
-    ctx.altair_fork_epoch = ALTAIR_FORK_EPOCH
-    ctx.bellatrix_fork_epoch = ctx.capella_fork_epoch = CAPELLA_FORK_EPOCH
+    ctx = _forked_ctx("bellatrix", "capella")
     state = capella.upgrade_to_capella(upgrade_to_bellatrix(state, ctx), ctx)
     gc.collect()
     ns = capella.build(ctx.preset)
@@ -2686,7 +2762,65 @@ def build_capella_pre_state(state, known: dict) -> dict:
         block_number=last_slot, gas_limit=30_000_000, gas_used=15_000_000,
         timestamp=capella.helpers.compute_timestamp_at_slot(state, last_slot, ctx),
         base_fee_per_gas=7)
-    upgrade_s = time.perf_counter() - t0
+    return state, ctx, time.perf_counter() - t0
+
+
+def _deneb_at_fork(capella_state) -> tuple:
+    """The capella state at the fork slot upgraded to deneb (bellatrix,
+    capella and deneb all at epoch 2, a network that forks three times at
+    once): a copy. Returns (the deneb state, its context, seconds)."""
+    from ethereum_consensus_tpu_torch.models import deneb
+
+    t0 = time.perf_counter()
+    ctx = _forked_ctx("bellatrix", "capella", "deneb")
+    state = deneb.upgrade_to_deneb(capella_state, ctx)
+    return state, ctx, time.perf_counter() - t0
+
+
+def _payload(fork, scratch, ctx, proposer: int, withdrawals: list, **fields):
+    """The slot-96 execution payload of ``fork`` on the crossed ``scratch``:
+    its parent the latest header's block, ``prev_randao`` and the timestamp
+    as the state expects, the expected ``withdrawals`` and ``fields``."""
+    ns, h = fork.build(ctx.preset), fork.helpers
+    header = scratch.latest_execution_payload_header
+    return ns.ExecutionPayload(
+        parent_hash=header.block_hash, fee_recipient=_withdrawal_address(proposer),
+        state_root=hashlib.sha256(b"execution-state-%d" % ALTAIR_BLOCK_SLOT).digest(),
+        receipts_root=hashlib.sha256(b"execution-receipts-%d" % ALTAIR_BLOCK_SLOT).digest(),
+        prev_randao=h.get_randao_mix(scratch, ALTAIR_BLOCK_SLOT // int(ctx.SLOTS_PER_EPOCH)),
+        block_number=header.block_number + 1, gas_limit=header.gas_limit, gas_used=14_000_000,
+        timestamp=h.compute_timestamp_at_slot(scratch, ALTAIR_BLOCK_SLOT, ctx),
+        base_fee_per_gas=header.base_fee_per_gas,
+        block_hash=hashlib.sha256(b"execution-block-%d" % ALTAIR_BLOCK_SLOT).digest(),
+        withdrawals=withdrawals, **fields)
+
+
+def _full_sweep(cell: str, scratch, state, ctx) -> list:
+    """The crossed ``scratch``'s expected withdrawals, which must be a full
+    payload that wrapped past the registry's end."""
+    from ethereum_consensus_tpu_torch.models import capella
+
+    withdrawals = capella.block_processing.get_expected_withdrawals(scratch, ctx)
+    if len(withdrawals) != int(ctx.MAX_WITHDRAWALS_PER_PAYLOAD) or \
+            withdrawals[-1].validator_index >= state.next_withdrawal_validator_index:
+        sys.exit(f"chip_smoke: the {cell} sweep found {len(withdrawals)} withdrawals, not a "
+                 "full payload past the registry's end")
+    return withdrawals
+
+
+def build_capella_pre_state(state, ctx, upgrade_s: float, known: dict) -> dict:
+    """The capella cell's pre-state from ``state`` (``_capella_at_fork``'s,
+    at the fork slot 64): slots to 95 under capella rules, the altair cell's
+    scramble under another seed, the credentials of
+    ``_capella_credentials``, the keys of slot 95's committees and of the
+    slot-96 proposer made real (kept in ``known``, which the other cells'
+    set-ups go on with), and a signed capella block at slot 96 with the
+    expected withdrawals, 64 aggregates, a full sync aggregate and the
+    changes. Returns the pre-state's bytes, the block, a copy with one
+    withdrawal changed, re-signed, and the bytes of the crossed scratch state
+    the block was built on."""
+    from ethereum_consensus_tpu_torch.models import capella
+
     t0 = time.perf_counter()
     capella.slot_processing.process_slots(state, ALTAIR_PRE_SLOT, ctx)
     to_pre_s = time.perf_counter() - t0
@@ -2698,23 +2832,9 @@ def build_capella_pre_state(state, known: dict) -> dict:
     scramble_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     scratch, proposer = _cross_for_block(state, ctx, capella, known)
-    header = scratch.latest_execution_payload_header
-    withdrawals = capella.block_processing.get_expected_withdrawals(scratch, ctx)
-    payload = ns.ExecutionPayload(
-        parent_hash=header.block_hash, fee_recipient=_withdrawal_address(proposer),
-        state_root=hashlib.sha256(b"execution-state-%d" % ALTAIR_BLOCK_SLOT).digest(),
-        receipts_root=hashlib.sha256(b"execution-receipts-%d" % ALTAIR_BLOCK_SLOT).digest(),
-        prev_randao=capella.helpers.get_randao_mix(
-            scratch, ALTAIR_BLOCK_SLOT // int(ctx.SLOTS_PER_EPOCH)),
-        block_number=header.block_number + 1, gas_limit=header.gas_limit, gas_used=14_000_000,
-        timestamp=capella.helpers.compute_timestamp_at_slot(scratch, ALTAIR_BLOCK_SLOT, ctx),
-        base_fee_per_gas=header.base_fee_per_gas,
-        block_hash=hashlib.sha256(b"execution-block-%d" % ALTAIR_BLOCK_SLOT).digest(),
-        withdrawals=withdrawals)
-    if len(withdrawals) != int(ctx.MAX_WITHDRAWALS_PER_PAYLOAD) or \
-            withdrawals[-1].validator_index >= state.next_withdrawal_validator_index:
-        sys.exit(f"chip_smoke: the capella sweep found {len(withdrawals)} withdrawals, not a "
-                 "full payload past the registry's end")
+    reject_pre = type(scratch).serialize(scratch)
+    withdrawals = _full_sweep("capella", scratch, state, ctx)
+    payload = _payload(capella, scratch, ctx, proposer, withdrawals)
     block, signed = make_altair_block(scratch, ctx, committees, capella, execution_payload=payload,
                                       bls_to_execution_changes=_bls_changes(state, ctx, changes))
     del scratch
@@ -2733,15 +2853,188 @@ def build_capella_pre_state(state, known: dict) -> dict:
           f"{CAPELLA_FORK_EPOCH * int(ctx.SLOTS_PER_EPOCH)} {upgrade_s:.1f} "
           f"s; slots to {ALTAIR_PRE_SLOT} {to_pre_s:.1f} s; scramble {scrambled}, {len(eth1)} "
           f"0x01 validators, {len(changes)} withdrawal keys and {committee_keys} committee keys "
-          f"{scramble_s:.1f} s; one scratch crossing and the block {block_s:.1f} s (withdrawals "
+          f"{scramble_s:.1f} s; one scratch crossing, its bytes and the block {block_s:.1f} s (withdrawals "
           f"of validators {sweep[0]}..{sweep[-1]}, sweep from {n - CAPELLA_SWEEP_BACK}); "
           f"serialize ({len(pre)} bytes) {serialize_s:.1f} s")
     return {"pre": pre, "ctx": ctx, "good": signed(block), "tampered": signed(tampered),
-            "n": n, "before": before, "scrambled": scrambled, "proposer": proposer,
-            "withdrawals": sweep, "changes": [i for i, _ in changes],
+            "reject_pre": reject_pre, "n": n, "before": before, "scrambled": scrambled,
+            "proposer": proposer, "withdrawals": sweep, "changes": [i for i, _ in changes],
             "setup_s": {"upgrades": upgrade_s, "to_pre": to_pre_s,
                         "scramble_and_keys": scramble_s, "block": block_s,
                         "serialize": serialize_s}}
+
+
+def _blob(seed: int, elements: int) -> bytes:
+    """A seeded blob: ``elements`` canonical field elements (31 random bytes
+    under a zero byte each)."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 256, (elements, 32), dtype=np.uint8)
+    words[:, 0] = 0
+    return words.tobytes()
+
+
+def _blob_sidecars(signed_block, blobs: list, ctx) -> list:
+    """The block's blob sidecars: each blob with its commitment, its KZG
+    proof on ``ctx.kzg_settings``, the signed block header and the
+    commitment's inclusion proof in the block body."""
+    from ethereum_consensus_tpu_torch.crypto import kzg
+    from ethereum_consensus_tpu_torch.models import deneb
+    from ethereum_consensus_tpu_torch.models.phase0.containers import (
+        BeaconBlockHeader,
+        SignedBeaconBlockHeader,
+    )
+    from ethereum_consensus_tpu_torch.ssz import get_generalized_index, prove
+
+    ns = deneb.build(ctx.preset)
+    block = signed_block.message
+    body = block.body
+    header = SignedBeaconBlockHeader(
+        message=BeaconBlockHeader(slot=block.slot, proposer_index=block.proposer_index,
+                                  parent_root=block.parent_root, state_root=block.state_root,
+                                  body_root=ns.BeaconBlockBody.hash_tree_root(body)),
+        signature=signed_block.signature)
+    sidecars = []
+    for index, (blob, commitment) in enumerate(zip(blobs, body.blob_kzg_commitments)):
+        gindex = get_generalized_index(ns.BeaconBlockBody, "blob_kzg_commitments", index)
+        sidecars.append(ns.BlobSidecar(
+            index=index, blob=blob, kzg_commitment=commitment,
+            kzg_proof=kzg.compute_blob_kzg_proof(blob, bytes(commitment), ctx.kzg_settings),
+            signed_block_header=header.copy(),
+            kzg_commitment_inclusion_proof=prove(ns.BeaconBlockBody, body, gindex)))
+    return sidecars
+
+
+def build_deneb_pre_state(state, ctx, upgrade_s: float, known: dict) -> dict:
+    """The deneb cell's pre-state from ``state`` (``_deneb_at_fork``'s, at the
+    fork slot 64): slots to 95 under deneb rules, the altair cell's scramble
+    under a seed of its own (its 128 eligible entrants queue for
+    activation), the capella cell's credentials and keys (``known``), six
+    seeded blobs committed on the in-repo ceremony (``ctx.kzg_settings``),
+    and a signed deneb block at slot 96 with the six commitments, a payload
+    with the expected withdrawals and the blob gas of six blobs, 64
+    aggregates, a full sync aggregate and the changes; then its six blob
+    sidecars. The crossed scratch state the block was built on is kept as
+    bytes: the block with a seventh commitment is refused there. Returns
+    the pre-state's bytes, the block, the tampered copy, the scratch's
+    bytes, the sidecars and the activation cap and churn limit of the
+    pre-state."""
+    from ethereum_consensus_tpu_torch.crypto import kzg
+    from ethereum_consensus_tpu_torch.models import deneb
+
+    t0 = time.perf_counter()
+    deneb.slot_processing.process_slots(state, ALTAIR_PRE_SLOT, ctx)
+    to_pre_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scrambled = scramble_altair(state, ctx, seed=6)
+    eth1, changes = _capella_credentials(state, ctx, np.random.default_rng(7))
+    committees = _committees_at_pre_slot(state, ctx, deneb)
+    committee_keys = _realize_keys(state, [i for c in committees for i in c], known)
+    churn = deneb.helpers.get_validator_churn_limit(state, ctx)
+    activation_cap = deneb.helpers.get_validator_activation_churn_limit(state, ctx)
+    scramble_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    settings = ctx.kzg_settings
+    ceremony_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    elements = int(ctx.FIELD_ELEMENTS_PER_BLOB)
+    blobs = [_blob(8 + k, elements) for k in range(DENEB_BLOBS + 1)]
+    commitments = [kzg.blob_to_kzg_commitment(b, settings) for b in blobs]
+    commit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scratch, proposer = _cross_for_block(state, ctx, deneb, known)
+    reject_pre = type(scratch).serialize(scratch)
+    withdrawals = _full_sweep("deneb", scratch, state, ctx)
+    payload = _payload(deneb, scratch, ctx, proposer, withdrawals,
+                       blob_gas_used=DENEB_BLOBS * DENEB_GAS_PER_BLOB, excess_blob_gas=0)
+    block, signed = make_altair_block(scratch, ctx, committees, deneb, execution_payload=payload,
+                                      bls_to_execution_changes=_bls_changes(state, ctx, changes),
+                                      blob_kzg_commitments=commitments[:DENEB_BLOBS])
+    del scratch
+    tampered = block.copy()
+    tampered.body.blob_kzg_commitments.append(commitments[DENEB_BLOBS])
+    good = signed(block)
+    block_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sidecars = _blob_sidecars(good, blobs[:DENEB_BLOBS], ctx)
+    sidecars_s = time.perf_counter() - t0
+    n = len(state.validators)
+    before = _registry_before(state)
+    t0 = time.perf_counter()
+    pre = type(state).serialize(state)
+    serialize_s = time.perf_counter() - t0
+    del state
+    gc.collect()
+    print(f"deneb: {n} validators; upgrade at slot "
+          f"{CAPELLA_FORK_EPOCH * int(ctx.SLOTS_PER_EPOCH)} {upgrade_s:.1f} s; slots to "
+          f"{ALTAIR_PRE_SLOT} {to_pre_s:.1f} s; scramble {scrambled}, {len(eth1)} 0x01 "
+          f"validators, {len(changes)} withdrawal keys and {committee_keys} committee keys "
+          f"{scramble_s:.1f} s; churn limit {churn}, activation cap {activation_cap}; ceremony "
+          f"load {ceremony_s:.4f} s; {len(blobs)} blobs committed {commit_s:.2f} s; one scratch "
+          f"crossing, its bytes and the block {block_s:.1f} s; {len(sidecars)} sidecars "
+          f"{sidecars_s:.2f} s; serialize ({len(pre)} bytes) {serialize_s:.1f} s")
+    return {"pre": pre, "ctx": ctx, "good": good, "tampered": signed(tampered),
+            "reject_pre": reject_pre, "n": n, "before": before, "scrambled": scrambled,
+            "proposer": proposer, "withdrawals": [int(w.validator_index) for w in withdrawals],
+            "changes": [i for i, _ in changes], "blobs": blobs[:DENEB_BLOBS],
+            "sidecars": sidecars, "churn_limit": churn, "activation_cap": activation_cap,
+            "setup_s": {"upgrade": upgrade_s, "to_pre": to_pre_s,
+                        "scramble_and_keys": scramble_s, "ceremony_load": ceremony_s,
+                        "commitments": commit_s, "block": block_s, "sidecars": sidecars_s,
+                        "serialize": serialize_s}}
+
+
+def _data_available(sidecars: list, body_root: bytes, ctx) -> bool:
+    """The node's data-availability check of a block's blob sidecars: each
+    sidecar's header names the block's body and its commitment's inclusion
+    proof holds against it, then one KZG batch verification of every blob
+    against its commitment and proof (the host's native library)."""
+    from ethereum_consensus_tpu_torch.crypto import kzg
+    from ethereum_consensus_tpu_torch.models import deneb
+
+    body_type = deneb.build(ctx.preset).BeaconBlockBody
+    for sidecar in sidecars:
+        if bytes(sidecar.signed_block_header.message.body_root) != body_root or \
+                not deneb.blob_sidecar.verify_blob_sidecar_inclusion_proof(sidecar, body_type,
+                                                                           ctx):
+            return False
+    return kzg.verify_blob_kzg_proof_batch(
+        [bytes(s.blob) for s in sidecars], [bytes(s.kzg_commitment) for s in sidecars],
+        [bytes(s.kzg_proof) for s in sidecars], ctx.kzg_settings)
+
+
+def _data_availability(setup: dict) -> dict:
+    """The deneb block's data-availability check, timed, on its six
+    sidecars; then on a copy with one field element of one blob changed
+    and on one with one node of one inclusion proof changed. Fails the run
+    unless the verdicts are true, false and false."""
+    from ethereum_consensus_tpu_torch.crypto import bls
+    from ethereum_consensus_tpu_torch.models import deneb
+
+    if bls.backend_name() != "native":
+        sys.exit("chip_smoke: the data-availability check needs the native library")
+    ctx, sidecars = setup["ctx"], setup["sidecars"]
+    body_root = deneb.build(ctx.preset).BeaconBlockBody.hash_tree_root(
+        setup["good"].message.body)
+    verdicts, walls = {}, {}
+    blob_index, element = DENEB_CHANGED_ELEMENT
+    changed_blob = [s.copy() for s in sidecars]
+    blob = bytearray(changed_blob[blob_index].blob)
+    blob[32 * element + 31] ^= 1
+    changed_blob[blob_index].blob = bytes(blob)
+    sidecar_index, node = DENEB_CHANGED_NODE
+    changed_node = [s.copy() for s in sidecars]
+    proof = changed_node[sidecar_index].kzg_commitment_inclusion_proof
+    proof[node] = hashlib.sha256(bytes(proof[node])).digest()
+    for name, candidate in (("blobs", sidecars), ("changed_element", changed_blob),
+                            ("changed_node", changed_node)):
+        t0 = time.perf_counter()
+        verdicts[name] = _data_available(candidate, body_root, ctx)
+        walls[name] = time.perf_counter() - t0
+    print(f"deneb data availability: {len(sidecars)} sidecars, verdicts {verdicts}, walls "
+          f"{_rounded(walls, 4)} s")
+    if verdicts != {"blobs": True, "changed_element": False, "changed_node": False}:
+        sys.exit(f"chip_smoke: the deneb data-availability verdicts are off: {verdicts}")
+    return {"verdicts": verdicts, "walls_s": walls}
 
 
 def _apply_altair(state, signed_block, ctx, timers: list, events: "list | None", fork=None):
@@ -2792,16 +3085,39 @@ LITERAL_SWEEPS = {"flag_deltas": 3, "inactivity_updates": 1, "inactivity_penalti
                   "effective_balance": 1}
 
 
+def _boundary_changes(post, setup: dict) -> tuple:
+    """What the boundary changed against the set-up's ``before``: the
+    counts of changed balances, scores and effective balances, and how many
+    of the pre-state's pending validators it activated."""
+    from ethereum_consensus_tpu_torch.primitives import FAR_FUTURE_EPOCH
+
+    n = setup["n"]
+    before = setup["before"]
+    changed = {
+        "balances": int((np.fromiter(post.balances, np.uint64, n) != before["balances"]).sum()),
+        "scores": int((np.fromiter(post.inactivity_scores, np.uint64, n)
+                       != before["scores"]).sum()),
+        "effective": int((_effective_balances(post)[:n] != before["effective"]).sum()),
+    }
+    activated = sum(post.validators[i].activation_epoch != FAR_FUTURE_EPOCH
+                    for i in before["pending"])
+    return changed, activated
+
+
 def _cell_routes(cell: str, setup: dict, routes: dict, fork) -> dict:
     """Each route of ``routes`` (name -> (installed, literal, timers)) on the
     cell's pre-state read anew from SSZ: the cold apply of its block through
     Executor.apply_block with its buckets, the launch counts from 0, the
-    engine's passes and declines, the tampered block on a copy (not on the
-    literal route); every route's post-state bytes and root must agree."""
+    engine's passes and declines, the tampered block (not on the literal
+    route) on the crossed scratch state the good block was built on, read
+    anew from the set-up's ``reject_pre`` at the block's slot: the
+    boundary is the good block's, so a cold crossing a route is spared;
+    every route's post-state bytes and root must agree."""
     from ethereum_consensus_tpu_torch import ops
     from ethereum_consensus_tpu_torch.telemetry import metrics
 
     pre, ctx, good, tampered = setup["pre"], setup["ctx"], setup["good"], setup["tampered"]
+    reject_pre = setup["reject_pre"]
     state_type = fork.build(ctx.preset).BeaconState
     engaged = metrics.counter("epoch_vector.epochs")
     disabled = metrics.counter("epoch_vector.fallback.disabled")
@@ -2810,13 +3126,12 @@ def _cell_routes(cell: str, setup: dict, routes: dict, fork) -> dict:
         return sum(metrics.counter(k).value() for k in metrics.registered()
                    if k.startswith("epoch_vector.fused_fallback."))
 
+    started = time.perf_counter()
     results, digest, root = {}, None, None
     for name, (installed, literal, timers) in routes.items():
         ops.uninstall()  # clears the shuffle cache: each route shuffles anew
-        gc.collect()
         t0 = time.perf_counter()
         state = state_type.deserialize(pre)
-        reject_state = state.copy() if not literal else None
         read_s = time.perf_counter() - t0
         if literal:
             os.environ["ECT_EPOCH_VECTOR"] = "off"
@@ -2830,13 +3145,17 @@ def _cell_routes(cell: str, setup: dict, routes: dict, fork) -> dict:
             launches = _launch_counts()
             moved = (engaged.value() - counts[0], disabled.value() - counts[1],
                      fused_fallbacks() - counts[2])
-            error = _rejection(reject_state, tampered, ctx) if not literal else None
+            with _collector_paused():
+                error = None if literal else _rejection_in_slot(
+                    state_type.deserialize(reject_pre), tampered, ctx, fork)
         finally:
             os.environ.pop("ECT_EPOCH_VECTOR", None)
             ops.uninstall()
-        data = state_type.serialize(post)
-        this_digest = hashlib.sha256(data).hexdigest()
-        this_root = state_type.hash_tree_root(post)
+        with _collector_paused():
+            data = state_type.serialize(post)
+            this_digest = hashlib.sha256(data).hexdigest()
+            this_root = state_type.hash_tree_root(post)
+            changed, activated = _boundary_changes(post, setup)
         kernel_ms: dict = {}
         for kname, start, end in events or ():
             kernel_ms[kname] = kernel_ms.get(kname, 0.0) + start.elapsed_time(end)
@@ -2846,33 +3165,25 @@ def _cell_routes(cell: str, setup: dict, routes: dict, fork) -> dict:
                                    + parts["process_effective_balance_updates"]
                                    - parts["pack"] - parts["kernel_call"])
         idle = 1.0 - sum(kernel_ms.values()) / (1e3 * seconds) if installed else None
-        n = setup["n"]
-        changed = {
-            "balances": int((np.fromiter(post.balances, np.uint64, n)
-                             != setup["before"]["balances"]).sum()),
-            "scores": int((np.fromiter(post.inactivity_scores, np.uint64, n)
-                           != setup["before"]["scores"]).sum()),
-            "effective": int((_effective_balances(post)[:n]
-                              != setup["before"]["effective"]).sum()),
-        }
         print(f"{cell} {name}: read {read_s:.1f} s; apply {seconds:.3f} s {_rounded(parts)}; "
               f"columnar passes {moved[0]}, engine disabled {moved[1]}, fused declines "
               f"{moved[2]}; launches {launches}"
               + (f"; kernel ms inside {_rounded(kernel_ms, 4)}; idle share {idle:.6f}"
                  if installed else ""))
         print(f"{cell} {name}: post-state sha256 {this_digest}, root {this_root.hex()}; "
-              f"changed {changed}" + (f"; tampered block: {error!r}" if error else ""))
+              f"changed {changed}, activated {activated}"
+              + (f"; tampered block: {error!r}" if error else ""))
         results[name] = {"read_s": read_s, "apply_s": seconds, "parts_s": parts,
                          "launches": launches, "kernel_ms_inside": kernel_ms, "idle_share": idle,
-                         "engine": moved, "changed": changed, "rejection": error}
+                         "engine": moved, "changed": changed, "activated": activated,
+                         "rejection": error}
         if digest is None:
             digest, root = this_digest, this_root
         elif (this_digest, this_root) != (digest, root):
             sys.exit(f"chip_smoke: the {cell} block's post-state on the {name} route differs")
         if min(changed.values()) == 0:
             sys.exit(f"chip_smoke: the {cell} boundary changed nothing on the {name} route")
-        del state, reject_state, post, data
-        gc.collect()
+        del state, post, data
 
     host, device = results["host"], results["device"]
     if host["engine"] != (1, 0, 0) or device["engine"] != (1, 0, 0):
@@ -2887,7 +3198,9 @@ def _cell_routes(cell: str, setup: dict, routes: dict, fork) -> dict:
         sys.exit(f"chip_smoke: the {cell} host path launched a kernel: {host['launches']}")
     if host["rejection"] != device["rejection"]:
         sys.exit(f"chip_smoke: the {cell} tampered block was not rejected alike on both paths")
-    return {"routes": results, "root": root.hex(), "sha256": digest}
+    wall = time.perf_counter() - started
+    print(f"{cell}: {len(routes)} routes {wall:.1f} s wall")
+    return {"routes": results, "root": root.hex(), "sha256": digest, "routes_s": wall}
 
 
 def phase_altair(registry: dict) -> dict:
@@ -2898,14 +3211,18 @@ def phase_altair(registry: dict) -> dict:
     the literal device route (ECT_EPOCH_VECTOR=off: the literal stages with
     the B5 kernels); then one signed capella block (after the upgrades to
     bellatrix and capella, the boundary under capella rules, withdrawals
-    and BLS-to-execution changes) on the host and device paths. Identical
-    bytes and roots on every route of a cell."""
-    from ethereum_consensus_tpu_torch.models import altair, capella, epoch_vector
+    and BLS-to-execution changes) on the host and device paths, and one
+    signed deneb block (after the upgrade to deneb as well, the boundary
+    under deneb rules with EIP-7514's activation cap, six blob commitments)
+    on the host and device paths, then its blobs' data-availability check.
+    Identical bytes and roots on every route of a cell."""
+    from ethereum_consensus_tpu_torch.models import altair, capella, deneb, epoch_vector
     from ethereum_consensus_tpu_torch.models.altair import epoch_processing as aep
     from ethereum_consensus_tpu_torch.ops import epoch as ops_epoch
     from ethereum_consensus_tpu_torch.ops import sweeps
 
-    setup = build_altair_pre_state(registry)
+    with _collector_paused():
+        setup = build_altair_pre_state(registry)
     good = setup["good"]
     n_keys = sum(len(a.aggregation_bits) for a in good.message.body.attestations) + 2
     n_keys += len(good.message.body.sync_aggregate.sync_committee_bits)
@@ -2957,10 +3274,41 @@ def phase_altair(registry: dict) -> dict:
     capella_host = capella_cell["routes"]["host"]
     if not (capella_host["rejection"] or "").startswith("InvalidWithdrawals"):
         sys.exit("chip_smoke: the capella tampered block was not refused for its withdrawals")
-    for route in capella_cell["routes"].values():
-        if "withdrawal_sweep" not in route["parts_s"] or "withdrawal_loop" in route["parts_s"]:
-            sys.exit("chip_smoke: the capella withdrawals did not come from the registry's "
-                     "columns")
+    churn = int(capella_cell["routes"]["host"]["activated"])
+    if any(route["activated"] != churn for route in capella_cell["routes"].values()):
+        sys.exit("chip_smoke: the capella routes activated different counts")
+
+    deneb_setup = setup["deneb"]
+    block = deneb_setup["good"].message
+    print(f"deneb: block at slot {ALTAIR_BLOCK_SLOT}: {len(block.body.attestations)} "
+          f"attestations, a full sync aggregate, "
+          f"{len(block.body.execution_payload.withdrawals)} withdrawals, "
+          f"{len(block.body.bls_to_execution_changes)} BLS-to-execution changes, "
+          f"{len(block.body.blob_kzg_commitments)} blob commitments; "
+          f"{n_keys + len(block.body.bls_to_execution_changes)} keys in the signature batch")
+    deneb_stages = capella_stages + [
+        (deneb.block_processing, "process_execution_payload", "execution_payload")]
+    deneb_cell = _cell_routes("deneb", deneb_setup, {
+        "host": (False, False, deneb_stages),
+        "device": (True, False, deneb_stages + [fused_call]),
+    }, deneb)
+    if not (deneb_cell["routes"]["host"]["rejection"] or "").startswith("InvalidBlobData"):
+        sys.exit("chip_smoke: the deneb block with a seventh commitment was not refused for "
+                 "its blob data")
+    cap = deneb_setup["activation_cap"]
+    print(f"deneb: the boundary activated {deneb_cell['routes']['host']['activated']} of the "
+          f"queue (EIP-7514's cap min({int(deneb_setup['ctx'].max_per_epoch_activation_churn_limit)}"
+          f", churn limit {deneb_setup['churn_limit']}) = {cap}); the capella boundary "
+          f"activated {churn}")
+    if any(route["activated"] != cap for route in deneb_cell["routes"].values()):
+        sys.exit("chip_smoke: the deneb boundary did not activate EIP-7514's cap")
+    availability = _data_availability(deneb_setup)
+    for cell_name, cell_routes in (("capella", capella_cell), ("deneb", deneb_cell)):
+        for route in cell_routes["routes"].values():
+            if "withdrawal_sweep" not in route["parts_s"] or \
+                    "withdrawal_loop" in route["parts_s"]:
+                sys.exit(f"chip_smoke: the {cell_name} withdrawals did not come from the "
+                         "registry's columns")
     return {"validators": setup["n"], "state_bytes": len(setup["pre"]),
             "setup_s": setup["setup_s"], "scrambled": setup["scrambled"], "keys": n_keys,
             "routes": cell["routes"], "root": cell["root"], "sha256": cell["sha256"],
@@ -2969,6 +3317,11 @@ def phase_altair(registry: dict) -> dict:
                         "setup_s": capella_setup["setup_s"],
                         "withdrawals": capella_setup["withdrawals"],
                         "changes": capella_setup["changes"], **capella_cell},
+            "deneb": {"validators": deneb_setup["n"], "state_bytes": len(deneb_setup["pre"]),
+                      "setup_s": deneb_setup["setup_s"],
+                      "withdrawals": deneb_setup["withdrawals"],
+                      "changes": deneb_setup["changes"], "churn_limit": deneb_setup["churn_limit"],
+                      "activation_cap": cap, "data_availability": availability, **deneb_cell},
             # for the mesh phase, which applies the same block on ECT_MESH=1
             "pre": setup["pre"], "ctx": setup["ctx"], "good": good, "before": setup["before"]}
 
@@ -3564,7 +3917,8 @@ def phase_window(registry: dict) -> dict:
     from ethereum_consensus_tpu_torch.models.phase0 import build
     from ethereum_consensus_tpu_torch.models.signature_batch import SignatureBatch, defer_flushes
 
-    setup = build_window(registry)
+    with _collector_paused():
+        setup = build_window(registry)
     ctx = setup["ctx"]
     t0 = time.perf_counter()
     state = build(ctx.preset).BeaconState.deserialize(setup["pre"])
@@ -4504,6 +4858,7 @@ def main() -> int:
              "altair": altair_routes["device"]["launches"],
              "altair_literal": altair_routes["literal"]["launches"],
              "capella": report["altair"]["capella"]["routes"]["device"]["launches"],
+             "deneb": report["altair"]["deneb"]["routes"]["device"]["launches"],
              "window": report["window"]["routes"]["device"]["launches"],
              "mxu": report["mxu"]["launches"],
              "window_mxu": report["window"]["routes"]["device_mxu"]["launches"],

@@ -3,8 +3,8 @@
 Reference parity: ethereum-consensus/src/state_transition/context.rs:20-485:
 ~110 fields merging all fork presets with the network Config, constructors
 for the built-in networks + custom YAML (try_from_file:154), the fork
-schedule (fork_for:426) and the mock execution-engine toggle. The lazy KZG
-settings and the slot clock come with the modules that provide them.
+schedule (fork_for:426), the mock execution-engine toggle and the lazy KZG
+settings. The slot clock comes with the module that provides it.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ class Context:
         # the ExecutionEngine mock (execution_engine.rs: `impl ExecutionEngine
         # for bool`): True accepts every payload, False rejects.
         self.execution_engine: bool = True
+        self._kzg_settings = None
 
     def scoped_execution_engine(self, engine):
         """Context manager that swaps ``execution_engine`` for the scope
@@ -137,6 +138,28 @@ class Context:
             Fork.DENEB: self.deneb_fork_epoch,
             Fork.ELECTRA: self.electra_fork_epoch,
         }[fork]
+
+    # -- KZG settings (context.rs:206 → crypto/kzg.rs:39) --------------------
+    @property
+    def kzg_settings(self):
+        """Lazily constructed KZG settings: the embedded mainnet ceremony
+        setup whenever the preset blob shape matches it (both presets use
+        4096 field elements — context.rs:206), an insecure dev setup only
+        for nonstandard shapes."""
+        if self._kzg_settings is None:
+            from ..crypto.kzg import FIELD_ELEMENTS_PER_BLOB, KzgSettings
+
+            if self.FIELD_ELEMENTS_PER_BLOB == FIELD_ELEMENTS_PER_BLOB:
+                self._kzg_settings = KzgSettings.ceremony()
+            else:
+                self._kzg_settings = KzgSettings.insecure_dev_setup(
+                    n=self.FIELD_ELEMENTS_PER_BLOB
+                )
+        return self._kzg_settings
+
+    @kzg_settings.setter
+    def kzg_settings(self, value) -> None:
+        self._kzg_settings = value
 
     def __repr__(self) -> str:
         return f"Context(preset={self.preset.name!r}, config={self.config.name!r})"

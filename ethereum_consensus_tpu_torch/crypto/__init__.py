@@ -1,4 +1,5 @@
-"""Cryptography subsystem: BLS12-381 signatures.
+"""Cryptography subsystem: BLS12-381 signatures, and KZG commitments for
+EIP-4844 blobs (``crypto/kzg.py``, on the host).
 
 Replaces the reference's blst dependency (ethereum-consensus/src/crypto/
 {mod,bls}.rs) with a from-scratch field/curve/pairing stack and the native

@@ -6,7 +6,7 @@ through every intermediate fork boundary (process_slots to the fork slot,
 then upgrade_to_X, executor.rs:210-302), including the corner where the
 block sits exactly on the upgrade slot (state_transition_block_in_slot,
 executor.rs:215-224). Ported from ethereum_consensus_tpu/executor.py. The
-port carries phase0 through capella: a block of a later fork raises
+port carries phase0 through deneb: a block of a later fork raises
 ``UnknownForkError`` (an unknown container), one older than the state
 ``IncompatibleForksError``.
 """
@@ -24,6 +24,7 @@ _UPGRADE_FN = {
     Fork.ALTAIR: "upgrade_to_altair",
     Fork.BELLATRIX: "upgrade_to_bellatrix",
     Fork.CAPELLA: "upgrade_to_capella",
+    Fork.DENEB: "upgrade_to_deneb",
 }
 
 

@@ -1,5 +1,5 @@
 """Columnar-primary epoch transition engine (the phase0 and altair
-families: phase0, altair, bellatrix and capella).
+families: phase0, altair, bellatrix, capella and deneb).
 
 The ownership inversion this module implements: for the epoch hot path
 the ``RegistryColumns`` arrays are the AUTHORITATIVE store of validator
@@ -62,9 +62,9 @@ Telemetry: ``epoch_vector.epochs`` counts engaged passes,
 ``epoch_vector.fused.mesh`` every sharded fused pass.
 
 Reference parity: ethereum_consensus_tpu/models/epoch_vector.py, the
-phase0, altair, bellatrix and capella rows. Left out until the slices that
-need them: deneb's and electra's rows and stages (the activation-churn
-variants, electra's pending deposits and consolidations),
+phase0, altair, bellatrix, capella and deneb rows. Left out until the
+slices that need them: electra's row and stages (its unbounded activations,
+pending deposits and consolidations),
 ``jitted_kernels`` / ``kernel_cache_census`` (the port calls
 ``ops/epoch.py`` directly), and the trace spans and routing journal
 (telemetry slice).
@@ -190,27 +190,31 @@ def apply_delta_pairs_kernel(xp, balances, pairs):
 # the working set
 # ---------------------------------------------------------------------------
 
-# Per-fork knobs of the stages below; deneb's and electra's rows (and the
-# activation knob only they read) return with their slices.
+# Per-fork knobs of the stages below.
 # family: "phase0" (pending-attestation rewards) | "altair" (flag rewards)
 # quot: the fork's inactivity-penalty quotient attribute
 # slash_mult: the fork's proportional slashing multiplier attribute
 # historical: "roots" | "summaries"
+# activation: "churn" (exit churn cap) | "activation_churn" (EIP-7514)
 _FORK_CFG = {
     "phase0": dict(family="phase0", quot=None,
                    slash_mult="PROPORTIONAL_SLASHING_MULTIPLIER",
-                   historical="roots"),
+                   historical="roots", activation="churn"),
     "altair": dict(family="altair", quot="INACTIVITY_PENALTY_QUOTIENT_ALTAIR",
                    slash_mult="PROPORTIONAL_SLASHING_MULTIPLIER_ALTAIR",
-                   historical="roots"),
+                   historical="roots", activation="churn"),
     "bellatrix": dict(family="altair",
                       quot="INACTIVITY_PENALTY_QUOTIENT_BELLATRIX",
                       slash_mult="PROPORTIONAL_SLASHING_MULTIPLIER_BELLATRIX",
-                      historical="roots"),
+                      historical="roots", activation="churn"),
     "capella": dict(family="altair",
                     quot="INACTIVITY_PENALTY_QUOTIENT_BELLATRIX",
                     slash_mult="PROPORTIONAL_SLASHING_MULTIPLIER_BELLATRIX",
-                    historical="summaries"),
+                    historical="summaries", activation="churn"),
+    "deneb": dict(family="altair",
+                  quot="INACTIVITY_PENALTY_QUOTIENT_BELLATRIX",
+                  slash_mult="PROPORTIONAL_SLASHING_MULTIPLIER_BELLATRIX",
+                  historical="summaries", activation="activation_churn"),
 }
 
 _TIMELY_TARGET_FLAG_INDEX = 1  # altair constants; checked at engine entry
@@ -924,6 +928,10 @@ def _registry_updates(ec) -> None:
     order = np.argsort(ec.elig[cand], kind="stable")
     queue = cand[order]
     limit = _churn_limit(ec)
+    if ec.cfg["activation"] == "activation_churn":
+        limit = min(
+            int(ec.context.max_per_epoch_activation_churn_limit), limit
+        )
     if limit > 0:
         _own(ec, "act")[queue[:limit]] = activation_epoch
 

@@ -1,7 +1,7 @@
 """Fork-polymorphic chain types (the reference's generated src/types/ layer).
 
-The port carries phase0 through capella: ``FORK_SEQUENCE`` is ``(phase0,
-altair, bellatrix, capella)``, and a container of a later fork raises
+The port carries phase0 through deneb: ``FORK_SEQUENCE`` is ``(phase0,
+altair, bellatrix, capella, deneb)``, and a container of a later fork raises
 ``UnknownForkError``.
 
 Reference parity: ethereum-consensus/src/types/ (13,272 LoC generated by
@@ -24,7 +24,7 @@ from __future__ import annotations
 
 from .error import UnknownForkError
 from .fork import Fork
-from .models import altair, bellatrix, capella, phase0
+from .models import altair, bellatrix, capella, deneb, phase0
 
 __all__ = [
     "FORK_SEQUENCE",
@@ -34,13 +34,14 @@ __all__ = [
     "SignedBeaconBlock",
 ]
 
-FORK_SEQUENCE = (Fork.PHASE0, Fork.ALTAIR, Fork.BELLATRIX, Fork.CAPELLA)
+FORK_SEQUENCE = (Fork.PHASE0, Fork.ALTAIR, Fork.BELLATRIX, Fork.CAPELLA, Fork.DENEB)
 
 FORK_MODULES = {
     Fork.PHASE0: phase0,
     Fork.ALTAIR: altair,
     Fork.BELLATRIX: bellatrix,
     Fork.CAPELLA: capella,
+    Fork.DENEB: deneb,
 }
 
 

@@ -45,7 +45,8 @@ def test_importing_the_port_loads_no_jax():
         "ethereum_consensus_tpu_torch.ops.fq, ethereum_consensus_tpu_torch.ops.fq2, "
         "ethereum_consensus_tpu_torch.ops.fq12, ethereum_consensus_tpu_torch.ops.pairing, "
         "ethereum_consensus_tpu_torch.executor, ethereum_consensus_tpu_torch.execution_engine, "
-        "ethereum_consensus_tpu_torch.models.bellatrix, ethereum_consensus_tpu_torch.models.capella; "
+        "ethereum_consensus_tpu_torch.models.bellatrix, ethereum_consensus_tpu_torch.models.capella, "
+        "ethereum_consensus_tpu_torch.models.deneb, ethereum_consensus_tpu_torch.crypto.kzg; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r}]; "
         "assert not bad, bad"
