@@ -128,7 +128,18 @@ Phases, each of which exits non-zero when it fails:
                 data-availability check of the deneb block's six blob
                 sidecars on the host's native library (the inclusion proofs,
                 one KZG batch verification): true, and false with one field
-                element of a blob or one node of a proof changed.
+                element of a blob or one node of a proof changed. Then the
+                electra cell (the deneb state at slot 64 upgraded to electra,
+                electra's rules to 95, the scramble and EIP-7251's work:
+                pending deposits, ripe, slashed and unripe pending
+                consolidations, 0x02 validators of 33 to 2,100 ETH, pending
+                partial withdrawals; a block with two committee-spanning
+                aggregates of 32,768 signers, 16 deposit receipts, 16
+                withdrawal requests and a consolidation besides deneb's
+                operations) on the host and device paths, identical bytes and
+                roots, the boundary's and the block's counts checked, the
+                block with its consolidation signed by the source alone
+                refused alike; then B6 alone at that block's sets.
  14. pairing  — the four batched-pairing kernels (G1 blinder
                 multiplication with the affine conversion, G2 blinder
                 multiplication with the sum, the Miller loop, the Fq12
@@ -144,8 +155,9 @@ Phases, each of which exits non-zero when it fails:
                 inversion alone); ptxas' lines of their crew kernels
                 (pairing_lanes.h). Their mxu builds bit-exact
                 against the u64 kernels at every n, against the plain
-                versions under mxu at n <= 3, all 528 Miller lanes against
-                the native ones; CUDA-event times at 528 lanes.
+                versions under mxu at n = 3 (timed on that call), all 528
+                Miller lanes against the native ones; CUDA-event times at
+                528 lanes.
  15. window   — eight signed blocks at slots 2..9 on the registry state
                 (each with the 64 full aggregates of one slot of epoch 0;
                 those 262,144 attesters' keys made real) applied through
@@ -200,7 +212,8 @@ Phases, each of which exits non-zero when it fails:
                 aggregates, a full sync aggregate), every stage checked and
                 the block's device-routed root equal to the host root.
 Around every CUDA-event timing the card's SM clock and active throttle
-reasons are printed (``nvidia-smi``). Then the run's wall time, one JSON
+reasons are printed (read through NVML, the library nvidia-smi uses).
+Then the run's wall time, one JSON
 line per kernel (``{"kernels": [...]}``) and, last, the
 ``{"ok": true, "device": ...}`` line.
 
@@ -211,6 +224,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import ctypes
 import gc
 import hashlib
 import json
@@ -301,20 +315,47 @@ def _random_words(n: int, gen: torch.Generator) -> torch.Tensor:
                          device="cuda", generator=gen)
 
 
-_CLOCK_FIELDS = ["clocks_event_reasons.active", "clocks_throttle_reasons.active"]
+# NVML, the library nvidia-smi reads the card through: (library, the card's
+# handle, the reasons function) once loaded. A reading is a library call,
+# not a process: a whole run reads the clocks around some 160 timings. The
+# reasons function goes by its newer name where the driver exports it.
+_NVML: list = []
+NVML_CLOCK_SM = 1
+
+
+def _nvml() -> tuple:
+    if not _NVML:
+        try:
+            lib = ctypes.CDLL("libnvidia-ml.so.1")
+            reasons = getattr(lib, "nvmlDeviceGetCurrentClocksEventReasons", None) or \
+                lib.nvmlDeviceGetCurrentClocksThrottleReasons
+        except (OSError, AttributeError) as exc:
+            sys.exit(f"chip_smoke: NVML cannot be loaded to read the card's clocks: {exc}")
+        lib.nvmlDeviceGetHandleByIndex_v2.argtypes = [ctypes.c_uint, ctypes.POINTER(ctypes.c_void_p)]
+        lib.nvmlDeviceGetClockInfo.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                               ctypes.POINTER(ctypes.c_uint)]
+        reasons.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_ulonglong)]
+        for fn in (lib.nvmlInit_v2, lib.nvmlDeviceGetHandleByIndex_v2,
+                   lib.nvmlDeviceGetClockInfo, reasons):
+            fn.restype = ctypes.c_int
+        handle = ctypes.c_void_p()
+        status = lib.nvmlInit_v2() or lib.nvmlDeviceGetHandleByIndex_v2(0, ctypes.byref(handle))
+        if status:
+            sys.exit(f"chip_smoke: NVML refused the card (status {status})")
+        _NVML.append((lib, handle, reasons))
+    return _NVML[0]
 
 
 def _clocks() -> str:
     """The card's SM clock and active throttle reasons (a bit mask, 0 for
-    none), as nvidia-smi gives them, under whichever of the field's two
-    names the installed nvidia-smi knows."""
-    while _CLOCK_FIELDS:
-        r = subprocess.run(["nvidia-smi", f"--query-gpu=clocks.sm,{_CLOCK_FIELDS[0]}",
-                            "--format=csv,noheader"], capture_output=True, text=True)
-        if r.returncode == 0:
-            return r.stdout.strip().splitlines()[0]
-        _CLOCK_FIELDS.pop(0)
-    return "not read"
+    none), read through NVML; the run fails where a reading fails."""
+    lib, handle, reasons_fn = _nvml()
+    clock, reasons = ctypes.c_uint(), ctypes.c_ulonglong()
+    status = lib.nvmlDeviceGetClockInfo(handle, NVML_CLOCK_SM, ctypes.byref(clock)) or \
+        reasons_fn(handle, ctypes.byref(reasons))
+    if status:
+        sys.exit(f"chip_smoke: NVML did not read the card's clocks (status {status})")
+    return f"{clock.value} MHz, 0x{reasons.value:016x}"
 
 
 def _cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -974,12 +1015,8 @@ def merkle_bound_ms(leaves: int, depth: int) -> tuple[float, str]:
 
 
 def _sm_clock_hz() -> float:
-    """The SM clock nvidia-smi reads now, or the boost clock if it gives
-    none."""
-    try:
-        return 1e6 * float(_clocks().split()[0])
-    except (ValueError, IndexError):
-        return BOOST_CLOCK_HZ
+    """The SM clock NVML reads now."""
+    return 1e6 * float(_clocks().split()[0])
 
 
 def merkle_message_cycles() -> float:
@@ -1008,9 +1045,10 @@ def merkle_message_cycles() -> float:
 
 def phase_htr(log2_leaves: int) -> dict:
     """B2 (csrc/merkle.cu) against its plain version on the card and the
-    host merkleizer, bit-exact, on MERKLE_CHECK_SHAPES; its CUDA-event times
-    at MERKLE_TIMED beside their bounds and latency floors, and at 2^20
-    leaves and limit 2^40 beside the per-level B1 chain it replaces;
+    host merkleizer, bit-exact, on MERKLE_CHECK_SHAPES (the plain version
+    timed on its one call at 2^20 leaves and limit 2^40); its CUDA-event
+    times at MERKLE_TIMED beside their bounds and latency floors, and at
+    2^20 leaves and limit 2^40 beside the per-level B1 chain it replaces;
     then ops.merkleize_chunks_device on 2^20 random chunks against the host
     merkleizer, its wall split into byte conversion, upload, kernels and the
     root's way back."""
@@ -1021,7 +1059,7 @@ def phase_htr(log2_leaves: int) -> dict:
     ops.uninstall()
     zero = merkle.zero_hash_words("cuda")
     rng = np.random.default_rng(42)
-    err, launches_at = 0, {}
+    err, launches_at, plain_ms = 0, {}, None
     for leaves, limit, start in MERKLE_CHECK_SHAPES:
         chunks = rng.bytes(32 * leaves)
         width = next_pow_of_two(leaves if limit is None else limit)
@@ -1031,7 +1069,12 @@ def phase_htr(log2_leaves: int) -> dict:
         got = merkle.reduce_levels(words, zero, depth, start)
         torch.cuda.synchronize()
         launches = merkle.launch_count
-        plain = merkle.reduce_levels_plain(words, zero, depth, start)
+        if (leaves, limit, start) == (1 << log2_leaves, 2**40, 0):
+            # the plain version's time, once: its repeats cost seconds each
+            plain, plain_ms = _timed_once(
+                lambda: merkle.reduce_levels_plain(words, zero, depth, start))
+        else:
+            plain = merkle.reduce_levels_plain(words, zero, depth, start)
         host = merkleize_chunks(chunks, limit if start == 0 else width, level_offset=start)
         step = int((got.to(torch.int64) - plain.to(torch.int64)).abs().max().item())
         host_ok = convert.chunks_from_words(got[:, None]) == host
@@ -1067,7 +1110,6 @@ def phase_htr(log2_leaves: int) -> dict:
     words = convert.words_from_chunks(chunks, "cuda")
     ms, bound, bound_by = (timed[log2_leaves][k] for k in ("ms", "bound_ms", "bound_by"))
     b1_ms = _cuda_ms(lambda: _b1_chain_root(words, zero, 40), reps=10)
-    plain_ms = _cuda_ms(lambda: merkle.reduce_levels_plain(words, zero, 40), reps=3, warmup=1)
     ptxas = _ptxas_lines("merkle", "merkle_tree_kernel")
     print(f"htr B2 2^{log2_leaves} leaves at limit 2^40: the per-level B1 chain it replaces "
           f"{b1_ms:.4f} ms; plain {plain_ms:.3f} ms; SASS instructions "
@@ -1356,20 +1398,10 @@ def _apply(state, signed_block, ctx, kernel_events: list | None = None) -> tuple
     return seconds, parts
 
 
-def _rejection(state, signed_block, ctx) -> str:
-    from ethereum_consensus_tpu_torch.executor import Executor
-
-    try:
-        Executor(state, ctx).apply_block(signed_block)
-    except Exception as exc:  # noqa: BLE001 — the error is the result
-        return f"{type(exc).__name__}: {exc}"
-    return "accepted"
-
-
 def _rejection_in_slot(state, signed_block, ctx, fork) -> str:
-    """``_rejection`` of a block at ``state``'s own slot (a state already
-    processed to it): the fork's in-slot transition, as Executor runs it
-    for a block on its upgrade slot."""
+    """The error a block at ``state``'s own slot (a state already processed
+    to it) raises, or "accepted": the fork's in-slot transition, as
+    Executor runs it for a block on its upgrade slot."""
     transition = fork.state_transition
     try:
         transition.state_transition_block_in_slot(state, signed_block,
@@ -1383,6 +1415,7 @@ def phase_block(registry: dict) -> dict:
     """The slice's main path: one signed block through Executor.apply_block,
     cold, on the host path and with the kernels installed."""
     from ethereum_consensus_tpu_torch import convert, ops
+    from ethereum_consensus_tpu_torch.models import phase0
     from ethereum_consensus_tpu_torch.ops import g1, sha256, shuffle
 
     data, ctx = registry["data"], registry["ctx"]
@@ -1395,7 +1428,7 @@ def phase_block(registry: dict) -> dict:
         t0 = time.perf_counter()
         host_state = convert.state_from_ssz(data, ctx.preset)
         device_state = convert.state_from_ssz(data, ctx.preset)
-        host_reject_state, device_reject_state = host_state.copy(), device_state.copy()
+        host_reject_state = host_state.copy()
         read_s = time.perf_counter() - t0
     print(f"block: slot {BLOCK_SLOT}, {len(good.message.body.attestations)} attestations, "
           f"{n_keys} keys in the signature batch; made in {make_s:.1f} s; "
@@ -1430,9 +1463,14 @@ def phase_block(registry: dict) -> dict:
     if not all(launches.values()):
         sys.exit(f"chip_smoke: a kernel of the block path was never launched: {launches}")
 
-    host_error = _rejection(host_reject_state, tampered, ctx)
+    # the tampered block on one crossing to its slot, a copy of it for each
+    # path: the slots before the block are the good block's
+    with _collector_paused():
+        phase0.slot_processing.process_slots(host_reject_state, BLOCK_SLOT, ctx)
+        device_reject_state = host_reject_state.copy()
+    host_error = _rejection_in_slot(host_reject_state, tampered, ctx, phase0)
     ops.install(device="cuda")
-    device_error = _rejection(device_reject_state, tampered, ctx)
+    device_error = _rejection_in_slot(device_reject_state, tampered, ctx, phase0)
     ops.uninstall()
     print(f"block: attestation {TAMPERED_ATTESTATION} with the signature of "
           f"{TAMPERED_ATTESTATION + 1}: "
@@ -2352,6 +2390,33 @@ DENEB_BLOBS = 6
 DENEB_GAS_PER_BLOB = 1 << 17  # EIP-4844's GAS_PER_BLOB
 DENEB_CHANGED_ELEMENT = (2, 100)
 DENEB_CHANGED_NODE = (4, 3)
+# The electra cell: electra from epoch 2 as well, so the deneb cell's state at
+# the fork slot 64 upgrades once more and runs electra's rules to slot 95;
+# the altair scramble under a seed of its own (its eligible entrants all
+# activate, its ejections exit under the balance-weighted churn), then the
+# EIP-7251 work of bench.py:1308-1329: ELECTRA_PENDING_DEPOSITS pending
+# deposits of 1 ETH (the boundary takes the activation-exit churn's worth),
+# ELECTRA_CONSOLIDATIONS ripe pending consolidations onto 0x01 targets, one
+# with a slashed source before them and one with an unripe source after
+# them (which stops the stage, with one more ripe one behind it), one
+# validator in ELECTRA_COMPOUNDING_SHARE on 0x02 credentials with 33 to
+# 2,100 ETH, and ELECTRA_PARTIALS pending partial withdrawals of such
+# validators. The block at slot 96 carries two committee-spanning
+# aggregates (EIP-7549), of slots ELECTRA_ATTESTED_SLOTS, besides deneb's
+# commitments and capella's changes; its payload the expected withdrawals
+# (MAX_PENDING_PARTIALS_PER_WITHDRAWALS_SWEEP from the partials, the rest
+# from the sweep), ELECTRA_RECEIPTS deposit receipts (top-ups, then one new
+# validator) and ELECTRA_REQUESTS withdrawal requests from 0x01 addresses,
+# no-ops under shard_committee_period at epoch 3; and one consolidation
+# between two 0x01 validators of one address. The tampered block's
+# consolidation is signed by the source's key alone.
+ELECTRA_PENDING_DEPOSITS = 1024
+ELECTRA_CONSOLIDATIONS = 64
+ELECTRA_COMPOUNDING_SHARE = 512
+ELECTRA_PARTIALS = 16
+ELECTRA_RECEIPTS = 16
+ELECTRA_REQUESTS = 16
+ELECTRA_ATTESTED_SLOTS = (94, 95)
 
 
 def _realize_keys(state, indices, known: "dict | None" = None) -> int:
@@ -2573,29 +2638,64 @@ def _committees_at_pre_slot(state, ctx, fork) -> list:
             for index in range(per_slot)]
 
 
-def _registry_before(state) -> dict:
+# a validator's SSZ record: 121 bytes, its fields in the container's order
+VALIDATOR_RECORD = np.dtype([
+    ("public_key", "V48"), ("withdrawal_credentials", "u1", (32,)),
+    ("effective_balance", "<u8"), ("slashed", "u1"), ("activation_eligibility_epoch", "<u8"),
+    ("activation_epoch", "<u8"), ("exit_epoch", "<u8"), ("withdrawable_epoch", "<u8")])
+
+
+def _serialized_columns(data: bytes, state_type) -> tuple:
+    """(validator records, balances, inactivity scores) of a state's SSZ
+    bytes, as numpy views of each list's span: from its offset in the fixed
+    part to the next variable field's offset. What is read is what was
+    serialized, not the port's registry column caches."""
+    offsets, at = {}, 0
+    for name, field in state_type.fields().items():
+        if field.is_fixed_size():
+            at += field.fixed_size()
+        else:
+            offsets[name] = int.from_bytes(data[at:at + 4], "little")
+            at += 4
+    names = list(offsets)
+    ends = dict(zip(names, [offsets[k] for k in names[1:]] + [len(data)]))
+
+    def view(name: str, dtype) -> np.ndarray:
+        dtype = np.dtype(dtype)
+        count, rest = divmod(ends[name] - offsets[name], dtype.itemsize)
+        if rest:
+            sys.exit(f"chip_smoke: the state's {name} span is not whole records")
+        return np.frombuffer(data, dtype, count, offsets[name])
+
+    return (view("validators", VALIDATOR_RECORD), view("balances", "<u8"),
+            view("inactivity_scores", "<u8"))
+
+
+def _registry_before(pre: bytes, state_type) -> dict:
     """The columns the boundary changes, to count its changes by, and the
-    validators not yet activated."""
+    validators not yet activated with their eligibility epochs, read from
+    the pre-state's bytes."""
     from ethereum_consensus_tpu_torch.primitives import FAR_FUTURE_EPOCH
 
-    n = len(state.validators)
-    return {"balances": np.fromiter(state.balances, np.uint64, n),
-            "scores": np.fromiter(state.inactivity_scores, np.uint64, n),
-            "effective": _effective_balances(state),
-            "pending": [i for i, v in enumerate(state.validators)
-                        if v.activation_epoch == FAR_FUTURE_EPOCH]}
+    records, balances, scores = _serialized_columns(pre, state_type)
+    pending = np.nonzero(records["activation_epoch"] == np.uint64(FAR_FUTURE_EPOCH))[0]
+    eligibility = dict(zip(pending.tolist(),
+                           records["activation_eligibility_epoch"][pending].tolist()))
+    return {"balances": balances, "scores": scores,
+            "effective": records["effective_balance"],
+            "pending": list(eligibility), "eligibility": eligibility}
 
 
 def build_altair_pre_state(registry: dict) -> dict:
     """The registry to slot 32 under phase0 rules, the sync committee's keys
     made real and the upgrade to altair, slots to 64 under altair rules
-    (the 63 -> 64 boundary on the host route), where the capella and deneb
-    cells' set-ups upgrade it (``build_capella_pre_state``,
-    ``build_deneb_pre_state``); then slots to 95, the scramble, the keys of
-    slot 95's committees and of the slot-96 proposer made real, and the
-    block, built on the one crossing. Returns the pre-state's bytes, the
-    block, the tampered copy and the crossed scratch's bytes, and the
-    capella and deneb cells'."""
+    (the 63 -> 64 boundary on the host route), where the capella, deneb and
+    electra cells' set-ups upgrade it (``build_capella_pre_state``,
+    ``build_deneb_pre_state``, ``build_electra_pre_state``); then slots to
+    95, the scramble, the keys of slot 95's committees and of the slot-96
+    proposer made real, and the block, built on the one crossing. Returns
+    the pre-state's bytes, the block, the tampered copy and the crossed
+    scratch's bytes, and the capella, deneb and electra cells'."""
     from ethereum_consensus_tpu_torch import ops
     from ethereum_consensus_tpu_torch.config import Context
     from ethereum_consensus_tpu_torch.models import altair
@@ -2625,13 +2725,18 @@ def build_altair_pre_state(registry: dict) -> dict:
     aslots.process_slots(state, CAPELLA_FORK_EPOCH * int(ctx.SLOTS_PER_EPOCH), ctx)
     to_capella_fork_s = time.perf_counter() - t0
     # the upgrades copy every field, so the altair state goes on as it was,
-    # and the capella state at the fork slot as the deneb cell's starts
+    # the capella state at the fork slot as the deneb cell's starts and the
+    # deneb state there as the electra cell's
     capella_fork = _capella_at_fork(state)
     deneb_fork = _deneb_at_fork(capella_fork[0])
+    electra_fork = _electra_at_fork(deneb_fork[0])
     capella = build_capella_pre_state(*capella_fork, known)
     del capella_fork
     deneb = build_deneb_pre_state(*deneb_fork, known)
     del deneb_fork
+    electra = build_electra_pre_state(*electra_fork, known, deneb["commitments"])
+    electra["post_check"] = _electra_checks
+    del electra_fork
     t0 = time.perf_counter()
     aslots.process_slots(state, ALTAIR_PRE_SLOT, ctx)
     to_pre_s = time.perf_counter() - t0
@@ -2651,10 +2756,10 @@ def build_altair_pre_state(registry: dict) -> dict:
     tampered = signed(tampered)
     block_s = time.perf_counter() - t0
     n = len(state.validators)
-    before = _registry_before(state)
     t0 = time.perf_counter()
     pre = type(state).serialize(state)
     serialize_s = time.perf_counter() - t0
+    before = _registry_before(pre, type(state))
     del state
     gc.collect()
     print(f"altair: {n} validators; slots 0..{fork_slot} {to_fork_s:.1f} s; {sync_keys} sync "
@@ -2665,7 +2770,7 @@ def build_altair_pre_state(registry: dict) -> dict:
           f"{block_s:.1f} s; serialize ({len(pre)} bytes) {serialize_s:.1f} s")
     return {"pre": pre, "ctx": ctx, "good": good, "tampered": tampered, "reject_pre": reject_pre,
             "n": n, "before": before, "scrambled": scrambled, "proposer": proposer,
-            "capella": capella, "deneb": deneb,
+            "capella": capella, "deneb": deneb, "electra": electra,
             "setup_s": {"to_fork": to_fork_s, "upgrade": upgrade_s,
                         "to_capella_fork": to_capella_fork_s, "to_pre": to_pre_s,
                         "scramble_and_keys": scramble_s, "block": block_s,
@@ -2842,10 +2947,10 @@ def build_capella_pre_state(state, ctx, upgrade_s: float, known: dict) -> dict:
     tampered.body.execution_payload.withdrawals[CAPELLA_TAMPERED_WITHDRAWAL].amount += 1
     block_s = time.perf_counter() - t0
     n = len(state.validators)
-    before = _registry_before(state)
     t0 = time.perf_counter()
     pre = type(state).serialize(state)
     serialize_s = time.perf_counter() - t0
+    before = _registry_before(pre, type(state))
     del state
     gc.collect()
     sweep = [int(w.validator_index) for w in withdrawals]
@@ -2958,10 +3063,10 @@ def build_deneb_pre_state(state, ctx, upgrade_s: float, known: dict) -> dict:
     sidecars = _blob_sidecars(good, blobs[:DENEB_BLOBS], ctx)
     sidecars_s = time.perf_counter() - t0
     n = len(state.validators)
-    before = _registry_before(state)
     t0 = time.perf_counter()
     pre = type(state).serialize(state)
     serialize_s = time.perf_counter() - t0
+    before = _registry_before(pre, type(state))
     del state
     gc.collect()
     print(f"deneb: {n} validators; upgrade at slot "
@@ -2977,10 +3082,353 @@ def build_deneb_pre_state(state, ctx, upgrade_s: float, known: dict) -> dict:
             "proposer": proposer, "withdrawals": [int(w.validator_index) for w in withdrawals],
             "changes": [i for i, _ in changes], "blobs": blobs[:DENEB_BLOBS],
             "sidecars": sidecars, "churn_limit": churn, "activation_cap": activation_cap,
+            "commitments": commitments[:DENEB_BLOBS],
             "setup_s": {"upgrade": upgrade_s, "to_pre": to_pre_s,
                         "scramble_and_keys": scramble_s, "ceremony_load": ceremony_s,
                         "commitments": commit_s, "block": block_s, "sidecars": sidecars_s,
                         "serialize": serialize_s}}
+
+
+def _electra_at_fork(deneb_state) -> tuple:
+    """The deneb state at the fork slot upgraded to electra (every fork from
+    bellatrix on at epoch 2) through the port's upgrade_to_electra, whose
+    registry scans read the deneb state's columns: a copy. Returns (the
+    electra state, its context, seconds)."""
+    from ethereum_consensus_tpu_torch.models import electra
+
+    t0 = time.perf_counter()
+    ctx = _forked_ctx("bellatrix", "capella", "deneb", "electra")
+    state = electra.upgrade_to_electra(deneb_state, ctx)
+    return state, ctx, time.perf_counter() - t0
+
+
+def _eth1_credentials(address: bytes) -> bytes:
+    return b"\x01" + b"\x00" * 11 + address
+
+
+def _electra_work(state, ctx, rng) -> dict:
+    """The EIP-7251 work of the electra cell on ``state`` (at slot 95, after
+    the scramble and capella's credentials), on validators the scramble and
+    the credentials left alone (active, unslashed, 32 ETH effective, 0x00
+    credentials): the pending deposits, the pending consolidations (their
+    sources exited at epoch 1, so the active set of epoch 2 loses them), the
+    compounding validators and the pending partial withdrawals. Picks the
+    block's withdrawal-request validators and its consolidation pair too.
+    Returns the indices of each group."""
+    from ethereum_consensus_tpu_torch.models import electra
+    from ethereum_consensus_tpu_torch.models import ops_vector
+    from ethereum_consensus_tpu_torch.primitives import FAR_FUTURE_EPOCH
+
+    ns = electra.build(ctx.preset)
+    inc = int(ctx.EFFECTIVE_BALANCE_INCREMENT)
+    vc = ops_vector.columns_for(state).validator_columns(state)
+    free = np.nonzero((vc["exit_epoch"] == np.uint64(FAR_FUTURE_EPOCH))
+                      & (vc["activation_epoch"] == np.uint64(0)) & ~vc["slashed"]
+                      & (vc["effective_balance"] == np.uint64(32 * inc))
+                      & (vc["withdrawal_prefix"] == np.uint8(0)))[0]
+    picks = rng.permutation(free).tolist()
+    n = len(state.validators)
+    sizes = {"compounding": n // ELECTRA_COMPOUNDING_SHARE,
+             "targets": ELECTRA_CONSOLIDATIONS, "sources": ELECTRA_CONSOLIDATIONS + 2,
+             "requests": ELECTRA_REQUESTS, "pair": 2, "deposits": ELECTRA_PENDING_DEPOSITS}
+    groups, at = {}, 0
+    for name, size in sizes.items():
+        groups[name] = picks[at : at + size]
+        at += size
+    for k in range(ELECTRA_PENDING_DEPOSITS):
+        state.pending_balance_deposits.append(
+            ns.PendingBalanceDeposit(index=groups["deposits"][k], amount=inc))
+    for i in groups["compounding"]:
+        state.validators[i].withdrawal_credentials = (b"\x02" + b"\x00" * 11
+                                                      + _withdrawal_address(i))
+        state.balances[i] = int(rng.integers(33, 2101)) * inc + int(rng.integers(0, inc))
+    rich = [i for i in groups["compounding"] if int(state.balances[i]) >= 40 * inc]
+    groups["partials"] = rich[:ELECTRA_PARTIALS]
+    for k, i in enumerate(groups["partials"]):
+        state.pending_partial_withdrawals.append(ns.PendingPartialWithdrawal(
+            index=i, amount=(k + 1) * inc, withdrawable_epoch=1 + k % 3))
+    slashed = next(i for i in range(n) if state.validators[i].slashed)
+    sources, targets = groups["sources"], groups["targets"]
+    pairs = [(slashed, targets[0])] + list(zip(sources[:ELECTRA_CONSOLIDATIONS], targets))
+    pairs += [(sources[-2], targets[1]), (sources[-1], targets[2])]
+    for k, (src, tgt) in enumerate(pairs):
+        address = _withdrawal_address(tgt)
+        state.pending_consolidations.append(ns.PendingConsolidation(source_index=src,
+                                                                    target_index=tgt))
+        if src == slashed:
+            continue
+        v = state.validators[src]
+        v.withdrawal_credentials = _eth1_credentials(address)
+        v.exit_epoch = 1
+        v.withdrawable_epoch = 9 if k == len(pairs) - 2 else 1  # the unripe one
+        t = state.validators[tgt]
+        t.withdrawal_credentials = _eth1_credentials(address)
+        state.balances[tgt] = 32 * inc + int(rng.integers(inc, 5 * inc))
+    for i in groups["requests"] + groups["pair"]:
+        address = _withdrawal_address(groups["pair"][0] if i in groups["pair"] else i)
+        state.validators[i].withdrawal_credentials = _eth1_credentials(address)
+    for key in ("_active_idx_cache", "_proposer_cache", "_total_active_balance_cache",
+                "_pubkey_index_cache"):
+        state.__dict__.pop(key, None)
+    groups["unripe"] = pairs[-2]
+    return groups
+
+
+def _expected_ejection_exits(state, ctx) -> dict:
+    """The exit epochs the boundary gives the ejections of ``state`` (at slot
+    95): electra's compute_exit_epoch_and_update_churn on the pre-state,
+    each ejected validator in index order, the state's churn scalars put
+    back after."""
+    from ethereum_consensus_tpu_torch.models import electra, ops_vector
+    from ethereum_consensus_tpu_torch.primitives import FAR_FUTURE_EPOCH
+
+    h = electra.helpers
+    epoch = np.uint64(h.get_current_epoch(state, ctx))
+    vc = ops_vector.columns_for(state).validator_columns(state)
+    ejected = np.nonzero((vc["activation_epoch"] <= epoch) & (epoch < vc["exit_epoch"])
+                         & (vc["exit_epoch"] == np.uint64(FAR_FUTURE_EPOCH))
+                         & (vc["effective_balance"] <= np.uint64(int(ctx.ejection_balance))))[0]
+    scalars = (state.exit_balance_to_consume, state.earliest_exit_epoch)
+    exits = {i: h.compute_exit_epoch_and_update_churn(
+        state, int(state.validators[i].effective_balance), ctx) for i in ejected.tolist()}
+    state.exit_balance_to_consume, state.earliest_exit_epoch = scalars
+    return exits
+
+
+def _expected_pending_deposits(state, ctx) -> tuple:
+    """(deposits the boundary consumes, the deposit balance left to
+    consume) of ``state``'s pending deposits under its activation-exit
+    churn."""
+    from ethereum_consensus_tpu_torch.models import electra
+
+    available = int(state.deposit_balance_to_consume) + \
+        electra.helpers.get_activation_exit_churn_limit(state, ctx)
+    processed = consumed = 0
+    for deposit in state.pending_balance_deposits:
+        if processed + int(deposit.amount) > available:
+            break
+        processed += int(deposit.amount)
+        consumed += 1
+    return consumed, available - processed
+
+
+def _spanning_aggregate(ns, h, scratch, ctx, slot: int, committees: list):
+    """One committee-spanning aggregate of every committee of ``slot``
+    (EIP-7549) over the honest vote on the crossed ``scratch``: one
+    signature under the sum of the members' secret keys SecretKey(i + 1)."""
+    from ethereum_consensus_tpu_torch.crypto import bls
+    from ethereum_consensus_tpu_torch.crypto.fields import R
+    from ethereum_consensus_tpu_torch.domains import DomainType
+    from ethereum_consensus_tpu_torch.signing import compute_signing_root
+
+    epoch = slot // int(ctx.SLOTS_PER_EPOCH)
+    data = ns.AttestationData(
+        slot=slot, index=0, beacon_block_root=h.get_block_root_at_slot(scratch, slot),
+        source=scratch.previous_justified_checkpoint.copy(),
+        target=ns.Checkpoint(epoch=epoch, root=h.get_block_root(scratch, epoch, ctx)))
+    root = compute_signing_root(ns.AttestationData, data,
+                                h.get_domain(scratch, DomainType.BEACON_ATTESTER, epoch, ctx))
+    members = [i for c in committees for i in c]
+    return ns.Attestation(
+        aggregation_bits=[True] * len(members), data=data,
+        committee_bits=[k < len(committees) for k in range(int(ctx.MAX_COMMITTEES_PER_SLOT))],
+        signature=bls.SecretKey(sum(i + 1 for i in members) % R).sign(root).to_bytes())
+
+
+def _electra_operations(state, ctx, groups: dict) -> tuple:
+    """The block's deposit receipts (ELECTRA_RECEIPTS - 1 top-ups of
+    existing validators, then one new validator SecretKey(n + 1) with a
+    valid signature), its withdrawal requests (full exits of the request
+    validators from their 0x01 addresses) and its consolidation (the pair,
+    signed by both keys; and the tampered one, by the source's alone)."""
+    from ethereum_consensus_tpu_torch.crypto import bls
+    from ethereum_consensus_tpu_torch.domains import DomainType
+    from ethereum_consensus_tpu_torch.models import electra
+    from ethereum_consensus_tpu_torch.models.phase0.containers import DepositMessage
+    from ethereum_consensus_tpu_torch.signing import compute_signing_root
+
+    ns, h = electra.build(ctx.preset), electra.helpers
+    inc = int(ctx.EFFECTIVE_BALANCE_INCREMENT)
+    n = len(state.validators)
+    start = int(state.eth1_deposit_index)
+    receipts = []
+    for k, i in enumerate(groups["deposits"][: ELECTRA_RECEIPTS - 1]):
+        v = state.validators[i]
+        receipts.append(ns.DepositReceipt(
+            public_key=bytes(v.public_key), withdrawal_credentials=bytes(v.withdrawal_credentials),
+            amount=(k + 1) * inc, signature=b"\x00" * 96, index=start + k))
+    key = bls.SecretKey(n + 1)
+    message = DepositMessage(public_key=key.public_key().to_bytes(),
+                             withdrawal_credentials=_eth1_credentials(_withdrawal_address(n)),
+                             amount=32 * inc)
+    root = compute_signing_root(DepositMessage, message,
+                                h.compute_domain(DomainType.DEPOSIT, None, None, ctx))
+    receipts.append(ns.DepositReceipt(
+        public_key=message.public_key, withdrawal_credentials=message.withdrawal_credentials,
+        amount=message.amount, signature=key.sign(root).to_bytes(),
+        index=start + ELECTRA_RECEIPTS - 1))
+    requests = [ns.ExecutionLayerWithdrawalRequest(
+        source_address=_withdrawal_address(i),
+        validator_public_key=bytes(state.validators[i].public_key), amount=0)
+        for i in groups["requests"]]
+    source, target = groups["pair"]
+    consolidation = ns.Consolidation(source_index=source, target_index=target, epoch=0)
+    root = compute_signing_root(ns.Consolidation, consolidation, h.compute_domain(
+        DomainType.CONSOLIDATION, None, bytes(state.genesis_validators_root), ctx))
+    signed = ns.SignedConsolidation(message=consolidation, signature=bls.aggregate(
+        [bls.SecretKey(source + 1).sign(root), bls.SecretKey(target + 1).sign(root)]).to_bytes())
+    tampered = ns.SignedConsolidation(message=consolidation.copy(),
+                                      signature=bls.SecretKey(source + 1).sign(root).to_bytes())
+    return receipts, requests, signed, tampered
+
+
+def build_electra_pre_state(state, ctx, upgrade_s: float, known: dict,
+                            commitments: list) -> dict:
+    """The electra cell's pre-state from ``state`` (``_electra_at_fork``'s,
+    at the fork slot 64): slots to 95 under electra rules, the altair
+    scramble under a seed of its own, capella's credentials and changes,
+    ``_electra_work``, the keys of slots 94 and 95's committees, of the
+    consolidation pair and of the slot-96 proposer made real (``known``);
+    then a signed electra block at slot 96 with the two committee-spanning
+    aggregates, a full sync aggregate, the payload of ``_payload`` with the
+    expected withdrawals, the receipts and the requests, the changes, the
+    deneb cell's ``commitments`` and the consolidation; the tampered copy's
+    consolidation signed by the source alone. Returns what the checks of
+    ``_electra_checks`` read besides the pre-state's bytes, the blocks and
+    the crossed scratch's bytes."""
+    from ethereum_consensus_tpu_torch.models import electra
+
+    ns, h = electra.build(ctx.preset), electra.helpers
+    t0 = time.perf_counter()
+    electra.slot_processing.process_slots(state, ALTAIR_PRE_SLOT, ctx)
+    to_pre_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scrambled = scramble_altair(state, ctx, seed=10)
+    eth1, changes = _capella_credentials(state, ctx, np.random.default_rng(7))
+    groups = _electra_work(state, ctx, np.random.default_rng(11))
+    work_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    per_slot = h.get_committee_count_per_slot(state, ALTAIR_PRE_SLOT // int(ctx.SLOTS_PER_EPOCH),
+                                              ctx)
+    committees = {slot: [h.get_beacon_committee(state, slot, index, ctx)
+                         for index in range(per_slot)] for slot in ELECTRA_ATTESTED_SLOTS}
+    keys = _realize_keys(state, [i for c in committees.values() for m in c for i in m]
+                         + groups["pair"], known)
+    keys_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exits = _expected_ejection_exits(state, ctx)
+    consumed, left = _expected_pending_deposits(state, ctx)
+    churn = h.get_activation_exit_churn_limit(state, ctx)
+    finalized = int(state.finalized_checkpoint.epoch)
+    expected_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    receipts, requests, consolidation, tampered_consolidation = _electra_operations(
+        state, ctx, groups)
+    scratch, proposer = _cross_for_block(state, ctx, electra, known)
+    reject_pre = type(scratch).serialize(scratch)
+    withdrawals, partials = electra.block_processing.get_expected_withdrawals(scratch, ctx)
+    if len(withdrawals) != int(ctx.MAX_WITHDRAWALS_PER_PAYLOAD) or \
+            partials != int(ctx.MAX_PENDING_PARTIALS_PER_WITHDRAWALS_SWEEP):
+        sys.exit(f"chip_smoke: the electra payload would carry {len(withdrawals)} withdrawals, "
+                 f"{partials} of them pending partials")
+    payload = _payload(electra, scratch, ctx, proposer, withdrawals,
+                       blob_gas_used=DENEB_BLOBS * DENEB_GAS_PER_BLOB, excess_blob_gas=0,
+                       deposit_receipts=receipts, withdrawal_requests=requests)
+    attestations = [_spanning_aggregate(ns, h, scratch, ctx, slot, committees[slot])
+                    for slot in ELECTRA_ATTESTED_SLOTS]
+    block, signed = _altair_block(scratch, ctx, ALTAIR_BLOCK_SLOT, attestations, electra,
+                                  execution_payload=payload,
+                                  bls_to_execution_changes=_bls_changes(state, ctx, changes),
+                                  blob_kzg_commitments=list(commitments),
+                                  consolidations=[consolidation])
+    del scratch
+    tampered = block.copy()
+    tampered.body.consolidations[0] = tampered_consolidation
+    good = signed(block)
+    block_s = time.perf_counter() - t0
+    n = len(state.validators)
+    pre_deposits = [(int(d.index), int(d.amount)) for d in state.pending_balance_deposits]
+    t0 = time.perf_counter()
+    pre = type(state).serialize(state)
+    serialize_s = time.perf_counter() - t0
+    before = _registry_before(pre, type(state))
+    del state
+    gc.collect()
+    signers = [len(a.aggregation_bits) for a in attestations]
+    print(f"electra: {n} validators; upgrade at slot "
+          f"{CAPELLA_FORK_EPOCH * int(ctx.SLOTS_PER_EPOCH)} {upgrade_s:.1f} s; slots to "
+          f"{ALTAIR_PRE_SLOT} {to_pre_s:.1f} s; scramble {scrambled}, {len(eth1)} 0x01 "
+          f"validators, {len(changes)} withdrawal keys, {len(groups['compounding'])} 0x02 "
+          f"validators, {len(pre_deposits)} pending deposits, {ELECTRA_CONSOLIDATIONS + 3} "
+          f"pending consolidations, {len(groups['partials'])} pending partial withdrawals "
+          f"{work_s:.1f} s; {keys} keys of slots {ELECTRA_ATTESTED_SLOTS}' committees and the "
+          f"consolidation pair {keys_s:.1f} s; expected boundary {expected_s:.1f} s ({len(exits)} "
+          f"ejections, {consumed} deposits under the churn {churn}); one scratch crossing, its "
+          f"bytes and the block {block_s:.1f} s (aggregates of {signers} signers); serialize "
+          f"({len(pre)} bytes) {serialize_s:.1f} s")
+    return {"pre": pre, "ctx": ctx, "good": good, "tampered": signed(tampered),
+            "reject_pre": reject_pre, "n": n, "before": before, "scrambled": scrambled,
+            "proposer": proposer, "withdrawals": [int(w.validator_index) for w in withdrawals],
+            "changes": [i for i, _ in changes], "groups": groups, "exits": exits,
+            "consumed": consumed, "deposit_balance_left": left, "pre_deposits": pre_deposits,
+            "churn": churn, "finalized": finalized, "signers": signers,
+            "receipts": [(int(groups["deposits"][k]) if k < ELECTRA_RECEIPTS - 1 else n,
+                          int(r.amount)) for k, r in enumerate(receipts)],
+            "setup_s": {"upgrade": upgrade_s, "to_pre": to_pre_s, "scramble_and_work": work_s,
+                        "keys": keys_s, "expected": expected_s, "block": block_s,
+                        "serialize": serialize_s}}
+
+
+def _electra_checks(post, columns: tuple, setup: dict) -> dict:
+    """The electra cell's boundary and block on ``post`` and the columns of
+    its bytes (``_serialized_columns``): every eligible
+    entrant activated, the churn's worth of pending deposits consumed and
+    the rest kept in order, the consolidations up to the unripe one
+    processed (the slashed one skipped; the block's own queued behind the
+    rest) and their targets on 0x02, no
+    effective balance above MAX_EFFECTIVE_BALANCE_ELECTRA and some above 32
+    ETH, the ejections' exit epochs, MAX_PENDING_PARTIALS_PER_WITHDRAWALS_SWEEP
+    partials withdrawn, the requests no-ops, the consolidation's source
+    exiting. Returns each check's verdict."""
+    from ethereum_consensus_tpu_torch.primitives import FAR_FUTURE_EPOCH as far
+
+    ctx, groups = setup["ctx"], setup["groups"]
+    before = setup["before"]
+    inc = int(ctx.EFFECTIVE_BALANCE_INCREMENT)
+    eligible = [i for i in before["pending"] if before["eligibility"][i] <= setup["finalized"]]
+    left = setup["pre_deposits"][setup["consumed"]:]
+    post_deposits = [(int(d.index), int(d.amount)) for d in post.pending_balance_deposits]
+    targets = groups["targets"]
+    queued = post_deposits[len(left):]
+    records = columns[0]
+    effective = records["effective_balance"]
+    unripe = groups["unripe"]
+    checks = {
+        "entrants activated": bool(eligible) and bool(
+            (records["activation_epoch"][eligible] != np.uint64(far)).all()),
+        "deposits consumed": post_deposits[: len(left)] == left
+        and int(post.deposit_balance_to_consume) == setup["deposit_balance_left"],
+        "excesses, then receipts, queued": [i for i, _ in queued] == targets + [
+            i for i, _ in setup["receipts"]] and [a for _, a in queued[ELECTRA_CONSOLIDATIONS:]]
+        == [a for _, a in setup["receipts"]],
+        "consolidations": [(int(c.source_index), int(c.target_index))
+                           for c in post.pending_consolidations] == [
+            tuple(unripe), (groups["sources"][-1], targets[2]), tuple(groups["pair"])],
+        "targets on 0x02": bool((records["withdrawal_credentials"][targets, 0] == 2).all()),
+        "effective balances capped": int(effective.max()) <= int(
+            ctx.MAX_EFFECTIVE_BALANCE_ELECTRA) and int((effective > 32 * inc).sum()) > 0,
+        "ejection exits": bool(setup["exits"]) and all(
+            int(records["exit_epoch"][i]) == e for i, e in setup["exits"].items()),
+        "partials left": len(post.pending_partial_withdrawals)
+        == ELECTRA_PARTIALS - int(ctx.MAX_PENDING_PARTIALS_PER_WITHDRAWALS_SWEEP),
+        "requests no-ops": bool(
+            (records["exit_epoch"][groups["requests"]] == np.uint64(far)).all()),
+        "consolidation source exiting": int(records["exit_epoch"][groups["pair"][0]]) != far,
+        "new validator": len(records) == setup["n"] + 1,
+    }
+    return {"checks": checks, "activated": len(eligible),
+            "above_32": int((effective > 32 * inc).sum()), "max_effective": int(effective.max()),
+            "ejections": len(setup["exits"])}
 
 
 def _data_available(sidecars: list, body_root: bytes, ctx) -> bool:
@@ -3085,22 +3533,23 @@ LITERAL_SWEEPS = {"flag_deltas": 3, "inactivity_updates": 1, "inactivity_penalti
                   "effective_balance": 1}
 
 
-def _boundary_changes(post, setup: dict) -> tuple:
-    """What the boundary changed against the set-up's ``before``: the
+def _boundary_changes(columns: tuple, setup: dict) -> tuple:
+    """What the boundary changed against the set-up's ``before``, on the
+    columns of the post-state's bytes (``_serialized_columns``): the
     counts of changed balances, scores and effective balances, and how many
     of the pre-state's pending validators it activated."""
     from ethereum_consensus_tpu_torch.primitives import FAR_FUTURE_EPOCH
 
     n = setup["n"]
     before = setup["before"]
+    records, balances, scores = columns
     changed = {
-        "balances": int((np.fromiter(post.balances, np.uint64, n) != before["balances"]).sum()),
-        "scores": int((np.fromiter(post.inactivity_scores, np.uint64, n)
-                       != before["scores"]).sum()),
-        "effective": int((_effective_balances(post)[:n] != before["effective"]).sum()),
+        "balances": int((balances[:n] != before["balances"]).sum()),
+        "scores": int((scores[:n] != before["scores"]).sum()),
+        "effective": int((records["effective_balance"][:n] != before["effective"]).sum()),
     }
-    activated = sum(post.validators[i].activation_epoch != FAR_FUTURE_EPOCH
-                    for i in before["pending"])
+    activated = int((records["activation_epoch"][before["pending"]]
+                     != np.uint64(FAR_FUTURE_EPOCH)).sum())
     return changed, activated
 
 
@@ -3110,9 +3559,12 @@ def _cell_routes(cell: str, setup: dict, routes: dict, fork) -> dict:
     Executor.apply_block with its buckets, the launch counts from 0, the
     engine's passes and declines, the tampered block (not on the literal
     route) on the crossed scratch state the good block was built on, read
-    anew from the set-up's ``reject_pre`` at the block's slot: the
-    boundary is the good block's, so a cold crossing a route is spared;
-    every route's post-state bytes and root must agree."""
+    once from the set-up's ``reject_pre`` at the block's slot (a copy of it
+    for each route but the last): the boundary is the good block's, so a
+    cold crossing a route is spared; every route's post-state bytes and
+    root must agree. What the boundary changed, and the set-up's
+    ``post_check`` where it has one, are read on the first route's
+    post-state bytes: the others' are the same bytes."""
     from ethereum_consensus_tpu_torch import ops
     from ethereum_consensus_tpu_torch.telemetry import metrics
 
@@ -3128,6 +3580,8 @@ def _cell_routes(cell: str, setup: dict, routes: dict, fork) -> dict:
 
     started = time.perf_counter()
     results, digest, root = {}, None, None
+    rejecting = [name for name, (_, literal, _) in routes.items() if not literal]
+    reject_base = None
     for name, (installed, literal, timers) in routes.items():
         ops.uninstall()  # clears the shuffle cache: each route shuffles anew
         t0 = time.perf_counter()
@@ -3146,8 +3600,13 @@ def _cell_routes(cell: str, setup: dict, routes: dict, fork) -> dict:
             moved = (engaged.value() - counts[0], disabled.value() - counts[1],
                      fused_fallbacks() - counts[2])
             with _collector_paused():
-                error = None if literal else _rejection_in_slot(
-                    state_type.deserialize(reject_pre), tampered, ctx, fork)
+                error = None
+                if not literal:
+                    if reject_base is None:
+                        reject_base = state_type.deserialize(reject_pre)
+                    reject_state = reject_base if name == rejecting[-1] else reject_base.copy()
+                    error = _rejection_in_slot(reject_state, tampered, ctx, fork)
+                    del reject_state
         finally:
             os.environ.pop("ECT_EPOCH_VECTOR", None)
             ops.uninstall()
@@ -3155,7 +3614,12 @@ def _cell_routes(cell: str, setup: dict, routes: dict, fork) -> dict:
             data = state_type.serialize(post)
             this_digest = hashlib.sha256(data).hexdigest()
             this_root = state_type.hash_tree_root(post)
-            changed, activated = _boundary_changes(post, setup)
+            if digest is None:
+                columns = _serialized_columns(data, state_type)
+                changed, activated = _boundary_changes(columns, setup)
+                checked = (setup["post_check"](post, columns, setup) if "post_check" in setup
+                           else None)
+                del columns
         kernel_ms: dict = {}
         for kname, start, end in events or ():
             kernel_ms[kname] = kernel_ms.get(kname, 0.0) + start.elapsed_time(end)
@@ -3172,6 +3636,7 @@ def _cell_routes(cell: str, setup: dict, routes: dict, fork) -> dict:
                  if installed else ""))
         print(f"{cell} {name}: post-state sha256 {this_digest}, root {this_root.hex()}; "
               f"changed {changed}, activated {activated}"
+              + (f"; checks {checked}" if checked is not None and digest is None else "")
               + (f"; tampered block: {error!r}" if error else ""))
         results[name] = {"read_s": read_s, "apply_s": seconds, "parts_s": parts,
                          "launches": launches, "kernel_ms_inside": kernel_ms, "idle_share": idle,
@@ -3184,6 +3649,7 @@ def _cell_routes(cell: str, setup: dict, routes: dict, fork) -> dict:
         if min(changed.values()) == 0:
             sys.exit(f"chip_smoke: the {cell} boundary changed nothing on the {name} route")
         del state, post, data
+    del reject_base
 
     host, device = results["host"], results["device"]
     if host["engine"] != (1, 0, 0) or device["engine"] != (1, 0, 0):
@@ -3200,7 +3666,8 @@ def _cell_routes(cell: str, setup: dict, routes: dict, fork) -> dict:
         sys.exit(f"chip_smoke: the {cell} tampered block was not rejected alike on both paths")
     wall = time.perf_counter() - started
     print(f"{cell}: {len(routes)} routes {wall:.1f} s wall")
-    return {"routes": results, "root": root.hex(), "sha256": digest, "routes_s": wall}
+    return {"routes": results, "root": root.hex(), "sha256": digest, "routes_s": wall,
+            "checked": checked}
 
 
 def phase_altair(registry: dict) -> dict:
@@ -3214,9 +3681,16 @@ def phase_altair(registry: dict) -> dict:
     and BLS-to-execution changes) on the host and device paths, and one
     signed deneb block (after the upgrade to deneb as well, the boundary
     under deneb rules with EIP-7514's activation cap, six blob commitments)
-    on the host and device paths, then its blobs' data-availability check.
-    Identical bytes and roots on every route of a cell."""
-    from ethereum_consensus_tpu_torch.models import altair, capella, deneb, epoch_vector
+    on the host and device paths, then its blobs' data-availability check;
+    and one signed electra block (after the upgrade to electra as well, the
+    boundary under electra rules: unbounded activations, the
+    balance-weighted exit churn, the pending deposits and consolidations,
+    the compounding cap; two committee-spanning aggregates, deposit
+    receipts, withdrawal requests and a consolidation) on the host and
+    device paths, then B6 alone at that block's sets. Identical bytes and
+    roots on every route of a cell."""
+    from ethereum_consensus_tpu_torch.crypto import bls
+    from ethereum_consensus_tpu_torch.models import altair, capella, deneb, electra, epoch_vector
     from ethereum_consensus_tpu_torch.models.altair import epoch_processing as aep
     from ethereum_consensus_tpu_torch.ops import epoch as ops_epoch
     from ethereum_consensus_tpu_torch.ops import sweeps
@@ -3303,7 +3777,58 @@ def phase_altair(registry: dict) -> dict:
     if any(route["activated"] != cap for route in deneb_cell["routes"].values()):
         sys.exit("chip_smoke: the deneb boundary did not activate EIP-7514's cap")
     availability = _data_availability(deneb_setup)
-    for cell_name, cell_routes in (("capella", capella_cell), ("deneb", deneb_cell)):
+
+    electra_setup = setup["electra"]
+    block = electra_setup["good"].message
+    electra_keys = sum(electra_setup["signers"]) + 2 + len(
+        block.body.sync_aggregate.sync_committee_bits) + len(block.body.bls_to_execution_changes) + 2
+    print(f"electra: block at slot {ALTAIR_BLOCK_SLOT}: {len(block.body.attestations)} "
+          f"committee-spanning attestations of {electra_setup['signers']} signers, a full sync "
+          f"aggregate, {len(block.body.execution_payload.withdrawals)} withdrawals, "
+          f"{len(block.body.execution_payload.deposit_receipts)} deposit receipts, "
+          f"{len(block.body.execution_payload.withdrawal_requests)} withdrawal requests, "
+          f"{len(block.body.consolidations)} consolidation, "
+          f"{len(block.body.bls_to_execution_changes)} BLS-to-execution changes, "
+          f"{len(block.body.blob_kzg_commitments)} blob commitments; {electra_keys} keys in the "
+          f"signature batch")
+    electra_stages = engine_stages + [
+        (epoch_vector, "_pending_balance_deposits", "pendings"),
+        (epoch_vector, "_pending_consolidations", "pendings"),
+        (electra.block_processing, "_sweep_hits_vectorized", "withdrawal_sweep"),
+        (electra.block_processing, "process_execution_payload", "execution_payload"),
+        (capella.epoch_processing, "process_historical_summaries_update", "summaries")]
+    captured: list = []
+
+    def capture(verify):
+        def recording(sets, *args, **kwargs):
+            if not captured:
+                captured.append(list(sets))
+            return verify(sets, *args, **kwargs)
+        return recording
+
+    with _patched(bls, "verify_signature_sets", capture):
+        electra_cell = _cell_routes("electra", electra_setup, {
+            "host": (False, False, electra_stages),
+            "device": (True, False, electra_stages + [fused_call]),
+        }, electra)
+    checked = electra_cell["checked"]
+    print(f"electra: the boundary activated {checked['activated']} eligible entrants "
+          f"(deneb's 8), consumed {electra_setup['consumed']} of "
+          f"{len(electra_setup['pre_deposits'])} pending deposits under the churn "
+          f"{electra_setup['churn']}, exited {checked['ejections']} ejections; "
+          f"{checked['above_32']} effective balances above 32 ETH, the largest "
+          f"{checked['max_effective']}; checks {checked['checks']}")
+    if not all(checked["checks"].values()):
+        sys.exit(f"chip_smoke: the electra cell's checks failed: {checked['checks']}")
+    electra_routes = electra_cell["routes"]
+    if any(route["activated"] != checked["activated"] for route in electra_routes.values()):
+        sys.exit("chip_smoke: the electra boundary did not activate every eligible entrant")
+    if not (electra_routes["host"]["rejection"] or "").startswith("InvalidConsolidation"):
+        sys.exit("chip_smoke: the electra block with the source's signature alone on its "
+                 "consolidation was not refused for its consolidation")
+    electra_g1 = _block_g1_sum("electra", captured[0] if captured else [])
+    for cell_name, cell_routes in (("capella", capella_cell), ("deneb", deneb_cell),
+                                   ("electra", electra_cell)):
         for route in cell_routes["routes"].values():
             if "withdrawal_sweep" not in route["parts_s"] or \
                     "withdrawal_loop" in route["parts_s"]:
@@ -3322,6 +3847,11 @@ def phase_altair(registry: dict) -> dict:
                       "withdrawals": deneb_setup["withdrawals"],
                       "changes": deneb_setup["changes"], "churn_limit": deneb_setup["churn_limit"],
                       "activation_cap": cap, "data_availability": availability, **deneb_cell},
+            "electra": {"validators": electra_setup["n"], "state_bytes": len(electra_setup["pre"]),
+                        "setup_s": electra_setup["setup_s"],
+                        "withdrawals": electra_setup["withdrawals"],
+                        "signers": electra_setup["signers"], "churn": electra_setup["churn"],
+                        "consumed": electra_setup["consumed"], "g1": electra_g1, **electra_cell},
             # for the mesh phase, which applies the same block on ECT_MESH=1
             "pre": setup["pre"], "ctx": setup["ctx"], "good": good, "before": setup["before"]}
 
@@ -3644,16 +4174,17 @@ def _pairing_mxu(pk, words, sig, xp, yp, xq, yq, u64_out: dict, native_f: list,
     lanes: bit-exact against the u64 kernels at every n of
     PAIRING_CHECK_NS and on the window's Miller launch (``window``: its 529
     lanes, the u64 Miller values and their product), against the plain
-    versions under mxu at n <= 3 (the plain tower on the card takes seconds
-    a call), the Miller values of all lanes against the native ones;
+    versions under mxu at n = 3 (the plain tower on the card takes seconds
+    a lane), the Miller values of all lanes against the native ones;
     CUDA-event ms at the window's shapes, and the plain versions' ms under
-    mxu at 3 lanes."""
+    mxu at 3 lanes, from that one call."""
     from ethereum_consensus_tpu_torch.ops import fq, fq8, pairing
 
     names = ("g1_mul_affine", "g2_mul_sum", "miller_loop", "fp12_product")
     errs = {name: 0 for name in names}
     plain_errs = {name: 0 for name in names}
     plain_n = 3
+    p3 = slice(0, plain_n)
     fq8.set_multiplier("mxu")
     try:
         for n in PAIRING_CHECK_NS:
@@ -3664,14 +4195,17 @@ def _pairing_mxu(pk, words, sig, xp, yp, xq, yq, u64_out: dict, native_f: list,
             for name, a, b in zip(names, got, u64_out[n]):
                 errs[name] = max(errs[name], _max_err(a, b))
             native_ok = fq.to_ints(got_f) == native_f[: 12 * n]
-            if n <= plain_n:
-                plain = (pairing.g1_mul_affine_plain(pk[:n], words[:n]),
-                         pairing.g2_mul_sum_plain(sig[:n], words[:n]),
-                         pairing.miller_loop_plain(xp[:n], yp[:n], xq[:n], yq[:n]),
-                         pairing.fp12_product_plain(got_f))
+            if n == plain_n:
+                # each plain version once, its time that call's
+                plain, plain_ms = zip(
+                    _timed_once(lambda: pairing.g1_mul_affine_plain(pk[p3], words[p3])),
+                    _timed_once(lambda: pairing.g2_mul_sum_plain(sig[p3], words[p3])),
+                    _timed_once(lambda: pairing.miller_loop_plain(xp[p3], yp[p3], xq[p3],
+                                                                  yq[p3])),
+                    _timed_once(lambda: pairing.fp12_product_plain(got_f)))
                 for name, a, b in zip(names, got, plain):
                     plain_errs[name] = max(plain_errs[name], _max_err(a, b))
-            print(f"pairing mxu n={n}: max_abs_err vs u64 {errs}, vs plain under mxu (n <= "
+            print(f"pairing mxu n={n}: max_abs_err vs u64 {errs}, vs plain under mxu (n = "
                   f"{plain_n}) {plain_errs}; the Miller values of all {n} lanes equal native "
                   f"{native_ok}")
             if any(errs.values()) or any(plain_errs.values()) or not native_ok:
@@ -3684,22 +4218,17 @@ def _pairing_mxu(pk, words, sig, xp, yp, xq, yq, u64_out: dict, native_f: list,
         print(f"pairing mxu window launch ({len(f_wide)} lanes): max_abs_err vs u64 {errs}")
         if any(errs.values()):
             sys.exit("chip_smoke: the mxu build disagrees on the window's Miller launch")
-        p3 = slice(0, plain_n)
         # each kernel at the window's shape, in turns with its parent design
         timings = {
             "g1_mul_affine": (_against_parent(
                 "pairing_mxu", lambda: pairing.g1_mul_affine_cuda(pk, words), reps=5),
-                _timed_once(lambda: pairing.g1_mul_affine_plain(pk[p3], words[p3]))[1]),
+                plain_ms[0]),
             "g2_mul_sum": (_against_parent(
-                "pairing_mxu", lambda: pairing.g2_mul_sum_cuda(sig, words), reps=5),
-                _timed_once(lambda: pairing.g2_mul_sum_plain(sig[p3], words[p3]))[1]),
+                "pairing_mxu", lambda: pairing.g2_mul_sum_cuda(sig, words), reps=5), plain_ms[1]),
             "miller_loop": (_against_parent(
-                "pairing_mxu", lambda: pairing.miller_loop_cuda(*wide), reps=3),
-                _timed_once(lambda: pairing.miller_loop_plain(xp[p3], yp[p3], xq[p3],
-                                                              yq[p3]))[1]),
+                "pairing_mxu", lambda: pairing.miller_loop_cuda(*wide), reps=3), plain_ms[2]),
             "fp12_product": (_against_parent(
-                "pairing_mxu", lambda: pairing.fp12_product_cuda(f_wide), reps=10),
-                _timed_once(lambda: pairing.fp12_product_plain(f_wide[p3]))[1]),
+                "pairing_mxu", lambda: pairing.fp12_product_cuda(f_wide), reps=10), plain_ms[3]),
         }
     finally:
         fq8.set_multiplier("u64")
@@ -3902,6 +4431,33 @@ def _window_g1_sum(sets: list) -> dict:
         sys.exit(f"chip_smoke: the window's G1 set sums disagree: {errs}")
     return {"ms": ms, "sets": len(sets), "keys": keys, "bound_ms": bound, "bound_by": bound_by,
             "max_abs_err": errs, "mxu": mxu}
+
+
+def _block_g1_sum(cell: str, sets: list) -> dict:
+    """B6 (the u64 build) alone at a block's signature sets, as its batch
+    had them on the cell's first route: its two launches limb for limb
+    against the plain version, CUDA-event ms beside the bound of these
+    keys."""
+    from ethereum_consensus_tpu_torch.ops import g1
+
+    if not sets:
+        sys.exit(f"chip_smoke: the {cell} block's signature sets were not captured")
+    raw_sets = [[pk.raw_uncompressed() for pk in s.public_keys] for s in sets]
+    points, offsets = g1.sets_to_csr(raw_sets)
+    points_d, offsets_d = points.cuda(), offsets.cuda()
+    err = _max_err(g1.g1_sum_sets(points_d, offsets_d), g1.g1_sum_sets_plain(points_d, offsets_d))
+    ms = _cuda_ms(lambda: g1._launch(points_d, offsets_d, len(sets)), reps=10)
+    keys = sum(len(s) for s in raw_sets)
+    live = [sum(1 for r in s if any(r)) for s in raw_sets]
+    bound, bound_by = g1_bound_ms(live, keys)
+    sizes = sorted((len(s) for s in raw_sets), reverse=True)
+    print(f"{cell} g1_sum_sets (u64) alone: {ms:.4f} ms at the block's {len(sets)} sets, {keys} "
+          f"keys (the largest {sizes[:3]}; bound {bound:.4f} ms by {bound_by}, "
+          f"{100 * bound / ms:.2f}% of it); max_abs_err vs plain {err}")
+    if err:
+        sys.exit(f"chip_smoke: the {cell} block's G1 set sums disagree with the plain version")
+    return {"ms": ms, "sets": len(sets), "keys": keys, "largest": sizes[:3], "bound_ms": bound,
+            "bound_by": bound_by, "max_abs_err": err}
 
 
 def phase_window(registry: dict) -> dict:
@@ -4204,8 +4760,8 @@ def _pairing_partials(pk, h, sig, scalars, meshes: dict) -> dict:
 def _twin_times(cols: dict, kwargs: dict, chunks: bytes, pk, h, sig, scalars) -> dict:
     """Each twin's wall on the card (a synchronize at its end) at the main
     path's shape, at ECT_MESH=1's one shard and at the virtual shards, and
-    with its kernels' plain versions in their place (the pairing twin on
-    one set: its plain Miller loop is seconds a lane)."""
+    with its kernels' plain versions in their place, over one call (the
+    pairing twin on one set: its plain Miller loop is seconds a lane)."""
     from ethereum_consensus_tpu_torch.ops import epoch, merkle, pairing
     from ethereum_consensus_tpu_torch.parallel import chip_mesh, virtual_mesh
     from ethereum_consensus_tpu_torch.parallel import merkle as pmerkle
@@ -4241,6 +4797,13 @@ def _twin_times(cols: dict, kwargs: dict, chunks: bytes, pk, h, sig, scalars) ->
             times.append(time.perf_counter() - t0)
         return 1e3 * statistics.median(times)
 
+    def once(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
     out = {}
     for name, fn in twins.items():
         out[name] = {label: wall(fn, mesh) for label, mesh in meshes.items()}
@@ -4248,13 +4811,10 @@ def _twin_times(cols: dict, kwargs: dict, chunks: bytes, pk, h, sig, scalars) ->
             for module, attr, replacement in plain[name]:
                 stack.enter_context(_patched(module, attr, lambda _fn, r=replacement: r))
             if name == "pairing":
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                miller_partials_sharded(meshes["1"], pk[:1], h[:1], sig[:1], scalars[:1])
-                torch.cuda.synchronize()
-                out[name]["plain_1_set"] = 1e3 * (time.perf_counter() - t0)
+                out[name]["plain_1_set"] = once(lambda: miller_partials_sharded(
+                    meshes["1"], pk[:1], h[:1], sig[:1], scalars[:1]))
             else:
-                out[name]["plain_1"] = wall(fn, meshes["1"])
+                out[name]["plain_1"] = once(lambda: fn(meshes["1"]))
     print(f"mesh twins, ms on the card (plain: the kernels' plain versions in their place): "
           f"{ {k: _rounded(v, 3) for k, v in out.items()} }")
     return out
@@ -4859,6 +5419,7 @@ def main() -> int:
              "altair_literal": altair_routes["literal"]["launches"],
              "capella": report["altair"]["capella"]["routes"]["device"]["launches"],
              "deneb": report["altair"]["deneb"]["routes"]["device"]["launches"],
+             "electra": report["altair"]["electra"]["routes"]["device"]["launches"],
              "window": report["window"]["routes"]["device"]["launches"],
              "mxu": report["mxu"]["launches"],
              "window_mxu": report["window"]["routes"]["device_mxu"]["launches"],
@@ -4867,6 +5428,12 @@ def main() -> int:
              "mesh_window": report["mesh"]["window"]["launches"],
              "mesh_sweeps": report["mesh"]["sweeps"]["launches"][str(MESH_VIRTUAL_SHARDS)],
              "step": report["step"]["launches"], "dryrun": report["step"]["dryrun_launches"]}
+    electra_g1, block_g1 = report["altair"]["electra"]["g1"], report["g1"]["checks"]["block"]
+    print(f"g1_sum_sets at the electra block's {electra_g1['sets']} sets ({electra_g1['keys']} "
+          f"keys): {electra_g1['ms']:.4f} ms, {100 * electra_g1['bound_ms'] / electra_g1['ms']:.2f}% "
+          f"of its bound {electra_g1['bound_ms']:.4f} ms; at the phase0 block's "
+          f"{block_g1['sets']} sets ({block_g1['keys']} keys): {block_g1['ms']:.4f} ms, "
+          f"{100 * block_g1['bound_ms'] / block_g1['ms']:.2f}% of {block_g1['bound_ms']:.4f} ms")
     for name, timing in report["altair_sweeps"].items():
         report[name] = timing
     for name in ("g1_mul_affine", "g2_mul_sum", "miller_loop", "fp12_product"):

@@ -10,16 +10,17 @@ Layout (each module sits at the same relative path as its reference):
   ssz/        SSZ type algebra, codec, merkleization
   config/     presets, network configs, Context
   crypto/     BLS12-381 signatures (pure-Python oracle + native backend)
-  models/     phase0 and altair containers, helpers, slot, block and
-              epoch processing, the state transitions and the altair
-              upgrade, the columnar epoch engine and the committee masks
+  models/     phase0 through electra: containers, helpers, slot, block
+              and epoch processing, the state transitions, the upgrades
+              and genesis, the columnar epoch engine and the committee
+              masks
   native/     host C++ SHA-256 merkle and BLS12-381 backends
   ops/        CUDA kernel wrappers: SHA-256 and the device merkle
               reduction, the committee shuffle, G1 pubkey-set sums,
               the epoch sweeps (hysteresis, altair flag deltas and
               inactivity) and the fused altair epoch kernel
   csrc/       CUDA sources
-  executor.py block application with the phase0 -> altair upgrade
+  executor.py block application with the upgrades phase0 -> electra
   convert.py  state and word-tensor carry-across helpers
 """
 

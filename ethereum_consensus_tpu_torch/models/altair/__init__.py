@@ -3,8 +3,7 @@ pass, and the phase0 → altair upgrade.
 
 Reference parity: ethereum-consensus/src/altair/. Fork-diff modules
 compose over phase0 (re-imports for unchanged logic). Ported from
-ethereum_consensus_tpu/models/altair/; ``genesis`` (an altair chain from
-eth1 deposits) is not ported yet.
+ethereum_consensus_tpu/models/altair/.
 """
 
 from . import (  # noqa: F401
@@ -13,6 +12,7 @@ from . import (  # noqa: F401
     containers,
     epoch_processing,
     fork,
+    genesis,
     helpers,
     slot_processing,
     state_transition,

@@ -3,7 +3,7 @@ slashing and inactivity quotients, and the altair → bellatrix upgrade.
 
 Reference parity: ethereum-consensus/src/bellatrix/. Fork-diff modules
 compose over altair (``models/_diff.py``). Ported from
-ethereum_consensus_tpu/models/bellatrix/; ``genesis`` is not ported yet.
+ethereum_consensus_tpu/models/bellatrix/.
 """
 
 from . import (  # noqa: F401
@@ -11,6 +11,7 @@ from . import (  # noqa: F401
     containers,
     epoch_processing,
     fork,
+    genesis,
     helpers,
     slot_processing,
     state_transition,

@@ -3,7 +3,7 @@ and the bellatrix → capella upgrade.
 
 Reference parity: ethereum-consensus/src/capella/. Fork-diff modules
 compose over bellatrix (``models/_diff.py``). Ported from
-ethereum_consensus_tpu/models/capella/; ``genesis`` is not ported yet.
+ethereum_consensus_tpu/models/capella/.
 """
 
 from . import (  # noqa: F401
@@ -11,6 +11,7 @@ from . import (  # noqa: F401
     containers,
     epoch_processing,
     fork,
+    genesis,
     helpers,
     slot_processing,
     state_transition,

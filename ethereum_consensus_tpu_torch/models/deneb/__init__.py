@@ -3,7 +3,7 @@ upgrade.
 
 Reference parity: ethereum-consensus/src/deneb/. Fork-diff modules compose
 over capella (``models/_diff.py``). Ported from
-ethereum_consensus_tpu/models/deneb/; ``genesis`` is not ported yet.
+ethereum_consensus_tpu/models/deneb/.
 """
 
 from . import (  # noqa: F401
@@ -13,6 +13,7 @@ from . import (  # noqa: F401
     epoch_processing,
     execution_engine,
     fork,
+    genesis,
     helpers,
     slot_processing,
     state_transition,

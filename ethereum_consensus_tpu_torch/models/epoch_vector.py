@@ -1,5 +1,8 @@
 """Columnar-primary epoch transition engine (the phase0 and altair
-families: phase0, altair, bellatrix, capella and deneb).
+families: phase0, altair, bellatrix, capella, deneb and electra, with
+electra's EIP-7251 stages: the pending balance deposits and pending
+consolidations, the balance-weighted exit churn, and the hysteresis under
+the compounding cap).
 
 The ownership inversion this module implements: for the epoch hot path
 the ``RegistryColumns`` arrays are the AUTHORITATIVE store of validator
@@ -61,10 +64,8 @@ Telemetry: ``epoch_vector.epochs`` counts engaged passes,
 ``epoch_vector.fused.device`` every fused launch and
 ``epoch_vector.fused.mesh`` every sharded fused pass.
 
-Reference parity: ethereum_consensus_tpu/models/epoch_vector.py, the
-phase0, altair, bellatrix, capella and deneb rows. Left out until the
-slices that need them: electra's row and stages (its unbounded activations,
-pending deposits and consolidations),
+Reference parity: ethereum_consensus_tpu/models/epoch_vector.py, every
+fork's row. Left out until the slices that need them:
 ``jitted_kernels`` / ``kernel_cache_census`` (the port calls
 ``ops/epoch.py`` directly), and the trace spans and routing journal
 (telemetry slice).
@@ -195,7 +196,8 @@ def apply_delta_pairs_kernel(xp, balances, pairs):
 # quot: the fork's inactivity-penalty quotient attribute
 # slash_mult: the fork's proportional slashing multiplier attribute
 # historical: "roots" | "summaries"
-# activation: "churn" (exit churn cap) | "activation_churn" (EIP-7514)
+# activation: "churn" (exit churn cap) | "activation_churn" (EIP-7514) |
+#             "unbounded" (EIP-7251)
 _FORK_CFG = {
     "phase0": dict(family="phase0", quot=None,
                    slash_mult="PROPORTIONAL_SLASHING_MULTIPLIER",
@@ -215,6 +217,10 @@ _FORK_CFG = {
                   quot="INACTIVITY_PENALTY_QUOTIENT_BELLATRIX",
                   slash_mult="PROPORTIONAL_SLASHING_MULTIPLIER_BELLATRIX",
                   historical="summaries", activation="activation_churn"),
+    "electra": dict(family="altair",
+                    quot="INACTIVITY_PENALTY_QUOTIENT_BELLATRIX",
+                    slash_mult="PROPORTIONAL_SLASHING_MULTIPLIER_BELLATRIX",
+                    historical="summaries", activation="unbounded"),
 }
 
 _TIMELY_TARGET_FLAG_INDEX = 1  # altair constants; checked at engine entry
@@ -226,20 +232,22 @@ class _EpochColumns:
     mutate. Commit diffs work against base per column."""
 
     __slots__ = (
-        "np", "state", "context", "cfg", "n", "cur", "prev",
+        "np", "state", "context", "fork", "cfg", "n", "cur", "prev",
         "increment",
         # base views (never written)
-        "b_eff", "b_elig", "b_act", "b_exit", "b_wdr",
+        "b_eff", "b_elig", "b_act", "b_exit", "b_wdr", "b_prefix",
         "b_balances", "b_inact",
         "slashed", "prev_part", "cur_part",
         # working copies (authoritative during the pass)
-        "eff", "elig", "act", "exit", "wdr",
+        "eff", "elig", "act", "exit", "wdr", "prefix",
         "balances", "inact",
         # lazy scalars
         "_total_active", "_active_cur_count",
         # masks at the pre-pass registry (activity is stable within the
         # epoch window — every spec write targets future epochs)
         "active_prev", "active_cur", "eligible",
+        # electra: targets whose credentials switch to 0x02 at commit
+        "credential_switches",
         # the mesh runner for this pass (parallel/runtime.py) — None when
         # the mesh is off or declined, and the unsharded kernels run
         "mesh",
@@ -270,6 +278,7 @@ def _sync(state, context, fork):
     ec.np = np
     ec.state = state
     ec.context = context
+    ec.fork = fork
     ec.cfg = _FORK_CFG[fork]
     ec.n = n
     cur = int(state.slot) // int(context.SLOTS_PER_EPOCH)
@@ -281,6 +290,7 @@ def _sync(state, context, fork):
     ec.b_act = vc["activation_epoch"]
     ec.b_exit = vc["exit_epoch"]
     ec.b_wdr = vc["withdrawable_epoch"]
+    ec.b_prefix = vc["withdrawal_prefix"]
     ec.slashed = vc["slashed"]
     ec.b_balances = balances
     if ec.cfg["family"] == "altair":
@@ -369,18 +379,20 @@ def _sync(state, context, fork):
     # accidental in-place write raises instead of corrupting the cache);
     # stages that rebind (rewards, inactivity, hysteresis) replace the
     # reference with a fresh owned array, and in-place writers (registry
-    # hits, slashings) take an owned copy via _own on their FIRST actual
-    # write — a typical epoch therefore copies only the columns it really
-    # changes
+    # hits, slashings, churn) take an owned copy via _own on their FIRST
+    # actual write — a typical epoch therefore copies only the columns it
+    # really changes
     ec.eff = ec.b_eff
     ec.elig = ec.b_elig
     ec.act = ec.b_act
     ec.exit = ec.b_exit
     ec.wdr = ec.b_wdr
+    ec.prefix = ec.b_prefix
     ec.balances = ec.b_balances
     ec.inact = ec.b_inact
     ec._total_active = None
     ec._active_cur_count = None
+    ec.credential_switches = []
     ec.mesh = None
     ec.fused = False
     return ec
@@ -895,13 +907,19 @@ def _rewards_phase0(ec) -> None:
 def _registry_updates(ec) -> None:
     """Queue entries, ejections and activations over the working
     columns. Ejection exit scheduling replicates the literal
-    ``initiate_validator_exit`` incrementally."""
+    ``initiate_validator_exit`` incrementally (phase0 family) or through
+    the EIP-7251 churn scalars (electra)."""
     np = ec.np
     context = ec.context
     from .phase0.helpers import compute_activation_exit_epoch
 
     far = np.uint64(FAR_FUTURE_EPOCH)
-    balance_rule = ec.eff == np.uint64(int(context.MAX_EFFECTIVE_BALANCE))
+    if ec.cfg["activation"] == "unbounded":
+        balance_rule = ec.eff >= np.uint64(
+            int(context.MIN_ACTIVATION_BALANCE)
+        )
+    else:
+        balance_rule = ec.eff == np.uint64(int(context.MAX_EFFECTIVE_BALANCE))
     queue_entry = (ec.elig == far) & balance_rule
     if bool(queue_entry.any()):
         _own(ec, "elig")[queue_entry] = np.uint64(ec.cur + 1)
@@ -911,7 +929,11 @@ def _registry_updates(ec) -> None:
     )
     hits = np.nonzero(ejection)[0]
     if hits.size:
-        _initiate_exits_phase0(ec, hits.tolist())
+        if ec.fork == "electra":
+            for i in hits.tolist():
+                _initiate_exit_electra(ec, i)
+        else:
+            _initiate_exits_phase0(ec, hits.tolist())
 
     # ec.elig already carries the queue-entry writes, so this is the
     # literal "re-read eligibility" order
@@ -924,7 +946,10 @@ def _registry_updates(ec) -> None:
     activation_epoch = np.uint64(
         compute_activation_exit_epoch(ec.cur, context)
     )
-    # ascending (eligibility, index) queue, churn-capped
+    if ec.cfg["activation"] == "unbounded":
+        _own(ec, "act")[cand] = activation_epoch
+        return
+    # phase0..deneb: ascending (eligibility, index) queue, churn-capped
     order = np.argsort(ec.elig[cand], kind="stable")
     queue = cand[order]
     limit = _churn_limit(ec)
@@ -965,6 +990,56 @@ def _initiate_exits_phase0(ec, indices) -> None:
         churn += 1
 
 
+def _initiate_exit_electra(ec, index: int) -> None:
+    """electra ``initiate_validator_exit``: balance-weighted churn via
+    the state's EIP-7251 scalars (mutated exactly as the literal helper
+    mutates them — they are plain state fields, not columns)."""
+    if int(ec.exit[index]) != FAR_FUTURE_EPOCH:
+        return
+    exit_queue_epoch = _compute_exit_epoch_and_update_churn(
+        ec, int(ec.eff[index])
+    )
+    np = ec.np
+    _own(ec, "exit")[index] = np.uint64(exit_queue_epoch)
+    _own(ec, "wdr")[index] = np.uint64(
+        exit_queue_epoch
+        + int(ec.context.min_validator_withdrawability_delay)
+    )
+
+
+def _activation_exit_churn_limit(ec) -> int:
+    context = ec.context
+    churn_limit = _total_active(ec) // int(context.churn_limit_quotient)
+    churn = max(int(context.min_per_epoch_churn_limit_electra), churn_limit)
+    churn -= churn % ec.increment
+    return min(
+        int(context.max_per_epoch_activation_exit_churn_limit), churn
+    )
+
+
+def _compute_exit_epoch_and_update_churn(ec, exit_balance: int) -> int:
+    state, context = ec.state, ec.context
+    from .phase0.helpers import compute_activation_exit_epoch
+
+    activation_exit_epoch = compute_activation_exit_epoch(ec.cur, context)
+    earliest_exit_epoch = max(
+        int(state.earliest_exit_epoch), activation_exit_epoch
+    )
+    per_epoch_churn = _activation_exit_churn_limit(ec)
+    if int(state.earliest_exit_epoch) < earliest_exit_epoch:
+        exit_balance_to_consume = per_epoch_churn
+    else:
+        exit_balance_to_consume = int(state.exit_balance_to_consume)
+    if exit_balance > exit_balance_to_consume:
+        balance_to_process = exit_balance - exit_balance_to_consume
+        additional_epochs = (balance_to_process - 1) // per_epoch_churn + 1
+        earliest_exit_epoch += additional_epochs
+        exit_balance_to_consume += additional_epochs * per_epoch_churn
+    state.exit_balance_to_consume = exit_balance_to_consume - exit_balance
+    state.earliest_exit_epoch = earliest_exit_epoch
+    return earliest_exit_epoch
+
+
 def _slashings(ec) -> None:
     np = ec.np
     context = ec.context
@@ -989,8 +1064,95 @@ def _slashings(ec) -> None:
         ec.balances[i] = np.uint64(bal - penalty if bal > penalty else 0)
 
 
+def _pending_balance_deposits(ec) -> None:
+    """electra ``process_pending_balance_deposits`` — the pending list
+    is bounded churn state, not registry-sized; per-deposit reads are
+    container reads of that queue, balances land in the working
+    column."""
+    state = ec.state
+    from ..error import checked_add
+
+    np = ec.np
+    available = int(state.deposit_balance_to_consume) + (
+        _activation_exit_churn_limit(ec)
+    )
+    processed = 0
+    next_index = 0
+    if len(state.pending_balance_deposits):
+        _own(ec, "balances")
+    for deposit in state.pending_balance_deposits:
+        amount = int(deposit.amount)
+        if processed + amount > available:
+            break
+        index = int(deposit.index)
+        ec.balances[index] = np.uint64(
+            checked_add(int(ec.balances[index]), amount)
+        )
+        processed += amount
+        next_index += 1
+    del state.pending_balance_deposits[:next_index]
+    if len(state.pending_balance_deposits) == 0:
+        state.deposit_balance_to_consume = 0
+    else:
+        state.deposit_balance_to_consume = available - processed
+
+
+def _pending_consolidations(ec) -> None:
+    """electra ``process_pending_consolidations`` over the columns; the
+    compounding-credential switch lands in the prefix column now and the
+    actual credential bytes at commit (nothing between reads them)."""
+    state, context = ec.state, ec.context
+    np = ec.np
+    from ..error import checked_add
+
+    min_activation = int(context.MIN_ACTIVATION_BALANCE)
+    max_eb_electra = int(context.MAX_EFFECTIVE_BALANCE_ELECTRA)
+    next_pending = 0
+    if len(state.pending_consolidations):
+        _own(ec, "balances")
+    for pending in state.pending_consolidations:
+        src = int(pending.source_index)
+        tgt = int(pending.target_index)
+        if bool(ec.slashed[src]):
+            next_pending += 1
+            continue
+        if int(ec.wdr[src]) > ec.cur:
+            break
+        # switch_to_compounding_validator(target)
+        if int(ec.prefix[tgt]) == 0x01:
+            _own(ec, "prefix")[tgt] = np.uint8(0x02)
+            ec.credential_switches.append(tgt)
+            # queue_excess_active_balance(target)
+            bal = int(ec.balances[tgt])
+            if bal > min_activation:
+                from .electra.containers import PendingBalanceDeposit
+
+                ec.balances[tgt] = np.uint64(min_activation)
+                state.pending_balance_deposits.append(
+                    PendingBalanceDeposit(
+                        index=tgt, amount=bal - min_activation
+                    )
+                )
+        limit = (
+            max_eb_electra
+            if int(ec.prefix[src]) == 0x02
+            else min_activation
+        )
+        active_balance = min(int(ec.balances[src]), limit)
+        src_bal = int(ec.balances[src])
+        ec.balances[src] = np.uint64(
+            src_bal - active_balance if src_bal > active_balance else 0
+        )
+        ec.balances[tgt] = np.uint64(
+            checked_add(int(ec.balances[tgt]), active_balance)
+        )
+        next_pending += 1
+    del state.pending_consolidations[:next_pending]
+
+
 def _effective_balance_updates(ec) -> None:
-    """The hysteresis sweep on the working columns."""
+    """The hysteresis sweep on the working columns (electra: EIP-7251
+    per-validator cap via the prefix column, post-consolidation)."""
     np = ec.np
     context = ec.context
     # the ONLY spec site that mutates effective balances: drop the
@@ -1000,7 +1162,14 @@ def _effective_balance_updates(ec) -> None:
     hysteresis_increment = increment // int(context.HYSTERESIS_QUOTIENT)
     down = hysteresis_increment * int(context.HYSTERESIS_DOWNWARD_MULTIPLIER)
     up = hysteresis_increment * int(context.HYSTERESIS_UPWARD_MULTIPLIER)
-    limit = np.uint64(int(context.MAX_EFFECTIVE_BALANCE))
+    if ec.fork == "electra":
+        limit = np.where(
+            ec.prefix == np.uint8(0x02),
+            np.uint64(int(context.MAX_EFFECTIVE_BALANCE_ELECTRA)),
+            np.uint64(int(context.MIN_ACTIVATION_BALANCE)),
+        )
+    else:
+        limit = np.uint64(int(context.MAX_EFFECTIVE_BALANCE))
     update = (ec.balances + np.uint64(down) < ec.eff) | (
         ec.eff + np.uint64(up) < ec.balances
     )
@@ -1026,9 +1195,9 @@ _VAL_FIELD_COLS = (
 def _commit(ec) -> None:
     """Materialize: ONE adopted bulk_store per scalar list (balances,
     inactivity scores) with exact changed indices, per-hit instrumented
-    writes for the handful of changed validator epoch fields. After this
-    the SSZ state and the (now clean, owned) column caches agree by
-    construction."""
+    writes for the handful of changed validator epoch fields and
+    credential switches. After this the SSZ state and the (now clean,
+    owned) column caches agree by construction."""
     np = ec.np
     state = ec.state
     if ec.balances is not ec.b_balances:
@@ -1055,6 +1224,10 @@ def _commit(ec) -> None:
         for i in np.nonzero(work != base)[0].tolist():
             setattr(validators[i], field, int(work[i]))
             writes += 1
+    for i in ec.credential_switches:
+        v = validators[i]
+        v.withdrawal_credentials = b"\x02" + bytes(v.withdrawal_credentials)[1:]
+        writes += 1
     if writes:
         metrics.counter("epoch_vector.validator_writes").inc(writes)
 
@@ -1132,6 +1305,9 @@ def process_epoch_columnar(state, context, fork: str) -> bool:
         _registry_updates(ec)
         _slashings(ec)
         process_eth1_data_reset(state, context)
+        if fork == "electra":
+            _pending_balance_deposits(ec)
+            _pending_consolidations(ec)
         _effective_balance_updates(ec)
         _commit(ec)
     except _PassComplete:

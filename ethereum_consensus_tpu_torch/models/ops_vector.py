@@ -11,8 +11,8 @@ altair family.
   and the cache refreshes exactly those rows on next access. Anything
   untrackable resets the channel and the cache rebuilds — stale reads are
   structurally impossible, the cost model degrades, never the values.
-* ``process_attestations_batch`` — the block-scoped altair attestation
-  fast path: per attestation the full spec validation runs through the
+* ``process_attestations_batch`` — the block-scoped altair→electra
+  attestation fast path: per attestation the full spec validation runs through the
   SAME ``_prepare_attestation`` the scalar path uses, but the
   participation-flag writes land in working numpy arrays and commit ONCE
   per participation list via ``bulk_store`` with exact changed indices.
@@ -22,18 +22,18 @@ altair family.
 
 * ``pack_registry_cached`` feeds the epoch sweeps from the cache instead
   of per-call ``np.fromiter`` walks; ``effective_balance_update_hits``
-  vectorizes the hysteresis sweep; ``adopt_list_column`` is the columnar
-  epoch engine's commit (models/epoch_vector.py) and
-  ``install_zero_column`` its participation rotation;
-  ``withdrawal_columns`` feeds capella's withdrawals sweep
-  (``models/capella/block_processing.py``).
+  vectorizes the hysteresis sweep (phase0's and electra's compounding
+  cap); ``adopt_list_column`` is the columnar epoch engine's commit
+  (models/epoch_vector.py) and ``install_zero_column`` its participation
+  rotation;
+  ``withdrawal_columns`` feeds the capella and electra withdrawals sweeps
+  (``models/{capella,electra}/block_processing.py``).
 
 Contract for every array this module hands out: READ-ONLY views
 (``writeable=False``); consumers copy before mutating.
 
 Reference parity: ethereum_consensus_tpu/models/ops_vector.py. Left out
-with the forks that need them: the electra compounding cap of
-``effective_balance_update_hits``, and the serving plane's
+with the slice that needs them: the serving plane's
 ``registry_snapshot`` / ``gather_rows``. The memory-observatory and trace
 seams are cut (telemetry slice). Every decline counts in
 ``ops_vector.fallback.{reason}``.
@@ -573,11 +573,13 @@ def process_attestations_batch(state, attestations, context,
 # ---------------------------------------------------------------------------
 
 
-def effective_balance_update_hits(state, context):
+def effective_balance_update_hits(state, context,
+                                  per_validator_limit: bool = False):
     """The hysteresis sweep as (index, new_effective_balance) hits —
     exactly the writes the literal loop performs (it only ever stores a
     DIFFERENT value on a threshold crossing, so changed-only is the
-    identical state); None = fall back to the scalar loop."""
+    identical state). ``per_validator_limit`` selects the electra
+    compounding cap (EIP-7251); None = fall back to the scalar loop."""
     np = _np()
     if np is None:
         fallback("no_numpy")
@@ -599,7 +601,14 @@ def effective_balance_update_hits(state, context):
     if int(balances.max(initial=0)) > top or int(eff.max(initial=0)) > top:
         fallback("u64_guard")
         return None
-    limit = np.uint64(int(context.MAX_EFFECTIVE_BALANCE))
+    if per_validator_limit:
+        limit = np.where(
+            vc["withdrawal_prefix"] == np.uint8(0x02),
+            np.uint64(int(context.MAX_EFFECTIVE_BALANCE_ELECTRA)),
+            np.uint64(int(context.MIN_ACTIVATION_BALANCE)),
+        )
+    else:
+        limit = np.uint64(int(context.MAX_EFFECTIVE_BALANCE))
     update = (balances + np.uint64(down) < eff) | (
         eff + np.uint64(up) < balances
     )
@@ -612,7 +621,7 @@ def effective_balance_update_hits(state, context):
 
 
 def withdrawal_columns(state) -> "dict | None":
-    """Read-only columns for the capella withdrawals sweep:
+    """Read-only columns for the capella and electra withdrawals sweeps:
     withdrawal_prefix (first credentials byte), withdrawable_epoch,
     effective_balance, balances. None = scalar fallback (counted)."""
     cols = columns_for(state)

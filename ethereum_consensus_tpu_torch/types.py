@@ -1,8 +1,8 @@
 """Fork-polymorphic chain types (the reference's generated src/types/ layer).
 
-The port carries phase0 through deneb: ``FORK_SEQUENCE`` is ``(phase0,
-altair, bellatrix, capella, deneb)``, and a container of a later fork raises
-``UnknownForkError``.
+The port carries phase0 through electra: ``FORK_SEQUENCE`` is ``(phase0,
+altair, bellatrix, capella, deneb, electra)``, and a container of no known
+fork raises ``UnknownForkError``.
 
 Reference parity: ethereum-consensus/src/types/ (13,272 LoC generated by
 spec-gen's type_generator.rs): one wrapper per chain object spanning every
@@ -24,7 +24,7 @@ from __future__ import annotations
 
 from .error import UnknownForkError
 from .fork import Fork
-from .models import altair, bellatrix, capella, deneb, phase0
+from .models import altair, bellatrix, capella, deneb, electra, phase0
 
 __all__ = [
     "FORK_SEQUENCE",
@@ -34,7 +34,14 @@ __all__ = [
     "SignedBeaconBlock",
 ]
 
-FORK_SEQUENCE = (Fork.PHASE0, Fork.ALTAIR, Fork.BELLATRIX, Fork.CAPELLA, Fork.DENEB)
+FORK_SEQUENCE = (
+    Fork.PHASE0,
+    Fork.ALTAIR,
+    Fork.BELLATRIX,
+    Fork.CAPELLA,
+    Fork.DENEB,
+    Fork.ELECTRA,
+)
 
 FORK_MODULES = {
     Fork.PHASE0: phase0,
@@ -42,6 +49,7 @@ FORK_MODULES = {
     Fork.BELLATRIX: bellatrix,
     Fork.CAPELLA: capella,
     Fork.DENEB: deneb,
+    Fork.ELECTRA: electra,
 }
 
 

@@ -46,7 +46,15 @@ def test_importing_the_port_loads_no_jax():
         "ethereum_consensus_tpu_torch.ops.fq12, ethereum_consensus_tpu_torch.ops.pairing, "
         "ethereum_consensus_tpu_torch.executor, ethereum_consensus_tpu_torch.execution_engine, "
         "ethereum_consensus_tpu_torch.models.bellatrix, ethereum_consensus_tpu_torch.models.capella, "
-        "ethereum_consensus_tpu_torch.models.deneb, ethereum_consensus_tpu_torch.crypto.kzg; "
+        "ethereum_consensus_tpu_torch.models.deneb, ethereum_consensus_tpu_torch.crypto.kzg, "
+        "ethereum_consensus_tpu_torch.models.electra, "
+        "ethereum_consensus_tpu_torch.models.genesis_common, "
+        "ethereum_consensus_tpu_torch.models.phase0.genesis, "
+        "ethereum_consensus_tpu_torch.models.altair.genesis, "
+        "ethereum_consensus_tpu_torch.models.bellatrix.genesis, "
+        "ethereum_consensus_tpu_torch.models.capella.genesis, "
+        "ethereum_consensus_tpu_torch.models.deneb.genesis, "
+        "ethereum_consensus_tpu_torch.models.electra.genesis; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r}]; "
         "assert not bad, bad"
