@@ -62,6 +62,25 @@ Phases, each of which exits non-zero when it fails:
                 roots, each kernel launched; the block with attestation 17's
                 signature replaced by attestation 18's raises the same error
                 on both paths.
+     telemetry — the three staged epoch kernels (csrc/epoch_staged.cu:
+                the inactivity update, one flag's deltas, four delta pairs
+                applied in order) through epoch_vector.jitted_kernels() at
+                2^20 and 2^20 + 5 on seeded columns with u64 edge rows
+                (adds that wrap, reward products past 2^64, penalties that
+                saturate, scores at 0, 1, the recovery rate and far above,
+                leaking and not, head flag and not), bit-exact against their
+                plain versions on the card, each launched; CUDA-event times
+                at 2^20 beside bounds and plain versions. Then the block
+                phase's block applied cold on the device path from SSZ twice:
+                once plain, once with spans recording and the device and
+                memory observatories on: the same post-state root, every
+                phases.attribution bucket present and adding up, the launch
+                ledger equal to the launch counts kernel by kernel, every
+                transfer site with its bytes, the route tallies equal to the
+                device.route.* counters, a device lane in the Chrome trace
+                (written to chiprun_out/telemetry_trace.json; its summary
+                printed); both walls printed against the prediction; the
+                memory census of the recorded 2^20 state timed apart.
  10. sweeps   — the effective-balance hysteresis kernel against its plain
                 version, bit-exact, for n in {1, 255, 256, 257, 2^17, 2^20}
                 and one and two rows in (threshold crossings both ways,
@@ -1478,10 +1497,289 @@ def phase_block(registry: dict) -> dict:
     if host_error != device_error or not host_error.startswith("InvalidAttestation"):
         sys.exit("chip_smoke: the tampered block was not rejected alike on both paths")
     return {"attestations": len(good.message.body.attestations), "keys": n_keys,
+            "signed_block": good,
             "make_s": make_s, "read_s": read_s, "host_apply_s": host_s,
             "host_parts_s": host_parts, "device_apply_s": device_s,
             "device_parts_s": device_parts, "launches": launches,
             "kernel_ms_inside": kernel_ms, "rejection": device_error}
+
+
+# --- telemetry: the staged epoch kernels and a recorded block --------------
+
+# The staged programs' sizes: the main path's registry, and an unaligned one
+# (the pairs' rows then lie off 16 bytes: one validator a thread).
+STAGED_SIZES = (VALIDATORS, VALIDATORS + 5)
+STAGED_PAIRS = 4  # the altair staged route's pairs: three flags and the penalties
+# Integer operations a validator, counted as the sweeps' are (a 64-bit add,
+# compare or select 2, a product 3; each division by a fixed divisor
+# DIV64_OPS, counted from the run's masks): the update as the B5-altair
+# kernel's (INACTIVITY_UPDATES_OPS); a flag's masks and selects (6) and its
+# two products; a pair's add, compare, subtraction and select.
+STAGED_INACTIVITY_OPS = 12
+STAGED_FLAG_OPS = 6 + 2 * 3
+STAGED_PAIR_OPS = 8
+# Bytes a validator: each input read once, each output written once.
+STAGED_INACTIVITY_BYTES = 8 + 1 + 1 + 8
+STAGED_FLAG_BYTES = 8 + 1 + 1 + 16
+STAGED_APPLY_BYTES = 8 + 16 * STAGED_PAIRS + 8
+# The flag cases of the run: (weight, unslashed increments, active
+# increments, weight denominator, leaking, head flag); the last one's reward
+# numerators pass 2^64.
+STAGED_FLAG_CASES = (
+    (14, 917_504, 1 << 25, 64, False, False),
+    (14, 917_504, 1 << 25, 64, False, True),
+    (26, 917_504, 1 << 25, 64, True, False),
+    (2**64 - 1, 2**63 + 9, (1 << 50) + 3, 97, False, False),
+)
+STAGED_INACTIVITY_CASES = ((4, 16, False), (4, 16, True), (2**64 - 1, 2**64 - 2, False))
+# The recorded apply's trace, in the git-ignored output directory.
+TELEMETRY_TRACE = os.path.join("chiprun_out", "telemetry_trace.json")
+# The prediction (PERF.md §6): the instrumentation of one recorded apply
+# costs under 0.1 s, so on and off walls differ by the host's cold-apply
+# spread, up to this share of the off wall.
+RECORDING_PREDICTED_SHARE = 0.10
+
+
+def _staged_columns(n: int, seed: int) -> dict:
+    """Seeded host columns with u64 edge rows first: scores at 0, 1, the
+    recovery rate and far above it (and where the bias wraps), base rewards
+    whose products pass 2^64, balances where a reward's add wraps and
+    penalties that saturate."""
+    rng = np.random.default_rng(seed)
+    top = 2**64 - 1
+
+    def column(edges, high):
+        col = rng.integers(0, high, n, dtype=np.uint64)
+        col[:len(edges)] = np.asarray(edges, np.uint64)
+        return col
+
+    eligible = rng.random(n) < 0.9
+    participating = rng.random(n) < 0.6
+    eligible[:4], participating[:4] = [True, False, True, False], [True, True, False, False]
+    return {
+        "scores": column([0, 1, 16, 17, 2**32, 2**63, top - 3, top], 1 << 12),
+        "base_reward": column([0, 1, 2**63, top, top // 14, 2**58], 1 << 40),
+        "eligible": eligible,
+        "participating": participating,
+        "balances": column([0, 1, 32 * 10**9, 2**63, top - 5, top], 64 * 10**9),
+        "pairs": [(column([top, 1, 0, 2**63], 1 << 31), column([0, top, 2**63, 5], 1 << 31))
+                  for _ in range(STAGED_PAIRS)],
+    }
+
+
+def _staged_entries(n: int, seed: int) -> dict:
+    """Each entry of ``epoch_vector.jitted_kernels()`` on the card at n
+    (the host columns up, the result down), held bit-exact against its
+    plain version on the same columns on the card; returns the largest
+    word error of each entry."""
+    from ethereum_consensus_tpu_torch.models import epoch_vector
+    from ethereum_consensus_tpu_torch.ops import epoch as ops_epoch
+
+    k = _staged_columns(n, seed)
+    kernels = epoch_vector.jitted_kernels()
+    scores, base, balances = (_cuda_column(k[c]) for c in ("scores", "base_reward", "balances"))
+    elig, part = _cuda_column(k["eligible"]), _cuda_column(k["participating"])
+    errs = {"staged_inactivity_scores": 0, "staged_flag_deltas": 0,
+            "staged_apply_delta_pairs": 0}
+
+    def err(got: np.ndarray, want: torch.Tensor) -> int:
+        return _words_err(_cuda_column(got), want)
+
+    for bias, recovery, leaking in STAGED_INACTIVITY_CASES:
+        got = kernels["inactivity_scores"](k["scores"], k["eligible"], k["participating"],
+                                           bias, recovery, leaking)
+        want = ops_epoch.staged_inactivity_scores_plain(scores, elig, part, bias, recovery,
+                                                        leaking)
+        errs["staged_inactivity_scores"] = max(errs["staged_inactivity_scores"], err(got, want))
+    for case in STAGED_FLAG_CASES:
+        got = kernels["flag_deltas"](k["base_reward"], k["eligible"], k["participating"], *case)
+        want = ops_epoch.staged_flag_deltas_plain(base, elig, part, *case)
+        errs["staged_flag_deltas"] = max(errs["staged_flag_deltas"], err(got[0], want[0]),
+                                         err(got[1], want[1]))
+    got = kernels["apply_delta_pairs"](k["balances"], k["pairs"])
+    rewards = torch.stack([_cuda_column(r) for r, _ in k["pairs"]])
+    penalties = torch.stack([_cuda_column(p) for _, p in k["pairs"]])
+    want = ops_epoch.staged_apply_delta_pairs_plain(balances, rewards, penalties)
+    errs["staged_apply_delta_pairs"] = err(got, want)
+    print(f"telemetry: staged entries n={n}: largest word error {errs}")
+    return errs
+
+
+def _staged_timings() -> dict:
+    """CUDA-event times of the three staged kernels at 2^20 on the
+    altair-shaped columns (the source flag; four pairs), beside their
+    plain versions and their bounds."""
+    from ethereum_consensus_tpu_torch.ops import epoch as ops_epoch
+
+    n = VALIDATORS
+    k = _staged_columns(n, seed=2100)
+    scores, base, balances = (_cuda_column(k[c]) for c in ("scores", "base_reward", "balances"))
+    elig, part = _cuda_column(k["eligible"]), _cuda_column(k["participating"])
+    rewards = torch.stack([_cuda_column(r) for r, _ in k["pairs"]])
+    penalties = torch.stack([_cuda_column(p) for _, p in k["pairs"]])
+    weight, increments, active, wd, leaking, head = STAGED_FLAG_CASES[0]
+    # a division for each lane that takes one: a reward where eligible and
+    # unslashed, a penalty where eligible and not
+    divisions = int(k["eligible"].sum())
+    runs = {
+        "staged_inactivity_scores": (
+            lambda: ops_epoch.staged_inactivity_scores_cuda(scores, elig, part, 4, 16, False),
+            lambda: ops_epoch.staged_inactivity_scores_plain(scores, elig, part, 4, 16, False),
+            n * STAGED_INACTIVITY_OPS, n * STAGED_INACTIVITY_BYTES),
+        "staged_flag_deltas": (
+            lambda: ops_epoch.staged_flag_deltas_cuda(base, elig, part, weight, increments,
+                                                      active, wd, leaking, head),
+            lambda: ops_epoch.staged_flag_deltas_plain(base, elig, part, weight, increments,
+                                                       active, wd, leaking, head),
+            n * STAGED_FLAG_OPS + divisions * DIV64_OPS, n * STAGED_FLAG_BYTES),
+        "staged_apply_delta_pairs": (
+            lambda: ops_epoch.staged_apply_delta_pairs_cuda(balances, rewards, penalties),
+            lambda: ops_epoch.staged_apply_delta_pairs_plain(balances, rewards, penalties),
+            n * STAGED_PAIR_OPS * STAGED_PAIRS, n * STAGED_APPLY_BYTES),
+    }
+    out = {}
+    for name, (launch, plain, ops, nbytes) in runs.items():
+        ms = _cuda_ms(launch, reps=50, warmup=5)
+        plain_ms = _cuda_ms(plain, reps=5, warmup=1)
+        bound, bound_by = _bound(ops, nbytes)
+        print(f"telemetry {name} n=2^20: {ms:.4f} ms, bound {bound:.4f} ms by {bound_by} "
+              f"({100 * bound / ms:.1f}% of it); plain {plain_ms:.3f} ms; library: none")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
+    return out
+
+
+def _recorded_apply(registry: dict, signed_block) -> dict:
+    """The phase0 block's device apply at 2^20, cold from SSZ, with spans
+    recording and the device and memory observatories on, against the same
+    apply with them off."""
+    from ethereum_consensus_tpu_torch import convert, ops
+    from ethereum_consensus_tpu_torch.telemetry import device, memory, metrics, phases, spans
+
+    data, ctx = registry["data"], registry["ctx"]
+    with _collector_paused():
+        t0 = time.perf_counter()
+        off_state = convert.state_from_ssz(data, ctx.preset)
+        memory.start()  # arms the census's list tracking before the read
+        on_state = convert.state_from_ssz(data, ctx.preset)
+        memory.stop()
+        read_s = time.perf_counter() - t0
+
+    ops.uninstall()
+    ops.install(device="cuda")
+    off_s, _ = _apply(off_state, signed_block, ctx)
+    ops.uninstall()
+    ops.install(device="cuda")
+    _zero_launch_counts()
+    before = metrics.snapshot()
+    spans.start_recording()
+    device.start()
+    memory.start()
+    try:
+        on_s, _ = _apply(on_state, signed_block, ctx)
+    finally:
+        memory.stop()
+        device.stop()
+        spans.stop_recording()
+    counts = {name: c for name, c in _launch_counts().items() if c}
+    after = metrics.snapshot()
+    ops.uninstall()
+
+    state_type = type(on_state)
+    root_on = state_type.hash_tree_root(on_state)
+    root_off = state_type.hash_tree_root(off_state)
+    obs = device.OBSERVATORY
+    ledger = obs.launches()
+    transfers = obs.transfer_summary()["sites"]
+    tallies = obs.route_tallies()
+
+    def counted(name: str) -> int:
+        return int(after.get(name, 0)) - int(before.get(name, 0))
+
+    routes_agree = all(counted(f"device.route.{kind}.{choice}") == n
+                       for kind, choices in tallies.items() for choice, n in choices.items())
+    sites_ok = bool(transfers) and all(
+        (agg["h2d_count"] == 0 or agg["h2d_bytes"] > 0)
+        and (agg["d2h_count"] == 0 or agg["d2h_bytes"] > 0) for agg in transfers.values())
+    records = spans.RECORDER.records()
+    attribution = phases.attribution(records)
+    total = attribution["slot_advance_s"] + attribution["block_apply_s"]
+    parts = sum(attribution[k] for k in ("sig_batch_s", "state_htr_s", "committee_s",
+                                         "operations_s"))
+    buckets_ok = (set(attribution) == {"slot_advance_s", "block_apply_s", "sig_batch_s",
+                                       "state_htr_s", "state_htr_in_slot_advance_s",
+                                       "committee_s", "operations_s"}
+                  and attribution["block_apply_s"] > 0 and abs(total - parts) <= 5e-4)
+    doc = spans.RECORDER.chrome_trace()
+    lanes = sorted(e["args"]["name"].split(" (")[0] for e in doc["traceEvents"]
+                   if e.get("ph") == "M" and e.get("name") == "thread_name")
+    os.makedirs(os.path.dirname(TELEMETRY_TRACE), exist_ok=True)
+    with open(TELEMETRY_TRACE, "w", encoding="utf-8") as f:
+        json.dump(doc, f)
+    audit = spans.RECORDER.audit()
+    phase_ledger = memory.OBSERVATORY.phase_ledger()
+    copies = memory.OBSERVATORY.copy_summary()["totals"]
+    t0 = time.perf_counter()
+    census = memory.census()
+    census_s = time.perf_counter() - t0
+    worst = memory.OBSERVATORY.worst(4, census)
+
+    share = on_s / off_s - 1
+    print(f"telemetry: states read in {read_s:.1f} s; cold device apply off {off_s:.3f} s, "
+          f"recorded {on_s:.3f} s ({100 * share:+.1f}%; predicted within "
+          f"{100 * RECORDING_PREDICTED_SHARE:.0f}%: "
+          f"{'inside' if abs(share) <= RECORDING_PREDICTED_SHARE else 'OUTSIDE'})")
+    print(f"telemetry: roots equal {root_on == root_off}, post-state root {root_on.hex()}")
+    print(f"telemetry: attribution {attribution}")
+    print(f"telemetry: launch ledger {ledger}; launch counts {counts}")
+    print(f"telemetry: transfer sites { {s: (a['h2d_bytes'], a['d2h_bytes']) for s, a in transfers.items()} }")
+    print(f"telemetry: route tallies {tallies}; counters agree {routes_agree}")
+    print(f"telemetry: trace {TELEMETRY_TRACE}: {audit['spans']} spans, "
+          f"{len(spans.RECORDER.event_records())} events, {audit['dropped']} dropped, "
+          f"lanes {lanes}")
+    print(f"telemetry: memory phases {sorted(phase_ledger)}; copies {copies}; census of the "
+          f"2^20 state in {census_s:.3f} s, largest owners {worst}")
+    failures = []
+    if root_on != root_off:
+        failures.append("the recorded apply's post-state root differs")
+    if not buckets_ok:
+        failures.append(f"phases.attribution lacks a bucket or does not add up: {attribution}")
+    if ledger != counts:
+        failures.append(f"the launch ledger {ledger} is not the launch counts {counts}")
+    if not all(counts.get(k) for k in ("sha256_64b", "shuffle", "g1_sum_sets")):
+        failures.append(f"a kernel of the block path was not launched: {counts}")
+    if not sites_ok:
+        failures.append(f"a transfer site lacks its bytes: {transfers}")
+    if not routes_agree or not tallies:
+        failures.append(f"the route tallies and the device.route.* counters disagree: {tallies}")
+    if "device" not in lanes:
+        failures.append(f"the trace has no device lane: {lanes}")
+    if failures:
+        sys.exit("chip_smoke: " + "; ".join(failures))
+    return {"read_s": read_s, "off_s": off_s, "on_s": on_s, "share": share,
+            "root": root_on.hex(), "attribution": attribution, "launches": counts,
+            "spans": audit["spans"], "dropped": audit["dropped"], "lanes": lanes,
+            "census_s": census_s}
+
+
+def phase_telemetry(registry: dict, signed_block) -> dict:
+    """The staged epoch kernels through ``epoch_vector.jitted_kernels()`` at
+    2^20 and 2^20 + 5, bit-exact against their plain versions on the card and
+    timed at 2^20; then the phase0 block's device apply recorded."""
+    _zero_launch_counts()
+    errs = [_staged_entries(n, seed=2100 + i) for i, n in enumerate(STAGED_SIZES)]
+    counts = _launch_counts()
+    launches = {name: counts[name] for name in errs[0]}
+    print(f"telemetry: staged launches through jitted_kernels() {launches}")
+    if not all(launches.values()):
+        sys.exit(f"chip_smoke: a staged kernel was never launched: {launches}")
+    worst = {name: max(e[name] for e in errs) for name in launches}
+    if any(worst.values()):
+        sys.exit(f"chip_smoke: a staged kernel differs from its plain version: {worst}")
+    timings = _staged_timings()
+    for name in timings:
+        timings[name]["max_abs_err"] = worst[name]
+    recorded = _recorded_apply(registry, signed_block)
+    return {"launches": launches, "timings": timings, "recorded": recorded}
 
 
 def _hysteresis_columns(n: int, gen: torch.Generator, scalars: tuple) -> tuple:
@@ -5402,6 +5700,8 @@ def main() -> int:
     report["htr"] = _walled("htr", phase_htr, HTR_LOG2_LEAVES)
     report["slice"] = _walled("slice", phase_slice, registry["data"], registry["ctx"], SLOTS)
     report["block"] = _walled("block", phase_block, registry)
+    report["telemetry"] = _walled("telemetry", phase_telemetry, registry,
+                                  report["block"]["signed_block"])
     report["sweeps"] = _walled("sweeps", phase_sweeps)
     report["epoch"] = _walled("epoch", phase_epoch, registry)
     report["altair_sweeps"] = _walled("altair_sweeps", phase_altair_sweeps)
@@ -5427,7 +5727,8 @@ def main() -> int:
              "mesh_altair": report["mesh"]["altair"]["launches"],
              "mesh_window": report["mesh"]["window"]["launches"],
              "mesh_sweeps": report["mesh"]["sweeps"]["launches"][str(MESH_VIRTUAL_SHARDS)],
-             "step": report["step"]["launches"], "dryrun": report["step"]["dryrun_launches"]}
+             "step": report["step"]["launches"], "dryrun": report["step"]["dryrun_launches"],
+             "telemetry": report["telemetry"]["launches"]}
     electra_g1, block_g1 = report["altair"]["electra"]["g1"], report["g1"]["checks"]["block"]
     print(f"g1_sum_sets at the electra block's {electra_g1['sets']} sets ({electra_g1['keys']} "
           f"keys): {electra_g1['ms']:.4f} ms, {100 * electra_g1['bound_ms'] / electra_g1['ms']:.2f}% "
@@ -5445,6 +5746,8 @@ def main() -> int:
     for name, timing in report["mesh"]["timings"].items():
         report[name] = timing
     for name, timing in report["step"]["kernels"].items():
+        report[name] = timing
+    for name, timing in report["telemetry"]["timings"].items():
         report[name] = timing
     sources = {
         "sha256_64b": ("sha256", "block", "ethereum_consensus_tpu_torch/csrc/sha256.cu",
@@ -5523,6 +5826,17 @@ def main() -> int:
         "epoch_step_apply": ("epoch_step_apply", "step",
                              "ethereum_consensus_tpu_torch/csrc/chain_step.cu",
                              "ethereum_consensus_tpu/parallel/step.py:294"),
+        # the staged programs of jitted_kernels(), launched through it: the
+        # transition takes only the fused kernel
+        "staged_inactivity_scores": ("staged_inactivity_scores", "telemetry",
+                                     "ethereum_consensus_tpu_torch/csrc/epoch_staged.cu",
+                                     "ethereum_consensus_tpu/models/epoch_vector.py:234"),
+        "staged_flag_deltas": ("staged_flag_deltas", "telemetry",
+                               "ethereum_consensus_tpu_torch/csrc/epoch_staged.cu",
+                               "ethereum_consensus_tpu/models/epoch_vector.py:251"),
+        "staged_apply_delta_pairs": ("staged_apply_delta_pairs", "telemetry",
+                                     "ethereum_consensus_tpu_torch/csrc/epoch_staged.cu",
+                                     "ethereum_consensus_tpu/models/epoch_vector.py:285"),
     }
     kernels = {"kernels": [{
         "name": name,

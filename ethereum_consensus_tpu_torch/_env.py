@@ -25,6 +25,8 @@ The flags the port reads:
                                   sweeps take the mesh
   ECT_MESH_MERKLE_MIN_CHUNKS=<n>  the chunk count from which a flat
                                   merkle rebuild takes the mesh
+  ECT_TRACEMALLOC=1        the memory observatory also traces Python
+                           allocations per phase (telemetry/memory.py)
 
 Reference parity: ethereum_consensus_tpu/_env.py (the subset the ported
 modules read).
@@ -34,7 +36,7 @@ from __future__ import annotations
 
 import os
 
-__all__ = ["MULTIPLIERS", "flag_off", "mesh_requested", "min_count", "mode", "multiplier",
+__all__ = ["MULTIPLIERS", "flag_off", "flag_on", "mesh_requested", "min_count", "mode", "multiplier",
            "threshold"]
 
 MULTIPLIERS = ("u64", "mxu")
@@ -44,6 +46,12 @@ def flag_off(key: str) -> bool:
     """True when the flag explicitly disables its feature (off/0/false,
     case-insensitive). Unset is NOT off: features default on."""
     return os.environ.get(key, "").strip().lower() in ("off", "0", "false")
+
+
+def flag_on(key: str) -> bool:
+    """True when the flag explicitly enables its feature: the opt-in
+    ``=1``/``=on`` idiom (ECT_TRACEMALLOC). Unset is NOT on."""
+    return os.environ.get(key, "").strip().lower() in ("1", "on")
 
 
 def mode(key: str, default: str = "") -> str:

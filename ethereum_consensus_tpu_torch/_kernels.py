@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import time
 
-__all__ = ["build_all", "build_log", "load"]
+__all__ = ["build_all", "build_log", "library_path", "load", "loaded"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -164,6 +164,27 @@ _LIBRARIES = {
             ),
         },
     ),
+    "epoch_staged": (
+        ("epoch_staged.cu", "epoch_staged_core.h", "altair_core.h", "udiv64_core.h",
+         "warp_chunks.h"),
+        {
+            "staged_inactivity_launch": (
+                [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_uint64, ctypes.c_uint64,
+                                         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+                ctypes.c_int,
+            ),
+            "staged_flag_deltas_launch": (
+                [ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_uint64] * 4
+                + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3,
+                ctypes.c_int,
+            ),
+            "staged_apply_pairs_launch": (
+                [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+                                         ctypes.c_void_p],
+                ctypes.c_int,
+            ),
+        },
+    ),
     "chain_step": (
         ("chain_step.cu", "chain_step_core.h", "epoch_pass.h", "masked_sums.h",
          "altair_core.h", "udiv64_core.h", "sweeps_core.h", "warp_chunks.h"),
@@ -230,6 +251,16 @@ def _paths(name: str) -> tuple[str, str]:
     return stem + ".so", stem + ".log"
 
 
+def library_path(name: str) -> str:
+    """The path of the current build of ``name`` (built or not)."""
+    return _paths(name)[0]
+
+
+def loaded() -> tuple:
+    """The names of the libraries this process has loaded."""
+    return tuple(_LOADED)
+
+
 def build_log(name: str) -> str:
     """The compiler's output (``-Xptxas -v``: registers, spills) of the
     current build of ``name``."""
@@ -271,12 +302,18 @@ def build_all(names=None) -> float:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The bound library ``name``, built first if needed."""
+    """The bound library ``name``, built first if needed. Its first load
+    in the process goes into the device observatory's compile ledger
+    (built or reused, and the seconds)."""
     lib = _LOADED.get(name)
     if lib is not None:
         return lib
+    from .telemetry import device as _obs
+
+    t0 = time.perf_counter()
     lib_path, _ = _paths(name)
-    if not os.path.exists(lib_path):
+    built = not os.path.exists(lib_path)
+    if built:
         build_all()
     lib = ctypes.CDLL(lib_path)
     for fn_name, (argtypes, restype) in _LIBRARIES[name][1].items():
@@ -284,4 +321,5 @@ def load(name: str) -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = restype
     _LOADED[name] = lib
+    _obs.library(name, t0, time.perf_counter(), built)
     return lib

@@ -41,9 +41,11 @@ def words_from_chunks(chunks: bytes, device, width: int = 8) -> torch.Tensor:
     return host.to(device)
 
 
-def chunks_from_words(t: torch.Tensor) -> bytes:
-    """Inverse of ``words_from_chunks``: ``(width, N)`` words to N items."""
-    return t.cpu().numpy().view(np.uint32).T.astype(">u4").tobytes()
+def chunks_from_words(t) -> bytes:
+    """Inverse of ``words_from_chunks``: ``(width, N)`` words (a tensor, or
+    the numpy array of one on the host) to N items."""
+    words = t.cpu().numpy() if isinstance(t, torch.Tensor) else t
+    return words.view(np.uint32).T.astype(">u4").tobytes()
 
 
 def lv_to_ints(cols) -> "list[int]":

@@ -41,7 +41,9 @@ from ..error import (
     InvalidSignatureError,
 )
 from ..native import bls as native_bls
+from ..telemetry import device as _device_obs
 from ..telemetry import metrics as _metrics
+from ..utils import trace
 from .curves import (
     G1_GENERATOR,
     G1Point,
@@ -93,11 +95,49 @@ _ROUTE_HOST = _metrics.counter("bls.pairing_route.host")
 _ROUTE_TL = threading.local()
 
 
+def _note_pairing_route(choice: str, reason: str, n_sets: int) -> None:
+    """Record one batch verification's route: the counter, the
+    thread-local stamp, and the device observatory's routing journal with
+    the threshold inputs (only while observing)."""
+    (_ROUTE_DEVICE if choice == "device" else _ROUTE_HOST).inc()
+    _ROUTE_TL.route = choice
+    if _device_obs.OBSERVATORY.active:
+        _device_obs.route(
+            "pairing",
+            choice,
+            reason,
+            sets=n_sets,
+            threshold=_device_flags.PAIRING_MIN_SETS,
+        )
+
+
 def last_batch_route() -> "str | None":
     """The route ("device" or "host") of the newest batched verification
     on the calling thread, or None if none ran (single sets and the
     per-set blame verify on the host without the RLC batch)."""
     return getattr(_ROUTE_TL, "route", None)
+
+
+# one-shot state for _device_decline: last exception type per kind, so a
+# changed failure cause re-arms the trace event
+_DECLINE_LOCK = threading.Lock()
+_DECLINE_LAST: "dict[str, str]" = {}
+
+
+def _device_decline(kind: str, exc: BaseException) -> None:
+    """Journal one failure of a device route before the caller re-raises
+    it: counter, routing journal (choice ``raised``: the port answers no
+    route with another) and a one-shot trace event, re-armed when the
+    exception type changes."""
+    _metrics.counter(f"bls.device_decline.{kind}").inc()
+    cause = type(exc).__name__
+    if _device_obs.OBSERVATORY.active:
+        _device_obs.route("bls_device", "raised", kind, cause=cause)
+    with _DECLINE_LOCK:
+        armed = _DECLINE_LAST.get(kind) != cause
+        _DECLINE_LAST[kind] = cause
+    if armed:
+        trace.event("bls.device_decline", kind=kind, cause=cause)
 
 
 def backend_name() -> str:
@@ -561,7 +601,11 @@ def fast_aggregate_verify(
         return False
     if _native():
         if _device_flags.bls_agg_enabled(len(public_keys)):
-            agg = _aggregate_on_device(public_keys)
+            try:
+                agg = _aggregate_on_device(public_keys)
+            except Exception as exc:
+                _device_decline("fast_aggregate", exc)
+                raise
             if agg is None:
                 return False  # identity aggregate never verifies
             return verify_signature(agg, message, signature, dst)
@@ -701,12 +745,18 @@ def _batch_all_valid(sets: list[SignatureSet], dst: bytes) -> bool:
                 break
         scalars.append(s)
     if _device_flags.pairing_enabled(len(sets)):
-        verdict = _batch_device_pairing(sets, dst, scalars)
-        _ROUTE_DEVICE.inc()
-        _ROUTE_TL.route = "device"
+        try:
+            verdict = _batch_device_pairing(sets, dst, scalars)
+        except Exception as exc:
+            _device_decline("pairing", exc)
+            raise
+        _note_pairing_route("device", "routed", len(sets))
         return verdict
-    _ROUTE_HOST.inc()
-    _ROUTE_TL.route = "host"
+    _note_pairing_route(
+        "host",
+        "not_installed" if _device_flags.PAIRING_MIN_SETS is None else "below_threshold",
+        len(sets),
+    )
     # raw-affine pubkeys: decompressed once per key (cached on the
     # PublicKey — subgroup-checked at parse time), so repeat verifiers
     # (the same validators every block) never pay the sqrt again

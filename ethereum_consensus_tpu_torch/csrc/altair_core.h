@@ -236,6 +236,50 @@ inline UpdateColumns update_columns(const void* scores, const void* participatin
 // with four at 2^20 and beat four at 2^21 + 5 (tools/sweep_forms.py).
 constexpr int kUpdateSteps = 1;
 
+#ifdef __CUDACC__
+
+// The inactivity updates' kernel (B5-altair's, altair_sweeps.cu, and the
+// staged update of epoch_staged.cu): a warp's chunks of kSteps steps (from
+// its rank, a grid's warps apart), each step's loads issued before the
+// first update; then this thread's validators past the chunks. A plain
+// launch of chunk_grid<kSteps>(n) blocks of kSweepThreads.
+template <int kSteps>
+__global__ void __launch_bounds__(warp_chunks::kSweepThreads)
+    inactivity_updates_kernel(UpdateColumns c, uint64_t bias, uint64_t recovery_rate,
+                              bool leaking) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * warp_chunks::kSweepWarps;
+  for (int64_t k = warp_chunks::warp_rank(blockIdx.x, static_cast<int>(threadIdx.x >> 5));
+       k < c.chunks; k += warps) {
+    ulonglong2 score[kSteps];
+    unsigned part[kSteps], elig[kSteps];
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) {
+      const int64_t i = warp_chunks::chunk_index<kSteps>(k, j, lane);
+      score[j] = __ldcs(reinterpret_cast<const ulonglong2*>(c.scores + i));
+      part[j] = __ldcs(reinterpret_cast<const unsigned short*>(c.participating + i));
+      elig[j] = __ldcs(reinterpret_cast<const unsigned short*>(c.eligible + i));
+    }
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) {
+      const int64_t i = warp_chunks::chunk_index<kSteps>(k, j, lane);
+      *reinterpret_cast<ulonglong2*>(c.out + i) = make_ulonglong2(
+          inactivity_update(score[j].x, part[j] & 0xffu, elig[j] & 0xffu, bias, recovery_rate,
+                            leaking),
+          inactivity_update(score[j].y, part[j] >> 8, elig[j] >> 8, bias, recovery_rate,
+                            leaking));
+    }
+  }
+  const int64_t threads = static_cast<int64_t>(gridDim.x) * warp_chunks::kSweepThreads;
+  for (int64_t i = warp_chunks::tail_first<kSteps>(c.chunks, blockIdx.x, threadIdx.x); i < c.n;
+       i += threads) {
+    c.out[i] = inactivity_update(c.scores[i], c.participating[i] != 0, c.eligible[i] != 0, bias,
+                                 recovery_rate, leaking);
+  }
+}
+
+#endif  // __CUDACC__
+
 #ifndef __CUDACC__
 
 // The penalties' and the updates' kernels on a grid of `grid` blocks, run

@@ -4,7 +4,8 @@
 // Replaces the XLA programs of the reference package
 // ethereum_consensus_tpu/ops/sweeps.py: _flag_deltas (:67, with the isqrt
 // of :45 inside), _inactivity_updates (:147) and _inactivity_penalties
-// (:191). The per-validator arithmetic is in altair_core.h.
+// (:191). The per-validator arithmetic is in altair_core.h, and so is the
+// inactivity updates' kernel, which epoch_staged.cu launches too.
 //
 // Inputs and outputs are unsigned 64-bit words (int64 tensors carry the bit
 // patterns) and one-byte booleans, all (n,), contiguous on one device.
@@ -228,43 +229,6 @@ __global__ void __launch_bounds__(kThreads)
   rewards_pass(c, s, udiv64_core::divide(total, s.increment), weight, leaking != 0, kept);
 }
 
-// The inactivity updates: a warp's chunks of kSteps steps (from
-// global_warp, a grid's warps apart), each step's loads issued before the
-// first update; then this thread's validators past the chunks.
-template <int kSteps>
-__global__ void __launch_bounds__(kThreads)
-    inactivity_updates_kernel(altair_core::UpdateColumns c, uint64_t bias,
-                              uint64_t recovery_rate, bool leaking) {
-  const int lane = threadIdx.x & 31;
-  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
-  for (int64_t k = global_warp(); k < c.chunks; k += warps) {
-    ulonglong2 score[kSteps];
-    unsigned part[kSteps], elig[kSteps];
-#pragma unroll
-    for (int j = 0; j < kSteps; ++j) {
-      const int64_t i = altair_core::chunk_index<kSteps>(k, j, lane);
-      score[j] = __ldcs(reinterpret_cast<const ulonglong2*>(c.scores + i));
-      part[j] = __ldcs(reinterpret_cast<const unsigned short*>(c.participating + i));
-      elig[j] = __ldcs(reinterpret_cast<const unsigned short*>(c.eligible + i));
-    }
-#pragma unroll
-    for (int j = 0; j < kSteps; ++j) {
-      const int64_t i = altair_core::chunk_index<kSteps>(k, j, lane);
-      *reinterpret_cast<ulonglong2*>(c.out + i) = make_ulonglong2(
-          altair_core::inactivity_update(score[j].x, part[j] & 0xffu, elig[j] & 0xffu, bias,
-                                         recovery_rate, leaking),
-          altair_core::inactivity_update(score[j].y, part[j] >> 8, elig[j] >> 8, bias,
-                                         recovery_rate, leaking));
-    }
-  }
-  const int64_t threads = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = altair_core::tail_first<kSteps>(c.chunks, blockIdx.x, threadIdx.x); i < c.n;
-       i += threads) {
-    c.out[i] = altair_core::inactivity_update(c.scores[i], c.participating[i] != 0,
-                                              c.eligible[i] != 0, bias, recovery_rate, leaking);
-  }
-}
-
 // The inactivity penalties: a warp's chunks (from global_warp, a grid's
 // warps apart), each step's loads issued before the first division; then
 // this thread's validators past the chunks.
@@ -307,7 +271,7 @@ template <int kSteps>
 int launch_updates(const void* scores, const void* participating, const void* eligible, int64_t n,
                    uint64_t bias, uint64_t recovery_rate, bool leaking, void* out,
                    cudaStream_t stream) {
-  inactivity_updates_kernel<kSteps>
+  altair_core::inactivity_updates_kernel<kSteps>
       <<<static_cast<unsigned>(altair_core::chunk_grid<kSteps>(n)), kThreads, 0, stream>>>(
           altair_core::update_columns<kSteps>(scores, participating, eligible, n, out), bias,
           recovery_rate, leaking);

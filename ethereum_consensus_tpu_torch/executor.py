@@ -17,6 +17,7 @@ from .error import IncompatibleForksError
 from .fork import Fork
 from .models.transition import Validation
 from .types import FORK_SEQUENCE, BeaconState, SignedBeaconBlock, fork_module
+from .utils import trace
 
 __all__ = ["Executor", "Validation"]
 
@@ -40,7 +41,12 @@ class Executor:
 
     def apply_block(self, signed_block) -> None:
         """(executor.rs:113)"""
-        self.apply_block_with_validation(signed_block, Validation.ENABLED)
+        # wrapped first: a container of no known fork raises UnknownForkError
+        # before the span reads its slot
+        if not isinstance(signed_block, SignedBeaconBlock):
+            signed_block = SignedBeaconBlock.wrap(signed_block, self.context.preset)
+        with trace.span("executor.apply_block", slot=int(signed_block.data.message.slot)):
+            self.apply_block_with_validation(signed_block, Validation.ENABLED)
 
     def apply_block_with_validation(self, signed_block, validation) -> None:
         """(executor.rs:135)"""

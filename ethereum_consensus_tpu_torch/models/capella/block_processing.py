@@ -4,8 +4,9 @@ Reference parity: ethereum-consensus/src/capella/block_processing.rs —
 process_bls_to_execution_change:23, process_operations:89 (adds the change
 ops), process_execution_payload:166 (withdrawals root; unconditional parent
 hash check), process_withdrawals:277, get_expected_withdrawals:348, capella
-process_block. Ported from ethereum_consensus_tpu/models/capella/block_processing.py;
-the trace spans around the withdrawals sweep wait for the telemetry slice.
+process_block. Ported from ethereum_consensus_tpu/models/capella/block_processing.py,
+with its trace spans around the withdrawals sweep: ``ops_vector.withdrawals``
+on the columnar path, ``capella.withdrawals_sweep`` on the literal one.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from ...error import (
 from ...execution_engine import verify_and_notify_new_payload
 from ...primitives import BLS_WITHDRAWAL_PREFIX, ETH1_ADDRESS_WITHDRAWAL_PREFIX
 from ...signing import compute_signing_root
+from ...utils import trace
 from ..signature_batch import verify_or_defer
 from .. import _diff
 from .. import ops_vector as _ops_vector
@@ -132,7 +134,8 @@ def get_expected_withdrawals(state, context) -> list:
     the literal per-index loop as the fallback (and the cross-checked
     oracle in tests)."""
     if len(state.validators) >= WITHDRAWALS_VECTOR_MIN_VALIDATORS:
-        hits = _sweep_hits_vectorized(state, context)
+        with trace.span("ops_vector.withdrawals", validators=len(state.validators)):
+            hits = _sweep_hits_vectorized(state, context)
         if hits is not None:
             withdrawal_index = state.next_withdrawal_index
             withdrawals = []
@@ -150,7 +153,8 @@ def get_expected_withdrawals(state, context) -> list:
                 )
                 withdrawal_index += 1
             return withdrawals
-    return _get_expected_withdrawals_loop(state, context)
+    with trace.span("capella.withdrawals_sweep", validators=len(state.validators)):
+        return _get_expected_withdrawals_loop(state, context)
 
 
 def _get_expected_withdrawals_loop(state, context) -> list:

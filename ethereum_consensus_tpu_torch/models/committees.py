@@ -35,23 +35,44 @@ nested-container freshness flag (``_parents_registered`` +
 ``_elems_fresh``, ssz/core.py) — any element, field, or list mutation
 clears it.
 
-Reference parity: ethereum_consensus_tpu/models/committees.py. Cut with
-the telemetry slice: the routing journal, trace spans and events, and the
-memory observatory's bundle census.
+Telemetry: ``committees.fallback.{reason}`` counts every decline (one
+trace event a reason a process, a routing-journal entry with its inputs
+while the device observatory is on), the build runs in a
+``committees.mask_build`` span, and ``registered_bundles`` feeds the
+memory observatory's ``committees.mask_bundles`` census.
+
+Reference parity: ethereum_consensus_tpu/models/committees.py.
 """
 
 from __future__ import annotations
 
+import threading
+import weakref
+
 from .. import _env
 from ..domains import DomainType
+from ..telemetry import device as _device_obs
 from ..telemetry import metrics
+from ..utils import trace
 
 __all__ = [
     "PendingMasks",
     "pending_masks_for",
     "drop_masks_memo",
+    "registered_bundles",
     "MASKS_MIN_VALIDATORS",
 ]
+
+# every live mask bundle, for the memory observatory's
+# ``committees.mask_bundles`` owner census (telemetry/memory.py) —
+# bundles die with their memo dicts, the census must not pin them
+_BUNDLES: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
+
+
+def registered_bundles() -> list:
+    """Live PendingMasks bundles (census snapshot, GC-safe)."""
+    return [b for b in (r() for r in _BUNDLES.valuerefs()) if b is not None]
+
 
 # Below this registry size the spec walks win (table + bitfield setup
 # costs more than a handful of tiny committees); the differential tests
@@ -60,6 +81,9 @@ MASKS_MIN_VALIDATORS = 1 << 12
 
 _DISABLE_ENV = "ECT_COMMITTEE_MASKS"  # =off disables just this kernel
 _MEMO_ATTR = "_pending_masks_memo"
+
+_FALLBACK_SEEN: set = set()
+_FALLBACK_LOCK = threading.Lock()
 
 
 def _np():
@@ -71,9 +95,18 @@ def _np():
         return None
 
 
-def fallback(reason: str) -> None:
-    """Count a decline to the spec-helper walk."""
+def fallback(reason: str, **inputs) -> None:
+    """Count a decline to the spec-helper walk (trace event once per
+    reason per process, routing-journal entry while observing — the
+    epoch_vector.fallback discipline)."""
     metrics.counter(f"committees.fallback.{reason}").inc()
+    if _device_obs.OBSERVATORY.active:
+        _device_obs.route("committees", "scalar", reason, **inputs)
+    if reason not in _FALLBACK_SEEN:
+        with _FALLBACK_LOCK:
+            if reason not in _FALLBACK_SEEN:
+                _FALLBACK_SEEN.add(reason)
+                trace.event("committees.fallback", reason=reason)
 
 
 def _disabled() -> bool:
@@ -108,6 +141,7 @@ class PendingMasks:
         "covered",
         "inclusion_delay",
         "inclusion_proposer",
+        "__weakref__",  # memory-observatory census membership
     )
 
 
@@ -141,7 +175,7 @@ def _build(state, epoch: int, atts, context, np) -> "PendingMasks | None":
     indices = h.get_active_validator_indices(state, epoch)
     active_count = len(indices)
     if active_count == 0:
-        fallback("no_active")
+        fallback("no_active", epoch=epoch)
         return None
     per_slot = h.get_committee_count_per_slot(state, epoch, context)
     spe = int(context.SLOTS_PER_EPOCH)
@@ -168,7 +202,7 @@ def _build(state, epoch: int, atts, context, np) -> "PendingMasks | None":
         ):
             # outside the epoch's committee geometry: the spec walk owns
             # whatever structured error (or exotic slice) results
-            fallback("geometry")
+            fallback("geometry", epoch=epoch, slot=slot, index=index)
             return None
         slots[r] = slot
         cidx[r] = index
@@ -187,7 +221,7 @@ def _build(state, epoch: int, atts, context, np) -> "PendingMasks | None":
                     np.asarray(bits, dtype=bool), bitorder="little"
                 ).tobytes()
             except Exception:  # noqa: BLE001 — exotic bit values
-                fallback("bits_values")
+                fallback("bits_values", epoch=epoch)
                 return None
         rows.append(raw)
         tgt_match[r] = bytes(data.target.root) == target_root
@@ -200,7 +234,7 @@ def _build(state, epoch: int, atts, context, np) -> "PendingMasks | None":
     if bool((bit_lens != lens).any()):
         # a bits/committee length mismatch is the spec walk's structured
         # InvalidIndexedAttestation — decline so it raises at its site
-        fallback("bits_shape")
+        fallback("bits_shape", epoch=epoch)
         return None
     max_len = int(lens.max())
     words = (max_len + 63) // 64
@@ -298,14 +332,14 @@ def pending_masks_for(state, epoch: int, context) -> "PendingMasks | None":
         return None
     n = len(state.validators)
     if n < MASKS_MIN_VALIDATORS:
-        fallback("below_threshold")
+        fallback("below_threshold", validators=n, threshold=MASKS_MIN_VALIDATORS)
         return None
     if _disabled():
-        fallback("disabled")
+        fallback("disabled", validators=n)
         return None
     atts = _pendings_for_epoch(state, epoch, context)
     if atts is None:
-        fallback("no_pendings")
+        fallback("no_pendings", epoch=epoch)
         return None
     key = (epoch, n, len(atts), getattr(atts, "_mut_gen", None))
     memo = state.__dict__.get(_MEMO_ATTR)
@@ -325,10 +359,17 @@ def pending_masks_for(state, epoch: int, context) -> "PendingMasks | None":
             ):
                 metrics.counter("committees.masks.hits").inc()
                 return hit[2]
-    bundle = _build(state, epoch, atts, context, np)
+    with trace.span("committees.mask_build", epoch=epoch, attestations=len(atts)):
+        bundle = _build(state, epoch, atts, context, np)
     if bundle is None:
         return None
+    _BUNDLES[id(bundle)] = bundle  # census membership (weak)
     metrics.counter("committees.masks.builds").inc()
+    if _device_obs.OBSERVATORY.active:
+        _device_obs.route(
+            "committees", "kernel", "engaged",
+            epoch=epoch, attestations=len(atts), validators=n,
+        )
     # REBIND a fresh dict (the _active_idx_cache discipline): state
     # copies share __dict__ values, so in-place inserts would leak a
     # diverged copy's masks into the original

@@ -34,6 +34,7 @@ from ...execution_engine import verify_and_notify_new_payload
 from ...primitives import FAR_FUTURE_EPOCH, UNSET_DEPOSIT_RECEIPTS_START_INDEX
 from ...signing import compute_signing_root, verify_signed_data
 from ...ssz import is_valid_merkle_branch
+from ...utils import trace
 from .. import _diff
 from ..signature_batch import verify_or_defer
 from ..bellatrix.containers import execution_payload_to_header
@@ -139,7 +140,8 @@ def get_expected_withdrawals(state, context) -> tuple[list, int]:
     n = len(state.validators)
     remaining = context.MAX_WITHDRAWALS_PER_PAYLOAD - len(withdrawals)
     if n >= WITHDRAWALS_VECTOR_MIN_VALIDATORS and remaining > 0:
-        hits = _sweep_hits_vectorized(state, context, remaining)
+        with trace.span("ops_vector.withdrawals", validators=n):
+            hits = _sweep_hits_vectorized(state, context, remaining)
         if hits is not None:
             for vi, amount in hits:
                 validator = state.validators[vi]
@@ -154,31 +156,32 @@ def get_expected_withdrawals(state, context) -> tuple[list, int]:
                 withdrawal_index += 1
             return withdrawals, partial_withdrawals_count
 
-    bound = min(n, context.MAX_VALIDATORS_PER_WITHDRAWALS_SWEEP)
-    for _ in range(bound):
-        validator = state.validators[validator_index]
-        balance = state.balances[validator_index]
-        if h.is_fully_withdrawable_validator(validator, balance, epoch):
-            amount = balance
-        elif h.is_partially_withdrawable_validator(validator, balance, context):
-            amount = balance - h.get_validator_max_effective_balance(
-                validator, context
-            )
-        else:
-            amount = None
-        if amount is not None:
-            withdrawals.append(
-                Withdrawal(
-                    index=withdrawal_index,
-                    validator_index=validator_index,
-                    address=bytes(validator.withdrawal_credentials)[12:],
-                    amount=amount,
+    with trace.span("electra.withdrawals_sweep", validators=n):
+        bound = min(n, context.MAX_VALIDATORS_PER_WITHDRAWALS_SWEEP)
+        for _ in range(bound):
+            validator = state.validators[validator_index]
+            balance = state.balances[validator_index]
+            if h.is_fully_withdrawable_validator(validator, balance, epoch):
+                amount = balance
+            elif h.is_partially_withdrawable_validator(validator, balance, context):
+                amount = balance - h.get_validator_max_effective_balance(
+                    validator, context
                 )
-            )
-            withdrawal_index += 1
-        if len(withdrawals) == context.MAX_WITHDRAWALS_PER_PAYLOAD:
-            break
-        validator_index = (validator_index + 1) % len(state.validators)
+            else:
+                amount = None
+            if amount is not None:
+                withdrawals.append(
+                    Withdrawal(
+                        index=withdrawal_index,
+                        validator_index=validator_index,
+                        address=bytes(validator.withdrawal_credentials)[12:],
+                        amount=amount,
+                    )
+                )
+                withdrawal_index += 1
+            if len(withdrawals) == context.MAX_WITHDRAWALS_PER_PAYLOAD:
+                break
+            validator_index = (validator_index + 1) % len(state.validators)
 
     return withdrawals, partial_withdrawals_count
 

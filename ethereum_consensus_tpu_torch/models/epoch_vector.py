@@ -60,22 +60,33 @@ the staged inactivity and rewards stages sharded where the fused route
 declines. The runtime counts every decline; a failing shard raises.
 
 Telemetry: ``epoch_vector.epochs`` counts engaged passes,
-``epoch_vector.fallback.{reason}`` every decline,
-``epoch_vector.fused.device`` every fused launch and
-``epoch_vector.fused.mesh`` every sharded fused pass.
+``epoch_vector.fallback.{reason}`` every decline (one trace event a
+reason a process, and a routing-journal entry with its inputs while the
+device observatory is on), ``epoch_vector.fused.device`` every fused
+launch and ``epoch_vector.fused.mesh`` every sharded fused pass; the
+per-stage spans (``epoch_vector.justification`` … ``epoch_vector.commit``)
+give a recorded run its per-stage attribution.
+
+``jitted_kernels()`` returns the reference's four device entries, each
+wrapped by the device observatory's call ledger (``observe_jit``): the
+three staged programs on ``csrc/epoch_staged.cu`` (``ops/epoch.py``
+``staged_*``) and ``fused_epoch`` on B3. The transition takes only the
+fused route; the staged entries exist for the observatory and its tests,
+as in the reference.
 
 Reference parity: ethereum_consensus_tpu/models/epoch_vector.py, every
-fork's row. Left out until the slices that need them:
-``jitted_kernels`` / ``kernel_cache_census`` (the port calls
-``ops/epoch.py`` directly), and the trace spans and routing journal
-(telemetry slice).
+fork's row.
 """
 
 from __future__ import annotations
 
+import threading
+
 from .. import _device_flags, _env
 from ..primitives import FAR_FUTURE_EPOCH, GENESIS_EPOCH
+from ..telemetry import device as _device_obs
 from ..telemetry import metrics
+from ..utils import trace
 from . import ops_vector
 
 __all__ = [
@@ -83,6 +94,8 @@ __all__ = [
     "inactivity_scores_kernel",
     "flag_deltas_kernel",
     "apply_delta_pairs_kernel",
+    "jitted_kernels",
+    "kernel_cache_census",
     "EPOCH_VECTOR_MIN_VALIDATORS",
 ]
 
@@ -99,6 +112,9 @@ _U64_MAX = (1 << 64) - 1
 # to the literal loops BEFORE any mutation
 _LANE_MAX = 1 << 63
 
+_FALLBACK_SEEN: set = set()
+_FALLBACK_LOCK = threading.Lock()
+
 
 def _np():
     try:
@@ -109,12 +125,145 @@ def _np():
         return None
 
 
-def fallback(reason: str) -> None:
-    """Count a decline to the literal epoch path. EVERY decline path runs
-    through here — including the deliberate ones (``below_threshold``,
-    ``device_sweeps``): a production-threshold decline is a routing
-    decision worth seeing."""
+def fallback(reason: str, **inputs) -> None:
+    """Count a decline to the literal epoch path (trace event once per
+    reason per process). EVERY decline path runs through here — including
+    the deliberate ones (``below_threshold``, ``device_sweeps``): a
+    production-threshold decline is a routing decision worth seeing.
+    While the device observatory is on, the decline also lands in its
+    routing journal with the threshold inputs."""
     metrics.counter(f"epoch_vector.fallback.{reason}").inc()
+    if _device_obs.OBSERVATORY.active:
+        _device_obs.route("epoch_vector", "literal", reason, **inputs)
+    if reason not in _FALLBACK_SEEN:
+        with _FALLBACK_LOCK:
+            if reason not in _FALLBACK_SEEN:
+                _FALLBACK_SEEN.add(reason)
+                trace.event("epoch_vector.fallback", reason=reason)
+
+
+_JITTED_KERNELS: dict = {}
+_JITTED_KERNELS_LOCK = threading.Lock()
+_STAGED_SITE = "epoch_vector.staged"
+
+
+def _inactivity_scores_entry(scores, eligible, participating, bias, recovery_rate, leaking,
+                             *, device="cuda"):
+    """The reference's jitted inactivity_scores_kernel: host columns in
+    (u64 scores, bool flags), one upload, the kernel (its plain version on
+    "cpu"), the new scores out as uint64."""
+    import numpy as np
+
+    from ..ops import epoch as _epoch
+
+    tensors = _device_obs.h2d(
+        _STAGED_SITE, np.asarray(scores, np.uint64), np.asarray(eligible, bool),
+        np.asarray(participating, bool), device=device,
+    )
+    out = _epoch.staged_inactivity_scores(*tensors, bias, recovery_rate, leaking)
+    return _device_obs.d2h(_STAGED_SITE, out, np.uint64)
+
+
+def _flag_deltas_entry(base_reward, eligible, unslashed, weight, unslashed_increments,
+                       active_increments, weight_denominator, leaking, is_head_flag,
+                       *, device="cuda"):
+    """The reference's jitted flag_deltas_kernel: (rewards, penalties) as
+    uint64 arrays."""
+    import numpy as np
+
+    from ..ops import epoch as _epoch
+
+    tensors = _device_obs.h2d(
+        _STAGED_SITE, np.asarray(base_reward, np.uint64), np.asarray(eligible, bool),
+        np.asarray(unslashed, bool), device=device,
+    )
+    rewards, penalties = _epoch.staged_flag_deltas(
+        *tensors, weight, unslashed_increments, active_increments, weight_denominator,
+        leaking, is_head_flag,
+    )
+    return (_device_obs.d2h(_STAGED_SITE, rewards, np.uint64),
+            _device_obs.d2h(_STAGED_SITE, penalties, np.uint64))
+
+
+def _apply_delta_pairs_entry(balances, pairs, *, device="cuda"):
+    """The reference's jitted apply_delta_pairs_kernel: ``pairs`` a
+    sequence of (rewards, penalties) columns, stacked into one (k, n)
+    rewards and one (k, n) penalties column for one pass."""
+    import numpy as np
+
+    from ..ops import epoch as _epoch
+
+    balances = np.asarray(balances, np.uint64)
+    shape = (len(pairs), balances.shape[0])
+    rewards = np.empty(shape, np.uint64)
+    penalties = np.empty(shape, np.uint64)
+    for j, (reward, penalty) in enumerate(pairs):
+        rewards[j] = reward
+        penalties[j] = penalty
+    tensors = _device_obs.h2d(_STAGED_SITE, balances, rewards, penalties, device=device)
+    return _device_obs.d2h(_STAGED_SITE, _epoch.staged_apply_delta_pairs(*tensors), np.uint64)
+
+
+def _fused_epoch_entry(balances, eff, prev_part, slashed, active_prev, eligible, scores,
+                       increment, brpi, active_increments, denominator, bias, recovery_rate,
+                       weights, weight_denominator, leaking, head_flag_index,
+                       target_flag_index, *, device="cuda"):
+    """The reference's jitted fused_epoch_kernel: B3 through
+    ``ops/epoch.py fused_epoch_device`` (one upload):
+    (new_scores, new_balances, wrapped)."""
+    from ..ops import epoch as _epoch
+
+    return _epoch.fused_epoch_device(
+        balances, eff, prev_part, slashed, active_prev, eligible, scores, increment, brpi,
+        active_increments, denominator, bias, recovery_rate, weights, weight_denominator,
+        leaking, head_flag_index, target_flag_index, device=device,
+    )
+
+
+def jitted_kernels() -> dict:
+    """The four device entries of the epoch pass, each wrapped through
+    the device observatory's call ledger (``observe_jit``) under the
+    reference's names: ``{"inactivity_scores", "flag_deltas",
+    "apply_delta_pairs", "fused_epoch"}``. Each takes the reference's
+    arguments as host arrays (the reference's static scalars as Python
+    values), runs on the card unless ``device="cpu"`` asks for the plain
+    versions, and returns uint64 arrays. Built once per process."""
+    if _JITTED_KERNELS:
+        return _JITTED_KERNELS
+    with _JITTED_KERNELS_LOCK:
+        if not _JITTED_KERNELS:
+            _JITTED_KERNELS.update({
+                "inactivity_scores": _device_obs.observe_jit(
+                    _inactivity_scores_entry, "epoch_vector.inactivity_scores_kernel"),
+                "flag_deltas": _device_obs.observe_jit(
+                    _flag_deltas_entry, "epoch_vector.flag_deltas_kernel"),
+                "apply_delta_pairs": _device_obs.observe_jit(
+                    _apply_delta_pairs_entry, "epoch_vector.apply_delta_pairs_kernel"),
+                "fused_epoch": _device_obs.observe_jit(
+                    _fused_epoch_entry, "epoch_vector.fused_epoch_kernel"),
+            })
+    return _JITTED_KERNELS
+
+
+def kernel_cache_census() -> "tuple[int, int]":
+    """(bytes, entries) for the memory observatory's
+    ``epoch_vector.jit_kernels`` owner: one entry per built entry plus
+    each further signature the call ledger has seen it take, and the
+    bytes of the loaded kernel libraries behind them (``epoch_staged``,
+    ``fused_epoch``)."""
+    import os
+
+    from .. import _kernels
+
+    entries = 0
+    signatures = _device_obs.OBSERVATORY.signatures()
+    for kernel in _JITTED_KERNELS.values():
+        entries += max(1, len(signatures.get(kernel.__qualname__, ())))
+    nbytes = sum(
+        os.path.getsize(_kernels.library_path(name))
+        for name in ("epoch_staged", "fused_epoch") if name in _kernels.loaded()
+    )
+    return nbytes, entries
 
 
 def _disabled() -> bool:
@@ -686,12 +835,14 @@ def _rewards_literal_apply(ec, pairs) -> None:
     raise _PassComplete()
 
 
-def _fused_fallback(reason: str) -> None:
+def _fused_fallback(reason: str, **inputs) -> None:
     """A fused-route decline is NOT an engine fallback (the staged host
-    kernels run and the pass stays columnar) — a separate counter, so a
-    run can require zero ``epoch_vector.fallback.*`` while still seeing
-    every fused routing decision."""
+    kernels run and the pass stays columnar) — a separate counter and
+    journal kind, so a run can require zero ``epoch_vector.fallback.*``
+    while still seeing every fused routing decision."""
     metrics.counter(f"epoch_vector.fused_fallback.{reason}").inc()
+    if _device_obs.OBSERVATORY.active:
+        _device_obs.route("epoch_fused", "staged", reason, **inputs)
 
 
 def _fused_route(ec, leaking: bool) -> bool:
@@ -721,25 +872,26 @@ def _fused_route(ec, leaking: bool) -> bool:
     if ec.n and int(ec.eff.max(initial=0)) * (
         int(ec.inact.max(initial=0)) + bias
     ) >= 1 << 64:
-        _fused_fallback("u64_product")
+        _fused_fallback("u64_product", validators=ec.n)
         return False
     brpi, active_increments = _reward_scalars(ec)
     if ec.mesh is not None:
-        out = ec.mesh.fused(
-            ec.balances, ec.eff, ec.prev_part, ec.slashed, ec.active_prev,
-            ec.eligible, ec.inact,
-            increment=ec.increment,
-            brpi=brpi,
-            active_increments=active_increments,
-            denominator=_penalty_denominator(ec),
-            bias=bias,
-            recovery_rate=int(context.inactivity_score_recovery_rate),
-            weights=tuple(int(w) for w in PARTICIPATION_FLAG_WEIGHTS),
-            weight_denominator=int(WEIGHT_DENOMINATOR),
-            leaking=leaking,
-            head_flag_index=int(TIMELY_HEAD_FLAG_INDEX),
-            target_flag_index=_TIMELY_TARGET_FLAG_INDEX,
-        )
+        with trace.span("epoch_vector.fused", validators=ec.n, route="mesh"):
+            out = ec.mesh.fused(
+                ec.balances, ec.eff, ec.prev_part, ec.slashed, ec.active_prev,
+                ec.eligible, ec.inact,
+                increment=ec.increment,
+                brpi=brpi,
+                active_increments=active_increments,
+                denominator=_penalty_denominator(ec),
+                bias=bias,
+                recovery_rate=int(context.inactivity_score_recovery_rate),
+                weights=tuple(int(w) for w in PARTICIPATION_FLAG_WEIGHTS),
+                weight_denominator=int(WEIGHT_DENOMINATOR),
+                leaking=leaking,
+                head_flag_index=int(TIMELY_HEAD_FLAG_INDEX),
+                target_flag_index=_TIMELY_TARGET_FLAG_INDEX,
+            )
         if out is None:
             # a wrap the guards should have made unreachable: the staged
             # path re-runs and its literal mirror raises the structured
@@ -751,31 +903,34 @@ def _fused_route(ec, leaking: bool) -> bool:
         ec.inact, ec.balances = out
         metrics.counter("epoch_vector.fused.mesh").inc()
         return True
-    scores, balances, wrapped = _epoch.fused_epoch_device(
-        ec.balances, ec.eff, ec.prev_part, ec.slashed, ec.active_prev,
-        ec.eligible, ec.inact,
-        ec.increment,
-        brpi,
-        active_increments,
-        _penalty_denominator(ec),
-        bias,
-        int(context.inactivity_score_recovery_rate),
-        tuple(int(w) for w in PARTICIPATION_FLAG_WEIGHTS),
-        int(WEIGHT_DENOMINATOR),
-        leaking,
-        int(TIMELY_HEAD_FLAG_INDEX),
-        _TIMELY_TARGET_FLAG_INDEX,
-        device=_device_flags.DEVICE,
-    )
+    with trace.span("epoch_vector.fused", validators=ec.n, route="device"):
+        scores, balances, wrapped = _epoch.fused_epoch_device(
+            ec.balances, ec.eff, ec.prev_part, ec.slashed, ec.active_prev,
+            ec.eligible, ec.inact,
+            ec.increment,
+            brpi,
+            active_increments,
+            _penalty_denominator(ec),
+            bias,
+            int(context.inactivity_score_recovery_rate),
+            tuple(int(w) for w in PARTICIPATION_FLAG_WEIGHTS),
+            int(WEIGHT_DENOMINATOR),
+            leaking,
+            int(TIMELY_HEAD_FLAG_INDEX),
+            _TIMELY_TARGET_FLAG_INDEX,
+            device=_device_flags.DEVICE,
+        )
     if wrapped:
         # a wrap the guards should have made unreachable: the staged path
         # re-runs and its literal mirror raises the structured error at
         # the exact index
-        _fused_fallback("wrap_guard")
+        _fused_fallback("wrap_guard", validators=ec.n)
         return False
     ec.inact = scores
     ec.balances = balances
     metrics.counter("epoch_vector.fused.device").inc()
+    if _device_obs.OBSERVATORY.active:
+        _device_obs.route("epoch_fused", "device", "engaged", validators=ec.n)
     return True
 
 
@@ -793,8 +948,10 @@ def _inactivity_and_rewards(ec) -> None:
     )
     if _fused_route(ec, leaking):
         return
-    _inactivity_updates(ec, leaking)
-    _rewards_altair(ec, leaking)
+    with trace.span("epoch_vector.inactivity"):
+        _inactivity_updates(ec, leaking)
+    with trace.span("epoch_vector.rewards"):
+        _rewards_altair(ec, leaking)
 
 
 # ---------------------------------------------------------------------------
@@ -1200,36 +1357,37 @@ def _commit(ec) -> None:
     owned) column caches agree by construction."""
     np = ec.np
     state = ec.state
-    if ec.balances is not ec.b_balances:
-        ops_vector.adopt_list_column(
-            state.balances,
-            ec.balances,
-            np.nonzero(ec.balances != ec.b_balances)[0],
-            _U64_MAX,
-        )
-    if ec.inact is not None and ec.inact is not ec.b_inact:
-        ops_vector.adopt_list_column(
-            state.inactivity_scores,
-            ec.inact,
-            np.nonzero(ec.inact != ec.b_inact)[0],
-            _U64_MAX,
-        )
-    validators = state.validators
-    writes = 0
-    for field, work_name, base_name in _VAL_FIELD_COLS:
-        work = getattr(ec, work_name)
-        base = getattr(ec, base_name)
-        if work is base:
-            continue
-        for i in np.nonzero(work != base)[0].tolist():
-            setattr(validators[i], field, int(work[i]))
+    with trace.span("epoch_vector.commit", validators=ec.n):
+        if ec.balances is not ec.b_balances:
+            ops_vector.adopt_list_column(
+                state.balances,
+                ec.balances,
+                np.nonzero(ec.balances != ec.b_balances)[0],
+                _U64_MAX,
+            )
+        if ec.inact is not None and ec.inact is not ec.b_inact:
+            ops_vector.adopt_list_column(
+                state.inactivity_scores,
+                ec.inact,
+                np.nonzero(ec.inact != ec.b_inact)[0],
+                _U64_MAX,
+            )
+        validators = state.validators
+        writes = 0
+        for field, work_name, base_name in _VAL_FIELD_COLS:
+            work = getattr(ec, work_name)
+            base = getattr(ec, base_name)
+            if work is base:
+                continue
+            for i in np.nonzero(work != base)[0].tolist():
+                setattr(validators[i], field, int(work[i]))
+                writes += 1
+        for i in ec.credential_switches:
+            v = validators[i]
+            v.withdrawal_credentials = b"\x02" + bytes(v.withdrawal_credentials)[1:]
             writes += 1
-    for i in ec.credential_switches:
-        v = validators[i]
-        v.withdrawal_credentials = b"\x02" + bytes(v.withdrawal_credentials)[1:]
-        writes += 1
-    if writes:
-        metrics.counter("epoch_vector.validator_writes").inc(writes)
+        if writes:
+            metrics.counter("epoch_vector.validator_writes").inc(writes)
 
 
 class _PassComplete(Exception):
@@ -1251,10 +1409,10 @@ def process_epoch_columnar(state, context, fork: str) -> bool:
     if n < EPOCH_VECTOR_MIN_VALIDATORS:
         # a deliberate cost threshold, not a degradation — but still a
         # routing decision, counted like every other decline
-        fallback("below_threshold")
+        fallback("below_threshold", validators=n, threshold=EPOCH_VECTOR_MIN_VALIDATORS)
         return False
     if _disabled():
-        fallback("disabled")
+        fallback("disabled", validators=n)
         return False
     family = _FORK_CFG[fork]["family"]
     fused = False
@@ -1267,10 +1425,10 @@ def process_epoch_columnar(state, context, fork: str) -> bool:
             fused = True
         else:
             # phase0 keeps the literal path's device hysteresis routing
-            fallback("device_sweeps")
+            fallback("device_sweeps", validators=n, sweeps_min_n=_device_flags.SWEEPS_MIN_N)
             return False
     if _np() is None:
-        fallback("no_numpy")
+        fallback("no_numpy", validators=n)
         return False
     from .altair.constants import TIMELY_TARGET_FLAG_INDEX
 
@@ -1289,63 +1447,78 @@ def process_epoch_columnar(state, context, fork: str) -> bool:
         from ..parallel import runtime as _mesh_runtime
 
         ec.mesh = _mesh_runtime.epoch_sweeps(n, family=family)
+    if _device_obs.OBSERVATORY.active:
+        # every guard passed: the engage decision, journaled next to the
+        # declines so the routing journal tells the whole story
+        _device_obs.route("epoch_vector", "columnar", "engaged", validators=n, fork=fork)
     from .phase0.epoch_processing import (
         process_eth1_data_reset,
         process_randao_mixes_reset,
         process_slashings_reset,
     )
 
-    try:
-        if family == "phase0":
-            _justification_phase0(ec)
-            _rewards_phase0(ec)
+    with trace.span("epoch_vector.pass", fork=fork, validators=n):
+        try:
+            with trace.span("epoch_vector.justification"):
+                if family == "phase0":
+                    _justification_phase0(ec)
+                else:
+                    _justification_altair(ec)
+            if family == "phase0":
+                with trace.span("epoch_vector.rewards"):
+                    _rewards_phase0(ec)
+            else:
+                _inactivity_and_rewards(ec)
+            with trace.span("epoch_vector.registry"):
+                _registry_updates(ec)
+            with trace.span("epoch_vector.slashings"):
+                _slashings(ec)
+            process_eth1_data_reset(state, context)
+            if fork == "electra":
+                with trace.span("epoch_vector.pendings"):
+                    _pending_balance_deposits(ec)
+                    _pending_consolidations(ec)
+            with trace.span("epoch_vector.hysteresis"):
+                _effective_balance_updates(ec)
+            _commit(ec)
+        except _PassComplete:
+            metrics.counter("epoch_vector.epochs").inc()
+            return True
+        process_slashings_reset(state, context)
+        process_randao_mixes_reset(state, context)
+        if ec.cfg["historical"] == "roots":
+            from .phase0.epoch_processing import process_historical_roots_update
+
+            process_historical_roots_update(state, context)
         else:
-            _justification_altair(ec)
-            _inactivity_and_rewards(ec)
-        _registry_updates(ec)
-        _slashings(ec)
-        process_eth1_data_reset(state, context)
-        if fork == "electra":
-            _pending_balance_deposits(ec)
-            _pending_consolidations(ec)
-        _effective_balance_updates(ec)
-        _commit(ec)
-    except _PassComplete:
-        metrics.counter("epoch_vector.epochs").inc()
-        return True
-    process_slashings_reset(state, context)
-    process_randao_mixes_reset(state, context)
-    if ec.cfg["historical"] == "roots":
-        from .phase0.epoch_processing import process_historical_roots_update
+            from .capella.epoch_processing import process_historical_summaries_update
 
-        process_historical_roots_update(state, context)
-    else:
-        from .capella.epoch_processing import process_historical_summaries_update
+            process_historical_summaries_update(state, context)
+        with trace.span("epoch_vector.rotation"):
+            if family == "phase0":
+                from .committees import drop_masks_memo
 
-        process_historical_summaries_update(state, context)
-    if family == "phase0":
-        from .committees import drop_masks_memo
+                # pending lists swap: this epoch's mask bundles are done
+                drop_masks_memo(state)
+                state.previous_epoch_attestations = state.current_epoch_attestations
+                state.current_epoch_attestations = []
+            else:
+                state.previous_epoch_participation = state.current_epoch_participation
+                state.current_epoch_participation = [0] * n
+                ops_vector.install_zero_column(state.current_epoch_participation, n, 0xFF)
+        if family != "phase0":
+            next_epoch = ec.cur + 1
+            if next_epoch % int(context.EPOCHS_PER_SYNC_COMMITTEE_PERIOD) == 0:
+                # the sampling sweep reads the committed registry; seed its
+                # active-index tuple from the committed columns so the rare
+                # boundary stays walk-free too
+                np = ec.np
+                mask = (ec.act <= np.uint64(next_epoch)) & (
+                    np.uint64(next_epoch) < ec.exit
+                )
+                _seed_active_indices(ec, next_epoch, mask)
+                from .altair.epoch_processing import process_sync_committee_updates
 
-        # pending lists swap: this epoch's mask bundles are done
-        drop_masks_memo(state)
-        state.previous_epoch_attestations = state.current_epoch_attestations
-        state.current_epoch_attestations = []
-    else:
-        state.previous_epoch_participation = state.current_epoch_participation
-        state.current_epoch_participation = [0] * n
-        ops_vector.install_zero_column(state.current_epoch_participation, n, 0xFF)
-        next_epoch = ec.cur + 1
-        if next_epoch % int(context.EPOCHS_PER_SYNC_COMMITTEE_PERIOD) == 0:
-            # the sampling sweep reads the committed registry; seed its
-            # active-index tuple from the committed columns so the rare
-            # boundary stays walk-free too
-            np = ec.np
-            mask = (ec.act <= np.uint64(next_epoch)) & (
-                np.uint64(next_epoch) < ec.exit
-            )
-            _seed_active_indices(ec, next_epoch, mask)
-            from .altair.epoch_processing import process_sync_committee_updates
-
-            process_sync_committee_updates(state, context)
+                process_sync_committee_updates(state, context)
     metrics.counter("epoch_vector.epochs").inc()
     return True

@@ -34,9 +34,12 @@ Contract for every array this module hands out: READ-ONLY views
 
 Reference parity: ethereum_consensus_tpu/models/ops_vector.py. Left out
 with the slice that needs them: the serving plane's
-``registry_snapshot`` / ``gather_rows``. The memory-observatory and trace
-seams are cut (telemetry slice). Every decline counts in
-``ops_vector.fallback.{reason}``.
+``registry_snapshot`` / ``gather_rows``. Every decline counts in
+``ops_vector.fallback.{reason}`` (one trace event a reason a process, a
+routing-journal entry while the device observatory is on); the batched
+attestations run in an ``ops_vector.attestations`` span, and their
+working copies count at the memory observatory's
+``ops_vector.working_copies`` site.
 """
 
 from __future__ import annotations
@@ -45,7 +48,10 @@ import threading
 
 from .. import _env
 from ..ssz.core import CachedRootList, bulk_store
+from ..telemetry import device as _device_obs
+from ..telemetry import memory as _memory
 from ..telemetry import metrics
+from ..utils import trace
 
 __all__ = [
     "RegistryColumns",
@@ -80,9 +86,24 @@ def _np():
         return None
 
 
+# one-shot trace events per fallback reason (the counters count every
+# occurrence; the event makes the first degradation stand out in a trace)
+_FALLBACK_SEEN: set = set()
+_FALLBACK_LOCK = threading.Lock()
+
+
 def fallback(reason: str) -> None:
-    """Record a degradation to a scalar path (counter per occurrence)."""
+    """Record a degradation to a scalar path: counter per occurrence,
+    trace event once per reason per process (plus a routing-journal
+    entry while the device observatory is on)."""
     metrics.counter(f"ops_vector.fallback.{reason}").inc()
+    if _device_obs.OBSERVATORY.active:
+        _device_obs.route("ops_vector", "scalar", reason)
+    if reason not in _FALLBACK_SEEN:
+        with _FALLBACK_LOCK:
+            if reason not in _FALLBACK_SEEN:
+                _FALLBACK_SEEN.add(reason)
+                trace.event("ops_vector.fallback", reason=reason)
 
 
 def _disabled() -> bool:
@@ -514,6 +535,12 @@ def process_attestations_batch(state, attestations, context,
     # working copies: reads and writes stay here until the single commit
     cur = cur_col.copy()
     prev = prev_col.copy()
+    if _memory.OBSERVATORY.active:
+        # bandwidth: the per-block participation working set (two full
+        # column materializations per batched block)
+        _memory.OBSERVATORY.record_copy(
+            "ops_vector.working_copies", int(cur.nbytes) + int(prev.nbytes)
+        )
 
     def commit() -> None:
         for arr, orig, lst in (
@@ -528,41 +555,46 @@ def process_attestations_batch(state, attestations, context,
                     int(changed.size)
                 )
 
-    try:
-        for attestation in attestations:
-            attesting_indices, flag_indices, is_current = prepare(
-                state, attestation, context
-            )
-            k = len(attesting_indices)
-            idx = np.fromiter(attesting_indices, np.int64, k)
-            arr = cur if is_current else prev
-            vals = arr[idx]
-            numerator_increments = 0
-            mask = 0
-            for flag_index in flag_indices:
-                bit = np.uint8(1 << flag_index)
-                newly = (vals & bit) == 0
-                if newly.any():
-                    numerator_increments += PARTICIPATION_FLAG_WEIGHTS[
-                        flag_index
-                    ] * int(base_increments[idx[newly]].sum())
-                mask |= 1 << flag_index
-            if mask and k:
-                arr[idx] = vals | np.uint8(mask)
-            proposer_reward = (
-                numerator_increments * brpi
-            ) // proposer_denominator
-            hm.increase_balance(
-                state,
-                hm.get_beacon_proposer_index(state, context),
-                proposer_reward,
-            )
-    except BaseException:
-        # the sequential loop leaves attestations 0..k-1 applied when
-        # attestation k fails — commit that exact partial state
+    with trace.span(
+        "ops_vector.attestations",
+        attestations=n_atts,
+        validators=len(state.validators),
+    ):
+        try:
+            for attestation in attestations:
+                attesting_indices, flag_indices, is_current = prepare(
+                    state, attestation, context
+                )
+                k = len(attesting_indices)
+                idx = np.fromiter(attesting_indices, np.int64, k)
+                arr = cur if is_current else prev
+                vals = arr[idx]
+                numerator_increments = 0
+                mask = 0
+                for flag_index in flag_indices:
+                    bit = np.uint8(1 << flag_index)
+                    newly = (vals & bit) == 0
+                    if newly.any():
+                        numerator_increments += PARTICIPATION_FLAG_WEIGHTS[
+                            flag_index
+                        ] * int(base_increments[idx[newly]].sum())
+                    mask |= 1 << flag_index
+                if mask and k:
+                    arr[idx] = vals | np.uint8(mask)
+                proposer_reward = (
+                    numerator_increments * brpi
+                ) // proposer_denominator
+                hm.increase_balance(
+                    state,
+                    hm.get_beacon_proposer_index(state, context),
+                    proposer_reward,
+                )
+        except BaseException:
+            # the sequential loop leaves attestations 0..k-1 applied when
+            # attestation k fails — commit that exact partial state
+            commit()
+            raise
         commit()
-        raise
-    commit()
     metrics.counter("ops_vector.attestations.blocks").inc()
     metrics.counter("ops_vector.attestations.count").inc(n_atts)
     return True

@@ -30,6 +30,9 @@ from ...error import (
 from ...primitives import FAR_FUTURE_EPOCH, GENESIS_EPOCH
 from ...shuffling import shuffle_sources
 from ...signing import compute_signing_root
+from ...telemetry import device as _obs
+from ...telemetry import metrics
+from ...utils import trace
 from ..signature_batch import verify_or_defer
 from .containers import Fork, ForkData
 
@@ -200,18 +203,24 @@ def _shuffled_array_vectorized(indices, seed: bytes, context):
 
 def _compute_shuffled_pair(indices, seed: bytes, context):
     """ONE whole-list shuffle compute → (list, int64 array). Every
-    actual permutation compute in the process flows through here: the
+    actual permutation compute in the process flows through here — the
     CUDA kernel (ops/shuffle.py) at or above ``SHUFFLE_MIN_N`` indices
-    when installed, else the vectorized host map."""
+    when installed, else the vectorized host map — so
+    ``committees.shuffles`` counts exactly the work the per-epoch memo
+    bounds (one per (seed, active set))."""
     import numpy as _np
 
+    metrics.counter("committees.shuffles").inc()
     if _device_flags.shuffle_enabled(len(indices)):
         from ...ops.shuffle import shuffled_indices
 
-        mapping = shuffled_indices(
-            len(indices), seed, context.SHUFFLE_ROUND_COUNT,
-            device=_device_flags.DEVICE,
-        ).cpu().numpy()
+        mapping = _obs.d2h(
+            "ops.shuffle",
+            shuffled_indices(
+                len(indices), seed, context.SHUFFLE_ROUND_COUNT,
+                device=_device_flags.DEVICE,
+            ),
+        )
         arr = _np.fromiter(indices, dtype=_np.int64, count=len(indices))[
             mapping
         ]
@@ -336,10 +345,14 @@ def get_active_validator_indices(state, epoch: int) -> tuple[int, ...]:
             return hit
     else:
         cache = None  # legacy tuple form (pre-r5 pickles) or absent
-    # cache-miss full-registry sweep — the per-block hot scan
-    out = tuple(
-        i for i, v in enumerate(state.validators) if is_active_validator(v, epoch)
-    )
+    # cache-miss full-registry sweep — the per-block hot scan; the span
+    # shows exactly when it recomputes
+    with trace.span(
+        "helpers.active_indices_sweep", validators=len(state.validators)
+    ):
+        out = tuple(
+            i for i, v in enumerate(state.validators) if is_active_validator(v, epoch)
+        )
     # REBIND a fresh dict rather than mutating in place: Container.copy()
     # shares the state __dict__ values, so an in-place insert would leak
     # a diverged copy's active set into the original (and vice versa) —
@@ -388,17 +401,18 @@ def get_committee_count_at_slot(state, slot: int, context) -> int:
 
 def get_beacon_committee(state, slot: int, index: int, context) -> list[int]:
     """(helpers.rs:775)"""
-    epoch = compute_epoch_at_slot(slot, context)
-    committees_per_slot = get_committee_count_per_slot(state, epoch, context)
-    indices = get_active_validator_indices(state, epoch)
-    seed = get_seed(state, epoch, DomainType.BEACON_ATTESTER, context)
-    return compute_committee(
-        indices,
-        seed,
-        (slot % context.SLOTS_PER_EPOCH) * committees_per_slot + index,
-        committees_per_slot * context.SLOTS_PER_EPOCH,
-        context,
-    )
+    with trace.span("transition.committees", kind="committee", slot=int(slot)):
+        epoch = compute_epoch_at_slot(slot, context)
+        committees_per_slot = get_committee_count_per_slot(state, epoch, context)
+        indices = get_active_validator_indices(state, epoch)
+        seed = get_seed(state, epoch, DomainType.BEACON_ATTESTER, context)
+        return compute_committee(
+            indices,
+            seed,
+            (slot % context.SLOTS_PER_EPOCH) * committees_per_slot + index,
+            committees_per_slot * context.SLOTS_PER_EPOCH,
+            context,
+        )
 
 
 def get_beacon_proposer_index(state, context) -> int:
@@ -415,13 +429,14 @@ def get_beacon_proposer_index(state, context) -> int:
         # the cache-hit path stays span-free: the altair sync-aggregate
         # reward loop takes it 512x per block and the hit is ~a dict get
         return cached[1]
-    epoch = get_current_epoch(state, context)
-    seed = _sha256(
-        get_seed(state, epoch, DomainType.BEACON_PROPOSER, context)
-        + int(state.slot).to_bytes(8, "little")
-    )
-    indices = get_active_validator_indices(state, epoch)
-    out = compute_proposer_index(state, indices, seed, context)
+    with trace.span("transition.committees", kind="proposer", slot=key[0]):
+        epoch = get_current_epoch(state, context)
+        seed = _sha256(
+            get_seed(state, epoch, DomainType.BEACON_PROPOSER, context)
+            + int(state.slot).to_bytes(8, "little")
+        )
+        indices = get_active_validator_indices(state, epoch)
+        out = compute_proposer_index(state, indices, seed, context)
     state.__dict__["_proposer_cache"] = (key, out)
     return out
 
@@ -454,9 +469,12 @@ def get_total_active_balance(state, context) -> int:
     if cached is not None and cached[0] == key:
         return cached[1]
     # cache-miss O(active-set) balance sum — the second hot scan
-    total = get_total_balance(
-        state, get_active_validator_indices(state, epoch), context
-    )
+    with trace.span(
+        "helpers.total_balance_sweep", validators=len(state.validators)
+    ):
+        total = get_total_balance(
+            state, get_active_validator_indices(state, epoch), context
+        )
     state.__dict__["_total_active_balance_cache"] = (key, total)
     return total
 

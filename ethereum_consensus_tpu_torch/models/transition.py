@@ -11,6 +11,7 @@ from __future__ import annotations
 from enum import Enum
 
 from ..error import Error, InvalidStateRoot, StateTransitionError, checked_add
+from ..utils import trace
 from .phase0.containers import BeaconBlockHeader
 from .phase0.helpers import verify_block_signature
 from .signature_batch import collect_signatures
@@ -31,7 +32,8 @@ class Validation(Enum):
 
 def process_slot_generic(state, context) -> None:
     """(phase0/slot_processing.rs:45 — identical in every fork)"""
-    previous_state_root = type(state).hash_tree_root(state)
+    with trace.span("transition.state_htr", slot=int(state.slot)):
+        previous_state_root = type(state).hash_tree_root(state)
     limit = len(state.state_roots)
     state.state_roots[state.slot % limit] = previous_state_root
 
@@ -48,11 +50,15 @@ def process_slots_generic(state, slot: int, context, process_epoch) -> None:
         raise StateTransitionError(
             f"cannot process slots backwards: state at {state.slot}, target {slot}"
         )
-    while state.slot < slot:
-        process_slot_generic(state, context)
-        if (state.slot + 1) % context.SLOTS_PER_EPOCH == 0:
-            process_epoch(state, context)
-        state.slot = checked_add(state.slot, 1)
+    with trace.span(
+        "transition.slot_advance", from_slot=int(state.slot), to_slot=int(slot)
+    ):
+        while state.slot < slot:
+            process_slot_generic(state, context)
+            if (state.slot + 1) % context.SLOTS_PER_EPOCH == 0:
+                with trace.span("transition.process_epoch", slot=int(state.slot)):
+                    process_epoch(state, context)
+            state.slot = checked_add(state.slot, 1)
 
 
 def state_transition_block_in_slot_generic(
@@ -71,25 +77,31 @@ def state_transition_block_in_slot_generic(
     the block preempts the later structural error — exactly the order the
     sequential path surfaces them in."""
     block = signed_block.message
-    with collect_signatures() as batch:
-        try:
-            if validation is Validation.ENABLED:
-                verify_block_signature(state, signed_block, context)
-            process_block(state, block, context)
-        except Error:
-            # any structured abort (invalid operation, crypto parse,
-            # arithmetic guard): earlier call sites' signatures first
-            batch.raise_if_any_invalid()
-            raise
-        if validation is Validation.ENABLED:
-            state_root = type(state).hash_tree_root(state)
-            if block.state_root != state_root:
-                # sequentially this block's signature claims verify BEFORE
-                # the root check, so a bad signature earlier in the block
-                # preempts the root error
+    with trace.span("transition.block", slot=int(block.slot)):
+        with collect_signatures() as batch:
+            try:
+                if validation is Validation.ENABLED:
+                    verify_block_signature(state, signed_block, context)
+                with trace.span("transition.operations", slot=int(block.slot)):
+                    process_block(state, block, context)
+            except Error:
+                # any structured abort (invalid operation, crypto parse,
+                # arithmetic guard): earlier call sites' signatures first
                 batch.raise_if_any_invalid()
-                raise InvalidStateRoot(block.state_root, state_root)
-        batch.flush()
+                raise
+            if validation is Validation.ENABLED:
+                with trace.span("transition.state_htr", slot=int(block.slot)):
+                    state_root = type(state).hash_tree_root(state)
+                if block.state_root != state_root:
+                    # sequentially this block's signature claims verify
+                    # BEFORE the root check, so a bad signature earlier in
+                    # the block preempts the root error
+                    batch.raise_if_any_invalid()
+                    raise InvalidStateRoot(block.state_root, state_root)
+            # under defer_flushes this drains to the caller's sink in ~0
+            # time
+            with trace.span("transition.sig_batch", sets=len(batch)):
+                batch.flush()
 
 
 def state_transition_generic(

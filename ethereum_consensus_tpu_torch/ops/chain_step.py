@@ -34,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
+from ..telemetry import device as _obs
 from . import epoch as _epoch
 from .sweeps import (
     _MASK64,
@@ -135,6 +136,7 @@ def _launch_chain(balances, effective, active, words: tuple):
     if rc != 0:
         raise RuntimeError(f"chain step kernel launch failed: CUDA error {rc}")
     launch_counts["chain_step_shard"] += 1
+    _obs.launch("chain_step_shard")
     return new_eff, chunk_words, total
 
 
@@ -180,6 +182,7 @@ def _launch_sums(columns: tuple) -> torch.Tensor:
     """The launch alone, on checked inputs (kernel timings call this)."""
     sums = _epoch.launch_masked_sums("chain_step", "epoch_step_sums_launch", columns, 4)
     launch_counts["epoch_step_sums"] += 1
+    _obs.launch("epoch_step_sums")
     return sums
 
 
@@ -290,6 +293,7 @@ def _launch_apply(columns: tuple, args: tuple):
     if rc != 0:
         raise RuntimeError(f"epoch step kernel launch failed: CUDA error {rc}")
     launch_counts["epoch_step_apply"] += 1
+    _obs.launch("epoch_step_apply")
     return new_balances, new_scores
 
 

@@ -27,6 +27,15 @@ first half alone (three words out), ``fused_epoch_apply`` the pass on
 given sums, and ``rewards_apply`` that pass without the inactivity update;
 each is one launch, has its plain version and its count in
 ``launch_counts``.
+
+The reference's three staged programs (models/epoch_vector.py:234
+``inactivity_scores_kernel``, :251 ``flag_deltas_kernel``, :285
+``apply_delta_pairs_kernel``, jitted at :166-181 by ``jitted_kernels``)
+are ``staged_inactivity_scores``, ``staged_flag_deltas`` and
+``staged_apply_delta_pairs``: the kernels of ``csrc/epoch_staged.cu`` and
+their plain versions, counted in ``launch_counts`` under their names. A
+static scalar goes through ``numpy.uint64`` where the reference's does, so
+an argument outside the u64 range raises the same ``OverflowError``.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import numpy as np
 import torch
 
 from .. import _kernels
+from ..telemetry import device as _obs
 from .sweeps import _MASK64, _as_int64, _check_columns, _check_cuda, _udiv, _ult, _umin, _usum
 
 __all__ = [
@@ -53,6 +63,15 @@ __all__ = [
     "rewards_apply",
     "rewards_apply_cuda",
     "rewards_apply_plain",
+    "staged_apply_delta_pairs",
+    "staged_apply_delta_pairs_cuda",
+    "staged_apply_delta_pairs_plain",
+    "staged_flag_deltas",
+    "staged_flag_deltas_cuda",
+    "staged_flag_deltas_plain",
+    "staged_inactivity_scores",
+    "staged_inactivity_scores_cuda",
+    "staged_inactivity_scores_plain",
 ]
 
 # Kernel launches since the count was last set to 0 (``_launch`` adds one
@@ -62,7 +81,9 @@ launch_count = 0
 # partial sums a block of its grid (the launcher cuts the grid to fit).
 FUSED_SCRATCH_WORDS = 4 + 3 * 2048
 # The split entries' launches, one count each, added where they launch.
-launch_counts = {"fused_flag_sums": 0, "fused_epoch_apply": 0, "rewards_apply": 0}
+launch_counts = {"fused_flag_sums": 0, "fused_epoch_apply": 0, "rewards_apply": 0,
+                 "staged_inactivity_scores": 0, "staged_flag_deltas": 0,
+                 "staged_apply_delta_pairs": 0}
 # Blocks whose partial words a masked-sum call's tensor holds beside its
 # output words (csrc/masked_sums.h; the launcher cuts the grid to fit).
 MASKED_SUMS_BLOCKS = 2048
@@ -235,6 +256,7 @@ def _launch(columns: tuple, words: tuple):
     if rc != 0:
         raise RuntimeError(f"fused epoch kernel launch failed: CUDA error {rc}")
     launch_count += 1
+    _obs.launch("fused_epoch")
     return new_scores, new_balances, scratch
 
 
@@ -272,6 +294,7 @@ def fused_flag_sums_cuda(eff, prev_part, slashed, active_prev) -> torch.Tensor:
     _check_cuda("fused_flag_sums_cuda", columns)
     sums = launch_masked_sums("fused_epoch", "fused_flag_sums_launch", columns, 3)
     launch_counts["fused_flag_sums"] += 1
+    _obs.launch("fused_flag_sums")
     return sums
 
 
@@ -334,6 +357,7 @@ def _launch_apply(fn_name: str, count: str, columns: tuple, sums: list, words: t
     if rc != 0:
         raise RuntimeError(f"{count} kernel launch failed: CUDA error {rc}")
     launch_counts[count] += 1
+    _obs.launch(count)
     return new_scores, new_balances
 
 
@@ -406,13 +430,6 @@ def rewards_apply(*args, **kwargs):
     return fn(*args, **kwargs)
 
 
-def _to(column, dtype, device) -> torch.Tensor:
-    arr = np.array(column, dtype=dtype)  # a writable copy: the columns are read-only views
-    if dtype == np.uint64:
-        arr = arr.view(np.int64)
-    return torch.from_numpy(arr).to(device)
-
-
 def fused_epoch_device(balances, eff, prev_part, slashed, active_prev, eligible, scores,
                        increment: int, brpi: int, active_increments: int,
                        denominator: int, bias: int, recovery_rate: int, weights,
@@ -422,16 +439,200 @@ def fused_epoch_device(balances, eff, prev_part, slashed, active_prev, eligible,
     in, one upload; (new_scores, new_balances) as uint64 arrays and the
     wrap census as an int out. On ``device`` (the plain version on
     "cpu")."""
-    tensors = (
-        _to(balances, np.uint64, device), _to(eff, np.uint64, device),
-        _to(prev_part, np.uint8, device), _to(slashed, bool, device),
-        _to(active_prev, bool, device), _to(eligible, bool, device),
-        _to(scores, np.uint64, device),
+    tensors = _obs.h2d(
+        "epoch_vector.fused",
+        np.asarray(balances, np.uint64), np.asarray(eff, np.uint64),
+        np.asarray(prev_part, np.uint8), np.asarray(slashed, bool),
+        np.asarray(active_prev, bool), np.asarray(eligible, bool),
+        np.asarray(scores, np.uint64), device=device,
     )
     new_scores, new_balances, wrapped = fused_epoch(
         *tensors, increment, brpi, active_increments, denominator, bias,
         recovery_rate, weights, weight_denominator, leaking, head_flag_index,
         target_flag_index,
     )
-    return (new_scores.cpu().numpy().view(np.uint64),
-            new_balances.cpu().numpy().view(np.uint64), wrapped)
+    return (_obs.d2h("epoch_vector.fused", new_scores, np.uint64),
+            _obs.d2h("epoch_vector.fused", new_balances, np.uint64), wrapped)
+
+
+# ---------------------------------------------------------------------------
+# The three staged programs (csrc/epoch_staged.cu)
+# ---------------------------------------------------------------------------
+
+
+def _u64(value) -> int:
+    """``numpy.uint64(value)`` as an int: the reference's static-scalar
+    conversion, raising ``OverflowError`` outside [0, 2^64) as it does."""
+    return int(np.uint64(value))
+
+
+def _inactivity_words(bias, recovery_rate, leaking: bool) -> tuple:
+    """(bias, recovery_rate) as the reference converts them: the recovery
+    rate only outside a leak (0 inside, where it is not read)."""
+    return _u64(bias), 0 if leaking else _u64(recovery_rate)
+
+
+def staged_inactivity_scores_plain(scores, eligible, participating, bias, recovery_rate,
+                                   leaking: bool) -> torch.Tensor:
+    """The reference's inactivity_scores_kernel in plain PyTorch: (n,)
+    int64 words of the new scores."""
+    _check_columns((scores,), (eligible, participating))
+    bias, recovery = _inactivity_words(bias, recovery_rate, leaking)
+    hit = eligible & participating
+    miss = eligible & ~participating
+    new = torch.where(hit, scores - _umin(scores, 1), scores)
+    new = torch.where(miss, new + _as_int64(bias), new)
+    if not leaking:
+        new = torch.where(eligible, new - _umin(new, recovery), new)
+    return new
+
+
+def staged_inactivity_scores_cuda(scores, eligible, participating, bias, recovery_rate,
+                                  leaking: bool) -> torch.Tensor:
+    """The new scores on the card (csrc/epoch_staged.cu)."""
+    columns = (scores, eligible, participating)
+    _check_columns((scores,), (eligible, participating))
+    _check_cuda("staged_inactivity_scores_cuda", columns)
+    bias, recovery = _inactivity_words(bias, recovery_rate, leaking)
+    out = torch.empty_like(scores)
+    lib = _kernels.load("epoch_staged")
+    with torch.cuda.device(scores.device):
+        stream = torch.cuda.current_stream(scores.device).cuda_stream
+        rc = lib.staged_inactivity_launch(
+            scores.data_ptr(), eligible.data_ptr(), participating.data_ptr(), scores.shape[0],
+            bias, recovery, int(bool(leaking)), out.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"staged inactivity kernel launch failed: CUDA error {rc}")
+    launch_counts["staged_inactivity_scores"] += 1
+    _obs.launch("staged_inactivity_scores")
+    return out
+
+
+def staged_inactivity_scores(scores, *args, **kwargs) -> torch.Tensor:
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    fn = (staged_inactivity_scores_plain if scores.device.type == "cpu"
+          else staged_inactivity_scores_cuda)
+    return fn(scores, *args, **kwargs)
+
+
+def _flag_words(weight, unslashed_increments, active_increments, weight_denominator,
+                leaking: bool, is_head_flag: bool) -> tuple:
+    """(weight, unslashed_increments, reward_divisor, weight_denominator)
+    as u64 words, converted where and as the reference converts them: the
+    reward branch's three outside a leak (the divisor the exact product
+    active_increments * weight_denominator), the penalty branch's two off
+    the head flag; a word a branch does not read is 0."""
+    weight_word = increments = divisor = denominator = 0
+    if not leaking:
+        weight_word = _u64(weight)
+        increments = _u64(unslashed_increments)
+        divisor = _u64(active_increments * weight_denominator)
+    if not is_head_flag:
+        weight_word = _u64(weight)
+        denominator = _u64(weight_denominator)
+    return weight_word, increments, divisor, denominator
+
+
+def staged_flag_deltas_plain(base_reward, eligible, unslashed, weight, unslashed_increments,
+                             active_increments, weight_denominator, leaking: bool,
+                             is_head_flag: bool):
+    """The reference's flag_deltas_kernel in plain PyTorch: (rewards,
+    penalties), two (n,) int64 word columns. A zero divisor gives zero
+    quotients, as numpy's integer division does."""
+    _check_columns((base_reward,), (eligible, unslashed))
+    w, increments, divisor, denominator = _flag_words(
+        weight, unslashed_increments, active_increments, weight_denominator, leaking,
+        is_head_flag)
+    zero = torch.zeros_like(base_reward)
+    rewards = zero
+    if not leaking and divisor:
+        numerator = base_reward * _as_int64(w) * _as_int64(increments)
+        rewards = torch.where(eligible & unslashed, _udiv(numerator, divisor), zero)
+    penalties = zero
+    if not is_head_flag and denominator:
+        penalties = torch.where(eligible & ~unslashed,
+                                _udiv(base_reward * _as_int64(w), denominator), zero)
+    return rewards, penalties
+
+
+def staged_flag_deltas_cuda(base_reward, eligible, unslashed, weight, unslashed_increments,
+                            active_increments, weight_denominator, leaking: bool,
+                            is_head_flag: bool):
+    """One flag's (rewards, penalties) on the card (csrc/epoch_staged.cu)."""
+    columns = (base_reward, eligible, unslashed)
+    _check_columns((base_reward,), (eligible, unslashed))
+    _check_cuda("staged_flag_deltas_cuda", columns)
+    words = _flag_words(weight, unslashed_increments, active_increments, weight_denominator,
+                        leaking, is_head_flag)
+    rewards = torch.empty_like(base_reward)
+    penalties = torch.empty_like(base_reward)
+    lib = _kernels.load("epoch_staged")
+    with torch.cuda.device(base_reward.device):
+        stream = torch.cuda.current_stream(base_reward.device).cuda_stream
+        rc = lib.staged_flag_deltas_launch(
+            *(t.data_ptr() for t in columns), base_reward.shape[0], *words,
+            int(bool(leaking)), int(bool(is_head_flag)), rewards.data_ptr(),
+            penalties.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"staged flag deltas kernel launch failed: CUDA error {rc}")
+    launch_counts["staged_flag_deltas"] += 1
+    _obs.launch("staged_flag_deltas")
+    return rewards, penalties
+
+
+def staged_flag_deltas(base_reward, *args, **kwargs):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    fn = staged_flag_deltas_plain if base_reward.device.type == "cpu" else staged_flag_deltas_cuda
+    return fn(base_reward, *args, **kwargs)
+
+
+def _check_pairs(balances, rewards, penalties) -> None:
+    _check_columns((balances,), ())
+    for t in (rewards, penalties):
+        if t.dtype != torch.int64 or t.dim() != 2 or t.shape[1] != balances.shape[0]:
+            raise ValueError(
+                f"the pairs must be (k, n) int64 words, got {tuple(t.shape)} {t.dtype}"
+            )
+        if t.device != balances.device:
+            raise ValueError("the columns must be on one device")
+    if rewards.shape != penalties.shape:
+        raise ValueError("rewards and penalties must have one shape")
+
+
+def staged_apply_delta_pairs_plain(balances, rewards, penalties) -> torch.Tensor:
+    """The reference's apply_delta_pairs_kernel in plain PyTorch, the k
+    pairs as (k, n) rewards and penalties: (n,) int64 words."""
+    _check_pairs(balances, rewards, penalties)
+    zero = torch.zeros_like(balances)
+    for reward, penalty in zip(rewards, penalties):
+        raised = balances + reward
+        balances = torch.where(_ult(raised, penalty), zero, raised - penalty)
+    return balances
+
+
+def staged_apply_delta_pairs_cuda(balances, rewards, penalties) -> torch.Tensor:
+    """The pairs applied on the card (csrc/epoch_staged.cu), one pass."""
+    _check_pairs(balances, rewards, penalties)
+    _check_cuda("staged_apply_delta_pairs_cuda", (balances, rewards, penalties))
+    out = torch.empty_like(balances)
+    lib = _kernels.load("epoch_staged")
+    with torch.cuda.device(balances.device):
+        stream = torch.cuda.current_stream(balances.device).cuda_stream
+        rc = lib.staged_apply_pairs_launch(
+            balances.data_ptr(), rewards.data_ptr(), penalties.data_ptr(), balances.shape[0],
+            rewards.shape[0], out.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"staged apply kernel launch failed: CUDA error {rc}")
+    launch_counts["staged_apply_delta_pairs"] += 1
+    _obs.launch("staged_apply_delta_pairs")
+    return out
+
+
+def staged_apply_delta_pairs(balances, rewards, penalties) -> torch.Tensor:
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    fn = (staged_apply_delta_pairs_plain if balances.device.type == "cpu"
+          else staged_apply_delta_pairs_cuda)
+    return fn(balances, rewards, penalties)

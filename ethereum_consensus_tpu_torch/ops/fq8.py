@@ -49,6 +49,7 @@ import threading
 import torch
 
 from .. import _env, _kernels
+from ..telemetry import device as _obs
 from . import fq
 
 __all__ = [
@@ -306,6 +307,7 @@ def mont7r_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"mont_mxu kernel launch failed: CUDA error {rc}")
     launch_counts["mont_mxu"] += 1
+    _obs.launch("mont_mxu")
     return out
 
 

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import _kernels
+from ..telemetry import device as _obs
 from . import fq, fq8
 from .fq import P_INT
 
@@ -99,7 +100,7 @@ def jacobian_to_affine(sums: torch.Tensor) -> "list[tuple[bytes, bool]]":
     """(S, 3, 12) canonical Jacobian limbs -> S (affine raw96, is_infinity).
     The inversion runs on the host with Python integers: O(S) and
     branchy, the wrong shape for the card."""
-    rows = sums.cpu().numpy().view(np.uint32)
+    rows = _obs.d2h("ops.g1.point_to_raw", sums).view(np.uint32)
     out = []
     for row in rows:
         z = _limb_ints(row[2])
@@ -261,8 +262,10 @@ def _launch(points: torch.Tensor, offsets: torch.Tensor, n_sets: int) -> torch.T
         raise RuntimeError(f"g1_sum_sets kernel launch failed: CUDA error {rc}")
     if mxu:
         launch_count_mxu += 1
+        _obs.launch("g1_sum_sets_mxu")
     else:
         launch_count += 2
+        _obs.launch("g1_sum_sets", 2)
     return out
 
 
@@ -287,8 +290,8 @@ def aggregate_pubkey_sets_device(
     runs."""
     if not raw_sets:
         return []
-    points, offsets = sets_to_csr(raw_sets)
-    return jacobian_to_affine(g1_sum_sets(points.to(device), offsets.to(device)))
+    points, offsets = _obs.h2d("ops.g1.points_from_raw", *sets_to_csr(raw_sets), device=device)
+    return jacobian_to_affine(g1_sum_sets(points, offsets))
 
 
 def aggregate_pubkeys_device(raws: "list[bytes]", device="cuda") -> "tuple[bytes, bool]":
@@ -299,3 +302,8 @@ def aggregate_pubkeys_device(raws: "list[bytes]", device="cuda") -> "tuple[bytes
         return b"\x00" * 96, True
     with fq8.pinned("u64"):
         return aggregate_pubkey_sets_device([raws], device=device)[0]
+
+
+# The dispatcher through the device observatory's call ledger, under the
+# name of the reference's XLA program it stands for.
+g1_sum_sets = _obs.observe_jit(g1_sum_sets, "ops.g1._tree_reduce_segmented", ("uint32",))

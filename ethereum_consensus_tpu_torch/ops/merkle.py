@@ -28,6 +28,7 @@ import functools
 import torch
 
 from .. import _kernels
+from ..telemetry import device as _obs
 from ..convert import chunks_from_words, words_from_chunks
 from ..ssz.merkle import BYTES_PER_CHUNK, next_pow_of_two, zero_hash
 from .sha256 import sha256_64b_plain
@@ -140,6 +141,7 @@ def reduce_levels_cuda(
     if rc <= 0:
         raise RuntimeError(f"merkle kernel launch failed: CUDA error {-rc}")
     launch_count += rc
+    _obs.launch("merkle_levels", rc)
     return out
 
 
@@ -185,5 +187,12 @@ def merkleize_chunks_device(chunks: bytes, limit: int | None = None,
         raise RuntimeError("merkleize_chunks_device: no CUDA device is available")
     if count == 0:
         return zero_hash(depth)
-    root = merkle_root_words(words_from_chunks(chunks, device), zero_hash_words(device), depth)
-    return chunks_from_words(root[:, None])
+    words, zero_words = _obs.h2d("ops.merkle.merkleize_chunks", words_from_chunks(chunks, "cpu"),
+                                 zero_hash_words(), device=device)
+    root = merkle_root_words(words, zero_words, depth)
+    return chunks_from_words(_obs.d2h("ops.merkle.merkleize_chunks", root[:, None]))
+
+
+# Through the device observatory's call ledger, under the reference's name.
+merkle_root_words = _obs.observe_jit(
+    merkle_root_words, "ops.merkle.merkle_root_words", ("uint32", "uint32"))

@@ -74,6 +74,7 @@ import torch
 from .. import _device_flags, _kernels
 from ..crypto.fields import Fq, Fq2, Fq6, Fq12
 from ..native import bls as native_bls
+from ..telemetry import device as _obs
 from . import fq, fq2, fq8, fq12, g1
 
 __all__ = [
@@ -138,14 +139,15 @@ def _coords(raws: "list[bytes]", per_point: int) -> torch.Tensor:
 def g1_affine_from_raw(raws: "list[bytes]", device="cuda") -> "tuple[torch.Tensor, torch.Tensor]":
     """Affine raw96 G1 points -> (x, y), each (N, 12). Callers exclude
     infinity."""
-    xy = _coords(raws, 2).to(device)
+    xy = _obs.h2d("ops.pairing.g1_affine_from_raw", _coords(raws, 2), device=device)
     return xy[:, 0], xy[:, 1]
 
 
 def g2_affine_from_raw(raws: "list[bytes]", device="cuda") -> "tuple[torch.Tensor, torch.Tensor]":
     """Affine raw192 G2 points (x.c0 || x.c1 || y.c0 || y.c1, the native
     library's format) -> (x, y), each (N, 2, 12)."""
-    xy = _coords(raws, 4).reshape(len(raws), 2, 2, 12).to(device)
+    xy = _obs.h2d("ops.pairing.g2_affine_from_raw",
+                  _coords(raws, 4).reshape(len(raws), 2, 2, 12), device=device)
     return xy[:, 0], xy[:, 1]
 
 
@@ -302,7 +304,9 @@ def _launch(kernel: str, fn_name: str, *args) -> None:
             *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args), stream)
     if rc <= 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {-rc}")
-    launch_counts[kernel + "_mxu" if name == "pairing_mxu" else kernel] += rc
+    counted = kernel + "_mxu" if name == "pairing_mxu" else kernel
+    launch_counts[counted] += rc
+    _obs.launch(counted, rc)
 
 
 def _fold_work(count: int, per_block: int = TREE_THREADS) -> int:
@@ -648,9 +652,9 @@ def g1_sum_sets(raw_sets: "list[list[bytes]]", mesh=None) -> "list[tuple[bytes, 
     for i, device in enumerate(devices):
         shard = padded[i * per:(i + 1) * per]
         if shard:
-            points, offsets = g1.sets_to_csr(shard)
-            out.extend(g1.jacobian_to_affine(g1.g1_sum_sets(points.to(device),
-                                                            offsets.to(device))))
+            points, offsets = _obs.h2d("ops.pairing.g1_sum_sets", *g1.sets_to_csr(shard),
+                                       device=device)
+            out.extend(g1.jacobian_to_affine(g1.g1_sum_sets(points, offsets)))
     return out
 
 
@@ -678,3 +682,11 @@ def batch_verify_device(pk_raws: "list[bytes]", h_raws: "list[bytes]",
         lanes = [torch.cat([v, e]) for v, e in zip(lanes, _extra_pair(s_raw, device))]
     fs = miller_loop_batched(*lanes)
     return _final_exp_is_one(fq.to_ints(fp12_product(fs)))
+
+
+# The dispatchers through the device observatory's call ledger, under the
+# names of the reference's XLA programs they stand for.
+g1_mul_affine = _obs.observe_jit(g1_mul_affine, "ops.pairing._mul_scan_g1", ("uint32", "uint32"))
+g2_mul_sum = _obs.observe_jit(g2_mul_sum, "ops.pairing._mul_scan_g2", ("uint32", "uint32"))
+miller_loop_batched = _obs.observe_jit(
+    miller_loop_batched, "ops.pairing.miller_loop_batched", ("uint32",) * 4)

@@ -23,6 +23,7 @@ import functools
 import torch
 
 from .. import _kernels
+from ..telemetry import device as _obs
 from ..convert import chunks_from_words, words_from_chunks
 from ..ssz.hash import register_device_hasher
 
@@ -146,6 +147,7 @@ def sha256_64b_cuda(words: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"sha256_64b kernel launch failed: CUDA error {rc}")
     launch_count += 1
+    _obs.launch("sha256_64b")
     return out
 
 
@@ -165,8 +167,9 @@ def sha256_64b(words: torch.Tensor) -> torch.Tensor:
 def hash_level_bytes(nodes: bytes, device="cuda") -> bytes:
     """Device equivalent of ssz.hash.hash_level_host: ``nodes`` is 2n 32-byte
     nodes concatenated; returns n parent nodes. Bit-identical to hashlib."""
-    words = words_from_chunks(nodes, device, width=16)
-    return chunks_from_words(sha256_64b(words))
+    words = _obs.h2d("ops.sha256.hash_level", words_from_chunks(nodes, "cpu", width=16),
+                     device=device)
+    return chunks_from_words(_obs.d2h("ops.sha256.hash_level", sha256_64b(words)))
 
 
 def install_device_hasher(device="cuda") -> None:

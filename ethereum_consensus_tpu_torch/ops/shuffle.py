@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
+from ..telemetry import device as _obs
 from ..shuffling import shuffle_sources
 
 __all__ = [
@@ -104,6 +105,7 @@ def _launch(pivots: torch.Tensor, sources: torch.Tensor, count: int) -> torch.Te
     if rc != 0:
         raise RuntimeError(f"shuffle kernel launch failed: CUDA error {rc}")
     launch_count += 1
+    _obs.launch("shuffle")
     return out
 
 
@@ -115,8 +117,7 @@ def shuffle(pivots: torch.Tensor, sources: torch.Tensor, count: int) -> torch.Te
 
 
 def _tables(count: int, seed: bytes, rounds: int, device):
-    pivots, sources = shuffle_sources(count, seed, rounds)
-    return torch.from_numpy(pivots).to(device), torch.from_numpy(sources).to(device)
+    return _obs.h2d("ops.shuffle", *shuffle_sources(count, seed, rounds), device=device)
 
 
 def shuffled_indices(count: int, seed: bytes, rounds: int, device="cuda") -> torch.Tensor:
@@ -128,3 +129,8 @@ def shuffled_indices(count: int, seed: bytes, rounds: int, device="cuda") -> tor
 def shuffled_indices_plain(count: int, seed: bytes, rounds: int, device="cpu") -> torch.Tensor:
     """``shuffled_indices`` through the plain version."""
     return shuffle_plain(*_tables(count, seed, rounds, device), count)
+
+
+# The dispatcher through the device observatory's call ledger, under the
+# name of the reference's XLA program it stands for.
+shuffle = _obs.observe_jit(shuffle, "ops.shuffle._shuffle_rounds_jit")

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import _kernels
+from ..telemetry import device as _obs
 from .registry_columns import pack_registry  # noqa: F401 — re-export
 
 __all__ = [
@@ -178,6 +179,7 @@ def _launch(balances: torch.Tensor, effective: torch.Tensor, scalars: tuple) -> 
     if rc != 0:
         raise RuntimeError(f"effective-balance kernel launch failed: CUDA error {rc}")
     launch_counts["effective_balance"] += 1
+    _obs.launch("effective_balance")
     return out
 
 
@@ -189,20 +191,16 @@ def effective_balance_updates(balances: torch.Tensor, effective: torch.Tensor,
     return effective_balance_updates_cuda(balances, effective, context)
 
 
-def _words(column) -> torch.Tensor:
-    """A uint64 numpy column as an int64 tensor of the same bits."""
-    return torch.from_numpy(np.array(column, dtype=np.uint64).view(np.int64))
-
-
 def effective_balance_updates_device(packed: dict, context, device="cuda") -> np.ndarray:
     """Device twin of phase0 process_effective_balance_updates: the
     ``balances`` and ``effective_balance`` uint64 columns of ``packed``
     (``pack_registry``) through the kernel on ``device`` (the plain version
     on ``"cpu"``); returns the new effective balances as a uint64 array."""
-    balances = _words(packed["balances"]).to(device)
-    effective = _words(packed["effective_balance"]).to(device)
+    site = "ops.sweeps.effective_balance_updates"
+    balances, effective = _obs.h2d(site, packed["balances"], packed["effective_balance"],
+                                   device=device)
     out = effective_balance_updates(balances, effective, context)
-    return out.cpu().numpy().view(np.uint64)
+    return _obs.d2h(site, out, np.uint64)
 
 
 # ---------------------------------------------------------------------------
@@ -359,6 +357,7 @@ def _launch_flag_deltas(eff, participating, eligible, scalars: tuple):
     if rc != 0:
         raise RuntimeError(f"flag-deltas kernel launch failed: CUDA error {rc}")
     launch_counts["flag_deltas"] += 1
+    _obs.launch("flag_deltas")
     return rewards, penalties
 
 
@@ -410,6 +409,7 @@ def _launch_inactivity_updates(scores, participating, eligible, scalars: tuple):
     if rc != 0:
         raise RuntimeError(f"inactivity-updates kernel launch failed: CUDA error {rc}")
     launch_counts["inactivity_updates"] += 1
+    _obs.launch("inactivity_updates")
     return out
 
 
@@ -460,6 +460,7 @@ def _launch_inactivity_penalties(eff, scores, not_target, denominator: int):
     if rc != 0:
         raise RuntimeError(f"inactivity-penalties kernel launch failed: CUDA error {rc}")
     launch_counts["inactivity_penalties"] += 1
+    _obs.launch("inactivity_penalties")
     return out
 
 
@@ -469,20 +470,12 @@ def inactivity_penalties(eff, scores, not_target, denominator: int):
     return fn(eff, scores, not_target, denominator)
 
 
-def _flags(column) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(column, dtype=bool))
-
-
 def _participating(packed: dict, flag_index: int) -> np.ndarray:
     return (
         ((packed["previous_participation"] >> np.uint8(flag_index)) & 1).astype(bool)
         & ~packed["slashed"]
         & packed["active_previous"]
     )
-
-
-def _host(words: torch.Tensor) -> np.ndarray:
-    return words.cpu().numpy().view(np.uint64)
 
 
 def flag_deltas_device(packed: dict, flag_index: int, total_active_balance: int,
@@ -496,10 +489,11 @@ def flag_deltas_device(packed: dict, flag_index: int, total_active_balance: int,
         WEIGHT_DENOMINATOR,
     )
 
+    site = "ops.sweeps.flag_deltas"
     rewards, penalties = flag_deltas(
-        _words(packed["effective_balance"]).to(device),
-        _flags(_participating(packed, flag_index)).to(device),
-        _flags(packed["eligible"]).to(device),
+        *_obs.h2d(site, np.asarray(packed["effective_balance"], np.uint64),
+                  _participating(packed, flag_index), np.asarray(packed["eligible"], bool),
+                  device=device),
         int(total_active_balance),
         int(PARTICIPATION_FLAG_WEIGHTS[flag_index]),
         int(context.EFFECTIVE_BALANCE_INCREMENT),
@@ -508,7 +502,7 @@ def flag_deltas_device(packed: dict, flag_index: int, total_active_balance: int,
         bool(is_leaking),
         flag_index == TIMELY_HEAD_FLAG_INDEX,
     )
-    return _host(rewards), _host(penalties)
+    return _obs.d2h(site, rewards, np.uint64), _obs.d2h(site, penalties, np.uint64)
 
 
 def inactivity_updates_device(packed: dict, context, is_leaking: bool, device="cuda"):
@@ -517,15 +511,16 @@ def inactivity_updates_device(packed: dict, context, is_leaking: bool, device="c
     array."""
     from ..models.altair.constants import TIMELY_TARGET_FLAG_INDEX
 
+    site = "ops.sweeps.inactivity_updates"
     out = inactivity_updates(
-        _words(packed["inactivity_scores"]).to(device),
-        _flags(_participating(packed, TIMELY_TARGET_FLAG_INDEX)).to(device),
-        _flags(packed["eligible"]).to(device),
+        *_obs.h2d(site, np.asarray(packed["inactivity_scores"], np.uint64),
+                  _participating(packed, TIMELY_TARGET_FLAG_INDEX),
+                  np.asarray(packed["eligible"], bool), device=device),
         int(context.inactivity_score_bias),
         int(context.inactivity_score_recovery_rate),
         bool(is_leaking),
     )
-    return _host(out)
+    return _obs.d2h(site, out, np.uint64)
 
 
 def inactivity_penalties_device(packed: dict, context, quotient: int, device="cuda"):
@@ -549,8 +544,21 @@ def inactivity_penalties_device(packed: dict, context, quotient: int, device="cu
         products = eff.astype(object) * scores.astype(object)
         exact = np.where(not_target, products // denominator, 0)
         return exact.astype(np.uint64)
+    site = "ops.sweeps.inactivity_penalties"
     out = inactivity_penalties(
-        _words(eff).to(device), _words(scores).to(device),
-        _flags(not_target).to(device), denominator,
+        *_obs.h2d(site, np.asarray(eff, np.uint64), np.asarray(scores, np.uint64),
+                  np.asarray(not_target, bool), device=device),
+        denominator,
     )
-    return _host(out)
+    return _obs.d2h(site, out, np.uint64)
+
+
+# The dispatchers through the device observatory's call ledger, under the
+# names of the reference's XLA programs they stand for.
+effective_balance_updates = _obs.observe_jit(
+    effective_balance_updates, "ops.sweeps._effective_balance_updates", ("uint64", "uint64"))
+flag_deltas = _obs.observe_jit(flag_deltas, "ops.sweeps._flag_deltas", ("uint64",))
+inactivity_updates = _obs.observe_jit(
+    inactivity_updates, "ops.sweeps._inactivity_updates", ("uint64",))
+inactivity_penalties = _obs.observe_jit(
+    inactivity_penalties, "ops.sweeps._inactivity_penalties", ("uint64", "uint64"))

@@ -18,10 +18,12 @@ from __future__ import annotations
 
 import functools
 import struct
+import time as _time
 from itertools import starmap
 from operator import attrgetter
 from typing import Any
 
+from ..telemetry import memory as _memory
 from .hash import hash_level
 from .merkle import (
     BYTES_PER_CHUNK,
@@ -549,6 +551,13 @@ class CachedRootList(list):
 
     def __init__(self, *args):
         super().__init__(*args)
+        # memory-observatory census hook (telemetry/memory.py): while
+        # list tracking is armed, every new instance joins the weak map
+        # the resident-set census walks; off path = one module-attribute
+        # read + None check
+        tracked = _memory.TRACKED_LISTS
+        if tracked is not None:
+            tracked[id(self)] = self
         self._root_cache: dict = {}
         # --- mutation-propagated dirty tracking (docs/INCREMENTAL_HTR.md)
         # Set of dirty 4096-element group indices accumulated since the
@@ -980,6 +989,8 @@ def _packed_splice(elem, values, key, limit_chunks: int) -> "bytes | None":
     # serialize every dirty range BEFORE touching the memo, with the same
     # strictness as serialize(): a non-conforming value sends the whole
     # walk to the fallback path and its structured errors
+    _obs = _memory.OBSERVATORY
+    _t0 = _time.perf_counter() if _obs.active else 0.0
     segs = []
     try:
         for g in sorted(dg):
@@ -1039,6 +1050,15 @@ def _packed_splice(elem, values, key, limit_chunks: int) -> "bytes | None":
     root = tree.root()
     pt[3] = root
     values._dirty_groups = set()
+    if _obs.active:
+        # bandwidth: exactly the bytes re-serialized into the retained
+        # raw buffer (the dirty groups), timed over the whole splice
+        _obs.record_copy(
+            "ssz.packed_splice",
+            sum(len(seg) for _start, _stop, seg in segs),
+            _t0,
+            _time.perf_counter(),
+        )
     return root
 
 
@@ -1401,6 +1421,24 @@ def _register_and_activate(elem, values, tkey) -> None:
 
 
 def bulk_store(values, new_values, changed_indices=None) -> None:
+    """See ``_bulk_store_impl`` — this thin wrapper adds the memory
+    observatory's bandwidth accounting (``ssz.bulk_store`` site): the
+    wire-width column's exact ``nbytes`` when the caller hands an
+    ndarray, the pointer-width splice estimate (8 bytes/element)
+    otherwise. One bool read while the observatory is off."""
+    obs = _memory.OBSERVATORY
+    if not obs.active:
+        return _bulk_store_impl(values, new_values, changed_indices)
+    nbytes = getattr(new_values, "nbytes", None)
+    if nbytes is None:
+        nbytes = len(new_values) * 8
+    t0 = _time.perf_counter()
+    out = _bulk_store_impl(values, new_values, changed_indices)
+    obs.record_copy("ssz.bulk_store", int(nbytes), t0, _time.perf_counter())
+    return out
+
+
+def _bulk_store_impl(values, new_values, changed_indices=None) -> None:
     """Same-length full-content overwrite with an explicit dirty contract:
     the caller certifies that every position whose value differs from the
     current content appears in ``changed_indices`` (element indices; None
@@ -1522,6 +1560,8 @@ def _merkleize_homogeneous(elem: SSZType, values: list, limit_elems: int) -> byt
             # conversion raises OverflowError for >=2^64 on every numpy
             # and the shift catches everything else; the little-endian
             # astype matches serialize().
+            _obs = _memory.OBSERVATORY
+            _t0 = _time.perf_counter() if _obs.active else 0.0
             try:
                 import numpy as _np
 
@@ -1532,6 +1572,13 @@ def _merkleize_homogeneous(elem: SSZType, values: list, limit_elems: int) -> byt
                 raw = col.astype("<u%d" % size).tobytes()
             except (OverflowError, TypeError, ValueError):
                 raw = b"".join(elem.serialize(v) for v in values)
+            if _obs.active:
+                # bandwidth: the full wire-width column materialization
+                # (a whole-collection re-pack — the cost _packed_splice
+                # exists to avoid)
+                _obs.record_copy(
+                    "ssz.column_serialize", len(raw), _t0, _time.perf_counter()
+                )
         else:
             raw = b"".join(elem.serialize(v) for v in values)
         return _merkleize_packed_memo(values, key, pack_bytes(raw), limit, raw=raw)
@@ -2565,6 +2612,12 @@ def _copy_value(typ: SSZType, value: Any):
             copied._pack_gen = value._pack_gen
             if shared_memos:
                 copied._memos_owned = False
+        _obs = _memory.OBSERVATORY
+        if _obs.active:
+            # bandwidth: the structural list copy's pointer array
+            # (8 bytes/slot — element payloads and memos are shared
+            # structurally, so this is the bytes a state copy moves)
+            _obs.record_copy("ssz.state_copy", len(value) * 8)
         return copied
     return value
 

@@ -1,6 +1,33 @@
-"""Process-wide telemetry. Only the metrics registry is ported so far; it
-carries the ``ssz.digests`` counter."""
+"""Unified telemetry: structured spans, process-wide metrics, and the
+device and memory observatories.
 
-from . import metrics  # noqa: F401
+Stdlib-only submodules (importable from any layer; nothing here imports
+torch at import time):
 
-__all__ = ["metrics"]
+* ``spans``   — the in-process ring-buffer span recorder behind the
+  ``utils/trace.py`` facade, with Chrome trace-event JSON export
+  (Perfetto / ``chrome://tracing``). Off by default; one bool read while
+  off.
+* ``metrics`` — the process-wide counter/gauge/histogram registry with
+  snapshot/delta semantics; the one home for operational counters
+  (``ssz.digests``, ``bls.pairing_route.*``, ``epoch_vector.*``, ...).
+* ``phases``  — the per-block phase attribution (sig batch / state HTR /
+  committees / operations) from recorded transition spans.
+* ``device``  — the device execution observatory: kernel-library loads,
+  the call ledger with its drift sentinel, the launch ledger, the
+  host<->device transfer ledger, and the device-vs-host routing journal.
+* ``memory``  — the memory & bandwidth observatory: resident-set census
+  of the port's byte owners, phase RSS/allocation ledger bracketing the
+  transition/epoch spans, and per-site bulk-copy byte counters.
+
+Reference parity: ethereum_consensus_tpu/telemetry/__init__.py (:37-39),
+without ``flight`` and ``server``, whose producers are the data planes.
+"""
+
+from __future__ import annotations
+
+from . import metrics, phases, spans
+from . import device  # noqa: E402 — after spans/metrics (its imports)
+from . import memory  # noqa: E402 — after spans/metrics (its imports)
+
+__all__ = ["device", "memory", "metrics", "phases", "spans"]

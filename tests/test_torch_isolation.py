@@ -54,7 +54,14 @@ def test_importing_the_port_loads_no_jax():
         "ethereum_consensus_tpu_torch.models.bellatrix.genesis, "
         "ethereum_consensus_tpu_torch.models.capella.genesis, "
         "ethereum_consensus_tpu_torch.models.deneb.genesis, "
-        "ethereum_consensus_tpu_torch.models.electra.genesis; "
+        "ethereum_consensus_tpu_torch.models.electra.genesis, "
+        "ethereum_consensus_tpu_torch.telemetry.spans, "
+        "ethereum_consensus_tpu_torch.telemetry.phases, "
+        "ethereum_consensus_tpu_torch.telemetry.device, "
+        "ethereum_consensus_tpu_torch.telemetry.memory, "
+        "ethereum_consensus_tpu_torch.utils.trace, "
+        "ethereum_consensus_tpu_torch.models.epoch_vector, "
+        "ethereum_consensus_tpu_torch.ops.epoch; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r}]; "
         "assert not bad, bad"
