@@ -7,20 +7,15 @@ Phases, each of which exits non-zero when it fails:
   2. build    — compile every kernel in ethereum_consensus_tpu_torch/csrc
                 (one nvcc per library, all at once: the mxu builds of
                 g1_sum.cu and pairing.cu beside the u64 ones) and the two
-                native host libraries (SHA-256, BLS12-381) beside them, with
-                the parent forms of the mxu kernels (tools/mxu_forms.py) and
-                of B5-hysteresis and the inactivity updates
-                (tools/sweep_forms.py).
+                native host libraries (SHA-256, BLS12-381) beside them.
      mxu      — B8 alone: the int8 tensor-core Montgomery product
                 (fq8.mont7r) over 2^20 seeded pairs, bit-exact against
                 fq.mul and the plain mont7r on the card, and at 2^15 and the
                 tile edges (1, 15, 16, 17, 2^10 + 3 products); CUDA-event
-                times at 2^20 and 2^15 in turns with the parent design
-                (tools/mxu_forms.py), an empty launch and torch._int_mm of
+                times at 2^20 and 2^15, an empty launch and torch._int_mm of
                 the m p GEMM as yardsticks; ptxas' lines of B8 and the mxu
-                builds beside their parents' (a frame or spill in B8, a new
-                spill or frame or a larger frame in an mxu build, or a larger
-                largest spill than its parent's, fails it).
+                builds (a frame or spill in B8, or a spill or frame in an mxu
+                build beyond MXU_PTXAS_CEILINGS, fails it).
   3. sha256   — the SHA-256 kernel against its plain PyTorch version on the
                 card, bit-exact, for N in {1, 1000, 1024, 1025, 2^22}, a
                 sample against hashlib; CUDA-event times at N = 2^17 .. 2^22.
@@ -85,10 +80,9 @@ Phases, each of which exits non-zero when it fails:
                 version, bit-exact, for n in {1, 255, 256, 257, 2^17, 2^20}
                 and one and two rows in (threshold crossings both ways,
                 thresholds +-1, words at and above 2^63), a sample against
-                Python integers; CUDA-event time at 2^20; at 2^20 and 2^18
-                in turns with its parent design (tools/sweep_forms.py) beside
-                a copy of its bytes and an empty launch, after a write and a
-                read flush; ptxas and SASS (a frame or a spill fails it).
+                Python integers; CUDA-event time at 2^20 beside a copy of its
+                bytes and an empty launch; ptxas and SASS (a frame or a
+                spill fails it).
  11. epoch    — the registry state taken to slot 64, a few thousand
                 validators scrambled (hysteresis crossings, ejections,
                 slashings at the halfway point, entrants), advanced to slot
@@ -106,9 +100,7 @@ Phases, each of which exits non-zero when it fails:
                 whose products wrap), samples against Python integers; the
                 flag deltas and B3 (its census too) also at 2^21 + 5,
                 contiguous and one validator in, the inactivity updates one
-                and two rows in; CUDA-event times at 2^20; the inactivity
-                updates at 2^20 and 2^18 in turns with their parent design
-                as the sweeps phase times hysteresis; ptxas' registers,
+                and two rows in; CUDA-event times at 2^20; ptxas' registers,
                 frame and spills of the updates, the penalties, B3, its
                 apply entries and K3 (a frame or a spill fails the run) and
                 their SASS instructions.
@@ -180,7 +172,9 @@ Phases, each of which exits non-zero when it fails:
  15. window   — eight signed blocks at slots 2..9 on the registry state
                 (each with the 64 full aggregates of one slot of epoch 0;
                 those 262,144 attesters' keys made real) applied through
-                Executor.apply_block_with_validation under defer_flushes,
+                Executor.apply_block_with_validation under defer_flushes
+                after ops.install(device="cuda") (its launches kept for the
+                pipeline phase),
                 then their 528 sets verified by one verify_signature_sets
                 call on the host route, after ops.install(device="cuda")
                 (the device pairing from 512 sets on) and on that device
@@ -192,8 +186,25 @@ Phases, each of which exits non-zero when it fails:
                 grid launch: B6 twice, its chains and its fold; the B7
                 folds' further launches included; the Miller loop once, the
                 extra pair its lane 528); then B6 alone at the window's 528
-                sets, against its plain version and its mxu build, the mxu
-                build timed in turns with its parent design.
+                sets, against its plain version and its mxu build.
+     pipeline — the chain pipeline on the window's eight blocks: the
+                pre-state read from SSZ, ops.install(device="cuda"), then
+                Executor.stream(blocks, FlushPolicy(window_size=8,
+                max_in_flight=2, verify_lanes=1)) with the flight recorder
+                on: the window phase's post-state root; one window of 528
+                sets on the device route, no retry, degradation or worker
+                death; the launch ledger equal to the launch counts, B1 and
+                B4 as the window phase's loop (on the main thread), B6 2,
+                g1_mul_affine 1, g2_mul_sum 3, miller_loop 1, fp12_product 2
+                (on the verifier's thread); the stream's wall, stage A and
+                stage B busy, the submitter's settle wait and the window's
+                verify seconds printed beside the window phase's loop and
+                device verification. Then, untimed, the stream again from the
+                SSZ with block 3's proposer signature replaced by block 2's:
+                it raises what Executor.apply_block raises for that block,
+                the executor's root is block 2's state root, a further
+                submit raises PipelineBrokenError, the window went to the
+                device and its blame is block 3's proposer set alone.
  16. mesh     — the ECT_MESH route (parallel/, the reference's production
                 mesh switch) at ECT_MESH=1: the altair phase's block applied
                 cold through Executor.apply_block after ops.install(device=
@@ -465,35 +476,19 @@ def phase_device() -> dict:
             "count": torch.cuda.device_count()}
 
 
-# the parent forms of B8 and the mxu builds (tools/mxu_forms.py), built by
-# phase_build: {library: (path, ptxas log)}
-_MXU_PARENTS: dict = {}
-# the parent forms of B5-hysteresis and the inactivity updates
-# (tools/sweep_forms.py), built by phase_build likewise
-_SWEEP_PARENTS: dict = {}
-
-
 def phase_build() -> dict:
     from ethereum_consensus_tpu_torch import _kernels, native
     from ethereum_consensus_tpu_torch.native import bls as native_bls
-    from tools import mxu_forms, sweep_forms
 
     # the host libraries build with g++ beside the nvcc builds, so that no
-    # timed host path pays for a compiler; the parent forms of the mxu
-    # multiplier's kernels and of two sweeps beside them, for the phases
-    # that time the program against them
+    # timed host path pays for a compiler
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(max_workers=4) as pool:
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
         host = [pool.submit(native.available), pool.submit(native_bls.available)]
-        parents = pool.submit(mxu_forms.build_parents)
-        sweep_parents = pool.submit(sweep_forms.build_parents)
         seconds = _kernels.build_all()
         host_ok = [f.result() for f in host]
-        _MXU_PARENTS.update(parents.result())
-        _SWEEP_PARENTS.update(sweep_parents.result())
     native_s = time.perf_counter() - t0
-    print(f"build: nvcc {seconds:.3f} s; with the native host libraries and the parent "
-          f"forms {native_s:.3f} s")
+    print(f"build: nvcc {seconds:.3f} s; with the native host libraries {native_s:.3f} s")
     for name in _kernels._LIBRARIES:
         for line in _kernels.build_log(name).splitlines():
             if any(word in line for word in ("entry function", "registers", "spill", "smem")):
@@ -573,54 +568,38 @@ def _mont_operands(n: int, gen: torch.Generator) -> tuple:
     return a, b
 
 
-def _against_parent(library: str, fn, reps: int, warmup: int = 2) -> dict:
-    """CUDA-event ms of ``fn`` on the program's build of ``library`` and on
-    its parent form (tools/mxu_forms.py), in turns: program, parent,
-    parent, program."""
-    from tools import mxu_forms
-
-    def on_parent():
-        with mxu_forms.parent(_MXU_PARENTS, library):
-            fn()
-
-    t = mxu_forms.in_turns(fn, on_parent, reps, warmup)
-    return {"program_ms": t["program"], "parent_ms": t["parent"],
-            "ms": statistics.median(t["program"])}
+# The largest (spill stores, stack frame) in bytes that ptxas gives each mxu
+# build's functions in the recorded design (PERF.md: pairing_mxu's largest
+# spill is fp12_mul_by_line's, its largest frame the Miller kernel's): a
+# build that spills or keeps a frame beyond these fails the run.
+MXU_PTXAS_CEILINGS = {"mont_mxu": (0, 0), "pairing_mxu": (560, 4232), "g1_sum_mxu": (0, 0)}
 
 
 def _mxu_ptxas() -> dict:
     """ptxas' registers, frame and spills and the SASS instructions of B8 and
-    the mxu builds, beside their parent forms': each function's largest
-    (spill stores, frame) in both; ``grown``, the functions that gain a
-    spill or a frame they did not have or keep a larger frame, and a build
-    whose largest spill exceeds its parent's largest; ``more``, every
-    function that spills more than in its parent."""
-    from ethereum_consensus_tpu_torch import _kernels
-    from tools import mxu_forms
-
+    the mxu builds: each function's largest (spill stores, frame); ``grown``,
+    a build whose largest spill or frame exceeds MXU_PTXAS_CEILINGS."""
     out = {}
-    for name in mxu_forms.PARENT_LIBRARIES:
-        lines = {"program": _ptxas_lines(name, ""),
-                 "parent": _ptxas_lines(name, "", _MXU_PARENTS[name][1])}
-        table = mxu_forms.spill_table(lines)
-        grown = {k: v for k, v in table.items()
-                 if (v[0][0] and not v[1][0]) or v[0][1] > v[1][1]}
-        most = [max((v[side][0] for v in table.values()), default=0) for side in (0, 1)]
-        if most[0] > most[1]:
-            grown["largest spill"] = tuple(most)
-        more = {k: v for k, v in table.items() if v[0][0] > v[1][0]}
-        sass = {"program": _sass_instructions(name),
-                "parent": _sass_instructions(name, _MXU_PARENTS[name][0])}
-        print(f"mxu ptxas {name} (spill stores, frame) program against parent: "
-              + "; ".join(f"{k[-48:]} {v[0]} {v[1]}" for k, v in table.items())
-              + f"; SASS instructions {sass}")
-        for side, entries in lines.items():
-            for line in entries:
-                if "registers" in line:
-                    print(f"  {side} {line['kernel'][-48:]}: {line}")
-        print(f"mxu ptxas {name}: largest spill {most[0]} bytes (parent {most[1]}); functions "
-              f"that spill more than in the parent: {more}")
-        out[name] = {"lines": lines, "spills": table, "grown": grown, "more": more, "sass": sass}
+    for name, ceiling in MXU_PTXAS_CEILINGS.items():
+        lines = _ptxas_lines(name, "")
+        table: dict = {}
+        for line in lines:
+            key = line["kernel"].split("_cu_")[-1]
+            here = (line.get("spill_stores", 0), line.get("stack_frame", 0))
+            table[key] = max(table.get(key, (0, 0)), here)
+        most = (max((v[0] for v in table.values()), default=0),
+                max((v[1] for v in table.values()), default=0))
+        grown = {"largest (spill, frame)": (most, ceiling)} if (
+            most[0] > ceiling[0] or most[1] > ceiling[1]) else {}
+        sass = _sass_instructions(name)
+        print(f"mxu ptxas {name} (spill stores, frame): "
+              + "; ".join(f"{k[-48:]} {v}" for k, v in table.items())
+              + f"; largest {most} (ceiling {ceiling}); SASS instructions {sass}")
+        for line in lines:
+            if "registers" in line:
+                print(f"  {line['kernel'][-48:]}: {line}")
+        out[name] = {"lines": lines, "spills": table, "largest": most, "grown": grown,
+                     "sass": sass}
     return out
 
 
@@ -629,15 +608,13 @@ def phase_mxu() -> dict:
     Montgomery values on the card (with 0, 1, p - 1 and R mod p among
     them), bit-exact against fq.mul and against the plain mont7r on the
     card, and against fq.mul at 2^15 and at the tile edges (MXU_TILE_EDGES);
-    CUDA-event ms of the kernel at 2^20 and 2^15 in turns with its parent
-    design (tools/mxu_forms.cu, one warp a product), of an empty launch, of
+    CUDA-event ms of the kernel at 2^20 and 2^15, of an empty launch, of
     torch._int_mm of the m * p GEMM over all products (the tensor-core part
     alone, not on the path: (2^20 x 64) @ (64 x 120), at the kernel's 112
     columns and at 128), and of the plain version; the ptxas lines and SASS
-    instructions of B8 and the five mxu builds beside their parents'. A
-    frame or a spill in B8 fails the run, and so does a function of an mxu
-    build with a spill or frame that its parent did not have or a larger
-    frame, or a build whose largest spill exceeds its parent's."""
+    instructions of B8 and the mxu builds. A frame or a spill in B8 fails
+    the run, and so does an mxu build whose largest spill or frame exceeds
+    MXU_PTXAS_CEILINGS."""
     from ethereum_consensus_tpu_torch.ops import fq, fq8
 
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -654,9 +631,8 @@ def phase_mxu() -> dict:
         errs[f"n={n} vs fq.mul"] = _max_err(fq8.mont7r(x, y),
                                             fq.limbs32(fq.mul(fq.limbs16(x), fq.limbs16(y))))
     small = _mont_operands(MXU_SMALL_PAIRS, gen)
-    timed = {MXU_PAIRS: _against_parent("mont_mxu", lambda: fq8.mont7r_cuda(a, b), reps=10),
-             MXU_SMALL_PAIRS: _against_parent("mont_mxu", lambda: fq8.mont7r_cuda(*small),
-                                              reps=20)}
+    timed = {MXU_PAIRS: {"ms": _cuda_ms(lambda: fq8.mont7r_cuda(a, b), reps=10)},
+             MXU_SMALL_PAIRS: {"ms": _cuda_ms(lambda: fq8.mont7r_cuda(*small), reps=20)}}
     empty_ms = _cuda_ms(lambda: torch.cuda._sleep(0), reps=50, warmup=5)
     int_mm = {}
     digits = torch.randint(0, 128, (MXU_PAIRS, 64), dtype=torch.int8, device="cuda", generator=gen)
@@ -674,26 +650,23 @@ def phase_mxu() -> dict:
     ms = timed[MXU_PAIRS]["ms"]
     print(f"mxu: {MXU_PAIRS} products: max_abs_err {errs}; {ms:.4f} ms (bound {bound:.4f} ms by "
           f"{bound_by}); plain {plain_ms:.3f} ms; launches {launches['mont_mxu']}")
-    for n, t in timed.items():
-        print(f"mxu: B8 at {n} products, program {t['program_ms']} ms, parent design "
-              f"{t['parent_ms']} ms (in turns)")
+    print(f"mxu: B8 at {MXU_SMALL_PAIRS} products {timed[MXU_SMALL_PAIRS]['ms']:.4f} ms")
     print(f"mxu: bound at {MXU_SMALL_PAIRS} {small_bound:.4f} ms; empty launch {empty_ms:.4f} ms; "
           f"torch._int_mm of the m p GEMM over {MXU_PAIRS} products by columns {int_mm} ms")
     ptxas = _mxu_ptxas()
     if any(errs.values()) or launches["mont_mxu"] != 1:
         sys.exit(f"chip_smoke: the mxu product disagrees or did not launch: {errs}, {launches}")
-    b8 = ptxas["mont_mxu"]["lines"]["program"]
+    b8 = ptxas["mont_mxu"]["lines"]
     if any(line.get("spill_stores") or line.get("stack_frame") for line in b8):
         sys.exit(f"chip_smoke: ptxas gives B8 a frame or spills: {b8}")
     grown = {name: v["grown"] for name, v in ptxas.items() if v["grown"]}
     if grown:
-        sys.exit(f"chip_smoke: an mxu build has a new spill or frame, a larger frame or a larger "
-                 f"largest spill than its parent: {grown}")
+        sys.exit(f"chip_smoke: an mxu build spills or keeps a frame beyond its ceiling: {grown}")
     return {"pairs": MXU_PAIRS, "checks": errs, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by, "max_abs_err": max(errs.values()),
             "launches": launches, "timed": timed, "small_bound_ms": small_bound,
             "empty_ms": empty_ms, "int_mm_ms": int_mm,
-            "ptxas": {k: {"spills": v["spills"], "more": v["more"], "sass": v["sass"]}
+            "ptxas": {k: {"spills": v["spills"], "largest": v["largest"], "sass": v["sass"]}
                       for k, v in ptxas.items()}}
 
 
@@ -974,21 +947,18 @@ def _g1_mxu(outputs: dict, main: dict) -> dict:
                                          g1.g1_sum_sets_plain(points_d, offsets_d))
         points_d, offsets_d, _ = outputs["block"]
         sets = offsets_d.shape[0] - 1
-        timed = _against_parent("g1_sum_mxu", lambda: g1._launch(points_d, offsets_d, sets),
-                                reps=10)
+        ms = _cuda_ms(lambda: g1._launch(points_d, offsets_d, sets), reps=10)
         plain_ms = _cuda_ms(lambda: g1.g1_sum_sets_plain(points_d, offsets_d), reps=3, warmup=1)
     finally:
         fq8.set_multiplier("u64")
-    ms = timed["ms"]
     print(f"g1 mxu build: max_abs_err {errs}; {ms:.4f} ms at the block's {sets} sets (u64 "
-          f"{main['ms']:.4f}; bound {main['bound_ms']:.4f} ms by {main['bound_by']}); in turns "
-          f"with the parent design {timed['program_ms']} against {timed['parent_ms']} ms; plain "
+          f"{main['ms']:.4f}; bound {main['bound_ms']:.4f} ms by {main['bound_by']}); plain "
           f"under mxu {plain_ms:.3f} ms; kernel SASS instructions "
           f"{_sass_instructions('g1_sum_mxu')}")
     if any(errs.values()):
         sys.exit(f"chip_smoke: the mxu G1 set-sum kernel disagrees: {errs}")
     return {"checks": errs, "ms": ms, "plain_ms": plain_ms, "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "max_abs_err": max(errs.values()), "timed": timed}
+            "bound_by": main["bound_by"], "max_abs_err": max(errs.values())}
 
 
 # (leaves, limit, start_level) of the htr phase's B2 checks: the registry
@@ -1867,54 +1837,23 @@ def phase_sweeps() -> dict:
     print(f"sweeps n=2^20: {ms:.4f} ms (bound {bound:.4f} ms by {bound_by}); a copy of its "
           f"{SWEEPS_BYTES_PER_VALIDATOR} bytes a validator {copy_ms:.4f} ms, an empty launch "
           f"{empty_ms:.4f} ms; plain {plain_ms:.3f} ms; library: none")
-    turns = _sweep_turns("hysteresis", sweeps_bound_ms, "effective_balance_kernel")
+    compiled = _sweep_ptxas("sweeps", "effective_balance_kernel")
     return {"checks": checks, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "copy_ms": copy_ms, "empty_ms": empty_ms, "turns": turns,
+            "bound_by": bound_by, "copy_ms": copy_ms, "empty_ms": empty_ms, "ptxas": compiled,
             "max_abs_err": max(c["max_abs_err"] for c in checks)}
 
 
-# B5-hysteresis and the inactivity updates timed in turns with their parent
-# design at the registry's size and a 4-shard share of it
-SWEEP_TURN_NS = (VALIDATORS, VALIDATORS // 4)
-
-
-def _sweep_turns(which: str, bound_ms, kernel: str) -> dict:
-    """B5-hysteresis (``which`` "hysteresis") or the inactivity updates
-    ("updates") at SWEEP_TURN_NS in turns with its parent design
-    (tools/sweep_forms.py: kernel, parent, parent, kernel), beside a copy of
-    its bytes and an empty launch, after the write flush and after a read
-    flush; bound and share; ptxas and SASS of the kernel and the parent. A
-    disagreement with the plain version, or a frame or a spill in the
-    kernel, fails the run."""
-    from tools import sweep_forms
-
-    out = {}
-    for n in SWEEP_TURN_NS:
-        r = getattr(sweep_forms, which)(_SWEEP_PARENTS, n)
-        if any(r["errs"].values()):
-            sys.exit(f"chip_smoke: {which} or its parent disagrees at n={n}: {r['errs']}")
-        bound, bound_by = bound_ms(n)
-        for flush, t in r["ms"].items():
-            med = {k: statistics.median(v) for k, v in t.items()}
-            print(f"{which} n={n} ({flush}): kernel {t['kernel']} ms, parent {t['parent']}, a "
-                  f"copy of its bytes {t['copy']}, an empty launch {t['empty']}; medians "
-                  f"kernel {med['kernel']:.4f}, parent {med['parent']:.4f}, copy "
-                  f"{med['copy']:.4f}; the kernel {1e3 * (med['kernel'] - med['copy']):.2f} us "
-                  f"over the copy; bound {bound:.4f} ms by {bound_by}, share "
-                  f"{bound / med['kernel']:.0%}")
-        out[str(n)] = {**r, "bound_ms": bound, "bound_by": bound_by}
-    library = "sweeps" if which == "hysteresis" else "altair_sweeps"
+def _sweep_ptxas(library: str, kernel: str) -> dict:
+    """ptxas' lines and the SASS instructions of B5-hysteresis or the
+    inactivity updates (``kernel`` in ``library``); a frame or a spill fails
+    the run."""
     ptxas = _ptxas_lines(library, kernel)
-    parent_ptxas = _ptxas_lines(library, kernel, _SWEEP_PARENTS["sweep_parents"][1])
-    sass = {"program": _sass_kernel_instructions(library, (kernel,)),
-            "parent": _sass_instructions("", _SWEEP_PARENTS["sweep_parents"][0]),
+    sass = {"kernel": _sass_kernel_instructions(library, (kernel,)),
             "library": _sass_instructions(library)}
-    print(f"{which}: ptxas {ptxas}, the parent's {parent_ptxas}; SASS instructions {sass} "
-          f"(the parent's: both parent kernels)")
+    print(f"{kernel}: ptxas {ptxas}; SASS instructions {sass}")
     if not ptxas or any(line.get("spill_stores") or line.get("stack_frame") for line in ptxas):
         sys.exit(f"chip_smoke: ptxas gives {kernel} a frame or spills")
-    out.update(ptxas=ptxas, parent_ptxas=parent_ptxas, sass=sass)
-    return out
+    return {"ptxas": ptxas, "sass": sass}
 
 
 def _sass_instructions(name: str, path: "str | None" = None) -> "int | None":
@@ -2534,9 +2473,8 @@ def phase_altair_sweeps() -> dict:
     timings["inactivity_updates"].update(copy_ms=copy_ms, empty_ms=empty_ms)
     print(f"altair_sweeps inactivity_updates n=2^20: a copy of its {INACTIVITY_UPDATES_BYTES} "
           f"bytes a validator {copy_ms:.4f} ms, an empty launch {empty_ms:.4f} ms")
-    timings["inactivity_updates"]["turns"] = _sweep_turns(
-        "updates", lambda k: _bound(k * INACTIVITY_UPDATES_OPS, k * INACTIVITY_UPDATES_BYTES),
-        "inactivity_updates_kernel")
+    timings["inactivity_updates"]["ptxas"] = _sweep_ptxas("altair_sweeps",
+                                                          "inactivity_updates_kernel")
     scalars = _fused_scalars(False)
     columns = [c[k] for k in ("balances", "eff", "prev_part", "slashed", "active_prev",
                               "eligible", "scores")]
@@ -4516,30 +4454,28 @@ def _pairing_mxu(pk, words, sig, xp, yp, xq, yq, u64_out: dict, native_f: list,
         print(f"pairing mxu window launch ({len(f_wide)} lanes): max_abs_err vs u64 {errs}")
         if any(errs.values()):
             sys.exit("chip_smoke: the mxu build disagrees on the window's Miller launch")
-        # each kernel at the window's shape, in turns with its parent design
+        # each kernel at the window's shape
         timings = {
-            "g1_mul_affine": (_against_parent(
-                "pairing_mxu", lambda: pairing.g1_mul_affine_cuda(pk, words), reps=5),
-                plain_ms[0]),
-            "g2_mul_sum": (_against_parent(
-                "pairing_mxu", lambda: pairing.g2_mul_sum_cuda(sig, words), reps=5), plain_ms[1]),
-            "miller_loop": (_against_parent(
-                "pairing_mxu", lambda: pairing.miller_loop_cuda(*wide), reps=3), plain_ms[2]),
-            "fp12_product": (_against_parent(
-                "pairing_mxu", lambda: pairing.fp12_product_cuda(f_wide), reps=10), plain_ms[3]),
+            "g1_mul_affine": (_cuda_ms(lambda: pairing.g1_mul_affine_cuda(pk, words), reps=5),
+                              plain_ms[0]),
+            "g2_mul_sum": (_cuda_ms(lambda: pairing.g2_mul_sum_cuda(sig, words), reps=5),
+                           plain_ms[1]),
+            "miller_loop": (_cuda_ms(lambda: pairing.miller_loop_cuda(*wide), reps=3),
+                            plain_ms[2]),
+            "fp12_product": (_cuda_ms(lambda: pairing.fp12_product_cuda(f_wide), reps=10),
+                             plain_ms[3]),
         }
     finally:
         fq8.set_multiplier("u64")
     report = {}
-    for name, (timed, plain_ms) in timings.items():
-        row, ms = u64[name], timed["ms"]
+    for name, (ms, plain_ms) in timings.items():
+        row = u64[name]
         print(f"pairing {name} mxu build: {ms:.4f} ms at {row['lanes']} lanes (u64 "
-              f"{row['ms']:.4f}; bound {row['bound_ms']:.4f} ms by {row['bound_by']}); in turns "
-              f"with the parent design {timed['program_ms']} against {timed['parent_ms']} ms; "
+              f"{row['ms']:.4f}; bound {row['bound_ms']:.4f} ms by {row['bound_by']}); "
               f"plain under mxu {plain_ms:.3f} ms at {plain_n} lanes")
         report[name] = {"ms": ms, "lanes": row["lanes"], "plain_ms": plain_ms,
                         "plain_lanes": plain_n, "bound_ms": row["bound_ms"],
-                        "bound_by": row["bound_by"], "timed": timed,
+                        "bound_by": row["bound_by"],
                         "max_abs_err": max(errs[name], plain_errs[name])}
     print(f"pairing mxu build: kernel SASS instructions {_sass_instructions('pairing_mxu')}")
     return report
@@ -4715,8 +4651,7 @@ def _window_g1_sum(sets: list) -> dict:
     fq8.set_multiplier("mxu")
     try:
         errs["mxu vs u64"] = _max_err(g1.g1_sum_sets(points_d, offsets_d), got)
-        mxu = _against_parent("g1_sum_mxu", lambda: g1._launch(points_d, offsets_d, len(sets)),
-                              reps=5)
+        mxu_ms = _cuda_ms(lambda: g1._launch(points_d, offsets_d, len(sets)), reps=5)
     finally:
         fq8.set_multiplier("u64")
     ms = _cuda_ms(lambda: g1._launch(points_d, offsets_d, len(sets)), reps=5)
@@ -4724,11 +4659,11 @@ def _window_g1_sum(sets: list) -> dict:
     bound, bound_by = g1_bound_ms([sum(1 for r in s if any(r)) for s in raw_sets], keys)
     print(f"window g1_sum_sets (u64) alone: {ms:.4f} ms at {len(sets)} sets, {keys} keys "
           f"(bound {bound:.4f} ms by {bound_by}); max_abs_err {errs}; its mxu build "
-          f"{mxu['program_ms']} ms against the parent design's {mxu['parent_ms']} (in turns)")
+          f"{mxu_ms:.4f} ms")
     if any(errs.values()):
         sys.exit(f"chip_smoke: the window's G1 set sums disagree: {errs}")
     return {"ms": ms, "sets": len(sets), "keys": keys, "bound_ms": bound, "bound_by": bound_by,
-            "max_abs_err": errs, "mxu": mxu}
+            "max_abs_err": errs, "mxu_ms": mxu_ms}
 
 
 def _block_g1_sum(cell: str, sets: list) -> dict:
@@ -4759,13 +4694,15 @@ def _block_g1_sum(cell: str, sets: list) -> dict:
 
 
 def phase_window(registry: dict) -> dict:
-    """The slice's main path: a window of WINDOW_BLOCKS signed blocks on the
-    2^20-validator phase0 state applied through
-    Executor.apply_block_with_validation under defer_flushes, then its 528
-    sets verified with one verify_signature_sets call on the host route and
-    after ops.install(device="cuda") (the device pairing at the default 512
+    """A window of WINDOW_BLOCKS signed blocks on the 2^20-validator phase0
+    state applied through Executor.apply_block_with_validation under
+    defer_flushes after ops.install(device="cuda") (its launches kept: the
+    pipeline phase's stage A makes the same), then its 528 sets verified
+    with one verify_signature_sets call on the host route and after
+    ops.install(device="cuda") (the device pairing at the default 512
     sets): the same verdicts, and the same blame for a copy with one
     aggregate's signature replaced by its neighbour's."""
+    from ethereum_consensus_tpu_torch import ops
     from ethereum_consensus_tpu_torch.crypto import bls
     from ethereum_consensus_tpu_torch.executor import Executor, Validation
     from ethereum_consensus_tpu_torch.models.phase0 import build
@@ -4779,11 +4716,19 @@ def phase_window(registry: dict) -> dict:
     read_s = time.perf_counter() - t0
     sink = SignatureBatch()
     executor = Executor(state, ctx)
-    t0 = time.perf_counter()
-    with defer_flushes(sink):
-        for signed in setup["blocks"]:
-            executor.apply_block_with_validation(signed, Validation.ENABLED)
-    apply_s = time.perf_counter() - t0
+    ops.uninstall()  # a cold shuffle cache: the committees on the card
+    ops.install(device="cuda")
+    _zero_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        with defer_flushes(sink):
+            for signed in setup["blocks"]:
+                executor.apply_block_with_validation(signed, Validation.ENABLED)
+        torch.cuda.synchronize()
+        apply_s = time.perf_counter() - t0
+        apply_launches = {k: v for k, v in _launch_counts().items() if v}
+    finally:
+        ops.uninstall()
     sets = list(sink.sets)
     n_keys = sum(len(s.public_keys) for s in sets)
     # both routes read the same PublicKey objects: decompress them once
@@ -4792,8 +4737,8 @@ def phase_window(registry: dict) -> dict:
     warm_s = time.perf_counter() - t0
     root = type(executor.state.data).hash_tree_root(executor.state.data).hex()
     print(f"window: read {read_s:.1f} s; {WINDOW_BLOCKS} blocks applied under defer_flushes "
-          f"in {apply_s:.3f} s, post-state root {root}; {len(sets)} sets, {n_keys} keys, "
-          f"decompressed in {warm_s:.1f} s")
+          f"on the device path in {apply_s:.3f} s (launches {apply_launches}), post-state root "
+          f"{root}; {len(sets)} sets, {n_keys} keys, decompressed in {warm_s:.1f} s")
     # each block: the proposer, the randao reveal, then its aggregates
     per_block = setup["per_slot"] + 2
     if len(sets) != WINDOW_BLOCKS * per_block:
@@ -4845,10 +4790,254 @@ def phase_window(registry: dict) -> dict:
     b6 = _window_g1_sum(sets)
     return {"blocks": WINDOW_BLOCKS, "sets": len(sets), "keys": n_keys,
             "real_keys": setup["keys"], "setup_s": setup["setup_s"], "read_s": read_s,
-            "apply_s": apply_s, "warm_s": warm_s, "root": root, "tampered_set": t,
+            "apply_s": apply_s, "apply_launches": apply_launches, "warm_s": warm_s,
+            "root": root, "tampered_set": t, "per_block": per_block,
+            # for the pipeline phase, which streams the same blocks
+            "pre": setup["pre"], "ctx": ctx, "signed_blocks": setup["blocks"],
             "routes": routes, "g1_sum_sets": b6,
             # for the mesh phase, which verifies them on ECT_MESH=1
             "signature_sets": sets, "tampered_sets": tampered, "blame": blame["host"]}
+
+
+# --- the chain pipeline: Executor.stream over the window's blocks ------------
+
+PIPELINE_POLICY = {"window_size": WINDOW_BLOCKS, "max_in_flight": 2, "verify_lanes": 1}
+# the device route's grid launches for one window of 528 sets, all on the
+# verifier's thread (lane 0's worker, named by crypto/bls._verify_pool)
+PIPELINE_VERIFIER_KERNELS = {"g1_sum_sets": G1_SUM_LAUNCHES, "g1_mul_affine": 1,
+                             "g2_mul_sum": 3, "miller_loop": 1, "fp12_product": 2}
+PIPELINE_VERIFIER_THREAD = "bls-verify-0"
+PIPELINE_FAULTS = ("worker_death", "transient", "retries", "verifier_error", "settle_timeout")
+
+
+def _launch_threads(tally: dict):
+    """Wrap telemetry.device.launch (which every kernel wrapper calls where
+    it adds to its launch count) to tally each kernel's launches by the
+    launching thread's name."""
+    import threading
+
+    lock = threading.Lock()
+
+    def wrap(fn):
+        def launch(kernel, count=1):
+            name = threading.current_thread().name
+            with lock:
+                per = tally.setdefault(kernel, {})
+                per[name] = per.get(name, 0) + count
+            return fn(kernel, count)
+        return launch
+    return wrap
+
+
+def _settled(bucket: dict, verdicts: list):
+    """Wrap VerifyScheduler.settle_oldest: the submitter's wait in
+    ``bucket["settle_s"]``, each window's verdicts appended to
+    ``verdicts``."""
+    def wrap(fn):
+        def settle_oldest(self):
+            t0 = time.perf_counter()
+            try:
+                window, got = fn(self)
+            finally:
+                bucket["settle_s"] = bucket.get("settle_s", 0.0) + time.perf_counter() - t0
+            verdicts.append(got)
+            return window, got
+        return settle_oldest
+    return wrap
+
+
+def phase_pipeline(window: dict) -> dict:
+    """The slice's main path: the window's blocks through Executor.stream
+    (the chain pipeline) on the card. The clean stream (timed) reads the
+    pre-state from SSZ, installs the device route at the default thresholds
+    and streams the eight blocks as one window: the window phase's
+    post-state root, one flush of 528 sets on the device route from the
+    verifier's thread, the launch ledger equal to the counts, B1 and B4 as
+    the window phase's loop launched them (the main thread), B6 and B7 as
+    PIPELINE_VERIFIER_KERNELS (the verifier's thread). The tampered stream
+    (untimed, from the pre-state read again) replaces block
+    WINDOW_TAMPERED_BLOCK's proposer signature with the block before's:
+    Executor.apply_block's error for that block, the committed state at the
+    block before's state root, the pipeline broken, the window on the
+    device route and its blame that block's proposer set alone."""
+    import threading
+
+    from ethereum_consensus_tpu_torch import ops
+    from ethereum_consensus_tpu_torch.error import Error
+    from ethereum_consensus_tpu_torch.executor import Executor
+    from ethereum_consensus_tpu_torch.models.phase0 import build
+    from ethereum_consensus_tpu_torch.pipeline import (ChainPipeline, FlushPolicy,
+                                                       PipelineBrokenError, scheduler)
+    from ethereum_consensus_tpu_torch.telemetry import device, flight, metrics
+
+    ctx, blocks = window["ctx"], window["signed_blocks"]
+    ns = build(ctx.preset)
+    faults = {k: metrics.counter(f"pipeline.fault.{k}") for k in PIPELINE_FAULTS}
+    faults_before = {k: c.value() for k, c in faults.items()}
+    gc.collect()
+    t0 = time.perf_counter()
+    state = ns.BeaconState.deserialize(window["pre"])
+    read_s = time.perf_counter() - t0
+
+    # -- the clean stream, timed
+    settle: dict = {}
+    verdicts: list = []
+    threads: dict = {}
+    executor = Executor(state, ctx)
+    ops.uninstall()
+    ops.install(device="cuda")
+    try:
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(_patched(scheduler.VerifyScheduler, "settle_oldest",
+                                         _settled(settle, verdicts)))
+            stack.enter_context(_patched(device, "launch", _launch_threads(threads)))
+            recorder = flight.start()
+            device.start()
+            _zero_launch_counts()
+            try:
+                t0 = time.perf_counter()
+                stats = executor.stream(blocks, policy=FlushPolicy(**PIPELINE_POLICY))
+                torch.cuda.synchronize()
+                stream_s = time.perf_counter() - t0
+            finally:
+                device.stop()
+                flight.stop()
+            launches = {k: v for k, v in _launch_counts().items() if v}
+            ledger = device.OBSERVATORY.launches()
+    finally:
+        ops.uninstall()
+    root = type(executor.state.data).hash_tree_root(executor.state.data).hex()
+    lineage = recorder.records()
+    recorder.clear()
+    snap = stats.snapshot()
+    faults_moved = {k: c.value() - faults_before[k] for k, c in faults.items()
+                    if c.value() != faults_before[k]}
+    want = dict(window["apply_launches"])
+    for name, n in PIPELINE_VERIFIER_KERNELS.items():
+        want[name] = want.get(name, 0) + n
+    main = threading.main_thread().name
+    on_verifier = {k: sum(n for t, n in threads.get(k, {}).items()
+                          if t.startswith(PIPELINE_VERIFIER_THREAD)) for k in PIPELINE_VERIFIER_KERNELS}
+    on_main = {k: threads.get(k, {}).get(main, 0) for k in window["apply_launches"]}
+    verify_s = lineage[0].verify_s if lineage else None
+    window_device_s = window["apply_s"] + window["routes"]["device"]["s"]
+    print(f"pipeline: read {read_s:.1f} s; stream of "
+          f"{len(blocks)} blocks {stream_s:.3f} s wall (the pipeline's own {snap['wall_s']:.3f} s "
+          f"from the first submit); stage A busy {snap['stage_a_s']:.3f} s, stage B busy "
+          f"{snap['stage_b_s']:.3f} s, the submitter's settle wait {settle.get('settle_s', 0.0):.3f}"
+          f" s, the window's verify {verify_s} s; the window phase's loop and device "
+          f"verification {window['apply_s']:.3f} + {window['routes']['device']['s']:.3f} = "
+          f"{window_device_s:.3f} s beside the stream's {stream_s:.3f} s")
+    print(f"pipeline: root {root} (window {window['root']}); flush sizes {snap['flush_sizes']}, "
+          f"retries {snap['fault_retries']}, degraded {snap['degraded_flushes']}, rollbacks "
+          f"{snap['rollbacks']}, faults moved {faults_moved}; lineage {len(lineage)} records, "
+          f"routes {sorted({str(r.verify_route) for r in lineage})}, dispositions "
+          f"{sorted({r.disposition for r in lineage})}")
+    print(f"pipeline: launches {launches}, ledger {ledger}; by thread {threads}")
+    if root != window["root"]:
+        sys.exit(f"chip_smoke: the stream's root {root} is not the window's {window['root']}")
+    n_sets = window["sets"]
+    if (snap["flush_sizes"] != [n_sets] or snap["fault_retries"] or snap["degraded_flushes"]
+            or snap["rollbacks"] or faults_moved or snap["blocks_committed"] != len(blocks)):
+        sys.exit(f"chip_smoke: the stream was not one clean window of {n_sets} sets: {snap}, "
+                 f"faults {faults_moved}")
+    if (len(lineage) != len(blocks) or any(r.verify_route != "device" or r.flush_sets != n_sets
+                                           or r.disposition != "committed" for r in lineage)):
+        sys.exit("chip_smoke: the stream's window did not commit on the device route")
+    if verdicts != [[True] * n_sets]:
+        sys.exit("chip_smoke: the stream's window did not verify")
+    if launches != want or ledger != launches:
+        sys.exit(f"chip_smoke: the stream's launches are off: counts {launches}, ledger "
+                 f"{ledger}, want {want}")
+    if on_verifier != PIPELINE_VERIFIER_KERNELS or on_main != window["apply_launches"]:
+        sys.exit(f"chip_smoke: B6 and B7 did not launch on the verifier's thread, or B1 and B4 "
+                 f"not on the main thread: {threads}")
+    del executor, state
+    gc.collect()
+
+    # -- the tampered stream, untimed
+    bad = blocks[WINDOW_TAMPERED_BLOCK].copy()
+    bad.signature = bytes(blocks[WINDOW_TAMPERED_BLOCK - 1].signature)
+    stream = blocks[:WINDOW_TAMPERED_BLOCK] + [bad] + blocks[WINDOW_TAMPERED_BLOCK + 1:]
+    bad_verdicts: list = []
+    t_start = time.perf_counter()
+    with _collector_paused():
+        # read after the clean stream, so that its state is not on the heap
+        # while the clean stream is timed; one cold root first: the
+        # pipeline's checkpoint copies carry its memo, so the stream and the
+        # rollback's re-application run warm
+        tampered_pre = ns.BeaconState.deserialize(window["pre"])
+        type(tampered_pre).hash_tree_root(tampered_pre)
+        tampered = Executor(tampered_pre, ctx)
+        pipe = ChainPipeline(tampered, policy=FlushPolicy(**PIPELINE_POLICY))
+        ops.install(device="cuda")
+        try:
+            with _patched(scheduler.VerifyScheduler, "settle_oldest",
+                          _settled({}, bad_verdicts)):
+                recorder = flight.start()
+                caught = None
+                try:
+                    for signed in stream:
+                        pipe.submit(signed)
+                    pipe.close()
+                except Error as exc:
+                    caught = exc
+                finally:
+                    flight.stop()
+            refused = False
+            try:
+                pipe.submit(blocks[WINDOW_TAMPERED_BLOCK])
+            except PipelineBrokenError:
+                refused = True
+            committed_root = type(tampered.state.data).hash_tree_root(tampered.state.data)
+            # what Executor.apply_block raises for the tampered block on the
+            # committed state (the broken pipeline's state, not used after)
+            probe = Executor(tampered.state, ctx)
+            expected = None
+            try:
+                probe.apply_block(bad)
+            except Error as exc:
+                expected = exc
+        finally:
+            ops.uninstall()
+    tampered_s = time.perf_counter() - t_start
+    bad_lineage = recorder.records()
+    recorder.clear()
+    blamed = [r for r in bad_lineage if r.outcome == "rolled-back"]
+    false_at = [i for i, v in enumerate(bad_verdicts[0]) if not v] if bad_verdicts else None
+    proposer_set = WINDOW_TAMPERED_BLOCK * window["per_block"]
+    print(f"pipeline tampered: block {WINDOW_TAMPERED_BLOCK} (slot {int(bad.message.slot)}) "
+          f"raised {caught!r}, Executor.apply_block raises {expected!r}; committed root "
+          f"{committed_root.hex()} (block {WINDOW_TAMPERED_BLOCK - 1}'s state root "
+          f"{bytes(blocks[WINDOW_TAMPERED_BLOCK - 1].message.state_root).hex()}); a further "
+          f"submit refused {refused}; window verdicts false at {false_at} (the proposer set "
+          f"{proposer_set}); lineage {[(r.slot, r.disposition, r.verify_route) for r in bad_lineage]}"
+          f"; {tampered_s:.1f} s")
+    if caught is None or expected is None or (type(caught), str(caught)) != (
+            type(expected), str(expected)):
+        sys.exit(f"chip_smoke: the tampered stream raised {caught!r}, Executor.apply_block "
+                 f"{expected!r}")
+    if committed_root != bytes(blocks[WINDOW_TAMPERED_BLOCK - 1].message.state_root):
+        sys.exit("chip_smoke: the tampered stream's committed state is not the block before's")
+    if not refused:
+        sys.exit("chip_smoke: the broken pipeline took a further block")
+    if (len(bad_verdicts) != 1 or false_at != [proposer_set] or len(blamed) != 1
+            or blamed[0].slot != int(bad.message.slot) or blamed[0].verify_route != "device"
+            or blamed[0].flush_sets != n_sets
+            or blamed[0].blame["error"] != type(caught).__name__):
+        sys.exit(f"chip_smoke: the tampered window's route or blame is off: {false_at}, "
+                 f"{[r.to_dict() for r in blamed]}")
+    faults_moved = {k: c.value() - faults_before[k] for k, c in faults.items()
+                    if c.value() != faults_before[k]}
+    if faults_moved:
+        sys.exit(f"chip_smoke: the pipeline counted faults: {faults_moved}")
+    return {"read_s": read_s, "stream_s": stream_s, "wall_s": snap["wall_s"],
+            "stage_a_s": snap["stage_a_s"], "stage_b_s": snap["stage_b_s"],
+            "settle_s": settle.get("settle_s", 0.0), "verify_s": verify_s,
+            "window_loop_plus_device_s": window_device_s, "root": root,
+            "launches": launches, "threads": threads, "stats": snap,
+            "tampered": {"s": tampered_s, "error": repr(caught), "false_at": false_at,
+                         "committed_root": committed_root.hex()}}
 
 
 # --- the ECT_MESH route: the sharded twins (B9) ------------------------------
@@ -5708,6 +5897,7 @@ def main() -> int:
     report["sums"] = _walled("sums", phase_sums)
     report["altair"] = _walled("altair", phase_altair, registry)
     report["window"] = _walled("window", phase_window, registry)
+    report["pipeline"] = _walled("pipeline", phase_pipeline, report["window"])
     report["mesh"] = _walled("mesh", phase_mesh, report["altair"], report["window"])
     report["step"] = _walled("step", phase_step)
 
@@ -5721,6 +5911,7 @@ def main() -> int:
              "deneb": report["altair"]["deneb"]["routes"]["device"]["launches"],
              "electra": report["altair"]["electra"]["routes"]["device"]["launches"],
              "window": report["window"]["routes"]["device"]["launches"],
+             "pipeline": report["pipeline"]["launches"],
              "mxu": report["mxu"]["launches"],
              "window_mxu": report["window"]["routes"]["device_mxu"]["launches"],
              "htr": report["htr"]["launch_counts"],
@@ -5769,14 +5960,14 @@ def main() -> int:
         "inactivity_penalties": ("inactivity_penalties", "altair_literal",
                                  "ethereum_consensus_tpu_torch/csrc/altair_sweeps.cu",
                                  "ethereum_consensus_tpu/ops/sweeps.py:191"),
-        "g1_mul_affine": ("g1_mul_affine", "window",
+        "g1_mul_affine": ("g1_mul_affine", "pipeline",
                           "ethereum_consensus_tpu_torch/csrc/pairing.cu",
                           "ethereum_consensus_tpu/ops/pairing.py:316"),
-        "g2_mul_sum": ("g2_mul_sum", "window", "ethereum_consensus_tpu_torch/csrc/pairing.cu",
+        "g2_mul_sum": ("g2_mul_sum", "pipeline", "ethereum_consensus_tpu_torch/csrc/pairing.cu",
                        "ethereum_consensus_tpu/ops/pairing.py:332"),
-        "miller_loop": ("miller_loop", "window", "ethereum_consensus_tpu_torch/csrc/pairing.cu",
+        "miller_loop": ("miller_loop", "pipeline", "ethereum_consensus_tpu_torch/csrc/pairing.cu",
                         "ethereum_consensus_tpu/ops/pairing.py:416"),
-        "fp12_product": ("fp12_product", "window",
+        "fp12_product": ("fp12_product", "pipeline",
                          "ethereum_consensus_tpu_torch/csrc/pairing.cu",
                          "ethereum_consensus_tpu/ops/pairing.py:474"),
         # the mxu multiplier (EC_PAIRING_MULT=mxu): B8 alone, then B6 and B7

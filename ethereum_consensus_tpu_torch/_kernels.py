@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 __all__ = ["build_all", "build_log", "library_path", "load", "loaded"]
@@ -226,6 +227,12 @@ _LIBRARIES = {
 }
 
 _LOADED: dict = {}
+# double-checked: two threads that first use a library at once (the chain
+# pipeline's verifier lanes beside stage A) build and ledger it once
+_LOAD_LOCK = threading.Lock()
+# held around every ``launch_count(s)`` increment in ops/: the counts stay
+# exact when threads launch at once
+LAUNCH_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -310,16 +317,20 @@ def load(name: str) -> ctypes.CDLL:
         return lib
     from .telemetry import device as _obs
 
-    t0 = time.perf_counter()
-    lib_path, _ = _paths(name)
-    built = not os.path.exists(lib_path)
-    if built:
-        build_all()
-    lib = ctypes.CDLL(lib_path)
-    for fn_name, (argtypes, restype) in _LIBRARIES[name][1].items():
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = restype
-    _LOADED[name] = lib
-    _obs.library(name, t0, time.perf_counter(), built)
-    return lib
+    with _LOAD_LOCK:
+        lib = _LOADED.get(name)
+        if lib is not None:
+            return lib
+        t0 = time.perf_counter()
+        lib_path, _ = _paths(name)
+        built = not os.path.exists(lib_path)
+        if built:
+            build_all()
+        lib = ctypes.CDLL(lib_path)
+        for fn_name, (argtypes, restype) in _LIBRARIES[name][1].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _LOADED[name] = lib
+        _obs.library(name, t0, time.perf_counter(), built)
+        return lib

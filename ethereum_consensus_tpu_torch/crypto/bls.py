@@ -67,6 +67,7 @@ __all__ = [
     "eth_fast_aggregate_verify",
     "verify_signature",
     "verify_signature_sets",
+    "verify_signature_sets_async",
     "warm_pubkey_cache",
     "warm_raw_keys",
     "backend_name",
@@ -849,3 +850,89 @@ def verify_signature_sets(
     if _native() and len(sets) > 1 and _batch_all_valid(sets, dst):
         return [True] * len(sets)
     return [s.verify(dst) for s in sets]
+
+
+# ---------------------------------------------------------------------------
+# Async dispatch (the chain pipeline's stage-B hook, pipeline/scheduler.py;
+# reference crypto/bls.py:912-995)
+# ---------------------------------------------------------------------------
+
+_VERIFY_POOLS: dict = {}
+# double-checked creation: two racing first-dispatchers would otherwise
+# build TWO single-thread pools for one lane — and the pipeline's
+# windows-settle-FIFO guarantee (per lane) only holds when every dispatch
+# to a lane queues behind the SAME worker
+_VERIFY_POOL_LOCK = threading.Lock()
+
+
+def _verify_pool(lane: int = 0):
+    """One process-wide single-thread verifier PER LANE. One worker per
+    lane on purpose: dispatches within a lane complete FIFO, and the
+    pairing engines underneath (native ctypes — which releases the GIL for
+    the whole multi-pairing — or the device route, whose B6 and B7
+    launches then run on this worker's thread, on its current stream)
+    each already own their parallelism. Lane 0 is the historical single
+    verifier; the pipeline scheduler fans windows over N lanes
+    deterministically (``seq % verify_lanes``, pipeline/scheduler.py) so
+    N windows verify concurrently, while the engine's settle-oldest order
+    keeps commits in chain order regardless of which lane finishes
+    first."""
+    pool = _VERIFY_POOLS.get(lane)
+    if pool is None:
+        with _VERIFY_POOL_LOCK:
+            pool = _VERIFY_POOLS.get(lane)
+            if pool is None:
+                from concurrent.futures import ThreadPoolExecutor
+
+                pool = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix=f"bls-verify-{lane}"
+                )
+                _VERIFY_POOLS[lane] = pool
+    return pool
+
+
+def verify_signature_sets_async(
+    sets: list[SignatureSet], dst: bytes = ETH_DST, timer=None, pre=None,
+    route_sink=None, lane: int = 0, trace_ctx=None,
+):
+    """Dispatch one batched verification to the background verifier thread;
+    returns a ``concurrent.futures.Future[list[bool]]``.
+
+    The host thread keeps mutating state while the multi-pairing runs.
+    ``timer``, if given, is called on the worker with the verification's
+    duration in seconds — the pipeline's stage-occupancy probe. ``pre``,
+    if given, runs on the worker immediately before verification (the
+    pipeline's fault-injection seam, pipeline/faults.py); anything it
+    raises surfaces through the future exactly as a real worker fault
+    would. ``route_sink``, if given, is called on the worker after
+    verification with the batch's pairing route ("device"/"host"/None —
+    ``last_batch_route``), the flight recorder's per-window verify_route
+    feed. ``lane`` picks the single-thread verifier worker (default 0);
+    batches dispatched to different lanes verify CONCURRENTLY, batches on
+    one lane stay FIFO. ``trace_ctx``, if given, is the caller's causal
+    handoff token (utils/trace TraceContext): the worker adopts it so the
+    verify span parents under the dispatching window's trace across the
+    thread seam. A device kernel that fails raises through the future."""
+    sets = list(sets)
+
+    def run() -> list[bool]:
+        import time as _time
+
+        t0 = _time.perf_counter()
+        try:
+            if pre is not None:
+                pre()
+            # the span lands on the verifier thread's lane, so a recorded
+            # pipeline run shows stage B as its own Perfetto track —
+            # linked under trace_ctx's trace when the caller passed one
+            with trace.adopt(trace_ctx):
+                with trace.span("pipeline.flush.verify", sets=len(sets)):
+                    verdicts = verify_signature_sets(sets, dst)
+            if route_sink is not None:
+                route_sink(last_batch_route())
+            return verdicts
+        finally:
+            if timer is not None:
+                timer(_time.perf_counter() - t0)
+
+    return _verify_pool(lane).submit(run)

@@ -9,6 +9,11 @@ executor.rs:215-224). Ported from ethereum_consensus_tpu/executor.py. The
 port carries phase0 through electra: a block of no known fork raises
 ``UnknownForkError`` (an unknown container), one older than the state
 ``IncompatibleForksError``.
+
+Beyond the reference: ``stream`` replays an iterable of blocks through
+the chain pipeline (pipeline/engine.py) — speculative host application
+overlapped with windowed cross-block signature verification — with
+observable semantics identical to an ``apply_block`` loop.
 """
 
 from __future__ import annotations
@@ -88,3 +93,30 @@ class Executor:
             )
 
         self.state = BeaconState.from_fork(destination, state)
+
+    def stream(
+        self,
+        signed_blocks,
+        policy=None,
+        validation: Validation = Validation.ENABLED,
+        stats=None,
+    ):
+        """Apply an iterable of signed blocks through the chain pipeline
+        (``pipeline.ChainPipeline``): speculative host application
+        overlapped with windowed cross-block signature verification on a
+        background worker. Returns the run's ``PipelineStats``.
+
+        Observable semantics match a loop of ``apply_block``: the same
+        final state bit-for-bit on success; on an invalid block, the same
+        structured error raises and ``self.state`` is the last state
+        whose signatures fully verified (not mid-block garbage). A device
+        failure raises ``PipelineBrokenError`` chained from it, with
+        ``self.state`` at the same committed position."""
+        from .pipeline import ChainPipeline
+
+        pipeline = ChainPipeline(
+            self, policy=policy, validation=validation, stats=stats
+        )
+        for signed_block in signed_blocks:
+            pipeline.submit(signed_block)
+        return pipeline.close()

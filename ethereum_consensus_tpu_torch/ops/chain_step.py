@@ -135,7 +135,8 @@ def _launch_chain(balances, effective, active, words: tuple):
         )
     if rc != 0:
         raise RuntimeError(f"chain step kernel launch failed: CUDA error {rc}")
-    launch_counts["chain_step_shard"] += 1
+    with _kernels.LAUNCH_LOCK:
+        launch_counts["chain_step_shard"] += 1
     _obs.launch("chain_step_shard")
     return new_eff, chunk_words, total
 
@@ -181,7 +182,8 @@ def epoch_step_sums_cuda(eff, part, slashed, active_prev, active_cur) -> torch.T
 def _launch_sums(columns: tuple) -> torch.Tensor:
     """The launch alone, on checked inputs (kernel timings call this)."""
     sums = _epoch.launch_masked_sums("chain_step", "epoch_step_sums_launch", columns, 4)
-    launch_counts["epoch_step_sums"] += 1
+    with _kernels.LAUNCH_LOCK:
+        launch_counts["epoch_step_sums"] += 1
     _obs.launch("epoch_step_sums")
     return sums
 
@@ -292,7 +294,8 @@ def _launch_apply(columns: tuple, args: tuple):
         )
     if rc != 0:
         raise RuntimeError(f"epoch step kernel launch failed: CUDA error {rc}")
-    launch_counts["epoch_step_apply"] += 1
+    with _kernels.LAUNCH_LOCK:
+        launch_counts["epoch_step_apply"] += 1
     _obs.launch("epoch_step_apply")
     return new_balances, new_scores
 

@@ -255,7 +255,8 @@ def _launch(columns: tuple, words: tuple):
         )
     if rc != 0:
         raise RuntimeError(f"fused epoch kernel launch failed: CUDA error {rc}")
-    launch_count += 1
+    with _kernels.LAUNCH_LOCK:
+        launch_count += 1
     _obs.launch("fused_epoch")
     return new_scores, new_balances, scratch
 
@@ -293,7 +294,8 @@ def fused_flag_sums_cuda(eff, prev_part, slashed, active_prev) -> torch.Tensor:
     _check_flag_columns(*columns)
     _check_cuda("fused_flag_sums_cuda", columns)
     sums = launch_masked_sums("fused_epoch", "fused_flag_sums_launch", columns, 3)
-    launch_counts["fused_flag_sums"] += 1
+    with _kernels.LAUNCH_LOCK:
+        launch_counts["fused_flag_sums"] += 1
     _obs.launch("fused_flag_sums")
     return sums
 
@@ -356,7 +358,8 @@ def _launch_apply(fn_name: str, count: str, columns: tuple, sums: list, words: t
         )
     if rc != 0:
         raise RuntimeError(f"{count} kernel launch failed: CUDA error {rc}")
-    launch_counts[count] += 1
+    with _kernels.LAUNCH_LOCK:
+        launch_counts[count] += 1
     _obs.launch(count)
     return new_scores, new_balances
 
@@ -504,7 +507,8 @@ def staged_inactivity_scores_cuda(scores, eligible, participating, bias, recover
         )
     if rc != 0:
         raise RuntimeError(f"staged inactivity kernel launch failed: CUDA error {rc}")
-    launch_counts["staged_inactivity_scores"] += 1
+    with _kernels.LAUNCH_LOCK:
+        launch_counts["staged_inactivity_scores"] += 1
     _obs.launch("staged_inactivity_scores")
     return out
 
@@ -577,7 +581,8 @@ def staged_flag_deltas_cuda(base_reward, eligible, unslashed, weight, unslashed_
         )
     if rc != 0:
         raise RuntimeError(f"staged flag deltas kernel launch failed: CUDA error {rc}")
-    launch_counts["staged_flag_deltas"] += 1
+    with _kernels.LAUNCH_LOCK:
+        launch_counts["staged_flag_deltas"] += 1
     _obs.launch("staged_flag_deltas")
     return rewards, penalties
 
@@ -626,7 +631,8 @@ def staged_apply_delta_pairs_cuda(balances, rewards, penalties) -> torch.Tensor:
         )
     if rc != 0:
         raise RuntimeError(f"staged apply kernel launch failed: CUDA error {rc}")
-    launch_counts["staged_apply_delta_pairs"] += 1
+    with _kernels.LAUNCH_LOCK:
+        launch_counts["staged_apply_delta_pairs"] += 1
     _obs.launch("staged_apply_delta_pairs")
     return out
 

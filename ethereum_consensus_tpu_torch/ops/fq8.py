@@ -306,7 +306,8 @@ def mont7r_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         rc = lib.mont_mxu_launch(a.data_ptr(), b.data_ptr(), n, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"mont_mxu kernel launch failed: CUDA error {rc}")
-    launch_counts["mont_mxu"] += 1
+    with _kernels.LAUNCH_LOCK:
+        launch_counts["mont_mxu"] += 1
     _obs.launch("mont_mxu")
     return out
 

@@ -261,10 +261,12 @@ def _launch(points: torch.Tensor, offsets: torch.Tensor, n_sets: int) -> torch.T
     if rc != 0:
         raise RuntimeError(f"g1_sum_sets kernel launch failed: CUDA error {rc}")
     if mxu:
-        launch_count_mxu += 1
+        with _kernels.LAUNCH_LOCK:
+            launch_count_mxu += 1
         _obs.launch("g1_sum_sets_mxu")
     else:
-        launch_count += 2
+        with _kernels.LAUNCH_LOCK:
+            launch_count += 2
         _obs.launch("g1_sum_sets", 2)
     return out
 

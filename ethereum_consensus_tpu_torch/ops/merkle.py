@@ -140,7 +140,8 @@ def reduce_levels_cuda(
                                     depth, work.data_ptr(), out.data_ptr(), stream)
     if rc <= 0:
         raise RuntimeError(f"merkle kernel launch failed: CUDA error {-rc}")
-    launch_count += rc
+    with _kernels.LAUNCH_LOCK:
+        launch_count += rc
     _obs.launch("merkle_levels", rc)
     return out
 

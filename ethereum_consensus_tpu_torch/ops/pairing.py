@@ -305,7 +305,8 @@ def _launch(kernel: str, fn_name: str, *args) -> None:
     if rc <= 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {-rc}")
     counted = kernel + "_mxu" if name == "pairing_mxu" else kernel
-    launch_counts[counted] += rc
+    with _kernels.LAUNCH_LOCK:
+        launch_counts[counted] += rc
     _obs.launch(counted, rc)
 
 

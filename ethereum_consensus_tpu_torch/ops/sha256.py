@@ -146,7 +146,8 @@ def sha256_64b_cuda(words: torch.Tensor) -> torch.Tensor:
         rc = lib.sha256_64b_launch(words.data_ptr(), out.data_ptr(), n, stream)
     if rc != 0:
         raise RuntimeError(f"sha256_64b kernel launch failed: CUDA error {rc}")
-    launch_count += 1
+    with _kernels.LAUNCH_LOCK:
+        launch_count += 1
     _obs.launch("sha256_64b")
     return out
 

@@ -104,7 +104,8 @@ def _launch(pivots: torch.Tensor, sources: torch.Tensor, count: int) -> torch.Te
         )
     if rc != 0:
         raise RuntimeError(f"shuffle kernel launch failed: CUDA error {rc}")
-    launch_count += 1
+    with _kernels.LAUNCH_LOCK:
+        launch_count += 1
     _obs.launch("shuffle")
     return out
 

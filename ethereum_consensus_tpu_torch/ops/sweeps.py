@@ -178,7 +178,8 @@ def _launch(balances: torch.Tensor, effective: torch.Tensor, scalars: tuple) -> 
         )
     if rc != 0:
         raise RuntimeError(f"effective-balance kernel launch failed: CUDA error {rc}")
-    launch_counts["effective_balance"] += 1
+    with _kernels.LAUNCH_LOCK:
+        launch_counts["effective_balance"] += 1
     _obs.launch("effective_balance")
     return out
 
@@ -356,7 +357,8 @@ def _launch_flag_deltas(eff, participating, eligible, scalars: tuple):
         )
     if rc != 0:
         raise RuntimeError(f"flag-deltas kernel launch failed: CUDA error {rc}")
-    launch_counts["flag_deltas"] += 1
+    with _kernels.LAUNCH_LOCK:
+        launch_counts["flag_deltas"] += 1
     _obs.launch("flag_deltas")
     return rewards, penalties
 
@@ -408,7 +410,8 @@ def _launch_inactivity_updates(scores, participating, eligible, scalars: tuple):
         )
     if rc != 0:
         raise RuntimeError(f"inactivity-updates kernel launch failed: CUDA error {rc}")
-    launch_counts["inactivity_updates"] += 1
+    with _kernels.LAUNCH_LOCK:
+        launch_counts["inactivity_updates"] += 1
     _obs.launch("inactivity_updates")
     return out
 
@@ -459,7 +462,8 @@ def _launch_inactivity_penalties(eff, scores, not_target, denominator: int):
         )
     if rc != 0:
         raise RuntimeError(f"inactivity-penalties kernel launch failed: CUDA error {rc}")
-    launch_counts["inactivity_penalties"] += 1
+    with _kernels.LAUNCH_LOCK:
+        launch_counts["inactivity_penalties"] += 1
     _obs.launch("inactivity_penalties")
     return out
 

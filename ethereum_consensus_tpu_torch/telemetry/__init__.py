@@ -13,6 +13,9 @@ torch at import time):
   (``ssz.digests``, ``bls.pairing_route.*``, ``epoch_vector.*``, ...).
 * ``phases``  — the per-block phase attribution (sig batch / state HTR /
   committees / operations) from recorded transition spans.
+* ``flight``  — the chain flight recorder: a bounded ring journal of
+  per-block ``BlockLineage`` records assembled by the pipeline's
+  commit/rollback hook, with JSONL export and a query API.
 * ``device``  — the device execution observatory: kernel-library loads,
   the call ledger with its drift sentinel, the launch ledger, the
   host<->device transfer ledger, and the device-vs-host routing journal.
@@ -21,13 +24,13 @@ torch at import time):
   transition/epoch spans, and per-site bulk-copy byte counters.
 
 Reference parity: ethereum_consensus_tpu/telemetry/__init__.py (:37-39),
-without ``flight`` and ``server``, whose producers are the data planes.
+without ``server``, whose consumers are the later data planes.
 """
 
 from __future__ import annotations
 
-from . import metrics, phases, spans
+from . import flight, metrics, phases, spans
 from . import device  # noqa: E402 — after spans/metrics (its imports)
 from . import memory  # noqa: E402 — after spans/metrics (its imports)
 
-__all__ = ["device", "memory", "metrics", "phases", "spans"]
+__all__ = ["device", "flight", "memory", "metrics", "phases", "spans"]

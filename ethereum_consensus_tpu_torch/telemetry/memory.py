@@ -46,8 +46,8 @@ holds ``self._lock``; the hot ``active`` read and the metrics-registry
 increments (locked per metric) stay outside it.
 
 Reference parity: ethereum_consensus_tpu/telemetry/memory.py, without the
-flight ring, headstore and pool probes (their producers are the data
-planes, not ported yet).
+headstore and pool probes (their producers, ``serving/`` and ``pool/``,
+are data planes not ported yet).
 """
 
 from __future__ import annotations
@@ -501,6 +501,26 @@ def _ssz_census() -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _flight_ring_probe() -> "tuple[int, int]":
+    """The flight recorder's ring (reference telemetry/memory.py:520): a
+    size sample of up to 64 lineage records, extrapolated to the ring."""
+    import sys
+
+    from . import flight as _flight
+
+    records = _flight.RECORDER.records()
+    nbytes = 0
+    for rec in records[:64]:  # bounded size sample; extrapolated below
+        nbytes += sys.getsizeof(rec)
+        for slot_name in getattr(type(rec), "__slots__", ()):
+            value = getattr(rec, slot_name, None)
+            if isinstance(value, (str, bytes, dict, list, tuple)):
+                nbytes += sys.getsizeof(value)
+    if records:
+        nbytes = nbytes * len(records) // min(len(records), 64)
+    return nbytes, len(records)
+
+
 def _shuffle_cache_probe() -> "tuple[int, int]":
     from ..models.phase0 import helpers as _h
 
@@ -547,6 +567,7 @@ def _jit_cache_probe() -> "tuple[int, int]":
 
 
 _BUILTIN_OWNERS = (
+    ("flight.ring", _flight_ring_probe),
     ("phase0.shuffle_cache", _shuffle_cache_probe),
     ("committees.mask_bundles", _mask_bundle_probe),
     ("epoch_vector.jit_kernels", _jit_cache_probe),

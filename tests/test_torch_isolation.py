@@ -61,7 +61,15 @@ def test_importing_the_port_loads_no_jax():
         "ethereum_consensus_tpu_torch.telemetry.memory, "
         "ethereum_consensus_tpu_torch.utils.trace, "
         "ethereum_consensus_tpu_torch.models.epoch_vector, "
-        "ethereum_consensus_tpu_torch.ops.epoch; "
+        "ethereum_consensus_tpu_torch.ops.epoch, "
+        "ethereum_consensus_tpu_torch.pipeline, "
+        "ethereum_consensus_tpu_torch.pipeline.errors, "
+        "ethereum_consensus_tpu_torch.pipeline.stats, "
+        "ethereum_consensus_tpu_torch.pipeline.faults, "
+        "ethereum_consensus_tpu_torch.pipeline.scheduler, "
+        "ethereum_consensus_tpu_torch.pipeline.engine, "
+        "ethereum_consensus_tpu_torch.pipeline.__main__, "
+        "ethereum_consensus_tpu_torch.telemetry.flight; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r}]; "
         "assert not bad, bad"
