@@ -1157,9 +1157,10 @@ def phase_slice(data: bytes, ctx, slots: int) -> dict:
     from ethereum_consensus_tpu_torch.ssz import hash as ssz_hash
 
     t0 = time.perf_counter()
-    device_state = convert.state_from_ssz(data, ctx.preset)
-    host_state = convert.state_from_ssz(data, ctx.preset)
-    timed_state = convert.state_from_ssz(data, ctx.preset)
+    with _collector_paused():  # untimed set-up: three 2^20 reads
+        device_state = convert.state_from_ssz(data, ctx.preset)
+        host_state = convert.state_from_ssz(data, ctx.preset)
+        timed_state = convert.state_from_ssz(data, ctx.preset)
     state_type = type(device_state)
     setup_s = time.perf_counter() - t0
     print(f"slice: {len(device_state.validators)} validators, three reads of "
@@ -4855,11 +4856,14 @@ def phase_pipeline(window: dict) -> dict:
     verifier's thread, the launch ledger equal to the counts, B1 and B4 as
     the window phase's loop launched them (the main thread), B6 and B7 as
     PIPELINE_VERIFIER_KERNELS (the verifier's thread). The tampered stream
-    (untimed, from the pre-state read again) replaces block
-    WINDOW_TAMPERED_BLOCK's proposer signature with the block before's:
+    (untimed, from the pre-state read again) streams the blocks before
+    block WINDOW_TAMPERED_BLOCK and that block with its proposer signature
+    replaced by the block before's, one partial window:
     Executor.apply_block's error for that block, the committed state at the
     block before's state root, the pipeline broken, the window on the
-    device route and its blame that block's proposer set alone."""
+    device route and its blame that block's proposer set alone. A HeadStore
+    (serving/headstore.py) is attached to the tampered stream's commits and
+    handed to the serve phase in ``store``."""
     import threading
 
     from ethereum_consensus_tpu_torch import ops
@@ -4868,6 +4872,7 @@ def phase_pipeline(window: dict) -> dict:
     from ethereum_consensus_tpu_torch.models.phase0 import build
     from ethereum_consensus_tpu_torch.pipeline import (ChainPipeline, FlushPolicy,
                                                        PipelineBrokenError, scheduler)
+    from ethereum_consensus_tpu_torch.serving import HeadStore
     from ethereum_consensus_tpu_torch.telemetry import device, flight, metrics
 
     ctx, blocks = window["ctx"], window["signed_blocks"]
@@ -4958,7 +4963,11 @@ def phase_pipeline(window: dict) -> dict:
     # -- the tampered stream, untimed
     bad = blocks[WINDOW_TAMPERED_BLOCK].copy()
     bad.signature = bytes(blocks[WINDOW_TAMPERED_BLOCK - 1].signature)
-    stream = blocks[:WINDOW_TAMPERED_BLOCK] + [bad] + blocks[WINDOW_TAMPERED_BLOCK + 1:]
+    # the blocks up to the tampered one: the pipeline's close flushes them
+    # as one partial window (the blocks after it would be applied and
+    # discarded, untimed work the check does not need)
+    stream = blocks[:WINDOW_TAMPERED_BLOCK] + [bad]
+    stream_sets = len(stream) * window["per_block"]
     bad_verdicts: list = []
     t_start = time.perf_counter()
     with _collector_paused():
@@ -4970,7 +4979,11 @@ def phase_pipeline(window: dict) -> dict:
         type(tampered_pre).hash_tree_root(tampered_pre)
         tampered = Executor(tampered_pre, ctx)
         pipe = ChainPipeline(tampered, policy=FlushPolicy(**PIPELINE_POLICY))
-        ops.install(device="cuda")
+        # the read plane's head store rides this stream: the engine copies
+        # the window's post-state at dispatch and publishes only commits
+        store = HeadStore().attach()
+        # the partial window's sets (4 blocks' 264) on the device route too
+        ops.install(device="cuda", pairing_min_sets=stream_sets)
         try:
             with _patched(scheduler.VerifyScheduler, "settle_oldest",
                           _settled({}, bad_verdicts)):
@@ -5000,6 +5013,7 @@ def phase_pipeline(window: dict) -> dict:
                 expected = exc
         finally:
             ops.uninstall()
+            store.detach()
     tampered_s = time.perf_counter() - t_start
     bad_lineage = recorder.records()
     recorder.clear()
@@ -5023,7 +5037,7 @@ def phase_pipeline(window: dict) -> dict:
         sys.exit("chip_smoke: the broken pipeline took a further block")
     if (len(bad_verdicts) != 1 or false_at != [proposer_set] or len(blamed) != 1
             or blamed[0].slot != int(bad.message.slot) or blamed[0].verify_route != "device"
-            or blamed[0].flush_sets != n_sets
+            or blamed[0].flush_sets != stream_sets
             or blamed[0].blame["error"] != type(caught).__name__):
         sys.exit(f"chip_smoke: the tampered window's route or blame is off: {false_at}, "
                  f"{[r.to_dict() for r in blamed]}")
@@ -5037,7 +5051,320 @@ def phase_pipeline(window: dict) -> dict:
             "window_loop_plus_device_s": window_device_s, "root": root,
             "launches": launches, "threads": threads, "stats": snap,
             "tampered": {"s": tampered_s, "error": repr(caught), "false_at": false_at,
-                         "committed_root": committed_root.hex()}}
+                         "committed_root": committed_root.hex()},
+            # for the serve phase
+            "store": store}
+
+
+# --- the read plane: serving/ and proofs/ over HTTP -------------------------
+
+SERVE_IDS = 16  # the validators and balances requests: 16 indices and 4 pubkeys
+SERVE_PUBKEYS = 4
+SERVE_DUTIES = 64  # the attester duties request's indices
+SERVE_GROUP = 1 << 12  # ssz/core.py's dirty group: 4,096 validator roots
+SERVE_PROOF_VALIDATORS = 128  # one in each of 128 groups: 2^19 chunks to rebuild
+SERVE_ROUTED = [1 << 18, 1 << 17]  # the columnar rebuild's levels that reach B1
+LC_PHASE0_ERROR = "light-client data requires an altair+ state"
+
+
+def _http(base: str, method: str, path: str, body=None, parts: "dict | None" = None) -> tuple:
+    """(status, JSON document, seconds) of one request over HTTP; ``parts``
+    gets the client's parse of the body (``parse_s``) and its size."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    request = urllib.request.Request(base + path, data=data, method=method)
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(request, timeout=300) as response:
+            status, raw = response.status, response.read()
+    except urllib.error.HTTPError as err:
+        status, raw = err.code, err.read()
+    t1 = time.perf_counter()
+    doc = json.loads(raw)
+    t2 = time.perf_counter()
+    if parts is not None:
+        parts.update(parse_s=t2 - t1, bytes=len(raw))
+    return status, doc, t2 - t0
+
+
+def _serve_checks(raw, ctx, head, proposer: int, indices: list, duty_ids: list) -> dict:
+    """What each request's document must hold, from the head state itself:
+    name -> (status, check(document) -> bool). A check runs after its
+    request, so the committees it reads are the ones the request cached."""
+    from ethereum_consensus_tpu_torch.models.phase0 import helpers as h
+    from ethereum_consensus_tpu_torch.serving import oracle
+
+    epoch = int(raw.slot) // ctx.SLOTS_PER_EPOCH
+    finality = {name: type(cp).to_json(cp) for name, cp in (
+        ("previous_justified", raw.previous_justified_checkpoint),
+        ("current_justified", raw.current_justified_checkpoint),
+        ("finalized", raw.finalized_checkpoint))}
+
+    def committees_ok(doc):
+        rows = doc["data"]
+        first = h.get_beacon_committee(raw, epoch * ctx.SLOTS_PER_EPOCH, 0, ctx)
+        return (len(rows) == ctx.SLOTS_PER_EPOCH * h.get_committee_count_per_slot(raw, epoch, ctx)
+                and sum(len(r["validators"]) for r in rows)
+                == len(h.get_active_validator_indices(raw, epoch))
+                and rows[0]["validators"] == [str(v) for v in first])
+
+    def duties_ok(doc):
+        rows = doc["data"]
+        return len(rows) == len(duty_ids) and all(
+            h.get_beacon_committee(raw, int(r["slot"]), int(r["committee_index"]), ctx)[
+                int(r["validator_committee_index"])] == int(r["validator_index"]) for r in rows)
+
+    return {
+        "root": (200, lambda d: d["data"]["root"] == head.root_hex()),
+        "finality_checkpoints": (200, lambda d: d["data"] == finality),
+        "validators": (200, lambda d: d["data"] == oracle.validators_data(raw, ctx, indices)),
+        "validator_balances": (200, lambda d: d["data"] == oracle.balances_data(raw, indices)),
+        "committees": (200, committees_ok),
+        "proposer_duties": (200, lambda d: len(d["data"]) == ctx.SLOTS_PER_EPOCH and [
+            int(r["validator_index"]) for r in d["data"] if int(r["slot"]) == int(raw.slot)]
+            == [proposer]),
+        "attester_duties": (200, duties_ok),
+        "light_client_bootstrap": (400, lambda d: d["message"] == LC_PHASE0_ERROR),
+    }
+
+
+def phase_serve(pipeline: dict, window: dict) -> dict:
+    """The read plane on the pipeline phase's tampered stream: the HeadStore
+    it fed holds block WINDOW_TAMPERED_BLOCK - 1's committed state and never
+    the rolled-back block's. A BeaconDataPlane mounted on an
+    IntrospectionServer answers over HTTP on localhost, each request cold
+    then warm, under ops.install(device="cuda"): the root, the finality
+    checkpoints, validators and balances of SERVE_IDS indices and
+    SERVE_PUBKEYS pubkeys, the head epoch's committees, proposer duties,
+    attester duties of SERVE_DUTIES indices, a light-client bootstrap (the
+    reference's 400 on phase0), and a multiproof of SERVE_PROOF_VALIDATORS
+    validator records in as many 4,096-validator groups: on the default
+    route (lazy host groups), then on a fresh snapshot of the same state
+    under ECT_MESH=1 (the columnar rebuild, its SERVE_ROUTED levels on B1).
+    Both give the same bytes, the proof verifies against the head root, and
+    B1's launches on the mesh request equal the launch ledger."""
+    from ethereum_consensus_tpu_torch import ops
+    from ethereum_consensus_tpu_torch.ops import sha256
+    from ethereum_consensus_tpu_torch.parallel import runtime
+    from ethereum_consensus_tpu_torch.proofs import multiproof, verify_multiproof
+    from ethereum_consensus_tpu_torch.serving import BeaconDataPlane
+    from ethereum_consensus_tpu_torch.ssz import core
+    from ethereum_consensus_tpu_torch.ssz import hash as ssz_hash
+    from ethereum_consensus_tpu_torch.telemetry import device
+    from ethereum_consensus_tpu_torch.telemetry import server as tel_server
+    from ethereum_consensus_tpu_torch.telemetry.server import IntrospectionServer
+
+    store = pipeline.pop("store")
+    blocks = window["signed_blocks"]
+    committed = blocks[WINDOW_TAMPERED_BLOCK - 1].message
+    rolled_back = bytes(blocks[WINDOW_TAMPERED_BLOCK].message.state_root)
+    head = store.head
+    published = [(snap.slot, snap.root.hex()) for snap in store.snapshots()]
+    print(f"serve: the store holds {published}; head slot {head.slot}, root "
+          f"{head.root.hex()}; block {WINDOW_TAMPERED_BLOCK - 1}'s state root "
+          f"{bytes(committed.state_root).hex()}, block {WINDOW_TAMPERED_BLOCK}'s (rolled back) "
+          f"{rolled_back.hex()}")
+    if (head.root != bytes(committed.state_root)
+            or head.block_root != type(committed).hash_tree_root(committed)
+            or any(root == rolled_back.hex() or slot > int(committed.slot)
+                   for slot, root in published)):
+        sys.exit("chip_smoke: the head store's head is not the committed block's state, or it "
+                 "published the rolled-back block")
+    raw, ctx = head.raw, head.context
+    n = len(raw.validators)
+    epoch = int(raw.slot) // ctx.SLOTS_PER_EPOCH
+    ids = [(k * 65_537) % n for k in range(1, SERVE_IDS + 1)]
+    keyed = [(k * 40_009 + 7) % n for k in range(1, SERVE_PUBKEYS + 1)]
+    pubkeys = ["0x" + bytes(raw.validators[i].public_key).hex() for i in keyed]
+    duty_ids = [(k * 16_411) % n for k in range(SERVE_DUTIES)]
+    id_list = ",".join([str(i) for i in ids] + pubkeys)
+    proof_validators = [2 * k * SERVE_GROUP + (k * 97) % SERVE_GROUP
+                        for k in range(SERVE_PROOF_VALIDATORS)]
+    gindices = sorted(core.get_generalized_index(type(raw), "validators", i)
+                      for i in proof_validators)
+    states = "/eth/v1/beacon/states/head"
+    requests = [
+        ("root", "GET", f"{states}/root", None),
+        ("finality_checkpoints", "GET", f"{states}/finality_checkpoints", None),
+        ("validators", "GET", f"{states}/validators?id={id_list}", None),
+        ("validator_balances", "GET", f"{states}/validator_balances?id={id_list}", None),
+        ("committees", "GET", f"{states}/committees?epoch={epoch}", None),
+        ("proposer_duties", "GET", f"/eth/v1/validator/duties/proposer/{epoch}", None),
+        ("attester_duties", "POST", f"/eth/v1/validator/duties/attester/{epoch}", duty_ids),
+        ("light_client_bootstrap", "GET",
+         f"/eth/v1/beacon/light_client/bootstrap/0x{head.block_root.hex()}", None),
+    ]
+    checks = _serve_checks(raw, ctx, head, int(committed.proposer_index), ids + keyed, duty_ids)
+    proof_path = f"{states}/proof?gindex={','.join(str(g) for g in gindices)}"
+
+    server = IntrospectionServer(port=0).start(start_flight=False)
+    server.mount(BeaconDataPlane(store))
+    base = server.url("").rstrip("/")
+    walls: dict = {}
+    collections: dict = {}  # the collector's full passes during each request
+    by_request: dict = {}  # the kernels each request launched
+    failed: list = []
+    routed: list = []
+    build: dict = {}
+
+    def timed_hasher(fn):
+        def hasher(nodes: bytes) -> bytes:
+            t0 = time.perf_counter()
+            out = fn(nodes)
+            routed.append((len(nodes) // 64, time.perf_counter() - t0))
+            return out
+        return hasher
+
+    # the server's side of each request: the data plane's answer, then the
+    # JSON encoding and the write (the requests run one at a time)
+    served: list = []
+
+    def timed_handle(fn):
+        def handle(self, *args):
+            t0 = time.perf_counter()
+            out = fn(self, *args)
+            served.append({"handle_s": time.perf_counter() - t0})
+            return out
+        return handle
+
+    def timed_send(fn):
+        def send_json(self, doc, status=200):
+            t0 = time.perf_counter()
+            fn(self, doc, status)
+            if served:
+                served[-1]["encode_send_s"] = time.perf_counter() - t0
+        return send_json
+
+    def timed_build(fn):
+        def columnar_group_build(pending):
+            at = len(routed)
+            t0 = time.perf_counter()
+            fn(pending)
+            build["s"] = time.perf_counter() - t0
+            build["routed"] = routed[at:]
+        return columnar_group_build
+
+    t_start = time.perf_counter()
+    ops.install(device="cuda")
+    _zero_launch_counts()
+    marks: dict = {}  # request -> (its entry in served, the client's parts)
+    stack = contextlib.ExitStack()
+    try:
+        stack.enter_context(_patched(BeaconDataPlane, "handle", timed_handle))
+        stack.enter_context(_patched(tel_server._Handler, "_send_json", timed_send))
+        for name, method, path, body in requests:
+            status_want, ok = checks[name]
+            docs = []
+            for turn in ("cold", "warm"):
+                full, counts = gc.get_stats()[2]["collections"], _launch_counts()
+                parts: dict = {}
+                status, doc, wall = _http(base, method, path, body, parts)
+                walls[f"{name}_{turn}_s"] = wall
+                marks[f"{name}_{turn}"] = (len(served) - 1, parts)
+                collections[f"{name}_{turn}"] = gc.get_stats()[2]["collections"] - full
+                for kernel, n in _launch_counts().items():
+                    if n != counts[kernel]:
+                        by_request[f"{name}_{turn}"] = {
+                            **by_request.get(f"{name}_{turn}", {}), kernel: n - counts[kernel]}
+                docs.append(doc)
+                if status != status_want or not ok(doc):
+                    failed.append((name, turn, status))
+            if docs[0] != docs[1]:
+                failed.append((name, "warm != cold", None))
+        stack.close()
+        host = []
+        for turn in ("cold", "warm"):
+            status, doc, wall = _http(base, "GET", proof_path)
+            walls[f"multiproof_host_{turn}_s"] = wall
+            host.append((status, doc))
+        # a fresh snapshot of the same committed state: its own walker, so
+        # the mesh request plans and rebuilds the same groups again
+        store.publish(head.state, ctx, slot=head.slot, root=head.root,
+                      block_root=head.block_root, block=head.block)
+        runtime.reset()
+        os.environ["ECT_MESH"] = "1"
+        mesh = []
+        try:
+            with _patched(ssz_hash, "_device_hasher", timed_hasher), \
+                    _patched(multiproof, "_columnar_group_build", timed_build):
+                before = _launch_counts()
+                device.start()
+                status, doc, wall = _http(base, "GET", proof_path)
+                torch.cuda.synchronize()
+                device.stop()
+                after = _launch_counts()
+                ledger = device.OBSERVATORY.launches()
+            walls["multiproof_mesh_cold_s"] = wall
+            mesh.append((status, doc))
+            status, doc, wall = _http(base, "GET", proof_path)
+            walls["multiproof_mesh_warm_s"] = wall
+            mesh.append((status, doc))
+            engaged = runtime.status()
+        finally:
+            os.environ.pop("ECT_MESH", None)
+            runtime.reset()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _launch_counts().items() if v}
+    finally:
+        stack.close()
+        ops.uninstall()
+        server.stop()
+        store.detach()
+    serve_s = time.perf_counter() - t_start
+    # the stopped server joined its handler threads: every entry is written
+    split = {key: {**served[at], **parts} for key, (at, parts) in marks.items()}
+    mesh_launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    data = host[0][1]["data"]
+    leaves = [bytes.fromhex(x[2:]) for x in data["leaves"]]
+    helpers = [bytes.fromhex(x[2:]) for x in data["proof"]]
+    verified = verify_multiproof(leaves, helpers, [int(g) for g in data["gindices"]], head.root)
+    records = [type(raw.validators[i]).hash_tree_root(raw.validators[i])
+               for i in sorted(proof_validators)]
+    same = all(d == data for d in (host[1][1]["data"], mesh[0][1]["data"], mesh[1][1]["data"]))
+
+    # B1 alone at the routed levels' shapes, beside the rebuild's wall
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    kernel_ms = 0.0
+    for parents in SERVE_ROUTED:
+        words = _random_words(parents, gen)
+        kernel_ms += _cuda_ms(lambda: sha256.sha256_64b(words), reps=5)
+    in_build = build.get("routed", [])
+    routed_s = sum(sec for _n, sec in in_build)
+    columnar_s = build.get("s")
+    print("serve: requests (cold, warm s; the collector's full passes in each): " + "; ".join(
+        f"{name} {walls[name + '_cold_s']:.4f}, {walls[name + '_warm_s']:.4f} "
+        f"({collections[name + '_cold']}, {collections[name + '_warm']})"
+        for name, *_ in requests))
+    print("serve: each request's split (the data plane's answer, the JSON encoding and write, "
+          "the client's parse; s, bytes): " + "; ".join(
+              f"{key} {round(v.get('handle_s', 0), 4)}, {round(v.get('encode_send_s', 0), 4)}, "
+              f"{round(v.get('parse_s', 0), 4)}, {v.get('bytes')}" for key, v in split.items()))
+    print(f"serve: multiproof of {len(gindices)} validator records ({len(helpers)} helpers): "
+          f"host route {walls['multiproof_host_cold_s']:.4f} s cold, "
+          f"{walls['multiproof_host_warm_s']:.4f} warm; ECT_MESH=1 "
+          f"{walls['multiproof_mesh_cold_s']:.4f} cold, {walls['multiproof_mesh_warm_s']:.4f} "
+          f"warm; the columnar rebuild {columnar_s} s, its routed levels "
+          f"{[(p, round(sec, 4)) for p, sec in in_build]} ({routed_s:.4f} s; the request's "
+          f"{[p for p, _sec in routed]}), B1 alone at those "
+          f"shapes {kernel_ms:.4f} ms; same bytes {same}, verifies {verified}; runtime {engaged}")
+    print(f"serve: launches on the path {launches}, by request {by_request}; on the mesh "
+          f"request {mesh_launches}, ledger {ledger}; {serve_s:.1f} s")
+    if failed:
+        sys.exit(f"chip_smoke: the read plane's answers are off: {failed}")
+    if not same or not verified or leaves != records or host[0][0] != 200 or mesh[0][0] != 200:
+        sys.exit("chip_smoke: the multiproof's routes disagree, or it does not verify against "
+                 "the head root")
+    if ([p for p, _sec in in_build] != SERVE_ROUTED or columnar_s is None
+            or not mesh_launches.get("sha256_64b") or mesh_launches != ledger):
+        sys.exit(f"chip_smoke: the mesh request's columnar rebuild did not run on B1 as the "
+                 f"ledger says: routed {routed}, launches {mesh_launches}, ledger {ledger}")
+    return {"s": serve_s, "walls": walls, "collections": collections, "launches": launches,
+            "launches_by_request": by_request, "split": split,
+            "mesh_launches": mesh_launches,
+            "columnar_s": columnar_s, "routed": in_build, "routed_s": routed_s,
+            "b1_kernel_ms": kernel_ms, "helpers": len(helpers), "head": head.root.hex()}
 
 
 # --- the ECT_MESH route: the sharded twins (B9) ------------------------------
@@ -5357,8 +5684,8 @@ def phase_mesh(altair: dict, window: dict) -> dict:
     state_type = build(ctx.preset).BeaconState
     engaged, merkle_calls, fused_calls, batches, b2_calls = [], [], [], [], []
     with _mesh_env("1"), contextlib.ExitStack() as stack:
-        stack.enter_context(_patched(runtime, "_engage", lambda fn: lambda kind: (
-            engaged.append(kind), fn(kind))[1]))
+        stack.enter_context(_patched(runtime, "_engage", lambda fn: lambda kind, **inputs: (
+            engaged.append(kind), fn(kind, **inputs))[1]))
         stack.enter_context(_patched(pmerkle, "sharded_merkleize_chunks",
                                      _capture(merkle_calls)))
         stack.enter_context(_patched(merkle, "reduce_levels_cuda", _capture(b2_calls)))
@@ -5898,6 +6225,7 @@ def main() -> int:
     report["altair"] = _walled("altair", phase_altair, registry)
     report["window"] = _walled("window", phase_window, registry)
     report["pipeline"] = _walled("pipeline", phase_pipeline, report["window"])
+    report["serve"] = _walled("serve", phase_serve, report["pipeline"], report["window"])
     report["mesh"] = _walled("mesh", phase_mesh, report["altair"], report["window"])
     report["step"] = _walled("step", phase_step)
 
@@ -5912,6 +6240,7 @@ def main() -> int:
              "electra": report["altair"]["electra"]["routes"]["device"]["launches"],
              "window": report["window"]["routes"]["device"]["launches"],
              "pipeline": report["pipeline"]["launches"],
+             "serve": report["serve"]["launches"],
              "mxu": report["mxu"]["launches"],
              "window_mxu": report["window"]["routes"]["device_mxu"]["launches"],
              "htr": report["htr"]["launch_counts"],

@@ -25,6 +25,8 @@ The flags the port reads:
                                   sweeps take the mesh
   ECT_MESH_MERKLE_MIN_CHUNKS=<n>  the chunk count from which a flat
                                   merkle rebuild takes the mesh
+  ECT_MESH_PROOF_MIN_CHUNKS=<n>   the chunk count from which a multiproof's
+                                  group rebuild takes the mesh
   ECT_TRACEMALLOC=1        the memory observatory also traces Python
                            allocations per phase (telemetry/memory.py)
 

@@ -32,9 +32,11 @@ altair family.
 Contract for every array this module hands out: READ-ONLY views
 (``writeable=False``); consumers copy before mutating.
 
-Reference parity: ethereum_consensus_tpu/models/ops_vector.py. Left out
-with the slice that needs them: the serving plane's
-``registry_snapshot`` / ``gather_rows``. Every decline counts in
+``RegistryColumns.registry_snapshot`` and ``gather_rows`` are the serving
+plane's (serving/headstore.py, serving/views.py): one frozen bundle a
+snapshot, one gather a request batch.
+
+Reference parity: ethereum_consensus_tpu/models/ops_vector.py. Every decline counts in
 ``ops_vector.fallback.{reason}`` (one trace event a reason a process, a
 routing-journal entry while the device observatory is on); the batched
 attestations run in an ``ops_vector.attestations`` span, and their
@@ -59,6 +61,7 @@ __all__ = [
     "columns_for",
     "effective_balance_update_hits",
     "fallback",
+    "gather_rows",
     "withdrawal_columns",
     "install_zero_column",
     "pack_registry_cached",
@@ -318,12 +321,43 @@ class RegistryColumns:
             return None
         return _readonly(arr)
 
+    def registry_snapshot(self, state=None) -> "dict | None":
+        """One read-only column bundle for the serving data plane
+        (serving/headstore.py): the validator columns plus the balances
+        column, synced in one pass. None → the caller's scalar fallback.
+
+        Building or syncing mutates the list-resident cache records, so the
+        first call on a state must be serialized by the caller (the
+        HeadStore builds under its snapshot lock); the returned views are
+        then safe to share."""
+        state = self._state if state is None else state
+        vc = self.validator_columns(state)
+        if vc is None:
+            return None
+        balances = self.list_column(state, "balances")
+        if balances is None or balances.shape[0] != next(iter(vc.values())).shape[0]:
+            return None
+        out = dict(vc)
+        out["balances"] = balances
+        return out
+
 
 def columns_for(state) -> "RegistryColumns | None":
     """Column accessor for ``state`` (None when disabled / no numpy)."""
     if _disabled() or _np() is None:
         return None
     return RegistryColumns(state)
+
+
+def gather_rows(bundle: dict, indices, fields=None) -> "dict | None":
+    """One vectorized gather over a ``registry_snapshot`` bundle: every
+    requested column (default: all) fancy-indexed at ``indices``. The
+    outputs are fresh arrays owned by the caller."""
+    np = _np()
+    if np is None:
+        return None
+    idx = np.asarray(indices, dtype=np.int64)
+    return {f: bundle[f][idx] for f in (fields if fields is not None else bundle)}
 
 
 def pack_registry_cached(state, previous_epoch: int,

@@ -1,6 +1,6 @@
 """Mesh runtime: one process-wide provisioned mesh behind ``ECT_MESH``.
 
-The production switch that routes three hot paths through the mesh
+The production switch that routes four hot paths through the mesh
 (``mesh.py``):
 
 * the altair epoch sweeps (models/epoch_vector.py → ``epoch.py``
@@ -8,7 +8,10 @@ The production switch that routes three hot paths through the mesh
 * the RLC batch of a window (crypto/bls.py → ``pairing.py``
   ``batch_verify_sharded``),
 * large flat ``hash_tree_root`` rebuilds (ssz/merkle.py's mesh hook →
-  ``merkle.py`` ``sharded_merkleize_chunks``).
+  ``merkle.py`` ``sharded_merkleize_chunks``),
+* a multiproof's columnar group rebuild (proofs/multiproof.py behind the
+  ``proof_gather`` gate: its ``hash_level`` passes ride the installed
+  device hasher).
 
 ``ECT_MESH=N`` provisions a mesh over the first N devices of the routed
 type (``ops.install(device=...)``, "cuda" by default; N=1 is legal — it
@@ -17,7 +20,9 @@ every device when there are at least two, and unset/``off`` disables the
 runtime — the host layers then never import this package.
 
 Every engage bumps ``mesh.engage`` and ``mesh.engage.{kind}``; every
-decline bumps ``mesh.decline.{reason}``. The declines are routing decisions
+decline bumps ``mesh.decline.{reason}``. While the device observatory is
+on, both journal a ``mesh.{kind}`` routing entry with their inputs, as the
+reference's do. The declines are routing decisions
 of the configuration, as the reference's: ``below_threshold``,
 ``phase0_family``, ``mesh_shape`` (a mesh the merkle tree cannot split
 into aligned subtrees), ``single_device`` (``auto`` on one device), and the
@@ -29,13 +34,13 @@ failing shard kernel, and an injected fault.
 
 Provisioning happens once per process, at the first consult (not at
 import): the merkle hook is installed then, so the state roots before the
-first mesh consult do not take it. The journal and trace events of the
-reference's routing wait for the telemetry slice.
+first mesh consult do not take it. The reference's one-shot trace event a
+decline and its journal entry for the provisioning itself are left out.
 
 Reference parity: ethereum_consensus_tpu/parallel/runtime.py (``requested``
 :107, ``_provision`` :142, ``epoch_sweeps`` :283, ``pairing_mesh`` :324,
-``_install_merkle_hook`` :375, ``install_fault_hook``/``fault_point``
-:250/:262, ``reset`` :413). ``proof_gather`` (:346) waits for ``proofs/``.
+``proof_gather`` :346, ``_install_merkle_hook`` :375,
+``install_fault_hook``/``fault_point`` :250/:262, ``reset`` :413).
 """
 
 from __future__ import annotations
@@ -43,14 +48,17 @@ from __future__ import annotations
 import threading
 
 from .. import _env
+from ..telemetry import device as _device_obs
 from ..telemetry import metrics as _metrics
 
 __all__ = [
     "MESH_ENV",
     "EPOCH_MIN_ENV",
     "MERKLE_MIN_ENV",
+    "PROOF_MIN_ENV",
     "DEFAULT_EPOCH_MIN_N",
     "DEFAULT_MERKLE_MIN_CHUNKS",
+    "DEFAULT_PROOF_MIN_CHUNKS",
     "MeshFaultInjected",
     "decline",
     "device_count",
@@ -59,6 +67,7 @@ __all__ = [
     "install_fault_hook",
     "mesh",
     "pairing_mesh",
+    "proof_gather",
     "requested",
     "reset",
     "status",
@@ -67,11 +76,15 @@ __all__ = [
 MESH_ENV = "ECT_MESH"
 EPOCH_MIN_ENV = "ECT_MESH_EPOCH_MIN_N"
 MERKLE_MIN_ENV = "ECT_MESH_MERKLE_MIN_CHUNKS"
+PROOF_MIN_ENV = "ECT_MESH_PROOF_MIN_CHUNKS"
 
 # the reference's crossover defaults (measured on a TPU; the crossover on
 # this card has not been measured)
 DEFAULT_EPOCH_MIN_N = 1 << 17
 DEFAULT_MERKLE_MIN_CHUNKS = 1 << 15
+# a multiproof's columnar group rebuild: the total chunks across the groups
+# it plans; below this the per-group lazy Trees on the host
+DEFAULT_PROOF_MIN_CHUNKS = 1 << 14
 
 _LOCK = threading.Lock()
 # provisioning outcome, written once under _LOCK then read lock-free:
@@ -90,18 +103,23 @@ def requested() -> bool:
     return _env.mesh_requested(MESH_ENV)
 
 
-def decline(kind: str, reason: str) -> None:
+def decline(kind: str, reason: str, **inputs) -> None:
     """Count one declined mesh route (``mesh.decline.{reason}``): a routing
     decision, so none is silent. ``kind`` names the route (epoch, pairing,
-    merkle, runtime) for the routing journal of the telemetry slice."""
+    merkle, proofs, runtime); while the device observatory is on, the
+    decline journals a ``mesh.{kind}`` entry on the host with ``inputs``."""
     _metrics.counter(f"mesh.decline.{reason}").inc()
+    if _device_obs.OBSERVATORY.active:
+        _device_obs.route(f"mesh.{kind}", "host", reason, **inputs)
 
 
-def _engage(kind: str) -> None:
+def _engage(kind: str, **inputs) -> None:
     """Count one engaged mesh route (``mesh.engage``, and
-    ``mesh.engage.{kind}``); ``kind`` as in ``decline``."""
+    ``mesh.engage.{kind}``) and journal it as ``decline`` does."""
     _metrics.counter("mesh.engage").inc()
     _metrics.counter(f"mesh.engage.{kind}").inc()
+    if _device_obs.OBSERVATORY.active:
+        _device_obs.route(f"mesh.{kind}", "device", "engaged", **inputs)
 
 
 def _provision() -> tuple:
@@ -129,7 +147,7 @@ def _provision_locked(value: str) -> tuple:
     available = _available()
     if value == "auto":
         if available < 2:
-            decline("runtime", "single_device")
+            decline("runtime", "single_device", devices=available)
             return None, "single_device"
         n = available
     else:
@@ -198,11 +216,11 @@ def fault_point(kind: str, **inputs) -> None:
     hook = _FAULT_HOOK
     if hook is None or not hook(kind):
         return
-    decline(kind, "injected_fault")
+    decline(kind, "injected_fault", **inputs)
     raise MeshFaultInjected(f"injected mesh fault on the {kind} route: {inputs}")
 
 
-# -- the three routed hot paths ----------------------------------------------
+# -- the routed hot paths ---------------------------------------------------
 
 
 def epoch_sweeps(n_validators: int, family: str = "altair"):
@@ -213,19 +231,22 @@ def epoch_sweeps(n_validators: int, family: str = "altair"):
     if not requested():
         return None
     if family != "altair":
-        decline("epoch", f"{family}_family")
+        decline("epoch", f"{family}_family", validators=n_validators)
         return None
     m, reason = _provision()
     if m is None:
-        decline("epoch", reason)
+        decline("epoch", reason, validators=n_validators)
         return None
-    if n_validators < _env.threshold(EPOCH_MIN_ENV, DEFAULT_EPOCH_MIN_N):
-        decline("epoch", "below_threshold")
+    threshold = _env.threshold(EPOCH_MIN_ENV, DEFAULT_EPOCH_MIN_N)
+    if n_validators < threshold:
+        decline("epoch", "below_threshold", validators=n_validators, threshold=threshold,
+                devices=m.n_dev)
         return None
     from .epoch import MeshEpochSweeps
 
     runner = MeshEpochSweeps(m)
-    _engage("epoch")
+    _engage("epoch", validators=n_validators, devices=m.n_dev,
+            rows_per_device=-(-n_validators // m.n_dev))
     return runner
 
 
@@ -238,9 +259,30 @@ def pairing_mesh(n_sets: int):
         return None
     m, reason = _provision()
     if m is None:
-        decline("pairing", reason)
+        decline("pairing", reason, sets=n_sets)
         return None
-    _engage("pairing")
+    _engage("pairing", sets=n_sets, devices=m.n_dev, sets_per_device=-(-n_sets // m.n_dev))
+    return m
+
+
+def proof_gather(n_chunks: int):
+    """The mesh for one multiproof's columnar group rebuild, or None (the
+    caller builds lazy per-group Trees on the host). ``n_chunks`` is the
+    total chunk count across the planned groups: the columnar build joins
+    them into one buffer whose ``hash_level`` passes ride the installed
+    device hasher, so the threshold gates on the whole batch."""
+    if not requested():
+        return None
+    m, reason = _provision()
+    if m is None:
+        decline("proofs", reason, chunks=n_chunks)
+        return None
+    threshold = _env.threshold(PROOF_MIN_ENV, DEFAULT_PROOF_MIN_CHUNKS)
+    if n_chunks < threshold:
+        decline("proofs", "below_threshold", chunks=n_chunks, threshold=threshold,
+                devices=m.n_dev)
+        return None
+    _engage("proofs", chunks=n_chunks, devices=m.n_dev)
     return m
 
 
@@ -261,12 +303,12 @@ def _install_merkle_hook(m) -> None:
         count = len(chunks) // 32
         width = ssz_merkle.next_pow_of_two(count if limit is None else limit)
         if n_dev & (n_dev - 1) or n_dev > width:
-            decline("merkle", "mesh_shape")
+            decline("merkle", "mesh_shape", chunks=count, devices=n_dev, width=width)
             return None
         from .merkle import sharded_merkleize_chunks
 
         root = sharded_merkleize_chunks(chunks, m, limit=limit)
-        _engage("merkle")
+        _engage("merkle", chunks=count, devices=n_dev)
         return root
 
     ssz_merkle.register_mesh_merkleizer(mesh_merkleize, min_chunks)

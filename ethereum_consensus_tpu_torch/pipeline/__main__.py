@@ -35,9 +35,14 @@ Telemetry exports:
   ledgers (kernel-library loads, launches, transfers, the routing
   journal) as JSON.
 
-``--serve PORT``, ``--hold SECONDS`` and ``--serve-data`` (the reference's
-introspection server and Beacon-API data plane) wait for the port's
-``telemetry/server.py`` and ``serving/``: they exit 2 with a message.
+* ``--serve PORT``       — run the live introspection server
+  (``telemetry/server.py``: /metrics, /healthz, /blocks, /events, ...)
+  for the selfcheck's duration; 0 picks an ephemeral port. ``--hold
+  SECONDS`` keeps it up after the checks finish.
+* ``--serve-data``       — additionally mount the Beacon-API read data
+  plane (``serving/``: validators, balances, committees, duties, proofs,
+  light-client documents) fed by the chain tier's commits; requires
+  ``--serve``.
 
 Exit code 0 = all checks passed; any failure prints the reason and
 exits 1.
@@ -315,27 +320,39 @@ def main(argv: "list[str]") -> int:
     if "--selfcheck" not in argv:
         print(__doc__)
         return 2
-    for flag in ("--serve", "--serve-data", "--hold"):
-        if flag in argv:
-            print(
-                f"{flag} needs the introspection server (telemetry/server.py) "
-                "and the Beacon-API data plane (serving/), which the port "
-                "does not have yet"
-            )
-            return 2
     trace_out = _flag_value(argv, "--trace-out")
     metrics_out = _flag_value(argv, "--metrics-out")
     device_out = _flag_value(argv, "--device-out")
     memory_out = _flag_value(argv, "--memory-out")
+    serve_port = _flag_value(argv, "--serve")
+    hold_s = _flag_value(argv, "--hold")
     lanes = int(_flag_value(argv, "--lanes") or "1")
     device = _flag_value(argv, "--device") or "cuda"
+    if serve_port is None and "--serve-data" in argv:
+        raise SystemExit("--serve-data requires --serve PORT")
     from .. import ops
     from ..telemetry import device as device_obs
     from ..telemetry import memory as memory_obs
     from ..telemetry import metrics, spans
 
+    # the install first: a machine that cannot run it fails before anything
+    # is started
     ops.install(device=device)
     print(f"selfcheck on {device!r} (ops.install at the default thresholds)")
+    server = None
+    store = None
+    if serve_port is not None:
+        from ..telemetry.server import IntrospectionServer
+
+        server = IntrospectionServer(port=int(serve_port)).start()
+        print(f"introspection server on {server.url()} (/metrics /healthz /blocks /events)")
+        if "--serve-data" in argv:
+            from ..serving import BeaconDataPlane, HeadStore
+
+            store = HeadStore().attach()
+            server.mount(BeaconDataPlane(store))
+            print(f"beacon data plane mounted on {server.url('/eth/')} (validators, balances, "
+                  "committees, duties, proofs — fed by the chain tier's commits)")
     if trace_out:
         spans.start_recording()
     if device_out:
@@ -347,6 +364,10 @@ def main(argv: "list[str]") -> int:
         _selfcheck_window()
     except Exception as exc:  # noqa: BLE001 — smoke must report, not crash
         print(f"SELFCHECK FAILED: {type(exc).__name__}: {exc}")
+        if store is not None:
+            store.detach()
+        if server is not None:
+            server.stop()
         return 1
     finally:
         ops.uninstall()
@@ -366,6 +387,19 @@ def main(argv: "list[str]") -> int:
             _dump(memory_out, memory_obs.snapshot())
             print(f"memory ledger written: {memory_out}")
     print("selfcheck OK")
+    if server is not None:
+        if hold_s is not None and float(hold_s) > 0:
+            import time
+
+            print(f"holding the introspection server for {hold_s}s "
+                  f"({server.url('/blocks')} has the selfcheck's lineage)")
+            if store is not None and store.head is not None:
+                print(f"data plane head: slot {store.head.slot} — try "
+                      f"{server.url('/eth/v1/beacon/states/head/validators?id=0,1,2')}")
+            time.sleep(float(hold_s))
+        if store is not None:
+            store.detach()
+        server.stop()
     return 0
 
 

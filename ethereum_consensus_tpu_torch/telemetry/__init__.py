@@ -22,9 +22,13 @@ torch at import time):
 * ``memory``  — the memory & bandwidth observatory: resident-set census
   of the port's byte owners, phase RSS/allocation ledger bracketing the
   transition/epoch spans, and per-site bulk-copy byte counters.
+* ``server``  — the live introspection server (``/metrics`` Prometheus
+  exposition, ``/healthz``, ``/blocks``, ``/events`` SSE, and the mounted
+  Beacon-API read plane). NOT imported here: it pulls in ``http.server``,
+  which no compute layer needs — import
+  ``ethereum_consensus_tpu_torch.telemetry.server`` explicitly.
 
-Reference parity: ethereum_consensus_tpu/telemetry/__init__.py (:37-39),
-without ``server``, whose consumers are the later data planes.
+Reference parity: ethereum_consensus_tpu/telemetry/__init__.py (:37-39).
 """
 
 from __future__ import annotations
@@ -33,4 +37,4 @@ from . import flight, metrics, phases, spans
 from . import device  # noqa: E402 — after spans/metrics (its imports)
 from . import memory  # noqa: E402 — after spans/metrics (its imports)
 
-__all__ = ["device", "flight", "memory", "metrics", "phases", "spans"]
+__all__ = ["device", "flight", "memory", "metrics", "phases", "spans", "server"]

@@ -46,8 +46,7 @@ holds ``self._lock``; the hot ``active`` read and the metrics-registry
 increments (locked per metric) stay outside it.
 
 Reference parity: ethereum_consensus_tpu/telemetry/memory.py, without the
-headstore and pool probes (their producers, ``serving/`` and ``pool/``,
-are data planes not ported yet).
+pool probe (its producer, ``pool/``, is not ported yet).
 """
 
 from __future__ import annotations
@@ -521,6 +520,24 @@ def _flight_ring_probe() -> "tuple[int, int]":
     return nbytes, len(records)
 
 
+def _headstore_probe() -> "tuple[int, int]":
+    """Every live ``serving.HeadStore`` (reference telemetry/memory.py:538):
+    the frozen column bundles' bytes and the retained snapshots. A process
+    that never imported ``serving/`` holds no store."""
+    import sys
+
+    _hs = sys.modules.get("ethereum_consensus_tpu_torch.serving.headstore")
+    if _hs is None:
+        return 0, 0
+    nbytes = 0
+    entries = 0
+    for store in _hs.registered_stores():
+        b, e = store.memory_census()
+        nbytes += b
+        entries += e
+    return nbytes, entries
+
+
 def _shuffle_cache_probe() -> "tuple[int, int]":
     from ..models.phase0 import helpers as _h
 
@@ -568,6 +585,7 @@ def _jit_cache_probe() -> "tuple[int, int]":
 
 _BUILTIN_OWNERS = (
     ("flight.ring", _flight_ring_probe),
+    ("serving.snapshots", _headstore_probe),
     ("phase0.shuffle_cache", _shuffle_cache_probe),
     ("committees.mask_bundles", _mask_bundle_probe),
     ("epoch_vector.jit_kernels", _jit_cache_probe),

@@ -17,6 +17,7 @@ import random
 import pytest
 
 import chain_utils
+import torch_genesis
 from ethereum_consensus_tpu import error as ref_error
 from ethereum_consensus_tpu import executor as ref_executor
 from ethereum_consensus_tpu.models import altair as ref_altair
@@ -56,7 +57,7 @@ def _altair_type(name: str):
 
 
 def test_upgrade_through_executor_matches_reference():
-    state, ctx, blocks = chain_utils.produce_multi_fork_chain(64)
+    state, ctx, blocks = torch_genesis.produce_multi_fork_chain(64)
     fork_slot = int(ctx.SLOTS_PER_EPOCH)
     assert any(int(b.message.slot) == fork_slot for b in blocks), "no block on the upgrade slot"
     ref = ref_executor.Executor(state.copy(), ctx)
@@ -76,7 +77,7 @@ def test_upgrade_through_executor_matches_reference():
 
 
 def test_block_of_a_later_fork_raises_unknown_fork():
-    state, ctx, _blocks = chain_utils.produce_multi_fork_chain(64)
+    state, ctx, _blocks = torch_genesis.produce_multi_fork_chain(64)
     phase0_ns = port_phase0.build(Context.for_minimal().preset)
     port = port_executor.Executor(
         phase0_ns.BeaconState.deserialize(type(state).serialize(state)), _port_ctx(1)
@@ -94,7 +95,7 @@ def test_block_of_a_later_fork_raises_unknown_fork():
 def altair_chain():
     """A signed altair chain with full sync aggregates and the reference's
     (bytes, root) after every block."""
-    state, ctx = chain_utils.fresh_genesis_altair(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_altair(64, "minimal")
     blocks = chain_utils.produce_chain(state, ctx, N_BLOCKS, "altair", atts_per_block=2)
     ns = ref_altair.build(ctx.preset)
     ex = ref_executor.Executor(ns.BeaconState.deserialize(ns.BeaconState.serialize(state)), ctx)
@@ -196,7 +197,7 @@ def scrambled_boundaries():
     where the entrants' synthetic keys would be sampled)."""
     out = {}
     for mode, flags in PARTICIPATION.items():
-        state, ctx = chain_utils.fresh_genesis_altair(96, "minimal")
+        state, ctx = torch_genesis.fresh_genesis_altair(96, "minimal")
         rng = random.Random(mode)
         spe = int(ctx.SLOTS_PER_EPOCH)
         typ = type(state)
@@ -245,7 +246,7 @@ def test_scrambled_boundaries_match_reference(scrambled_boundaries, mode, route)
 
 @pytest.mark.parametrize("route", ROUTES, indirect=True)
 def test_sync_committee_rotation_matches_reference(route):
-    state, ctx = chain_utils.fresh_genesis_altair(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_altair(64, "minimal")
     spe = int(ctx.SLOTS_PER_EPOCH)
     period = int(ctx.EPOCHS_PER_SYNC_COMMITTEE_PERIOD)
     state.slot = period * spe - 1  # the last slot of the first period
@@ -268,7 +269,7 @@ def _bad_blocks():
     """(pre-state bytes, [(name, block bytes)]) for an altair block at slot
     1: its sync-aggregate signature replaced by a block-signature-shaped
     one, and its participation bits cut to half the committee."""
-    state, ctx = chain_utils.fresh_genesis_altair(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_altair(64, "minimal")
     pre = type(state).serialize(state)
     block = chain_utils.produce_block_altair(state.copy(), 1, ctx)
     ns = ref_altair.build(ctx.preset)
@@ -317,7 +318,7 @@ def test_fused_kernel_failure_raises(monkeypatch):
     monkeypatch.setattr(epoch_vector, "EPOCH_VECTOR_MIN_VALIDATORS", 0)
     ops.install(device="cpu", sweeps_min_n=1, shuffle_min_n=1)
     try:
-        state, ctx = chain_utils.fresh_genesis_altair(64, "minimal")
+        state, ctx = torch_genesis.fresh_genesis_altair(64, "minimal")
         spe = int(ctx.SLOTS_PER_EPOCH)
         state.slot = 2 * spe - 1
         port_state = _altair_type("BeaconState").deserialize(type(state).serialize(state))

@@ -16,6 +16,7 @@ import random
 import pytest
 
 import chain_utils
+import torch_genesis
 from ethereum_consensus_tpu import error as ref_error
 from ethereum_consensus_tpu import executor as ref_executor
 from ethereum_consensus_tpu.models import bellatrix as ref_bellatrix
@@ -85,7 +86,7 @@ def ladder():
     epoch (tests/chain_utils.py produce_full_upgrade_chain), cut after
     capella's epoch; with the reference Executor's (fork, bytes, root)
     after every block."""
-    state, ctx, blocks = chain_utils.produce_full_upgrade_chain(64)
+    state, ctx, blocks = torch_genesis.produce_full_upgrade_chain(64)
     blocks = [b for b in blocks
               if chain_utils.full_upgrade_fork_at_slot(int(b.message.slot), ctx) in LADDER_FORKS]
     ex = ref_executor.Executor(state.copy(), ctx)
@@ -120,7 +121,7 @@ def test_upgrade_ladder_matches_reference(ladder, route):
 
 def test_upgrades_match_reference():
     """Each upgrade alone, from the reference's state at the fork slot."""
-    state, ctx, _blocks = chain_utils.produce_full_upgrade_chain(64)
+    state, ctx, _blocks = torch_genesis.produce_full_upgrade_chain(64)
     ref_state = state.copy()
     pctx = _port_ctx(ctx)
     for previous, fork in zip(LADDER_FORKS, LADDER_FORKS[1:]):
@@ -143,7 +144,7 @@ def test_upgrades_match_reference():
 
 @pytest.fixture(scope="module")
 def bellatrix_chain():
-    state, ctx = chain_utils.fresh_genesis_bellatrix(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_bellatrix(64, "minimal")
     blocks = chain_utils.produce_chain(state, ctx, N_BLOCKS, "bellatrix", atts_per_block=2)
     ns = ref_bellatrix.build(ctx.preset)
     ex = ref_executor.Executor(ns.BeaconState.deserialize(ns.BeaconState.serialize(state)), ctx)
@@ -202,7 +203,7 @@ def scrambled_boundaries():
     """Boundaries into epochs 1..6 of a bellatrix genesis state with no
     blocks (finality stalls: the leak starts at the boundary into epoch 6),
     each scrambled first: (pre bytes, post bytes, post root)."""
-    state, ctx = chain_utils.fresh_genesis_bellatrix(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_bellatrix(64, "minimal")
     rng = random.Random("bellatrix")
     spe = int(ctx.SLOTS_PER_EPOCH)
     typ = type(state)
@@ -255,7 +256,7 @@ def test_inactivity_deltas_use_the_bellatrix_quotient(scrambled_boundaries, wher
 
 
 def test_slash_validator_matches_reference():
-    state, ctx = chain_utils.fresh_genesis_bellatrix(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_bellatrix(64, "minimal")
     ref_slots.process_slots(state, 3 * int(ctx.SLOTS_PER_EPOCH) + 2, ctx)
     pre = type(state).serialize(state)
     port_state = _port_type("bellatrix", "BeaconState").deserialize(pre)
@@ -268,7 +269,7 @@ def test_slash_validator_matches_reference():
 @pytest.mark.parametrize("merged", [True, False], ids=["post_merge", "pre_merge"])
 @pytest.mark.parametrize("payload", [True, False], ids=["payload", "empty_payload"])
 def test_merge_predicates_match_reference(merged, payload):
-    state, ctx = chain_utils.fresh_genesis_bellatrix(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_bellatrix(64, "minimal")
     ns = ref_bellatrix.build(ctx.preset)
     if not merged:
         state.latest_execution_payload_header = ns.ExecutionPayloadHeader()
@@ -299,7 +300,7 @@ def test_engine_rejection_is_the_reference_error(fork):
     payload with the same error; with True both apply it alike."""
     ref_mod = {"bellatrix": ref_bellatrix, "capella": ref_capella}[fork]
     port_mod = {"bellatrix": port_bellatrix, "capella": port_capella}[fork]
-    state, ctx = chain_utils.fresh_genesis_fork(fork, 64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_fork(fork, 64, "minimal")
     pre = type(state).serialize(state)
     block = chain_utils.produce_block_fork(fork, state.copy(), 1, ctx)
     data = type(block).serialize(block)

@@ -13,6 +13,7 @@ class in both packages.
 import pytest
 
 import chain_utils
+import torch_genesis
 from ethereum_consensus_tpu import executor as ref_executor
 from ethereum_consensus_tpu.models.phase0 import containers as ref_containers
 from ethereum_consensus_tpu_torch import executor as port_executor
@@ -28,7 +29,7 @@ N_BLOCKS = 6
 
 @pytest.fixture(scope="module")
 def chain():
-    state, ctx = chain_utils.fresh_genesis(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis(64, "minimal")
     blocks = chain_utils.produce_chain(state, ctx, N_BLOCKS, "phase0", atts_per_block=2)
     ns = ref_containers.build(ctx.preset)
     return (

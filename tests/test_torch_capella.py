@@ -14,6 +14,7 @@ refused; and a payload whose withdrawals were changed.
 import pytest
 
 import chain_utils
+import torch_genesis
 from ethereum_consensus_tpu import error as ref_error
 from ethereum_consensus_tpu import executor as ref_executor
 from ethereum_consensus_tpu.crypto import bls as ref_bls
@@ -72,7 +73,7 @@ def capella_chain():
     hold an excess (partial withdrawals in every sweep) and one of them is
     withdrawable (a full withdrawal); the (bytes, root) after every block,
     then after the empty slots to SUMMARY_SLOT."""
-    state, ctx = chain_utils.fresh_genesis_capella(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_capella(64, "minimal")
     _eth1_credentials(state, ETH1_VALIDATORS, 3 * 10**9)
     state.validators[ETH1_VALIDATORS[-1]].withdrawable_epoch = 0
     blocks = chain_utils.produce_chain(state, ctx, N_BLOCKS, "capella", atts_per_block=2)
@@ -135,7 +136,7 @@ WITHDRAWAL_CASES = {
 def _withdrawal_state(case: str):
     """A capella genesis state at epoch 1 set up for ``case``."""
     eth1, withdrawable, cursor, excess = WITHDRAWAL_CASES[case]
-    state, ctx = chain_utils.fresh_genesis_capella(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_capella(64, "minimal")
     ref_slots.process_slots(state, int(ctx.SLOTS_PER_EPOCH) + 1, ctx)
     _eth1_credentials(state, eth1, excess)
     for i in withdrawable:
@@ -242,7 +243,7 @@ def _outcomes(pre: bytes, block, *, device: bool = False) -> tuple:
 
 @pytest.mark.parametrize("case", list(CHANGE_CASES))
 def test_bls_to_execution_changes_match_reference(case):
-    state, ctx = chain_utils.fresh_genesis_capella(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_capella(64, "minimal")
     _eth1_credentials(state, (7,), 0)
     pre = type(state).serialize(state)
     kind, error = CHANGE_CASES[case]
@@ -280,7 +281,7 @@ def test_bls_to_execution_changes_on_the_device_route(monkeypatch):
         return plain(points, offsets)
 
     monkeypatch.setattr(port_g1, "g1_sum_sets_plain", counting)
-    state, ctx = chain_utils.fresh_genesis_capella(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_capella(64, "minimal")
     pre = type(state).serialize(state)
     changes = [_change(state, ctx, i) for i in (3, 4, 11)]
     block = chain_utils.produce_block_capella(state.copy(), 1, ctx,

@@ -16,6 +16,7 @@ that rejects the payload; and a blob sidecar's inclusion proof.
 import pytest
 
 import chain_utils
+import torch_genesis
 from ethereum_consensus_tpu import error as ref_error
 from ethereum_consensus_tpu import executor as ref_executor
 from ethereum_consensus_tpu.domains import DomainType
@@ -101,7 +102,7 @@ def ladder():
     epoch (tests/chain_utils.py produce_full_upgrade_chain), cut after
     deneb's epoch; with the reference Executor's (fork, bytes, root) after
     every block."""
-    state, ctx, blocks = chain_utils.produce_full_upgrade_chain(64)
+    state, ctx, blocks = torch_genesis.produce_full_upgrade_chain(64)
     blocks = [b for b in blocks
               if chain_utils.full_upgrade_fork_at_slot(int(b.message.slot), ctx) in LADDER_FORKS]
     ex = ref_executor.Executor(state.copy(), ctx)
@@ -144,7 +145,7 @@ def test_upgrade_ladder_to_deneb_matches_reference(ladder, route):
 
 
 def test_upgrade_to_deneb_from_capella_matches_reference():
-    state, ctx, blocks = chain_utils.produce_full_upgrade_chain(64)
+    state, ctx, blocks = torch_genesis.produce_full_upgrade_chain(64)
     ex = ref_executor.Executor(state.copy(), ctx)
     fork_slot = int(ctx.deneb_fork_epoch) * int(ctx.SLOTS_PER_EPOCH)
     for block in blocks:
@@ -174,7 +175,7 @@ def deneb_chain():
     """The reference's signed deneb chain from a deneb genesis, two
     aggregates and ``slot % 4`` blob commitments a block; with the
     reference's (bytes, root) after every block."""
-    state, ctx = chain_utils.fresh_genesis_deneb(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_deneb(64, "minimal")
     scratch = state.copy()
     transition = ref_deneb.state_transition
     blocks, pending = [], []
@@ -231,7 +232,7 @@ QUEUED = 12
 def _queued_state(fork: str):
     """A genesis state of ``fork`` with ACTIVE_EXTRA more active validators
     (no real keys: the boundary reads none) and QUEUED eligible entrants."""
-    state, ctx = chain_utils.fresh_genesis_fork(fork, 64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_fork(fork, 64, "minimal")
     max_balance = int(ctx.MAX_EFFECTIVE_BALANCE)
     for k in range(ACTIVE_EXTRA + QUEUED):
         queued = k >= ACTIVE_EXTRA
@@ -285,7 +286,7 @@ def late_attestation_block():
     an aggregate of slot 8: included 9 slots late, more than an epoch,
     with its target the previous epoch. The chain carries no other
     attestation, so the aggregate's flags are the only ones of epoch 1."""
-    state, ctx = chain_utils.fresh_genesis_deneb(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_deneb(64, "minimal")
     blocks = chain_utils.produce_chain(state, ctx, 16, "deneb", atts_per_block=0)
     scratch = state.copy()
     for block in blocks:
@@ -325,7 +326,7 @@ def test_late_attestation_is_accepted_like_reference(late_attestation_block, eng
 def test_exit_domain_is_pinned_to_capella_like_reference(version):
     """EIP-7044: an exit signed under the capella fork version is valid in
     deneb; one signed under deneb's own version is not."""
-    state, ctx = chain_utils.fresh_genesis_deneb(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_deneb(64, "minimal")
     ctx.shard_committee_period = 0  # the genesis validators may exit at once
     port_ctx = Context.for_minimal()
     port_ctx.shard_committee_period = 0
@@ -372,7 +373,7 @@ def test_versioned_hashes_are_equal():
 
 @pytest.mark.parametrize("case", ["at_limit", "over_limit", "engine_rejects"])
 def test_blob_payload_checks_match_reference(case):
-    state, ctx = chain_utils.fresh_genesis_deneb(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_deneb(64, "minimal")
     pre = type(state).serialize(state)
     limit = int(ctx.MAX_BLOBS_PER_BLOCK)
     block = chain_utils.produce_block_deneb(state.copy(), 1, ctx,
@@ -394,7 +395,7 @@ def test_blob_payload_checks_match_reference(case):
 
 @pytest.mark.parametrize("index", [0, 5])
 def test_blob_sidecar_inclusion_proof_matches_reference(index):
-    state, ctx = chain_utils.fresh_genesis_deneb(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_deneb(64, "minimal")
     ns = _ref_ns()
     block = chain_utils.produce_block_deneb(state.copy(), 1, ctx,
                                             blob_kzg_commitments=_commitments(1, 6)).message

@@ -583,13 +583,13 @@ def test_epoch_vector_decline_journaled_and_one_shot(monkeypatch):
     """The reference's decline contract: a counter per occurrence, one
     trace event per reason, the routing journal with the threshold
     inputs."""
-    import chain_utils
+    import torch_genesis
 
     from ethereum_consensus_tpu.models.phase0 import containers as ref_containers
     from ethereum_consensus_tpu_torch.config import Context
     from ethereum_consensus_tpu_torch.models.phase0 import containers
 
-    ref_state, ref_ctx = chain_utils.fresh_genesis(64, "minimal")
+    ref_state, ref_ctx = torch_genesis.fresh_genesis(64, "minimal")
     data = ref_containers.build(ref_ctx.preset).BeaconState.serialize(ref_state)
     ctx = Context.for_minimal()
     state = containers.build(ctx.preset).BeaconState.deserialize(data)

@@ -21,6 +21,7 @@ import random
 import pytest
 
 import chain_utils
+import torch_genesis
 from ethereum_consensus_tpu import error as ref_error
 from ethereum_consensus_tpu import executor as ref_executor
 from ethereum_consensus_tpu.crypto import bls as ref_bls
@@ -112,7 +113,7 @@ def ladder():
     """The reference's signed chain from phase0 genesis up all six forks,
     one an epoch (tests/chain_utils.py produce_full_upgrade_chain), with
     the reference Executor's (fork, bytes, root) after every block."""
-    state, ctx, blocks = chain_utils.produce_full_upgrade_chain(64)
+    state, ctx, blocks = torch_genesis.produce_full_upgrade_chain(64)
     ex = ref_executor.Executor(state.copy(), ctx)
     after = []
     for block in blocks:
@@ -156,7 +157,7 @@ def _deneb_state_for_upgrade():
     """A deneb state at its slot 8 with pending validators in a mixed
     eligibility order (one of them compounding), exits already queued, and
     compounding validators above 32 ETH (one of them pending)."""
-    state, ctx = chain_utils.fresh_genesis_deneb(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_deneb(64, "minimal")
     ref_deneb.slot_processing.process_slots(state, int(ctx.SLOTS_PER_EPOCH), ctx)
     rng = random.Random(0xE1EC)
     for i in rng.sample(range(64), 12):
@@ -208,7 +209,7 @@ def electra_chain():
     """The reference's signed electra chain from an electra genesis, one
     committee-spanning aggregate a block; with the reference's (bytes,
     root) after every block."""
-    state, ctx = chain_utils.fresh_genesis_electra(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_electra(64, "minimal")
     scratch = state.copy()
     transition = ref_electra.state_transition
     blocks, pending = [], []
@@ -262,7 +263,7 @@ def _boundary_state(deposits: str, huge: int = 0):
     ripe behind it), ejections, entrants activated without a churn cap,
     and compounding balances at the 2,048 ETH edge; with ``huge``, an
     exited compounding validator holds that balance (near 2^64)."""
-    state, ctx = chain_utils.fresh_genesis_electra(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_electra(64, "minimal")
     ns = _ref_ns()
     ref_electra.slot_processing.process_slots(state, BOUNDARY_SLOT - 1, ctx)
     state.finalized_checkpoint.epoch = 2
@@ -400,7 +401,7 @@ def _receipt(key: int, ctx, amount: int, index: int, credentials=None, bad_signa
 @pytest.mark.parametrize("case", ["top_up", "new_validator", "bad_signature",
                                   "compounding_top_up", "start_index"])
 def test_deposit_receipts_match_reference(case):
-    state, ctx = chain_utils.fresh_genesis_electra(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_electra(64, "minimal")
     addr = b"\x2a" * 20
     if case == "compounding_top_up":
         state.validators[3].withdrawal_credentials = _eth1_credentials(addr)
@@ -442,7 +443,7 @@ REQUEST_CASES = ["full_exit", "partial_compounding", "unknown_key", "no_executio
 
 @pytest.mark.parametrize("case", REQUEST_CASES)
 def test_withdrawal_requests_match_reference(case):
-    state, ctx = chain_utils.fresh_genesis_electra(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_electra(64, "minimal")
     ns = _ref_ns()
     addr = b"\x33" * 20
     # past shard_committee_period, so the genesis validators may exit
@@ -500,7 +501,7 @@ def test_repeated_key_resolves_to_its_first_index_as_reference(operation):
     """A registry that holds one key twice (SSZ input; the deposit path
     never appends a known key): a receipt tops up, and a request exits, the
     key's first index, as the spec's ``pubkeys.index``, in both packages."""
-    state, ctx = chain_utils.fresh_genesis_electra(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_electra(64, "minimal")
     ns = _ref_ns()
     addr = b"\x33" * 20
     state.slot = (int(ctx.shard_committee_period) + 1) * int(ctx.SLOTS_PER_EPOCH)
@@ -558,7 +559,7 @@ CONSOLIDATION_CASES = ["queue_full", "low_churn", "same_index", "source_out_of_r
 
 
 def _consolidation_state(inflate: bool = True):
-    state, ctx = chain_utils.fresh_genesis_electra(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_electra(64, "minimal")
     for i in (7, 8):
         state.validators[i].withdrawal_credentials = _eth1_credentials(b"\x66" * 20)
     if inflate:
@@ -643,7 +644,7 @@ def test_consolidation_lifecycle_matches_reference():
 
 @pytest.mark.parametrize("sweep", ["registry_walk", "columns"])
 def test_withdrawals_with_pending_partials_match_reference(sweep, monkeypatch):
-    state, ctx = chain_utils.fresh_genesis_electra(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_electra(64, "minimal")
     ns = _ref_ns()
     ref_electra.slot_processing.process_slots(state, 2 * int(ctx.SLOTS_PER_EPOCH), ctx)
     for i in range(10, 16):
@@ -693,7 +694,7 @@ def test_withdrawals_with_pending_partials_match_reference(sweep, monkeypatch):
 
 @pytest.mark.parametrize("tamper", [False, True])
 def test_block_with_electra_operations_matches_reference(tamper):
-    state, ctx = chain_utils.fresh_genesis_electra(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_electra(64, "minimal")
     ctx.shard_committee_period = 0  # the genesis validators may exit at once
     port_ctx = Context.for_minimal()
     port_ctx.shard_committee_period = 0

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 import chain_utils
+import torch_genesis
 from ethereum_consensus_tpu import executor as ref_executor
 from ethereum_consensus_tpu.models import committees as ref_committees
 from ethereum_consensus_tpu.models.phase0 import containers as ref_containers
@@ -86,7 +87,7 @@ def _identity(state, ref_bytes, ref_root):
 def chain():
     """A signed chain across four epoch boundaries and the reference's
     (bytes, root) after every block."""
-    state, ctx = chain_utils.fresh_genesis(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis(64, "minimal")
     blocks = chain_utils.produce_chain(state, ctx, N_BLOCKS, "phase0", atts_per_block=2)
     ns = _ref_ns()
     ex = ref_executor.Executor(ns.BeaconState.deserialize(ns.BeaconState.serialize(state)), ctx)
@@ -192,7 +193,7 @@ def scrambled_boundaries():
     for each, the pre-boundary bytes and the post-boundary (bytes, root)."""
     out = {}
     for mode in ("full", "leak", "target"):
-        state, ctx = chain_utils.fresh_genesis(96, "minimal")
+        state, ctx = torch_genesis.fresh_genesis(96, "minimal")
         rng = random.Random(mode)
         spe = int(ctx.SLOTS_PER_EPOCH)
         typ = type(state)
@@ -232,7 +233,7 @@ def _prepared_state(validators: int, rng, epoch_span: int):
     scrambled: random bits, multi-slot inclusion delays, duplicate
     aggregates and slashed validators (the shape of
     tests/test_committee_masks.py)."""
-    state, ctx = chain_utils.fresh_genesis_fork("phase0", validators, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_fork("phase0", validators, "minimal")
     spe = int(ctx.SLOTS_PER_EPOCH)
     ref_slots.process_slots(state, epoch_span * spe - 1, ctx)
     chain_utils.inject_full_epoch_pendings(state, ctx, epoch=epoch_span - 2)
@@ -283,7 +284,7 @@ def test_masks_match_reference(validators, monkeypatch):
 
 
 def test_boundary_no_longer_raises():
-    state, ctx = chain_utils.fresh_genesis(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis(64, "minimal")
     data = type(state).serialize(state)
     port_state = _port_type().deserialize(data)
     port_slots.process_slots(port_state, 2 * int(ctx.SLOTS_PER_EPOCH) + 1, Context.for_minimal())
@@ -306,7 +307,7 @@ def test_columnar_epoch_travels_across_copy(monkeypatch):
     lists."""
     monkeypatch.setattr(epoch_vector, "EPOCH_VECTOR_MIN_VALIDATORS", 0)
     monkeypatch.setattr(committees, "MASKS_MIN_VALIDATORS", 0)
-    state, ctx = chain_utils.fresh_genesis(96, "minimal")
+    state, ctx = torch_genesis.fresh_genesis(96, "minimal")
     spe = int(ctx.SLOTS_PER_EPOCH)
     ref_slots.process_slots(state, 2 * spe - 1, ctx)
     chain_utils.inject_full_epoch_pendings(state, ctx, epoch=1)

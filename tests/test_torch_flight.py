@@ -17,6 +17,7 @@ import time
 import pytest
 
 import chain_utils
+import torch_genesis
 from ethereum_consensus_tpu import executor as ref_executor
 from ethereum_consensus_tpu import pipeline as ref_pipeline
 from ethereum_consensus_tpu.models.phase0 import containers as ref_containers
@@ -44,7 +45,7 @@ PACKAGES = {
 
 @pytest.fixture(scope="module")
 def chain():
-    state, ctx = chain_utils.fresh_genesis(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis(64, "minimal")
     blocks = chain_utils.produce_chain(state, ctx, N_BLOCKS, "phase0", atts_per_block=1)
     return state, blocks
 

@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 
 import __graft_entry__ as ref_graft
-from chain_utils import fresh_genesis_altair, make_attestation, produce_block_altair
+from chain_utils import make_attestation, produce_block_altair
+from torch_genesis import fresh_genesis_altair
 from ethereum_consensus_tpu.models.altair.slot_processing import process_slots
 from ethereum_consensus_tpu.models.phase0 import helpers as ref_helpers
 from ethereum_consensus_tpu_torch import graft_entry

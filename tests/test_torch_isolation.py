@@ -77,6 +77,26 @@ def test_importing_the_port_loads_no_jax():
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True)
 
 
+# the read plane's modules: the mesh gate, proofs/, serving/, the memory
+# census's headstore probe, the introspection server and the selfcheck's
+# --serve flags
+READ_PLANE = ("parallel.runtime", "proofs", "proofs.extract", "proofs.multiproof",
+              "proofs.light_client", "serving", "serving.oracle", "serving.views",
+              "serving.headstore", "serving.handlers", "telemetry.memory", "telemetry.server",
+              "pipeline.__main__")
+
+
+@pytest.mark.parametrize("module", READ_PLANE)
+def test_read_plane_module_loads_no_jax(module):
+    code = (
+        f"import sys, ethereum_consensus_tpu_torch.{module}; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{sorted(FORBIDDEN)!r}]; "
+        "assert not bad, bad"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True)
+
+
 @pytest.fixture
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

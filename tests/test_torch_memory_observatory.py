@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 import chain_utils
+import torch_genesis
 from ethereum_consensus_tpu_torch.config import Context
 from ethereum_consensus_tpu_torch.models import committees, epoch_vector, ops_vector
 from ethereum_consensus_tpu_torch.models.phase0 import containers, helpers
@@ -103,7 +104,7 @@ def test_state_copy_and_column_serialize_bytes(chain_state):
 
 @pytest.fixture(scope="module")
 def chain_state():
-    ref_state, ref_ctx = chain_utils.fresh_genesis(64, "minimal")
+    ref_state, ref_ctx = torch_genesis.fresh_genesis(64, "minimal")
     blocks = chain_utils.produce_chain(ref_state, ref_ctx, 3, "phase0", atts_per_block=2)
     from ethereum_consensus_tpu.executor import Executor as RefExecutor
 

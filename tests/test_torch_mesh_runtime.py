@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 import chain_utils
+import torch_genesis
 from ethereum_consensus_tpu.models.altair import slot_processing as ref_slots
 from ethereum_consensus_tpu.parallel import runtime as ref_runtime
 from ethereum_consensus_tpu_torch import _device_flags, ops
@@ -74,7 +75,7 @@ def _devices(monkeypatch, n: int) -> None:
 def test_off_imports_nothing_of_parallel(tmp_path):
     """An altair epoch pass with ECT_MESH unset, in a fresh process: the
     engine runs and the parallel package is never imported."""
-    state, ctx = chain_utils.fresh_genesis_altair(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_altair(64, "minimal")
     ref_slots.process_slots(state, 15, ctx)
     pre = tmp_path / "pre.ssz"
     pre.write_bytes(type(state).serialize(state))
@@ -210,7 +211,7 @@ def test_injected_fault_raises(mesh_env):
 def altair_boundary():
     """An altair state at slot 15 with seeded participation and scores, and
     the reference's post-boundary (bytes, root) at slot 16."""
-    state, ctx = chain_utils.fresh_genesis_altair(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis_altair(64, "minimal")
     ref_slots.process_slots(state, 15, ctx)
     rng = np.random.default_rng(3)
     n = len(state.validators)

@@ -34,6 +34,7 @@ import pytest
 import torch
 
 import chain_utils
+import torch_genesis
 from ethereum_consensus_tpu import executor as ref_executor
 from ethereum_consensus_tpu import ops as ref_ops
 from ethereum_consensus_tpu import pipeline as ref_pipeline
@@ -73,7 +74,7 @@ def state_ctx():
 
 @pytest.fixture(scope="module")
 def genesis():
-    return chain_utils.fresh_genesis(64, "minimal")
+    return torch_genesis.fresh_genesis(64, "minimal")
 
 
 @pytest.fixture(scope="module")
@@ -677,11 +678,25 @@ def test_selfcheck_entry_point_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--serve", "--serve-data", "--hold"])
-def test_selfcheck_flags_of_later_slices_exit_2(flag):
-    from ethereum_consensus_tpu_torch.pipeline.__main__ import main
+def test_selfcheck_flags_of_later_slices_exit_2(flag, monkeypatch):
+    """The flags that exited 2 until the read plane was ported: each now
+    runs the selfcheck (its two tiers stubbed here; tests/test_torch_server.py
+    runs them whole in a subprocess) and leaves no server, store or flight
+    recording behind; ``--serve-data`` without ``--serve`` is refused; and
+    without ``--selfcheck`` the entry prints its usage and exits 2."""
+    from ethereum_consensus_tpu_torch.pipeline import __main__ as entry
 
-    assert main(["--selfcheck", flag, "0"]) == 2
-    assert main([]) == 2
+    monkeypatch.setattr(entry, "_selfcheck_chain", lambda lanes=1: None)
+    monkeypatch.setattr(entry, "_selfcheck_window", lambda: None)
+    argv = {"--serve": ["--serve", "0"], "--serve-data": ["--serve", "0", "--serve-data"],
+            "--hold": ["--serve", "0", "--hold", "0.1"]}[flag]
+    assert entry.main(["--selfcheck", "--device", "cpu", *argv]) == 0
+    assert not port_flight.HOOK.active and not port_flight.HOOK.state_active
+    if flag == "--serve-data":
+        with pytest.raises(SystemExit, match="requires --serve"):
+            entry.main(["--selfcheck", "--device", "cpu", flag])
+    assert entry.main([flag, "0"]) == 2
+    assert entry.main([]) == 2
 
 
 def test_the_hook_metrics_of_a_clean_stream(chain):

@@ -26,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-import chain_utils
+import torch_genesis
 from ethereum_consensus_tpu.config import Context as RefContext
 from ethereum_consensus_tpu.models.phase0 import containers as ref_containers
 from ethereum_consensus_tpu.ops import registry_columns as ref_registry_columns
@@ -386,7 +386,7 @@ def test_kernel_matches_plain_on_card(cuda, n):
 def _scrambled_state():
     """A minimal-preset phase0 state past genesis with slashed, exited,
     pending and high-balance validators (reference package)."""
-    state, ctx = chain_utils.fresh_genesis(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis(64, "minimal")
     rng = random.Random(5)
     for i in rng.sample(range(64), 20):
         v = state.validators[i]

@@ -18,6 +18,7 @@ import json
 import pytest
 
 import chain_utils
+import torch_genesis
 from ethereum_consensus_tpu import executor as ref_executor
 from ethereum_consensus_tpu.models.phase0 import containers as ref_containers
 from ethereum_consensus_tpu.telemetry import device as ref_device
@@ -36,7 +37,7 @@ N_BLOCKS = 9  # minimal SLOTS_PER_EPOCH = 8: the last block crosses a boundary
 
 @pytest.fixture(scope="module")
 def chain():
-    state, ctx = chain_utils.fresh_genesis(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis(64, "minimal")
     blocks = chain_utils.produce_chain(state, ctx, N_BLOCKS, "phase0", atts_per_block=2)
     ns = ref_containers.build(ctx.preset)
     return ns.BeaconState.serialize(state), [ns.SignedBeaconBlock.serialize(b) for b in blocks]

@@ -18,6 +18,7 @@ tests/test_torch_window_mxu.py.
 import pytest
 
 import chain_utils
+import torch_genesis
 from ethereum_consensus_tpu import executor as ref_executor
 from ethereum_consensus_tpu import ops as ref_ops
 from ethereum_consensus_tpu.crypto import bls as ref_bls
@@ -41,7 +42,7 @@ TAMPERED = 2 + 4 + 2
 
 @pytest.fixture(scope="module")
 def chain():
-    state, ctx = chain_utils.fresh_genesis(64, "minimal")
+    state, ctx = torch_genesis.fresh_genesis(64, "minimal")
     blocks = chain_utils.produce_chain(state, ctx, N_BLOCKS, "phase0", atts_per_block=2)
     ns = ref_containers.build(ctx.preset)
     return (ns.BeaconState.serialize(state),
