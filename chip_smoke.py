@@ -205,6 +205,20 @@ Phases, each of which exits non-zero when it fails:
                 the executor's root is block 2's state root, a further
                 submit raises PipelineBrokenError, the window went to the
                 device and its blame is block 3's proposer set alone.
+     serve    — the read plane (serving/, proofs/) over HTTP on the
+                tampered stream's committed head: eight Beacon-API requests
+                cold and warm, and a 128-validator multiproof on the host
+                route and under ECT_MESH=1 (its columnar rebuild on B1).
+     pool     — the write plane (pool/) on that head under
+                ops.install(device="cuda"): 512 gossip-shaped aggregates of
+                8 committees in one POST through the RLC window (one flush,
+                8 fused groups) and the scalar twin on the same messages,
+                timed; the six spam lanes' reasons; the served view against
+                the scalar pool, both selections, the census's pool.store
+                owner; produce_block at slot 5 from the pool (its replay's
+                flush on B6), timed and split; its publication over HTTP
+                through an Executor, the served head root the block's; B6
+                alone at the replay's sets against its plain version.
  16. mesh     — the ECT_MESH route (parallel/, the reference's production
                 mesh switch) at ECT_MESH=1: the altair phase's block applied
                 cold through Executor.apply_block after ops.install(device=
@@ -725,12 +739,12 @@ def phase_registry(validators: int) -> dict:
     tests/chain_utils.py:1166-1229). Committees and proposer depend on the
     seed and balances only, so they are planned before the keys change."""
     from ethereum_consensus_tpu_torch import ops
-    from ethereum_consensus_tpu_torch.crypto import bls
     from ethereum_consensus_tpu_torch.domains import DomainType
     from ethereum_consensus_tpu_torch.models.phase0 import helpers as h
 
     t0 = time.perf_counter()
-    state, ctx = build_registry_state(validators)
+    with _collector_paused():
+        state, ctx = build_registry_state(validators)
     build_s = time.perf_counter() - t0
     ops.uninstall()
     t0 = time.perf_counter()
@@ -747,8 +761,8 @@ def phase_registry(validators: int) -> dict:
     ops.uninstall()  # drop the host shuffle from the cache
     plan_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    for i in {proposer, *(i for c in committees for i in c)}:
-        state.validators[i].public_key = bls.SecretKey(i + 1).public_key().to_bytes()
+    for i, key in _public_keys({proposer, *(i for c in committees for i in c)}).items():
+        state.validators[i].public_key = key
     keys_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     data = type(state).serialize(state)
@@ -855,12 +869,10 @@ def _neg_raw(raw: bytes) -> bytes:
 
 
 def _raw_keys(indices: list) -> list:
-    from ethereum_consensus_tpu_torch.crypto import bls
     from ethereum_consensus_tpu_torch.native import bls as native_bls
 
-    out = native_bls.g1_decompress_batch(
-        [bls.SecretKey(i + 1).public_key().to_bytes() for i in indices], check_subgroup=False
-    )
+    keys = _public_keys(indices)
+    out = native_bls.g1_decompress_batch([keys[i] for i in indices], check_subgroup=False)
     if any(rc != 0 for rc, _raw, _inf in out):
         sys.exit("chip_smoke: a real key did not decompress")
     return [raw for _rc, raw, _inf in out]
@@ -1232,7 +1244,7 @@ def phase_slice(data: bytes, ctx, slots: int) -> dict:
             "one_validator_edit_s": edit_s}
 
 
-def make_block(scratch, ctx, committees: list, proposer: int):
+def make_block(scratch, ctx, committees: list, proposer: int, crossed: "list | None" = None):
     """A signed block at BLOCK_SLOT carrying one aggregate attestation per
     slot-0 committee (full participation). A committee's aggregate
     signature is one signature under the secret key sum(i + 1) mod r: the
@@ -1252,6 +1264,8 @@ def make_block(scratch, ctx, committees: list, proposer: int):
 
     ns = build(ctx.preset)
     slot_processing.process_slots(scratch, BLOCK_SLOT, ctx)
+    if crossed is not None:
+        crossed.append(scratch.copy())
     if h.get_beacon_proposer_index(scratch, ctx) != proposer:
         sys.exit("chip_smoke: the planned proposer is not the state's proposer")
     root_at_0 = h.get_block_root_at_slot(scratch, 0)
@@ -1296,14 +1310,23 @@ def make_block(scratch, ctx, committees: list, proposer: int):
     return signed(block), signed(tampered)
 
 
+_MISSING = object()
+
+
 @contextlib.contextmanager
-def _patched(module, name, wrap):
-    original = getattr(module, name)
-    setattr(module, name, wrap(original))
+def _patched(owner, name, wrap):
+    """``owner.name`` (a module's or a class's attribute) wrapped while the
+    block runs; afterwards the owner's own entry is put back, or removed
+    where a class inherited the attribute (so a classmethod stays one)."""
+    own = vars(owner).get(name, _MISSING)
+    setattr(owner, name, wrap(getattr(owner, name)))
     try:
         yield
     finally:
-        setattr(module, name, original)
+        if own is _MISSING:
+            delattr(owner, name)
+        else:
+            setattr(owner, name, own)
 
 
 @contextlib.contextmanager
@@ -1311,8 +1334,7 @@ def _collector_paused():
     """Automatic garbage collection off for untimed host work: with several
     2^20-validator states on the heap, the full collections that a state's
     reads, copies and upgrades trigger take about as long as the work
-    itself. The explicit collections stay, and timed paths run with the
-    collector as it was."""
+    itself. Timed paths run with the collector as it was."""
     enabled = gc.isenabled()
     gc.disable()
     try:
@@ -1374,7 +1396,10 @@ def _apply(state, signed_block, ctx, kernel_events: list | None = None) -> tuple
         executor = Executor(state, ctx)
         # The heap holds several 2^20-validator states; a full collection
         # that lands inside one path's apply costs seconds. Freezing what
-        # exists keeps the collector to the apply's own objects on both paths.
+        # exists keeps the collector to the apply's own objects on both paths;
+        # the full collection first sets the collector's count of long-lived
+        # objects to the heap's, so the apply's own allocations seldom start
+        # another full pass.
         gc.collect()
         gc.freeze()
         try:
@@ -1411,14 +1436,15 @@ def phase_block(registry: dict) -> dict:
     data, ctx = registry["data"], registry["ctx"]
     with _collector_paused():
         t0 = time.perf_counter()
+        crossed: list = []
         good, tampered = make_block(_setup_state(registry), ctx, registry["committees"],
-                                    registry["proposer"])
+                                    registry["proposer"], crossed)
+        host_reject_state = crossed.pop()
         make_s = time.perf_counter() - t0
         n_keys = sum(len(a.aggregation_bits) for a in good.message.body.attestations) + 2
         t0 = time.perf_counter()
         host_state = convert.state_from_ssz(data, ctx.preset)
         device_state = convert.state_from_ssz(data, ctx.preset)
-        host_reject_state = host_state.copy()
         read_s = time.perf_counter() - t0
     print(f"block: slot {BLOCK_SLOT}, {len(good.message.body.attestations)} attestations, "
           f"{n_keys} keys in the signature batch; made in {make_s:.1f} s; "
@@ -1453,10 +1479,10 @@ def phase_block(registry: dict) -> dict:
     if not all(launches.values()):
         sys.exit(f"chip_smoke: a kernel of the block path was never launched: {launches}")
 
-    # the tampered block on one crossing to its slot, a copy of it for each
-    # path: the slots before the block are the good block's
+    # the tampered block on the crossing the good block was built on (the
+    # same bytes as the pre-state's crossing to the block's slot), a copy of
+    # it for each path
     with _collector_paused():
-        phase0.slot_processing.process_slots(host_reject_state, BLOCK_SLOT, ctx)
         device_reject_state = host_reject_state.copy()
     host_error = _rejection_in_slot(host_reject_state, tampered, ctx, phase0)
     ops.install(device="cuda")
@@ -2034,7 +2060,6 @@ def phase_epoch(registry: dict) -> dict:
     from ethereum_consensus_tpu_torch.telemetry import metrics
 
     ctx = registry["ctx"]
-    gc.collect()
     ops.uninstall()
     with _collector_paused():
         t0 = time.perf_counter()
@@ -2052,7 +2077,6 @@ def phase_epoch(registry: dict) -> dict:
         eff_before = _effective_balances(state)
         n = len(state.validators)
         del state
-        gc.collect()
         t0 = time.perf_counter()
         host_state = convert.state_from_ssz(pre, ctx.preset)
         device_state = convert.state_from_ssz(pre, ctx.preset)
@@ -2656,17 +2680,25 @@ ELECTRA_REQUESTS = 16
 ELECTRA_ATTESTED_SLOTS = (94, 95)
 
 
+def _public_keys(indices) -> dict:
+    """index -> the compressed key of SecretKey(index + 1), ascending by
+    index: the native library walks the keys by additions of the
+    generator (native/bls.py small_sk_to_pk_batch), about one addition a
+    key where sk_to_pk pays a 255-bit multiplication and an inversion."""
+    from ethereum_consensus_tpu_torch.native import bls as native_bls
+
+    order = sorted(set(indices))
+    return dict(zip(order, native_bls.small_sk_to_pk_batch([i + 1 for i in order])))
+
+
 def _realize_keys(state, indices, known: "dict | None" = None) -> int:
     """Give ``indices`` their real keys SecretKey(i + 1), taken from
     ``known`` (index -> key bytes) where it holds them and added to it;
     returns how many."""
-    from ethereum_consensus_tpu_torch.crypto import bls
-
     indices = set(indices)
     known = {} if known is None else known
+    known.update(_public_keys(i for i in indices if i not in known))
     for i in indices:
-        if i not in known:
-            known[i] = bls.SecretKey(i + 1).public_key().to_bytes()
         state.validators[i].public_key = known[i]
     state.__dict__.pop("_pubkey_index_cache", None)
     return len(indices)
@@ -2826,8 +2858,11 @@ def _cross_for_block(state, ctx, fork, known: dict):
     read off the crossing; its key is then made real on both states and the
     one root of the pre-state that the crossing recorded (slot 95's state
     root) is taken again: no later root of the boundary reads a key, so the
-    scratch is then what a crossing with the real key gives. Returns the
-    scratch and the proposer."""
+    scratch is then what a crossing with the real key gives. The pre-state's
+    root is taken before the copy, which carries it: the crossing's first
+    slot and the root taken again after the key change then rehash only
+    what changed. Returns the scratch and the proposer."""
+    type(state).hash_tree_root(state)
     scratch = state.copy()
     fork.slot_processing.process_slots(scratch, ALTAIR_BLOCK_SLOT, ctx)
     proposer = fork.helpers.get_beacon_proposer_index(scratch, ctx)
@@ -2942,7 +2977,6 @@ def build_altair_pre_state(registry: dict) -> dict:
     from ethereum_consensus_tpu_torch.models.phase0 import slot_processing as pslots
 
     ops.uninstall()
-    gc.collect()
     ctx = Context.for_mainnet()
     ctx.altair_fork_epoch = ALTAIR_FORK_EPOCH
     fork_slot = ALTAIR_FORK_EPOCH * int(ctx.SLOTS_PER_EPOCH)
@@ -2956,7 +2990,6 @@ def build_altair_pre_state(registry: dict) -> dict:
                               known)
     state = upgrade_to_altair(phase0_state, ctx)
     del phase0_state
-    gc.collect()
     upgrade_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     aslots.process_slots(state, CAPELLA_FORK_EPOCH * int(ctx.SLOTS_PER_EPOCH), ctx)
@@ -2998,7 +3031,6 @@ def build_altair_pre_state(registry: dict) -> dict:
     serialize_s = time.perf_counter() - t0
     before = _registry_before(pre, type(state))
     del state
-    gc.collect()
     print(f"altair: {n} validators; slots 0..{fork_slot} {to_fork_s:.1f} s; {sync_keys} sync "
           f"committee keys and the upgrade {upgrade_s:.1f} s; slots to "
           f"{CAPELLA_FORK_EPOCH * int(ctx.SLOTS_PER_EPOCH)} {to_capella_fork_s:.1f} s and on to "
@@ -3095,7 +3127,6 @@ def _capella_at_fork(state) -> tuple:
     t0 = time.perf_counter()
     ctx = _forked_ctx("bellatrix", "capella")
     state = capella.upgrade_to_capella(upgrade_to_bellatrix(state, ctx), ctx)
-    gc.collect()
     ns = capella.build(ctx.preset)
     last_slot = CAPELLA_FORK_EPOCH * int(ctx.SLOTS_PER_EPOCH) - 1
     state.latest_execution_payload_header = ns.ExecutionPayloadHeader(
@@ -3189,7 +3220,6 @@ def build_capella_pre_state(state, ctx, upgrade_s: float, known: dict) -> dict:
     serialize_s = time.perf_counter() - t0
     before = _registry_before(pre, type(state))
     del state
-    gc.collect()
     sweep = [int(w.validator_index) for w in withdrawals]
     print(f"capella: {n} validators; upgrades at slot "
           f"{CAPELLA_FORK_EPOCH * int(ctx.SLOTS_PER_EPOCH)} {upgrade_s:.1f} "
@@ -3305,7 +3335,6 @@ def build_deneb_pre_state(state, ctx, upgrade_s: float, known: dict) -> dict:
     serialize_s = time.perf_counter() - t0
     before = _registry_before(pre, type(state))
     del state
-    gc.collect()
     print(f"deneb: {n} validators; upgrade at slot "
           f"{CAPELLA_FORK_EPOCH * int(ctx.SLOTS_PER_EPOCH)} {upgrade_s:.1f} s; slots to "
           f"{ALTAIR_PRE_SLOT} {to_pre_s:.1f} s; scramble {scrambled}, {len(eth1)} 0x01 "
@@ -3590,7 +3619,6 @@ def build_electra_pre_state(state, ctx, upgrade_s: float, known: dict,
     serialize_s = time.perf_counter() - t0
     before = _registry_before(pre, type(state))
     del state
-    gc.collect()
     signers = [len(a.aggregation_bits) for a in attestations]
     print(f"electra: {n} validators; upgrade at slot "
           f"{CAPELLA_FORK_EPOCH * int(ctx.SLOTS_PER_EPOCH)} {upgrade_s:.1f} s; slots to "
@@ -3822,7 +3850,10 @@ def _cell_routes(cell: str, setup: dict, routes: dict, fork) -> dict:
     for name, (installed, literal, timers) in routes.items():
         ops.uninstall()  # clears the shuffle cache: each route shuffles anew
         t0 = time.perf_counter()
-        state = state_type.deserialize(pre)
+        # _apply_altair freezes what the read made: no collection of its
+        # own during the read
+        with _collector_paused():
+            state = state_type.deserialize(pre)
         read_s = time.perf_counter() - t0
         if literal:
             os.environ["ECT_EPOCH_VECTOR"] = "off"
@@ -4502,7 +4533,6 @@ def build_window(registry: dict) -> dict:
     from ethereum_consensus_tpu_torch.ssz import uint64
 
     ops.uninstall()
-    gc.collect()
     ctx = registry["ctx"]
     ns = build(ctx.preset)
     t0 = time.perf_counter()
@@ -4520,7 +4550,9 @@ def build_window(registry: dict) -> dict:
     proposers = [h.compute_proposer_index(
         state, active, hashlib.sha256(proposer_seed + slot.to_bytes(8, "little")).digest(), ctx)
         for slot in slots]
-    keys = _realize_keys(state, [i for c in committees for cc in c for i in cc] + proposers)
+    known: dict = {}
+    keys = _realize_keys(state, [i for c in committees for cc in c for i in cc] + proposers,
+                         known)
     keys_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     pre = type(state).serialize(state)
@@ -4566,11 +4598,14 @@ def build_window(registry: dict) -> dict:
                                            signature=proposer_key.sign(root).to_bytes()))
     blocks_s = time.perf_counter() - t0
     del state
+    # the window phase's loop runs with the collector on: a full collection
+    # now counts the set-up's survivors as long-lived
     gc.collect()
     print(f"window: {WINDOW_BLOCKS} blocks at slots {slots.start}..{slots.stop - 1}; state "
           f"copied {read_s:.1f} s; committees, proposers and {keys} real keys {keys_s:.1f} s; "
           f"serialize {serialize_s:.1f} s; blocks {blocks_s:.1f} s")
-    return {"pre": pre, "ctx": ctx, "blocks": blocks, "keys": keys, "per_slot": per_slot,
+    return {"pre": pre, "ctx": ctx, "blocks": blocks, "keys": keys, "known": known,
+            "per_slot": per_slot,
             "setup_s": {"read": read_s, "keys": keys_s, "serialize": serialize_s,
                         "blocks": blocks_s}}
 
@@ -4795,6 +4830,7 @@ def phase_window(registry: dict) -> dict:
             "root": root, "tampered_set": t, "per_block": per_block,
             # for the pipeline phase, which streams the same blocks
             "pre": setup["pre"], "ctx": ctx, "signed_blocks": setup["blocks"],
+            "known": setup["known"],
             "routes": routes, "g1_sum_sets": b6,
             # for the mesh phase, which verifies them on ECT_MESH=1
             "signature_sets": sets, "tampered_sets": tampered, "blame": blame["host"]}
@@ -4847,7 +4883,7 @@ def _settled(bucket: dict, verdicts: list):
     return wrap
 
 
-def phase_pipeline(window: dict) -> dict:
+def phase_pipeline(window: dict, registry: dict) -> dict:
     """The slice's main path: the window's blocks through Executor.stream
     (the chain pipeline) on the card. The clean stream (timed) reads the
     pre-state from SSZ, installs the device route at the default thresholds
@@ -4863,7 +4899,7 @@ def phase_pipeline(window: dict) -> dict:
     block before's state root, the pipeline broken, the window on the
     device route and its blame that block's proposer set alone. A HeadStore
     (serving/headstore.py) is attached to the tampered stream's commits and
-    handed to the serve phase in ``store``."""
+    handed to the serve and pool phases in ``store``."""
     import threading
 
     from ethereum_consensus_tpu_torch import ops
@@ -4958,7 +4994,6 @@ def phase_pipeline(window: dict) -> dict:
         sys.exit(f"chip_smoke: B6 and B7 did not launch on the verifier's thread, or B1 and B4 "
                  f"not on the main thread: {threads}")
     del executor, state
-    gc.collect()
 
     # -- the tampered stream, untimed
     bad = blocks[WINDOW_TAMPERED_BLOCK].copy()
@@ -4971,12 +5006,16 @@ def phase_pipeline(window: dict) -> dict:
     bad_verdicts: list = []
     t_start = time.perf_counter()
     with _collector_paused():
-        # read after the clean stream, so that its state is not on the heap
-        # while the clean stream is timed; one cold root first: the
+        # made after the clean stream, so that it is not on the heap while
+        # the clean stream is timed: the registry's state with the window's
+        # keys, as build_window made the pre-state (the same bytes), whose
+        # root costs less than a cold read's; one root first: the
         # pipeline's checkpoint copies carry its memo, so the stream and the
         # rollback's re-application run warm
-        tampered_pre = ns.BeaconState.deserialize(window["pre"])
+        tampered_pre = _setup_state(registry)
+        _realize_keys(tampered_pre, window["known"], window["known"])
         type(tampered_pre).hash_tree_root(tampered_pre)
+        pre_s = time.perf_counter() - t_start
         tampered = Executor(tampered_pre, ctx)
         pipe = ChainPipeline(tampered, policy=FlushPolicy(**PIPELINE_POLICY))
         # the read plane's head store rides this stream: the engine copies
@@ -5026,7 +5065,7 @@ def phase_pipeline(window: dict) -> dict:
           f"{bytes(blocks[WINDOW_TAMPERED_BLOCK - 1].message.state_root).hex()}); a further "
           f"submit refused {refused}; window verdicts false at {false_at} (the proposer set "
           f"{proposer_set}); lineage {[(r.slot, r.disposition, r.verify_route) for r in bad_lineage]}"
-          f"; {tampered_s:.1f} s")
+          f"; {tampered_s:.1f} s, the pre-state and its root {pre_s:.1f} s of it")
     if caught is None or expected is None or (type(caught), str(caught)) != (
             type(expected), str(expected)):
         sys.exit(f"chip_smoke: the tampered stream raised {caught!r}, Executor.apply_block "
@@ -5156,7 +5195,7 @@ def phase_serve(pipeline: dict, window: dict) -> dict:
     from ethereum_consensus_tpu_torch.telemetry import server as tel_server
     from ethereum_consensus_tpu_torch.telemetry.server import IntrospectionServer
 
-    store = pipeline.pop("store")
+    store = pipeline["store"]
     blocks = window["signed_blocks"]
     committed = blocks[WINDOW_TAMPERED_BLOCK - 1].message
     rolled_back = bytes(blocks[WINDOW_TAMPERED_BLOCK].message.state_root)
@@ -5365,6 +5404,384 @@ def phase_serve(pipeline: dict, window: dict) -> dict:
             "mesh_launches": mesh_launches,
             "columnar_s": columnar_s, "routed": in_build, "routed_s": routed_s,
             "b1_kernel_ms": kernel_ms, "helpers": len(helpers), "head": head.root.hex()}
+
+
+# --- the write plane: pool/ over HTTP, a block produced from the pool -------
+
+# the traffic of bench.py:2756 bench_pool_ingest at the head (slot 4): its
+# groups are committees 0..3 of the head's last two slots (the bench takes
+# committee 0 of 8 slots; the head has only slots 0..4 behind it), each with
+# POOL_AGGREGATORS aggregators of a seeded POOL_PARTICIPATION of its members
+POOL_SLOTS = (3, 4)
+POOL_COMMITTEES = 4
+POOL_AGGREGATORS = 64
+POOL_PARTICIPATION = 0.6
+POOL_WINDOW = len(POOL_SLOTS) * POOL_COMMITTEES * POOL_AGGREGATORS  # 512: one flush
+POOL_BLOCK_SLOT = 5
+POOL_SEED = 24
+# the spam vocabulary of scenarios/families.py:671 POOL_SPAM_LANES: lane ->
+# the reason every admission engine must reject it with
+POOL_SPAM_LANES = (
+    ("malformed_ssz", "bits_mismatch"),
+    ("garbage_signature", "malformed"),
+    ("wrong_domain_signature", "signature"),
+    ("duplicate", "duplicate"),
+    ("subset_bits", "subset"),
+    ("future_slot", "future_slot"),
+)
+POOL_PATH = "/eth/v1/beacon/pool"
+
+
+def build_pool_spam(attestation, donor_signature: bytes) -> list:
+    """One hostile message per spam lane, derived from a valid partial
+    ``attestation`` the pool already holds (so ``duplicate`` and
+    ``subset_bits`` reach the redundancy verdict, while
+    ``wrong_domain_signature`` claims novel bits, so only the pairing can
+    reject it), as scenarios/families.py:682 builds them. Returns
+    ``[(lane, expected_reason, message), ...]`` in feed order."""
+    out = []
+    for lane, reason in POOL_SPAM_LANES:
+        bad = attestation.copy()
+        if lane == "malformed_ssz":
+            bad.aggregation_bits = list(bad.aggregation_bits)[:-1]
+        elif lane == "garbage_signature":
+            bad.signature = b"\x01" * 96  # not a curve point
+            bits = list(bad.aggregation_bits)
+            if False in bits:  # novel bits, so the parse (not the dedup) rejects it
+                bits[bits.index(False)] = True
+                bad.aggregation_bits = bits
+        elif lane == "wrong_domain_signature":
+            bad.signature = bytes(donor_signature)
+            bad.aggregation_bits = [True] * len(bad.aggregation_bits)
+        elif lane == "subset_bits":
+            bits = list(bad.aggregation_bits)
+            set_positions = [i for i, b in enumerate(bits) if b]
+            if len(set_positions) > 1:
+                bits[set_positions[-1]] = False
+            bad.aggregation_bits = bits
+        elif lane == "future_slot":
+            bad.data.slot = int(bad.data.slot) + 10_000
+        out.append((lane, reason, bad))
+    return out
+
+
+def _pool_traffic(raw, ctx, blocks: list) -> tuple:
+    """(aggregates, their committees): for each group (slot s in POOL_SLOTS,
+    committee c < POOL_COMMITTEES) the AttestationData the window's block s
+    carries for that committee, and POOL_AGGREGATORS aggregates of a seeded
+    POOL_PARTICIPATION of its members, each signed once under
+    SecretKey(sum(i + 1)) as build_window signs (those committees' keys are
+    real)."""
+    from ethereum_consensus_tpu_torch.crypto import bls
+    from ethereum_consensus_tpu_torch.crypto.fields import R
+    from ethereum_consensus_tpu_torch.domains import DomainType
+    from ethereum_consensus_tpu_torch.models.phase0 import build
+    from ethereum_consensus_tpu_torch.models.phase0 import helpers as h
+    from ethereum_consensus_tpu_torch.signing import compute_signing_root
+
+    ns = build(ctx.preset)
+    rng = np.random.default_rng(POOL_SEED)
+    domain = h.get_domain(raw, DomainType.BEACON_ATTESTER, 0, ctx)
+    aggregates, committees = [], {}
+    for slot in POOL_SLOTS:
+        carried = blocks[slot].message.body.attestations
+        for index in range(POOL_COMMITTEES):
+            data = carried[index].data
+            if (int(data.slot), int(data.index)) != (slot, index):
+                sys.exit(f"chip_smoke: block {slot} does not carry committee {index} of slot "
+                         f"{slot} at position {index}")
+            committee = h.get_beacon_committee(raw, slot, index, ctx)
+            committees[slot, index] = committee
+            root = compute_signing_root(ns.AttestationData, data, domain)
+            for _ in range(POOL_AGGREGATORS):
+                bits = rng.random(len(committee)) < POOL_PARTICIPATION
+                members = [committee[i] for i in np.flatnonzero(bits)]
+                key = bls.SecretKey(sum(i + 1 for i in members) % R)
+                aggregates.append(ns.Attestation(aggregation_bits=bits.tolist(), data=data.copy(),
+                                                 signature=key.sign(root).to_bytes()))
+    return aggregates, committees
+
+
+def _nested_timer(parts: dict, key: str, stack: list):
+    """A host timer that adds to ``parts[key]`` only on outermost calls
+    (``stack`` holds the timed calls in progress), so a root inside
+    process_slots is process_slots' time, not the root's."""
+    def wrap(fn):
+        def timed(*args, **kwargs):
+            outer = not stack
+            stack.append(key)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                stack.pop()
+                if outer:
+                    parts[key] = parts.get(key, 0.0) + time.perf_counter() - t0
+                    parts[f"{key}_calls"] = parts.get(f"{key}_calls", 0) + 1
+        return timed
+    return wrap
+
+
+def _proposer_callbacks():
+    """produce_block's randao(state, slot, context) and sign(state, block,
+    context) under the proposer's real key SecretKey(i + 1)."""
+    from ethereum_consensus_tpu_torch.crypto import bls
+    from ethereum_consensus_tpu_torch.domains import DomainType
+    from ethereum_consensus_tpu_torch.models.phase0 import helpers as h
+    from ethereum_consensus_tpu_torch.signing import compute_signing_root
+    from ethereum_consensus_tpu_torch.ssz import uint64
+
+    def randao(state, slot, context):
+        epoch = slot // context.SLOTS_PER_EPOCH
+        key = bls.SecretKey(h.get_beacon_proposer_index(state, context) + 1)
+        domain = h.get_domain(state, DomainType.RANDAO, epoch, context)
+        return key.sign(compute_signing_root(uint64, epoch, domain)).to_bytes()
+
+    def sign(state, block, context):
+        domain = h.get_domain(state, DomainType.BEACON_PROPOSER, None, context)
+        key = bls.SecretKey(int(block.proposer_index) + 1)
+        return key.sign(compute_signing_root(type(block), block, domain)).to_bytes()
+    return randao, sign
+
+
+def phase_pool(pipeline: dict, window: dict) -> dict:
+    """The write plane on the head store the tampered stream fed (block 2's
+    committed state, slot 4, 2^20 validators), under ops.install(device=
+    "cuda"): BeaconDataPlane and PoolDataPlane(AdmissionEngine(window_size=
+    POOL_WINDOW)) on one IntrospectionServer on localhost, ``submit``
+    applying a block through an Executor on a copy of the head and
+    publishing it. Timed: the POOL_WINDOW aggregates of _pool_traffic in one
+    POST (one flush of 8 fused groups), the scalar twin admitting the same
+    containers; produce_block at POOL_BLOCK_SLOT with the proposer's real
+    key, its wall split into the state copies, process_slots, selection,
+    trials, the replay and its flush, and the root; the block's publication
+    over HTTP. Untimed: one message of each spam lane in both engines, the
+    views (HTTP against the scalar pool), both selections, the census's
+    pool.store owner, the head's root over HTTP, and B6 alone at the
+    replay's sets. Every honest message admitted by both engines, each lane
+    its reason, the produced block's root the publisher's and the served
+    head's, B6 launched on the path and the launch ledger equal to the
+    counts, or the run fails."""
+    from ethereum_consensus_tpu_torch import ops
+    from ethereum_consensus_tpu_torch.crypto import bls
+    from ethereum_consensus_tpu_torch.executor import Executor
+    from ethereum_consensus_tpu_torch.models.phase0 import block_processing, slot_processing
+    from ethereum_consensus_tpu_torch.pool import (AdmissionEngine, OperationPool,
+                                                   PoolDataPlane, produce_block,
+                                                   select_aggregates)
+    from ethereum_consensus_tpu_torch.pool import production
+    from ethereum_consensus_tpu_torch.pool import store as pool_store
+    from ethereum_consensus_tpu_torch.serving import BeaconDataPlane
+    from ethereum_consensus_tpu_torch.telemetry import device, memory, metrics
+    from ethereum_consensus_tpu_torch.telemetry.server import IntrospectionServer
+
+    store = pipeline.pop("store")
+    head = store.head
+    raw, ctx = head.raw, head.context
+    blocks = window["signed_blocks"]
+    if head.root != bytes(blocks[WINDOW_TAMPERED_BLOCK - 1].message.state_root):
+        sys.exit("chip_smoke: the pool phase's head is not the tampered stream's committed state")
+    t_start = time.perf_counter()
+    with _collector_paused():
+        t0 = time.perf_counter()
+        aggregates, committees = _pool_traffic(raw, ctx, blocks)
+        docs = [type(a).to_json(a) for a in aggregates]
+        spam = build_pool_spam(aggregates[0], bytes(blocks[WINDOW_TAMPERED_BLOCK].signature))
+        spam_docs = [type(m).to_json(m) for _lane, _reason, m in spam]
+        randao, sign = _proposer_callbacks()
+        traffic_s = time.perf_counter() - t0
+    counters = {k: metrics.counter(f"pool.{k}") for k in (
+        "flushes", "fused_groups", "flush_splits", "membership_batch_failures",
+        "fallback.fuse_failed", "fallback.no_native")}
+    published: dict = {}
+
+    def submit(block):
+        t0 = time.perf_counter()
+        publisher = Executor(store.head.raw.copy(), ctx)
+        t1 = time.perf_counter()
+        publisher.apply_block(block)
+        t2 = time.perf_counter()
+        store.publish(publisher.state, ctx)
+        published.update(copy_s=t1 - t0, apply_s=t2 - t1, publish_s=time.perf_counter() - t2,
+                         root=type(publisher.state.data).hash_tree_root(publisher.state.data))
+
+    # the shuffle cache keeps the host's committees of epoch 0 from the
+    # traffic's build
+    ops.install(device="cuda")
+    engine = AdmissionEngine(OperationPool(), store, ctx, window_size=POOL_WINDOW)
+    twin = AdmissionEngine(OperationPool(), store, ctx, window_size=POOL_WINDOW, rlc=False)
+    server = IntrospectionServer(port=0).start(start_flight=False)
+    server.mount(BeaconDataPlane(store))
+    server.mount(PoolDataPlane(engine, submit=submit))
+    base = server.url("").rstrip("/")
+    steps: dict = {}  # each step's launches
+    parts: dict = {}
+    replay_sets: list = []
+    try:
+        if not engine.rlc:
+            sys.exit("chip_smoke: the native backend is missing: no RLC admission engine")
+        device.start()
+        _zero_launch_counts()
+
+        def step(name: str, fn):
+            before = _launch_counts()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            steps[name] = {k: v - before[k] for k, v in _launch_counts().items()
+                           if v != before[k]}
+            return out, wall
+
+        # -- admission, timed: one request through the RLC window, then the
+        # scalar twin on the same containers
+        moved = {k: c.value() for k, c in counters.items()}
+        (status, doc, _), rlc_s = step("admit_rlc", lambda: _http(
+            base, "POST", f"{POOL_PATH}/attestations", docs))
+        moved = {k: c.value() - moved[k] for k, c in counters.items()}
+        twin_messages = [type(a).from_json(d) for a, d in zip(aggregates, docs)]
+        twin_tickets, scalar_s = step("admit_scalar", lambda: [
+            twin.admit_attestation(m) for m in twin_messages])
+        admitted = {"rlc": (status, doc), "scalar": sorted(
+            {(t.status, t.reason) for t in twin_tickets}, key=str)}
+
+        # -- the spam lanes (untimed), both engines
+        (spam_status, spam_doc, _), _s = step("spam", lambda: _http(
+            base, "POST", f"{POOL_PATH}/attestations", spam_docs))
+        spam_rlc = [f["message"] for f in spam_doc.get("failures", [])]
+        spam_twin = [twin.admit_attestation(type(m).from_json(d)).reason
+                     for (_lane, _reason, m), d in zip(spam, spam_docs)]
+        spam_want = [reason for _lane, reason in POOL_SPAM_LANES]
+
+        # -- views, the pool's introspection, the selections (untimed)
+        _status, view_doc, _s = _http(base, "GET", f"{POOL_PATH}/attestations")
+        twin_view = [type(a).to_json(a) for a in twin.pool.attestations_view()]
+        same_views = json.dumps(view_doc["data"], sort_keys=True) == json.dumps(
+            twin_view, sort_keys=True)
+        _status, pool_doc, _s = _http(base, "GET", "/pool")
+        # slots 4 and 5 share epoch 0 and its checkpoints: the head state
+        # stands for the production's advanced copy in the eligibility rule
+        picks = {}
+        for name, pool, scalar in (("rlc", engine.pool, False), ("scalar", twin.pool, True)):
+            groups = production.eligible_groups(pool, raw, POOL_BLOCK_SLOT, ctx, "phase0")
+            picks[name] = [(g.slot, g.committee_key, g.data_root.hex(), r) for g, r in
+                           select_aggregates(groups, int(ctx.MAX_ATTESTATIONS), scalar=scalar)]
+        census = memory.census()["pool.store"]
+        held = sum(p.memory_census()[1] for p in pool_store.registered_pools())
+
+        # -- production, timed
+        stack: list = []
+        state_type = type(raw)
+
+        def capture(fn):
+            def verify(sets, *args, **kwargs):
+                replay_sets.extend(sets)
+                return fn(sets, *args, **kwargs)
+            return verify
+
+        with contextlib.ExitStack() as patches:
+            for owner, name, key in ((slot_processing, "process_slots", "process_slots"),
+                                     (production, "select_aggregates", "selection"),
+                                     (production, "_trial", "trials"),
+                                     (block_processing, "process_block", "replay"),
+                                     (bls, "verify_signature_sets", "replay_flush"),
+                                     (state_type, "copy", "copies"),
+                                     (state_type, "hash_tree_root", "root")):
+                patches.enter_context(_patched(owner, name, _nested_timer(parts, key, stack)))
+            patches.enter_context(_patched(bls, "verify_signature_sets", capture))
+            # one frozen heap for the production and the publication: what
+            # the production drops is freed by its reference counts
+            gc.collect()
+            gc.freeze()
+            produced, produce_s = step("produce", lambda: produce_block(
+                store.head, engine.pool, ctx, slot=POOL_BLOCK_SLOT, randao=randao, sign=sign))
+
+        # -- publication, timed
+        block_doc = type(produced).to_json(produced)
+        try:
+            (pub_status, pub_doc, _), publish_s = step("publish", lambda: _http(
+                base, "POST", "/eth/v2/beacon/blocks", block_doc))
+        finally:
+            gc.unfreeze()
+        _status, root_doc, _s = _http(base, "GET", "/eth/v1/beacon/states/head/root")
+        device.stop()
+        launches = {k: v for k, v in _launch_counts().items() if v}
+        ledger = device.OBSERVATORY.launches()
+    finally:
+        gc.unfreeze()
+        device.stop()
+        server.stop()
+        ops.uninstall()
+    pool_s = time.perf_counter() - t_start
+
+    body = produced.message.body
+    keys = sum(len(s.public_keys) for s in replay_sets)
+    produce_other = produce_s - sum(v for k, v in parts.items() if not k.endswith("_calls"))
+    rate_rlc, rate_scalar = POOL_WINDOW / rlc_s, POOL_WINDOW / scalar_s
+    state_root = bytes(produced.message.state_root)
+    served_root = root_doc["data"]["root"]
+    print(f"pool: head slot {head.slot}, root {head.root.hex()}; traffic {len(aggregates)} "
+          f"aggregates in {len(committees)} groups (committees {sorted(committees)}, "
+          f"{len(committees[POOL_SLOTS[0], 0])} members each, "
+          f"{sum(sum(a.aggregation_bits) for a in aggregates)} signer bits) and "
+          f"{len(spam)} spam lanes made in {traffic_s:.1f} s")
+    print(f"pool admission: RLC engine over HTTP {rlc_s:.4f} s ({rate_rlc:.1f} admissions/s; "
+          f"status {status}, {doc.get('data')}); scalar twin {scalar_s:.4f} s ({rate_scalar:.1f}"
+          f"/s); ratio {rate_rlc / rate_scalar:.2f}x; counters moved {moved}; twin tickets "
+          f"{admitted['scalar']}")
+    print(f"pool spam: RLC {spam_status} {spam_rlc}, scalar {spam_twin} (declared {spam_want})")
+    print(f"pool views: {len(view_doc['data'])} served, identical to the scalar pool's "
+          f"{same_views}; /pool {json.dumps(pool_doc, sort_keys=True)}; selections "
+          f"{len(picks['rlc'])} picks, identical {picks['rlc'] == picks['scalar']}; census "
+          f"pool.store {census} (held rows {held})")
+    print(f"pool production: slot {int(produced.message.slot)}, proposer "
+          f"{int(produced.message.proposer_index)}, {len(body.attestations)} attestations; "
+          f"{produce_s:.3f} s wall, parts {_rounded(parts)}, the rest {produce_other:.3f} s; the "
+          f"replay's batch {len(replay_sets)} sets, {keys} keys")
+    print(f"pool publication: status {pub_status} {pub_doc}; {publish_s:.3f} s wall "
+          f"({_rounded({k: v for k, v in published.items() if k.endswith('_s')})}); state root "
+          f"{state_root.hex()}, the publisher's {published.get('root', b'').hex()}, served "
+          f"{served_root}")
+    print(f"pool: launches {launches} by step {steps}; ledger {ledger}")
+
+    failed = []
+    if status != 200 or doc.get("data") != {"admitted": str(POOL_WINDOW)}:
+        failed.append(f"the RLC engine did not admit every message: {status} {doc}")
+    if admitted["scalar"] != [("admitted", None)]:
+        failed.append(f"the scalar twin did not admit every message: {admitted['scalar']}")
+    if moved["flushes"] != 1 or moved["fused_groups"] != len(committees) or any(
+            moved[k] for k in moved if k not in ("flushes", "fused_groups")):
+        failed.append(f"not one flush of {len(committees)} fused groups: {moved}")
+    if spam_rlc != spam_want or spam_twin != spam_want or spam_status != 400:
+        failed.append(f"the spam lanes' reasons are off: {spam_rlc}, {spam_twin}")
+    if not same_views or len(view_doc["data"]) != POOL_WINDOW:
+        failed.append("the served view is not the scalar pool's")
+    if picks["rlc"] != picks["scalar"] or not picks["rlc"]:
+        failed.append("the vectorized and scalar selections differ")
+    if [(g[0], g[1], g[2]) for g in picks["rlc"]] != [
+            (int(a.data.slot), int(a.data.index),
+             bytes(type(a.data).hash_tree_root(a.data)).hex()) for a in body.attestations]:
+        failed.append("the produced block's attestations are not the selection's picks")
+    if census.get("entries") != held or held < 2 * POOL_WINDOW or census.get("bytes", 0) <= 0:
+        failed.append(f"the census's pool.store owner does not count the held rows: {census}")
+    if (pub_status != 200 or published.get("root") != state_root
+            or served_root != "0x" + state_root.hex()):
+        failed.append("the produced block's root is not the publisher's or the served head's")
+    if (not steps.get("produce", {}).get("g1_sum_sets") or ledger != launches
+            or any("g1_sum_sets" in steps.get(k, {}) for k in ("admit_rlc", "admit_scalar"))):
+        failed.append(f"B6 did not launch in the production's replay alone among the admissions "
+                      f"and production, or the ledger is off: {steps}, {ledger}")
+    if failed:
+        sys.exit("chip_smoke: " + "; ".join(failed))
+    g1_alone = _block_g1_sum("pool", [s for s in replay_sets if len(s.public_keys) > 1])
+    return {"s": pool_s, "traffic_s": traffic_s, "rlc_s": rlc_s, "scalar_s": scalar_s,
+            "rate_rlc": rate_rlc, "rate_scalar": rate_scalar, "counters": moved,
+            "produce_s": produce_s, "produce_parts": parts, "produce_other_s": produce_other,
+            "picks": len(picks["rlc"]), "replay_sets": len(replay_sets), "replay_keys": keys,
+            "publish_s": publish_s, "published": {k: v for k, v in published.items()
+                                                  if k.endswith("_s")},
+            "root": state_root.hex(), "launches": launches, "steps": steps, "g1": g1_alone,
+            "census": census}
 
 
 # --- the ECT_MESH route: the sharded twins (B9) ------------------------------
@@ -5692,9 +6109,9 @@ def phase_mesh(altair: dict, window: dict) -> dict:
         stack.enter_context(_patched(MeshEpochSweeps, "fused", _capture(fused_calls)))
         stack.enter_context(_patched(ppairing, "batch_verify_sharded", _capture(batches)))
         ops.uninstall()
-        gc.collect()
         t0 = time.perf_counter()
-        state = state_type.deserialize(altair["pre"])
+        with _collector_paused():  # the apply below freezes what the read made
+            state = state_type.deserialize(altair["pre"])
         read_s = time.perf_counter() - t0
         ops.install(device="cuda")
         events: list = []
@@ -5922,7 +6339,6 @@ def build_dryrun_block() -> tuple:
     committee of slots 0..3 (16 at this size) and a full sync aggregate.
     Returns (pre_state, signed_block, context)."""
     from ethereum_consensus_tpu_torch.config import Context
-    from ethereum_consensus_tpu_torch.crypto import bls
     from ethereum_consensus_tpu_torch.domains import DomainType
     from ethereum_consensus_tpu_torch.models.altair import build, slot_processing
     from ethereum_consensus_tpu_torch.models.altair import helpers as h
@@ -5930,7 +6346,7 @@ def build_dryrun_block() -> tuple:
 
     ctx = Context.for_minimal()
     ctx.altair_fork_epoch = 0
-    keys = [bls.SecretKey(i + 1).public_key().to_bytes() for i in range(DRYRUN_BLOCK_VALIDATORS)]
+    keys = list(_public_keys(range(DRYRUN_BLOCK_VALIDATORS)).values())
     phase0_state, _ = build_registry_state(DRYRUN_BLOCK_VALIDATORS, ctx, keys.__getitem__)
     state = upgrade_to_altair(phase0_state, ctx)
     target = int(state.slot) + 4
@@ -6194,17 +6610,37 @@ def _rounded(d: dict, places: int = 3) -> dict:
     return {k: round(v, places) for k, v in d.items()}
 
 
+# full collections (generation 2, automatic and explicit): their count and
+# seconds, read by _walled
+_FULL_COLLECTIONS = {"n": 0, "s": 0.0, "t0": None}
+
+
+def _count_full_collections(phase: str, info: dict) -> None:
+    if info.get("generation") != 2:
+        return
+    if phase == "start":
+        _FULL_COLLECTIONS["t0"] = time.perf_counter()
+    elif _FULL_COLLECTIONS["t0"] is not None:
+        _FULL_COLLECTIONS["n"] += 1
+        _FULL_COLLECTIONS["s"] += time.perf_counter() - _FULL_COLLECTIONS["t0"]
+        _FULL_COLLECTIONS["t0"] = None
+
+
 def _walled(name: str, phase, *args):
-    """phase(*args), its wall printed: where the run's 1,200 s go."""
+    """phase(*args), its wall printed with the full collections inside it:
+    where the run's 1,200 s go."""
     t0 = time.perf_counter()
+    n0, s0 = _FULL_COLLECTIONS["n"], _FULL_COLLECTIONS["s"]
     out = phase(*args)
-    print(f"phase {name}: {time.perf_counter() - t0:.1f} s wall")
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s wall (full collections "
+          f"{_FULL_COLLECTIONS['n'] - n0}, {_FULL_COLLECTIONS['s'] - s0:.1f} s)")
     return out
 
 
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)
     started = time.perf_counter()
+    gc.callbacks.append(_count_full_collections)
     report = {"device": phase_device()}
     report["build"] = _walled("build", phase_build)
     report["sha256"] = _walled("sha256", phase_sha256)
@@ -6224,8 +6660,9 @@ def main() -> int:
     report["sums"] = _walled("sums", phase_sums)
     report["altair"] = _walled("altair", phase_altair, registry)
     report["window"] = _walled("window", phase_window, registry)
-    report["pipeline"] = _walled("pipeline", phase_pipeline, report["window"])
+    report["pipeline"] = _walled("pipeline", phase_pipeline, report["window"], registry)
     report["serve"] = _walled("serve", phase_serve, report["pipeline"], report["window"])
+    report["pool"] = _walled("pool", phase_pool, report["pipeline"], report["window"])
     report["mesh"] = _walled("mesh", phase_mesh, report["altair"], report["window"])
     report["step"] = _walled("step", phase_step)
 
@@ -6241,6 +6678,7 @@ def main() -> int:
              "window": report["window"]["routes"]["device"]["launches"],
              "pipeline": report["pipeline"]["launches"],
              "serve": report["serve"]["launches"],
+             "pool": report["pool"]["launches"],
              "mxu": report["mxu"]["launches"],
              "window_mxu": report["window"]["routes"]["device_mxu"]["launches"],
              "htr": report["htr"]["launch_counts"],
@@ -6373,7 +6811,8 @@ def main() -> int:
         "bound_by": report[phase]["bound_by"],
         "library_ms": None,
     } for name, (phase, path, source, replaces) in sources.items()]}
-    print(f"run: {time.perf_counter() - started:.1f} s")
+    print(f"run: {time.perf_counter() - started:.1f} s (full collections "
+          f"{_FULL_COLLECTIONS['n']}, {_FULL_COLLECTIONS['s']:.1f} s)")
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": report["device"]["kind"],

@@ -31,6 +31,7 @@ __all__ = [
     "g1_generator_raw",
     "g2_generator_raw",
     "sk_to_pk",
+    "small_sk_to_pk_batch",
     "sign",
     "hash_to_g2_compressed",
     "verify",
@@ -103,6 +104,7 @@ def _declare(lib) -> None:
         "ec_g1_generator_raw": ([p8], i32),
         "ec_g2_generator_raw": ([p8], i32),
         "ec_bls_sk_to_pk": ([p8, p8], i32),
+        "ec_bls_small_sk_to_pk_batch": ([c.POINTER(c.c_uint64), sz, p8], i32),
         "ec_bls_hash_to_g2": ([p8, sz, p8, sz, p8], i32),
         "ec_bls_sign": ([p8, p8, sz, p8, sz, p8], i32),
         "ec_bls_verify": ([p8, p8, sz, p8, sz, p8, i32], i32),
@@ -242,6 +244,24 @@ def sk_to_pk(sk32: bytes) -> bytes:
     if rc != 0:
         raise NativeBlsError(decode_error_message(rc))
     return out.raw
+
+
+def small_sk_to_pk_batch(keys: list[int]) -> list[bytes]:
+    """The compressed public keys of the secret keys ``keys``: ascending
+    integers from 1 below 2^64 (a registry's ``SecretKey(i + 1)``), walked
+    by additions of the generator with the affine conversions batched.
+    Equal to ``sk_to_pk`` of each key."""
+    keys = [int(k) for k in keys]
+    if any(k < 1 or k >= 1 << 64 for k in keys) or any(
+            b < a for a, b in zip(keys, keys[1:])):
+        raise ValueError("keys must be ascending integers in [1, 2^64)")
+    ks = (_c.c_uint64 * len(keys))(*keys)
+    out = _c.create_string_buffer(48 * len(keys))
+    rc = _lib().ec_bls_small_sk_to_pk_batch(ks, len(keys), out)
+    if rc != 0:
+        raise NativeBlsError(decode_error_message(rc))
+    raw = out.raw
+    return [raw[48 * i:48 * i + 48] for i in range(len(keys))]
 
 
 def sign(sk32: bytes, message: bytes, dst: bytes) -> bytes:

@@ -5027,6 +5027,52 @@ int ec_bls_sk_to_pk(const u8* sk, u8* out) {
   return 0;
 }
 
+// The public keys of small secret keys: out48s[i] = compress(ks[i]·G) for
+// ks ascending, 1 <= ks[i]. Consecutive keys are one mixed addition of G
+// apart, so the walk adds G up to each key (a gap of more than 64 takes a
+// scalar multiplication instead) and inverts the Jacobian z's 64 at a time
+// (Montgomery's trick): about one addition a key where sk_to_pk pays a
+// 255-bit multiplication and an inversion. -1 when ks is not ascending or
+// holds 0.
+int ec_bls_small_sk_to_pk_batch(const u64* ks, size_t n, u8* out48s) {
+  ensure_init();
+  Fp gx, gy;
+  pt_to_affine<FpOps>(gx, gy, G1_GEN);
+  G1 acc = pt_infinity<FpOps>();
+  u64 at = 0;
+  G1 chunk[64];
+  Fp zs[64];
+  for (size_t i = 0; i < n;) {
+    int m = 0;
+    for (; m < 64 && i + m < n; m++) {
+      u64 k = ks[i + m];
+      if (k == 0 || k < at) return -1;
+      if (k - at > 64) {
+        u64 s[4] = {k, 0, 0, 0};
+        pt_mul(acc, G1_GEN, s, 4);
+        at = k;
+      }
+      for (; at < k; at++) pt_add_affine(acc, acc, gx, gy);
+      chunk[m] = acc;
+      zs[m] = acc.z;
+    }
+    fp_inv_batch(zs, m);
+    for (int j = 0; j < m; j++) {
+      Fp z2, z3, ax, ay;
+      fp_sqr(z2, zs[j]);
+      fp_mul(z3, z2, zs[j]);
+      fp_mul(ax, chunk[j].x, z2);
+      fp_mul(ay, chunk[j].y, z3);
+      u8* out = out48s + 48 * (i + j);
+      fp_to_bytes(out, ax);
+      out[0] |= FLAG_COMPRESSED;
+      if (fp_is_lex_largest(ay)) out[0] |= FLAG_SIGN;
+    }
+    i += m;
+  }
+  return 0;
+}
+
 int ec_bls_hash_to_g2(const u8* msg, size_t msg_len, const u8* dst,
                       size_t dst_len, u8* out96) {
   ensure_init();

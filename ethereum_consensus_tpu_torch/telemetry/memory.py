@@ -9,7 +9,8 @@ ledgers:
   probed on demand (never sampled in a hot path): the SSZ list-resident
   caches (column arrays, ``_root_cache`` roots and Bitlist ``bitpack``
   rows, pack/tree memos and their retained raw buffers — ``ssz/core.py``),
-  the committee mask bundles (``models/committees.py``), the phase0
+  the operation pools' bitfield matrices (``pool/store.py``), the
+  committee mask bundles (``models/committees.py``), the phase0
   shuffle-cache slots, and the epoch engine's kernel entries
   (``models/epoch_vector.py kernel_cache_census``). Exposed as
   ``census()`` / ``worst(n)`` and as ``memory.owner.{name}.bytes``
@@ -45,8 +46,7 @@ Lock discipline: every write to the observatory's shared structures
 holds ``self._lock``; the hot ``active`` read and the metrics-registry
 increments (locked per metric) stay outside it.
 
-Reference parity: ethereum_consensus_tpu/telemetry/memory.py, without the
-pool probe (its producer, ``pool/``, is not ported yet).
+Reference parity: ethereum_consensus_tpu/telemetry/memory.py.
 """
 
 from __future__ import annotations
@@ -538,6 +538,18 @@ def _headstore_probe() -> "tuple[int, int]":
     return nbytes, entries
 
 
+def _pool_probe() -> "tuple[int, int]":
+    from ..pool import store as _pool_store
+
+    nbytes = 0
+    entries = 0
+    for pool in list(_pool_store.registered_pools()):
+        b, e = pool.memory_census()
+        nbytes += b
+        entries += e
+    return nbytes, entries
+
+
 def _shuffle_cache_probe() -> "tuple[int, int]":
     from ..models.phase0 import helpers as _h
 
@@ -586,6 +598,7 @@ def _jit_cache_probe() -> "tuple[int, int]":
 _BUILTIN_OWNERS = (
     ("flight.ring", _flight_ring_probe),
     ("serving.snapshots", _headstore_probe),
+    ("pool.store", _pool_probe),
     ("phase0.shuffle_cache", _shuffle_cache_probe),
     ("committees.mask_bundles", _mask_bundle_probe),
     ("epoch_vector.jit_kernels", _jit_cache_probe),

@@ -140,3 +140,25 @@ def test_summed_key_signature_equals_aggregate_of_singles():
         [ref_bls.SecretKey(i + 1).sign(msg) for i in members]).to_bytes()
     pks = [port_bls.SecretKey(i + 1).public_key() for i in members]
     assert port_bls.fast_aggregate_verify(pks, msg, summed)
+
+
+@pytest.mark.parametrize("spread", ["consecutive", "sparse", "jumps"])
+def test_small_secret_keys_in_one_batch(spread):
+    """native small_sk_to_pk_batch (the walk by additions of the generator
+    that chip_smoke.py makes its real keys with) gives the reference's
+    public key of each SecretKey(k): consecutive keys (doublings among
+    them), keys a few apart, and gaps past the walk's limit of 64."""
+    import random
+
+    from ethereum_consensus_tpu_torch.native import bls as native
+
+    rng = random.Random(len(spread))
+    keys = {"consecutive": list(range(1, 130)),
+            "sparse": sorted(rng.sample(range(1, 4096), 300)),
+            "jumps": [1, 66, 67, 2**20, 2**20 + 64, 2**20 + 65, 2**40, 2**64 - 1]}[spread]
+    want = [ref_bls.SecretKey(k).public_key().to_bytes() for k in keys]
+    assert native.small_sk_to_pk_batch(keys) == want
+    assert native.small_sk_to_pk_batch([]) == []
+    for bad in ([0, 1], [5, 4], [2**64]):
+        with pytest.raises(ValueError):
+            native.small_sk_to_pk_batch(bad)

@@ -97,6 +97,24 @@ def test_read_plane_module_loads_no_jax(module):
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True)
 
 
+# the write plane: pool/ and the memory census's pool probe
+WRITE_PLANE = ("pool", "pool.store", "pool.selection", "pool.admission", "pool.production",
+               "pool.handlers")
+
+
+@pytest.mark.parametrize("module", WRITE_PLANE)
+def test_write_plane_module_loads_no_jax(module):
+    code = (
+        f"import sys, ethereum_consensus_tpu_torch.{module}; "
+        "from ethereum_consensus_tpu_torch.telemetry import memory; "
+        "assert 'pool.store' in memory.OBSERVATORY.census(); "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{sorted(FORBIDDEN)!r}]; "
+        "assert not bad, bad"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True)
+
+
 @pytest.fixture
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -137,6 +137,30 @@ def test_shuffle_cache_and_mask_bundle_probes(chain_state, monkeypatch):
     assert bundle in committees.registered_bundles()
 
 
+def test_pool_store_owner_against_the_reference():
+    """The ``pool.store`` owner counts a live pool's packed rows (full
+    capacity), signatures, scalar rows and vote records: the same bytes
+    and entries as the reference's census of the same admissions."""
+    from ethereum_consensus_tpu.telemetry import memory as ref_memory
+    from torch_pool import admit, ser, sides
+
+    ref, port = sides("altair")
+    head = ref.executor.state.data
+    traffic = [ser(chain_utils.make_attestation(head, slot, 0, ref.ctx, participation=p))
+               for slot in (2, 3) for p in (0.5, 1.0)]
+    deltas, pools = [], []
+    for side, census in ((ref, ref_memory.census), (port, memory.census)):
+        gc.collect()
+        before = census()["pool.store"]
+        engine, tickets, _ = admit(side, "attestation", traffic, True, 4)
+        assert tickets == [("admitted", None)] * 4
+        after = census()["pool.store"]
+        pools.append(engine.pool)
+        deltas.append((after["bytes"] - before["bytes"], after["entries"] - before["entries"]))
+    assert deltas[0] == deltas[1] == (pools[1].memory_census()[0], 4)
+    assert deltas[1][0] > 0
+
+
 def test_jit_kernel_entries_census():
     kernels = epoch_vector.jitted_kernels()
     device.start()
